@@ -1,0 +1,51 @@
+"""Runtime flags read by the ported path (counterpart of
+paddle_tpu/core/flags.py, cut to the flags this package reads).
+
+Each flag can be set from the environment as FLAGS_<name> when the module
+is imported, and at run time with `set_flags`.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+_REGISTRY: Dict[str, Any] = {}
+
+
+def define_flag(name: str, default):
+    """Register a flag; env var FLAGS_<name> overrides the default."""
+    val = default
+    env = os.environ.get("FLAGS_" + name)
+    if env is not None:
+        if isinstance(default, bool):
+            val = env.lower() in ("1", "true", "yes", "on")
+        elif isinstance(default, int):
+            val = int(env)
+        else:
+            val = env
+    _REGISTRY[name] = val
+    return val
+
+
+def _key(name: str) -> str:
+    key = name[6:] if name.startswith("FLAGS_") else name
+    if key not in _REGISTRY:
+        raise KeyError(f"unknown flag {name}")
+    return key
+
+
+def set_flags(flags: Dict[str, Any]):
+    # validate every key before changing any value
+    resolved = {_key(n): v for n, v in flags.items()}
+    _REGISTRY.update(resolved)
+
+
+def flag(name: str):
+    return _REGISTRY[name]
+
+
+# route attention to the flash kernels when the shape allows
+define_flag("use_flash_attention", True)
+# the flash shape gate's query and key tiles: L must be a multiple of both
+define_flag("flash_block_q", 128)
+define_flag("flash_block_k", 128)

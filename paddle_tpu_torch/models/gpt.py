@@ -1,0 +1,157 @@
+"""GPT decoder LM (counterpart of paddle_tpu/models/gpt.py).
+
+The submodule names are the reference's (`gpt.wte`, `gpt.wpe`,
+`gpt.blocks.N.attn.qkv_proj`, ..., `gpt.ln_f`), so one state_dict key names
+one reference parameter; Linear weights are stored [out, in] as torch
+stores them (the reference stores [in, out]; framework_io converts).
+PyTorch runs eagerly, so the reference's scan-over-layers model has no
+counterpart here: its stacked parameters are unstacked by
+`framework_io.params_from_paddle_tpu`.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .. import resolve_device
+from ..nn import functional as F
+
+
+class GPTConfig:
+    def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
+                 num_heads=12, ffn_hidden=None, max_seq_len=1024,
+                 dropout=0.0, layer_norm_eps=1e-5, tie_embeddings=True):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.ffn_hidden = ffn_hidden or 4 * hidden_size
+        self.max_seq_len = max_seq_len
+        self.dropout = dropout
+        self.layer_norm_eps = layer_norm_eps
+        self.tie_embeddings = tie_embeddings
+
+
+PRESETS = {
+    "gpt3-tiny": GPTConfig(vocab_size=1024, hidden_size=128, num_layers=2,
+                           num_heads=8, max_seq_len=256),
+    "tiny-draft": GPTConfig(vocab_size=1024, hidden_size=64, num_layers=1,
+                            num_heads=4, max_seq_len=256),
+    "gpt3-small": GPTConfig(hidden_size=768, num_layers=12, num_heads=12),
+    "gpt3-medium": GPTConfig(hidden_size=1024, num_layers=24, num_heads=16),
+    "gpt3-large": GPTConfig(hidden_size=1536, num_layers=24, num_heads=16),
+    "gpt3-xl": GPTConfig(hidden_size=2048, num_layers=24, num_heads=16),
+    "gpt3-1.3b": GPTConfig(hidden_size=2048, num_layers=24, num_heads=32,
+                           max_seq_len=1024),
+    "gpt3-6.7b": GPTConfig(hidden_size=4096, num_layers=32, num_heads=32,
+                           max_seq_len=1024),
+}
+
+
+class GPTAttention(nn.Module):
+    def __init__(self, cfg: GPTConfig, **factory):
+        super().__init__()
+        self.num_heads = cfg.num_heads
+        self.head_dim = cfg.hidden_size // cfg.num_heads
+        self.qkv_proj = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size,
+                                  **factory)
+        self.out_proj = nn.Linear(cfg.hidden_size, cfg.hidden_size,
+                                  **factory)
+
+    def forward(self, x):
+        b, l, h = x.shape
+        qkv = self.qkv_proj(x).view(b, l, 3, self.num_heads, self.head_dim)
+        q, k, v = qkv.unbind(2)
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return self.out_proj(out.reshape(b, l, h))
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, cfg: GPTConfig, **factory):
+        super().__init__()
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.ffn_hidden, **factory)
+        self.fc2 = nn.Linear(cfg.ffn_hidden, cfg.hidden_size, **factory)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x), approximate=True))
+
+
+class GPTBlock(nn.Module):
+    def __init__(self, cfg: GPTConfig, **factory):
+        super().__init__()
+        self.ln1 = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                **factory)
+        self.attn = GPTAttention(cfg, **factory)
+        self.ln2 = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                **factory)
+        self.mlp = GPTMLP(cfg, **factory)
+
+    def forward(self, x):
+        x = x + self.attn(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
+
+
+class GPTModel(nn.Module):
+    def __init__(self, cfg: GPTConfig, **factory):
+        super().__init__()
+        self.cfg = cfg
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **factory)
+        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size, **factory)
+        self.blocks = nn.ModuleList([GPTBlock(cfg, **factory)
+                                     for _ in range(cfg.num_layers)])
+        self.ln_f = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                 **factory)
+
+    def forward(self, input_ids):
+        l = input_ids.shape[1]
+        pos = torch.arange(l, device=input_ids.device)
+        x = self.wte(input_ids) + self.wpe(pos)[None]
+        for blk in self.blocks:
+            x = blk(x)
+        return self.ln_f(x)
+
+
+class GPTForCausalLM(nn.Module):
+    """GPT with a causal LM head. `device` defaults to the CUDA card (and
+    raises without one); `generator` seeds the initial weights, which
+    follow the reference's initializers (XavierNormal for Linear and
+    Embedding weights, zero biases, unit LayerNorm scales)."""
+
+    def __init__(self, cfg: GPTConfig, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if cfg.dropout:
+            raise ValueError("paddle_tpu_torch's GPT is the dropout-free "
+                             "training path; use dropout=0")
+        factory = {"device": resolve_device(device)}
+        self.cfg = cfg
+        self.gpt = GPTModel(cfg, **factory)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                     bias=False, **factory)
+        self._init_weights(generator)
+
+    @torch.no_grad()
+    def _init_weights(self, generator):
+        for mod in self.modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding)):
+                fan_out, fan_in = mod.weight.shape
+                std = math.sqrt(2.0 / (fan_in + fan_out))
+                mod.weight.normal_(0.0, std, generator=generator)
+            if isinstance(mod, nn.Linear) and mod.bias is not None:
+                mod.bias.zero_()
+
+    def hidden(self, input_ids):
+        """Final hidden states [B, L, hidden] (the input of the LM head)."""
+        return self.gpt(input_ids)
+
+    def head_weight(self):
+        """The LM head's weight as [vocab, hidden]: wte when tied."""
+        return (self.gpt.wte.weight if self.cfg.tie_embeddings
+                else self.lm_head.weight)
+
+    def forward(self, input_ids):
+        return torch.nn.functional.linear(self.hidden(input_ids),
+                                          self.head_weight())

@@ -1,0 +1,86 @@
+"""The port stands alone: no module of paddle_tpu_torch, and not
+chip_smoke.py, imports jax or the reference package paddle_tpu; and its
+entry points refuse to run quietly on the CPU when no card is present."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import paddle_tpu_torch
+from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+ROOT = Path(__file__).resolve().parents[1]
+SOURCES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
+           "paddle_tpu_torch.core.flags", "paddle_tpu_torch.framework_io",
+           "paddle_tpu_torch.jit", "paddle_tpu_torch.models",
+           "paddle_tpu_torch.nn.functional",
+           "paddle_tpu_torch.nn.functional_more",
+           "paddle_tpu_torch.ops._build",
+           "paddle_tpu_torch.ops.flash_attention",
+           "paddle_tpu_torch.optimizer"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "paddle_tpu")
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_the_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    """Import every module of the port in a fresh interpreter and list the
+    modules the import added (whatever the interpreter loaded at start-up
+    is left out)."""
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {MODULES!r}:\n"
+        "    __import__(m)\n"
+        "print(' '.join(sorted(set(sys.modules) - before)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    added = out.stdout.split()
+    assert "paddle_tpu_torch.ops.flash_attention" in added
+    assert [m for m in added if _forbidden(m)] == []
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paddle_tpu_torch.default_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GPTForCausalLM(GPTConfig(vocab_size=64, hidden_size=64,
+                                 num_layers=1, num_heads=1,
+                                 max_seq_len=64))
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """With no card visible chip_smoke.py exits non-zero and prints no
+    result line."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
