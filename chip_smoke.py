@@ -1,9 +1,10 @@
 """Card smoke test of paddle_tpu_torch: builds the CUDA kernels from this
 checkout, holds each against its plain PyTorch version at the training
-path's shapes, then trains GPT-350M (gpt3-medium: hidden 1024, 24 layers,
-16 heads, vocab 50304; batch 8 x seq 1024, bf16 O2, AdamW with f32
-masters, chunked fused LM-head cross-entropy) for a few steps through
-those kernels.
+path's shapes, runs the dot-form probe, then trains GPT-350M (gpt3-medium:
+hidden 1024, 24 layers, 16 heads, vocab 50304; batch 8 x seq 1024, bf16
+O2, AdamW with f32 masters, chunked fused LM-head cross-entropy) under each
+flash dot strategy (FLAGS_flash_dot_impl): auto (the default) for 5 steps,
+then nn, nn2 and f32 for 3 steps each, every one through its own kernels.
 
     python3 chip_smoke.py
 
@@ -15,9 +16,11 @@ non-zero without that line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -31,22 +34,69 @@ PEAK_BYTES = 3.35e12
 # row (the D entries of one position and head), or by the RMS of the whole
 # tensor where the row's is smaller: a row that sees many keys has small
 # entries, and a wrong tile there must not hide under the rounding of the
-# few large rows. f32: the two differ only in the order of f32 sums.
-# bf16: outputs carry 8 significant bits (a relative step of 2^-8), the
-# kernel rounds P to bf16 against the running row max where the plain
-# version uses the final max, and the tensor cores sum in their own order.
-# A kernel that skips one off-diagonal tile reads far above the limit;
-# `fault_readings` computes that reading in every run.
-REL_TOL = {"float32": 1e-5, "bfloat16": 1e-1}
+# few large rows. float32 (every kernel on f32 storage, the nn forms'
+# included): the two differ only in the order of f32 sums.
+# bfloat16 (the tensor-core kernels of bf16, nn and nn2): outputs carry 8
+# significant bits (a relative step of 2^-8), the kernel rounds P to bf16
+# against the running row max where the plain version uses the final max,
+# and the tensor cores sum in their own order. f32dot-bfloat16 (strategy
+# f32 on bf16 storage): P and dS stay f32 in both, so they differ only
+# where another order of f32 sums flips an output's final rounding to
+# bf16, one step of that entry. A kernel that skips one off-diagonal tile
+# reads far above each limit; `fault_readings` computes that reading in
+# every run.
+REL_TOL = {"float32": 1e-5, "bfloat16": 1e-1, "f32dot-bfloat16": 5e-2}
+# That one-step error cannot tell an f32-dot kernel from one that rounds P
+# and dS to bf16 (bf16's function): both part from the f32-dot plain
+# version by one step of some entries. What tells them apart is how many:
+# reordered f32 sums flip an output's rounding rarely, rounding P and dS
+# flips a third or more (the CPU tests read 35-44%). So the f32-dot
+# kernels on bf16 storage are also held to the share of output entries
+# that differ at all, and every run checks that bf16's function, from the
+# plain versions, reads above this limit.
+SHARE_TOL = 0.01
 LSE_ATOL = 1e-4          # LSE is f32 in both
-# Training loss through the kernels vs through the plain einsum attention
-# (bf16 softmax) at step 1. A sanity check of the routing only: at
+# Step-1 training loss through the kernels vs through the plain einsum
+# attention (bf16 softmax). A sanity check of the routing only: at
 # initialisation (weights of std 0.02) attention moves the loss little,
 # so the kernels' numerics are held by the kernel phase, not by this.
 LOSS_ATOL = 1e-3
+# Step-1 loss of the nn and nn2 phases vs the bf16 (auto) phase: their
+# forward kernel feeds the tensor cores the same fragments in the same
+# order as bf16's, and every other op of the step is the same, so the
+# losses are equal. Of the f32 phase: P enters P.V unrounded, an
+# attention-only difference that, like the einsum's above, moves the loss
+# at initialisation little.
+LOSS_SAME_ATOL = 0.0
+LOSS_F32_ATOL = 1e-3
 
-STEPS = 5
+STRATEGY_STEPS = {"auto": 5, "nn": 3, "nn2": 3, "f32": 3}
 SEED = 0
+
+REF = "paddle_tpu/ops/pallas/flash_attention.py"
+# the line of each kernel's reference function in REF
+REPLACES = {"flash_fwd": 83, "flash_dq": 174, "flash_dkv": 233,
+            "flash_fwd_nn": 83, "flash_dq_nn": 203, "flash_dkv_nn": 233,
+            "flash_dkv_nn2": 289, "flash_fwd_f32dot": 83,
+            "flash_dq_f32dot": 174, "flash_dkv_f32dot": 233,
+            "flash_probe": 467}
+# inputs of each flash kernel's wrapper, before (causal, sm_scale)
+ARGS = {
+    "flash_fwd": ("q", "k", "v"),
+    "flash_fwd_nn": ("q", "kt", "v"),
+    "flash_fwd_f32dot": ("q", "k", "v"),
+    "flash_dq": ("q", "k", "v", "do", "lse", "delta"),
+    "flash_dq_nn": ("q", "k", "kt", "vt", "do", "lse", "delta"),
+    "flash_dq_f32dot": ("q", "k", "v", "do", "lse", "delta"),
+    "flash_dkv": ("q", "k", "v", "do", "lse", "delta"),
+    "flash_dkv_nn": ("q", "kt", "vt", "do", "lse", "delta"),
+    "flash_dkv_nn2": ("q", "qt", "kt", "vt", "do", "dot", "lse", "delta"),
+    "flash_dkv_f32dot": ("q", "k", "v", "do", "lse", "delta"),
+}
+# the nn forms give bitwise what these kernels of strategy bf16 give, on
+# bf16 storage (mma kernels) and on f32 (f32-dot kernels) alike
+BF16_TWIN = {"flash_fwd_nn": "flash_fwd", "flash_dq_nn": "flash_dq",
+             "flash_dkv_nn": "flash_dkv", "flash_dkv_nn2": "flash_dkv"}
 
 
 class SmokeFailure(Exception):
@@ -107,6 +157,11 @@ def abs_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def mismatch_share(a, b):
+    """Share of the entries of a that differ from b's."""
+    return float((a != b).float().mean())
+
+
 def fault_readings(q, k, v, do, sc, ref):
     """What the error metrics read for kernels that each skip one tile:
     the forward and dQ kernels the keys of K/V tile t for query tile s, the
@@ -147,9 +202,25 @@ def fault_readings(q, k, v, do, sc, ref):
             abs_err(lse_f, lse))
 
 
+def named_outputs(name, out):
+    """A flash kernel's outputs by name, dK^T and dV^T turned back into
+    [B, L, H, D]."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    if name.startswith("flash_fwd"):
+        return {"O": out[0], "LSE": out[1]}
+    if name.startswith("flash_dq"):
+        return {"dQ": out}
+    if name == "flash_dkv_nn2":
+        out = tuple(fa.from_t(x) for x in out)
+    return {"dK": out[0], "dV": out[1]}
+
+
 def kernel_phase(B, L, H, D, dtype_name, causal, timed):
-    """Each kernel against its plain version on the card; with `timed`,
-    also the CUDA-event medians and bounds. Returns per-kernel results."""
+    """Each flash kernel against its plain version on the card (the nn
+    forms also against the bf16 kernels, bitwise); with `timed`, also the
+    CUDA-event medians, bounds and library times. Returns per-kernel
+    results (with `timed`)."""
     import torch
 
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -159,85 +230,172 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed):
     q, k, v, do = (torch.randn(B, L, H, D, device="cuda", dtype=dt,
                                generator=g) for _ in range(4))
     sc = 1.0 / math.sqrt(D)
-    o, lse = fa.flash_fwd_cuda(q, k, v, causal, sc)
-    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, sc)
-    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = fa.flash_dq_cuda(q, k, v, do, lse_ref, delta, causal, sc)
-    dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse_ref, delta, causal, sc)
-    torch.cuda.synchronize()
-    dq_ref, dk_ref, dv_ref = fa.flash_bwd_plain(q, k, v, do, lse_ref, delta,
-                                                causal, sc)
-    tol = REL_TOL[dtype_name]
+    o, lse = fa.flash_fwd_plain(q, k, v, causal, sc)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    t = {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta,
+         "qt": fa.to_t(q), "kt": fa.to_t(k), "vt": fa.to_t(v),
+         "dot": fa.to_t(do)}
+    # the plain outputs of each rounding family, and what kernels that skip
+    # one tile would read in each
+    plain, faults = {}, {}
+    for fam, f32_dots in (("mma", False), ("f32dot", True)):
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, sc, f32_dots)
+        grads = fa.flash_bwd_plain(q, k, v, do, lse, delta, causal, sc,
+                                   f32_dots)
+        plain[fam] = dict(zip(("O", "dQ", "dK", "dV"), (o_p, *grads)))
+        faults[fam] = fault_readings(q, k, v, do, sc,
+                                     (o_p, lse_p, delta, *grads))
+    # the share of entries where bf16's function (P and dS rounded) parts
+    # from the f32-dot function: what a kernel that rounded would read
+    rounding = {n: mismatch_share(plain["mma"][n], plain["f32dot"][n])
+                for n in plain["mma"]}
+    del plain
     tag = f"B={B} L={L} H={H} D={D} {dtype_name} causal={causal}"
-    errs = {"O": row_err(o, o_ref), "dQ": row_err(dq, dq_ref),
-            "dK": row_err(dk, dk_ref), "dV": row_err(dv, dv_ref)}
-    lse_err = abs_err(lse, lse_ref)
-    faults, lse_fault = fault_readings(
-        q, k, v, do, sc, (o_ref, lse_ref, delta, dq_ref, dk_ref, dv_ref))
     fmt = lambda d: {n: f"{e:.3e}" for n, e in d.items()}   # noqa: E731
-    log(f"kernels vs plain [{tag}]: row-normalised err {fmt(errs)}, LSE abs "
-        f"err {lse_err:.3e} (tol {tol} row-normalised, {LSE_ATOL} abs)")
-    log(f"  a kernel skipping one tile would read {fmt(faults)}, LSE abs "
-        f"err {lse_fault:.3e}")
-    for name, e in errs.items():
-        check(e <= tol, f"{name} disagrees with its plain version [{tag}]: "
-                        f"{e:.3e} > {tol}")
-        check(faults[name] > tol, f"the {name} check would pass a kernel "
-                                  f"that skips a tile [{tag}]")
-    check(lse_err <= LSE_ATOL, f"LSE disagrees [{tag}]: {lse_err:.3e}")
-    check(lse_fault > LSE_ATOL, f"the LSE check would pass a kernel that "
-                                f"skips a tile [{tag}]")
+
+    results, got_by_name = {}, {}
+    for name in ARGS:
+        args = [t[a] for a in ARGS[name]] + [causal, sc]
+        got = named_outputs(name, fa.CUDA[name](*args))
+        torch.cuda.synchronize()
+        want = named_outputs(name, fa.PLAIN[name](*args))
+        got_by_name[name] = got
+        f32dot = name.endswith("f32dot") or dtype_name == "float32"
+        fam = "f32dot" if f32dot else "mma"
+        tol = REL_TOL[dtype_name if dtype_name == "float32" or not f32dot
+                      else "f32dot-bfloat16"]
+        errs = {n: row_err(got[n], want[n]) for n in got if n != "LSE"}
+        fault, lse_fault = faults[fam]
+        line = (f"{name} vs plain [{tag}]: row-normalised err {fmt(errs)} "
+                f"(tol {tol}; a kernel skipping one tile reads "
+                f"{fmt({n: fault[n] for n in errs})})")
+        for n, e in errs.items():
+            check(e <= tol, f"{name} {n} disagrees with its plain version "
+                            f"[{tag}]: {e:.3e} > {tol}")
+            check(fault[n] > tol, f"the {name} {n} check would pass a "
+                                  f"kernel that skips a tile [{tag}]")
+        if "LSE" in got:
+            lse_err = abs_err(got["LSE"], want["LSE"])
+            line += (f", LSE abs err {lse_err:.3e} (tol {LSE_ATOL}; "
+                     f"skipping: {lse_fault:.3e})")
+            check(lse_err <= LSE_ATOL, f"{name} LSE disagrees [{tag}]: "
+                                       f"{lse_err:.3e}")
+            check(lse_fault > LSE_ATOL, f"the LSE check would pass a kernel "
+                                        f"that skips a tile [{tag}]")
+        share = None
+        if name.endswith("f32dot") and dtype_name == "bfloat16":
+            shares = {n: mismatch_share(got[n], want[n]) for n in errs}
+            share = max(shares.values())
+            line += (f"; share of entries that differ {fmt(shares)} (limit "
+                     f"{SHARE_TOL}; rounding P and dS to bf16 reads "
+                     f"{fmt({n: rounding[n] for n in shares})})")
+            for n, x in shares.items():
+                check(x <= SHARE_TOL, f"{name} {n}: {x:.3e} of its entries "
+                                      f"differ from the f32-dot plain version "
+                                      f"[{tag}], limit {SHARE_TOL}")
+                check(rounding[n] > SHARE_TOL,
+                      f"the {name} {n} share check would pass a kernel that "
+                      f"rounds P and dS to bf16 [{tag}]")
+        twin_diff = None
+        if name in BF16_TWIN:
+            twin = got_by_name[BF16_TWIN[name]]
+            twin_diff = max(abs_err(got[n], twin[n]) for n in got)
+            line += f"; largest difference from {BF16_TWIN[name]} {twin_diff}"
+            check(twin_diff <= 0.0, f"{name} is not bitwise "
+                                    f"{BF16_TWIN[name]} [{tag}]")
+        log(line)
+        results[name] = {
+            "max_abs_err": max(abs_err(got[n], want[n]) for n in got),
+            "row_err": max(errs.values()), "diff_vs_bf16": twin_diff,
+            "mismatch_share": share, "args": args, "f32dot": f32dot,
+            "out_bytes": sum(x.numel() * x.element_size()
+                             for x in got.values())}
     if not timed:
         return None
 
     # work this run's inputs need: causal rows see keys 0..row
     pairs = B * H * (L * (L + 1) // 2 if causal else L * L)
-    esz = q.element_size()
-    tile = B * L * H * D * esz
-    stat = B * H * L * 4
-    fwd_b = bound(4 * D * pairs, 3 * tile + tile + stat, dtype_name)
-    dq_b = bound(6 * D * pairs, 4 * tile + 2 * stat + tile, dtype_name)
-    dkv_b = bound(8 * D * pairs, 4 * tile + 2 * stat + 2 * tile, dtype_name)
-
-    ms_fwd = median_ms(lambda: fa.flash_fwd_cuda(q, k, v, causal, sc))
-    ms_dq = median_ms(lambda: fa.flash_dq_cuda(q, k, v, do, lse_ref, delta,
-                                               causal, sc))
-    ms_dkv = median_ms(lambda: fa.flash_dkv_cuda(q, k, v, do, lse_ref,
-                                                 delta, causal, sc))
-    plain_fwd = median_ms(lambda: fa.flash_fwd_plain(q, k, v, causal, sc),
-                          reps=7)
-    plain_bwd = median_ms(lambda: fa.flash_bwd_plain(
-        q, k, v, do, lse_ref, delta, causal, sc), reps=7)
+    flops = {"fwd": 4 * D * pairs, "dq": 6 * D * pairs, "dkv": 8 * D * pairs}
 
     # library yardsticks (timed only, never used by the port): PyTorch's
-    # fused SDPA forward, and its backward (dQ, dK and dV in one call)
+    # fused SDPA forward, and its backward (dQ, dK and dV in one call), on
+    # the inputs and, for the f32-dot kernels, on their f32 copies
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    doh = do.transpose(1, 2).contiguous()
-    with torch.no_grad():
-        lib_fwd = median_ms(lambda: sdpa(qh, kh, vh, is_causal=causal))
-    out = sdpa(qh, kh, vh, is_causal=causal)
-    lib_bwd = median_ms(lambda: torch.autograd.grad(
-        out, (qh, kh, vh), doh, retain_graph=True))
+    lib = {}
+    for key, ldt in (("mma", dt), ("f32dot", torch.float32)):
+        qh, kh, vh = (x.transpose(1, 2).to(ldt).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        doh = do.transpose(1, 2).to(ldt).contiguous()
+        with torch.no_grad():
+            lib_fwd = median_ms(lambda: sdpa(qh, kh, vh, is_causal=causal))
+        out = sdpa(qh, kh, vh, is_causal=causal)
+        lib_bwd = median_ms(lambda: torch.autograd.grad(
+            out, (qh, kh, vh), doh, retain_graph=True))
+        lib[key] = {"fwd": lib_fwd, "bwd": lib_bwd}
+        del qh, kh, vh, doh, out
 
-    src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
-    ref = "paddle_tpu/ops/pallas/flash_attention.py"
-    return [
-        {"name": "flash_fwd", "route": "cuda", "source": src,
-         "replaces": f"{ref}:83", "max_abs_err": abs_err(o, o_ref),
-         "ms": ms_fwd, "plain_ms": plain_fwd, "bound_ms": fwd_b[0],
-         "bound_by": fwd_b[1], "library_ms": lib_fwd},
-        {"name": "flash_dq", "route": "cuda", "source": src,
-         "replaces": f"{ref}:174", "max_abs_err": abs_err(dq, dq_ref),
-         "ms": ms_dq, "plain_ms": plain_bwd, "bound_ms": dq_b[0],
-         "bound_by": dq_b[1], "library_ms": lib_bwd},
-        {"name": "flash_dkv", "route": "cuda", "source": src,
-         "replaces": f"{ref}:233",
-         "max_abs_err": max(abs_err(dk, dk_ref), abs_err(dv, dv_ref)),
-         "ms": ms_dkv, "plain_ms": plain_bwd, "bound_ms": dkv_b[0],
-         "bound_by": dkv_b[1], "library_ms": lib_bwd},
-    ]
+    rows = []
+    for name, r in results.items():
+        args = r["args"]
+        kind = name.split("_")[1]
+        # one copy of each operand of the function: an nn form computes its
+        # bf16 twin's function, and the transposed copies it is also handed
+        # (K and K^T for dq_nn, Q^T and dO^T for dkv_nn2) are layout
+        in_bytes = sum(t[a].numel() * t[a].element_size()
+                       for a in ARGS[BF16_TWIN.get(name, name)])
+        b = bound(flops[kind], in_bytes + r["out_bytes"],
+                  "float32" if r["f32dot"] else "bfloat16")
+        ms = median_ms(lambda: fa.CUDA[name](*args))
+        plain = median_ms(lambda: fa.PLAIN[name](*args), reps=7)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": f"{REF}:{REPLACES[name]}",
+            "max_abs_err": r["max_abs_err"], "row_err": r["row_err"],
+            **({"mismatch_share": r["mismatch_share"]}
+               if r["mismatch_share"] is not None else {}),
+            "ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": lib["f32dot" if r["f32dot"] else "mma"][
+                "fwd" if kind == "fwd" else "bwd"],
+            **({"diff_vs_bf16": r["diff_vs_bf16"]} if name in BF16_TWIN
+               else {})})
+    return rows
+
+
+def probe_phase():
+    """The dot-form probe on the card: its four products against the exact
+    ones, the caps it yields and the strategy "auto" picks from them (on an
+    H100, bf16). Returns the probe's kernels row."""
+    import torch
+
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    a, a32, b = fa.probe_inputs("cuda")
+    got = fa.flash_probe_cuda(a, a32, b)
+    want = fa.flash_probe_plain(a, a32, b)
+    err = abs_err(got, want)
+    forms = ("NT", "TN", "NN", "f32-transposed")
+    exact = {f: bool(torch.equal(x, y)) for f, x, y in zip(forms, got, want)}
+    log(f"probe vs exact products: {exact}, max abs err {err}")
+    check(err == 0.0, f"the probe's products are not exact: {err}")
+    caps = fa.probe_caps(torch.device("cuda", 0))
+    set_flags({"flash_dot_impl": "auto"})
+    fa._IMPL_MEMO.clear()
+    picked = fa.resolve_dot_impl(torch.device("cuda", 0))
+    log(f"probe caps {caps}; FLAGS_flash_dot_impl=auto resolves to {picked}")
+    check(picked == "bf16", f"auto resolved to {picked} on this card, not "
+                            f"bf16: caps {caps}")
+    n = a.shape[0]
+    b_ = bound(4 * 2 * n ** 3, sum(x.numel() * x.element_size()
+                                   for x in (a, a32, b, got)), "bfloat16")
+    return {"name": "flash_probe", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": f"{REF}:{REPLACES['flash_probe']}",
+            "max_abs_err": err, "caps": caps,
+            "ms": median_ms(lambda: fa.flash_probe_cuda(a, a32, b)),
+            "plain_ms": median_ms(lambda: fa.flash_probe_plain(a, a32, b)),
+            "bound_ms": b_[0], "bound_by": b_[1], "library_ms": None}
 
 
 def reference_layout_weights(cfg, seed):
@@ -267,8 +425,14 @@ def reference_layout_weights(cfg, seed):
     }
 
 
-def training_phase():
-    """gpt3-medium, bench.py's configuration, STEPS TrainStep steps."""
+def training_phase(impl, weights, bf16_loss=None):
+    """gpt3-medium, bench.py's configuration, STRATEGY_STEPS[impl] TrainStep
+    steps under FLAGS_flash_dot_impl=impl, from the same weights and batch
+    in every phase. Checks that the loss is finite and falls, that each of
+    the strategy's three kernels launched once per layer and step and no
+    other flash kernel launched, and the step-1 loss against the einsum
+    attention (auto) or the bf16 phase (the others). Returns (launches,
+    losses)."""
     import numpy as np
     import torch
 
@@ -283,16 +447,15 @@ def training_phase():
     from paddle_tpu_torch.optimizer import AdamW
 
     cfg = PRESETS["gpt3-medium"]
-    batch, seq = 8, 1024
+    batch, seq, steps = 8, 1024, STRATEGY_STEPS[impl]
     t0 = time.time()
+    set_flags({"flash_dot_impl": impl})
     model = GPTForCausalLM(cfg, device="cuda")
-    model.load_state_dict(params_from_paddle_tpu(
-        reference_layout_weights(cfg, SEED)))
+    model.load_state_dict(params_from_paddle_tpu(weights))
     model.train()
     model = amp.decorate(model, level="O2", dtype="bfloat16")
     opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
                 multi_precision=True)
-    n_params = sum(p.numel() for p in model.parameters())
 
     def loss_fn(m, ids, labels):
         return fused_linear_cross_entropy(m.hidden(ids), m.head_weight(),
@@ -305,50 +468,72 @@ def training_phase():
     labels = np.roll(ids, -1, axis=1)
     ids_t = torch.as_tensor(ids, device="cuda")
     labels_t = torch.as_tensor(labels, device="cuda")
-    log(f"gpt3-medium: {n_params} parameters, set-up "
+    log(f"[{impl}] gpt3-medium: "
+        f"{sum(p.numel() for p in model.parameters())} parameters, set-up "
         f"{time.time() - t0:.1f} s")
 
-    # step 1's loss through the plain einsum attention, same weights
-    set_flags({"use_flash_attention": False})
-    try:
-        with torch.no_grad():
-            plain_loss = float(loss_fn(model, ids_t, labels_t))
-    finally:
-        set_flags({"use_flash_attention": True})
+    plain_loss = None
+    if impl == "auto":
+        # step 1's loss through the plain einsum attention, same weights
+        set_flags({"use_flash_attention": False})
+        try:
+            with torch.no_grad():
+                plain_loss = float(loss_fn(model, ids_t, labels_t))
+        finally:
+            set_flags({"use_flash_attention": True})
+        fa._IMPL_MEMO.clear()     # so this run's first attention probes
 
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     losses, times = [], []
-    for _ in range(STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
         loss = step(ids_t, labels_t)
         losses.append(float(loss))   # waits for the step
         times.append(time.perf_counter() - t)
     launches = dict(fa.LAUNCHES)
+    resolved = fa.resolve_dot_impl(torch.device("cuda", 0))
 
-    log(f"losses {losses}")
-    log(f"step-1 loss: kernels {losses[0]:.6f}, plain attention "
-        f"{plain_loss:.6f}, diff {abs(losses[0] - plain_loss):.2e} "
-        f"(tol {LOSS_ATOL})")
+    log(f"[{impl}] resolved to {resolved}; losses {losses}; launches "
+        f"{ {n: c for n, c in launches.items() if c} }")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    check(abs(losses[0] - plain_loss) <= LOSS_ATOL,
-          f"step-1 loss {losses[0]} disagrees with plain attention "
-          f"{plain_loss}")
-    want = cfg.num_layers * STEPS
+    check(losses[-1] < losses[0], f"[{impl}] loss did not fall: {losses}")
+    if plain_loss is not None:
+        log(f"[{impl}] step-1 loss: kernels {losses[0]:.6f}, plain attention "
+            f"{plain_loss:.6f}, diff {abs(losses[0] - plain_loss):.2e} "
+            f"(tol {LOSS_ATOL})")
+        check(abs(losses[0] - plain_loss) <= LOSS_ATOL,
+              f"step-1 loss {losses[0]} disagrees with plain attention "
+              f"{plain_loss}")
+    if bf16_loss is not None:
+        tol = LOSS_F32_ATOL if impl == "f32" else LOSS_SAME_ATOL
+        diff = abs(losses[0] - bf16_loss)
+        log(f"[{impl}] step-1 loss vs the bf16 phase's: {losses[0]!r} vs "
+            f"{bf16_loss!r}, diff {diff:.3e} (tol {tol})")
+        check(diff <= tol, f"[{impl}] step-1 loss {losses[0]} vs bf16 "
+                           f"{bf16_loss}: {diff} > {tol}")
+    want = cfg.num_layers * steps
+    mine = set(fa.STRATEGY_KERNELS[resolved])
     for name, n in launches.items():
-        check(n == want, f"{name} launched {n} times in {STEPS} steps, "
-                         f"expected {want}")
-    step_s = sorted(times[1:])[len(times[1:]) // 2]
-    log(f"step times s {times}; median of steps 2-{STEPS}: {step_s:.4f} s, "
-        f"{batch * seq / step_s:.0f} tokens/s; peak memory "
+        expected = (want if name in mine else
+                    int(impl == "auto") if name == "flash_probe" else 0)
+        check(n == expected, f"[{impl}] {name} launched {n} times in "
+                             f"{steps} steps, expected {expected}")
+    step_s = statistics.median(times[1:])
+    log(f"[{impl}] step times s {times}; median of steps 2-{steps}: "
+        f"{step_s:.4f} s, {batch * seq / step_s:.0f} tokens/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_step(step, ids_t, labels_t, step_s)
-    return launches
+    profile_step(step, ids_t, labels_t, step_s,
+                 top=12 if impl == "auto" else 6)
+    set_flags({"flash_dot_impl": "auto"})
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, losses
 
 
-def profile_step(step, ids, labels, step_s):
+def profile_step(step, ids, labels, step_s, top):
     """One more train step under torch.profiler: the device time of each
     kernel, summed by name, and the device's idle share of an unprofiled
     step (the profiler's own host cost would inflate the profiled one)."""
@@ -370,9 +555,29 @@ def profile_step(step, ids, labels, step_s):
         return
     log(f"profiled step: device busy {busy_us / 1e3:.1f} ms; idle share of "
         f"a {step_s * 1e3:.1f} ms step {1 - busy_us / (step_s * 1e6):.3f}")
-    for us, n, name in kernels[:12]:
+    for us, n, name in kernels[:top]:
         log(f"  {us / 1e3:8.2f} ms {100 * us / busy_us:5.1f}% x{n:<5d} "
             f"{name[:90]}")
+
+
+def build_kernels():
+    """Build the kernels' source (one nvcc) and report ptxas's registers
+    and spills for each kernel instance."""
+    from paddle_tpu_torch.ops import _build
+
+    t0 = time.time()
+    _build.load("flash_attention")
+    log(f"kernels built in {time.time() - t0:.1f} s")
+    for name, rep in _build.BUILD_LOG.items():
+        fns = re.findall(r"Compiling entry function '(\w+)'", rep)
+        regs = re.findall(r"Used (\d+) registers", rep)
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                             rep)]
+        log(f"{name}.cu: {len(regs)} kernel instances, registers {regs}, "
+            f"spill stores {sum(spills)} bytes")
+        for fn, s in zip(fns, spills):
+            if s:
+                log(f"  spills {s} bytes: {fn}")
 
 
 def main():
@@ -381,30 +586,37 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.models import PRESETS
 
+    t_start = time.time()
     card = card_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    t0 = time.time()
-    _build.load("flash_attention")
-    log(f"kernels built in {time.time() - t0:.1f} s")
-    for name, rep in _build.BUILD_LOG.items():
-        regs = re.findall(r"Used (\d+) registers", rep)
-        spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores",
-                                                rep))
-        log(f"{name}.cu: {len(regs)} kernel instances, registers {regs}, "
-            f"spill stores {spill} bytes")
+    build_kernels()
 
+    probe_row = probe_phase()
     rows = kernel_phase(8, 1024, 16, 64, "bfloat16", True, timed=True)
     kernel_phase(8, 1024, 16, 64, "bfloat16", False, timed=False)
     kernel_phase(8, 1024, 8, 128, "bfloat16", True, timed=False)
     kernel_phase(2, 256, 4, 64, "float32", True, timed=False)
-    launches = training_phase()
-    for r in rows:
-        r["launches"] = launches[r["name"]]
-    log(json.dumps({"kernels": rows}))
+
+    weights = reference_layout_weights(PRESETS["gpt3-medium"], SEED)
+    launches, bf16_loss = {}, None
+    for impl, steps in STRATEGY_STEPS.items():
+        counts, losses = training_phase(impl, weights, bf16_loss)
+        bf16_loss = losses[0] if impl == "auto" else bf16_loss
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        for r in rows + [probe_row]:
+            if counts[r["name"]]:
+                r["launches_per_step"] = counts[r["name"]] / steps
+    for r in rows + [probe_row]:
+        r["launches"] = launches.get(r["name"], 0)
+        check(r["launches"] > 0, f"{r['name']} never launched on the "
+                                 f"training path")
+    log(json.dumps({"kernels": rows + [probe_row]}))
+    log(f"chip_smoke took {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

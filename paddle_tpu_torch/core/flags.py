@@ -46,6 +46,15 @@ def flag(name: str):
 
 # route attention to the flash kernels when the shape allows
 define_flag("use_flash_attention", True)
+# take the flash path even where the dot strategy alone would not: an
+# auto-resolved "f32" below seq 2048 (see nn.functional's routing)
+define_flag("force_flash_attention", False)
 # the flash shape gate's query and key tiles: L must be a multiple of both
 define_flag("flash_block_q", 128)
 define_flag("flash_block_k", 128)
+# dot strategy of the flash kernels: "bf16" (storage-dtype operands, the
+# tensor cores), "nn" and "nn2" (the same function from pre-transposed K^T
+# and V^T, and for nn2 also Q^T and dO^T in and dK^T and dV^T out), "f32"
+# (every dot in f32, P and dS never rounded), "auto" (probe the card once
+# and pick bf16 > nn > nn2 > f32; see ops.flash_attention.resolve_dot_impl)
+define_flag("flash_dot_impl", "auto")

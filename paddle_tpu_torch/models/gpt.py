@@ -17,6 +17,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..nn import functional as F
+from ..nn.norm import LayerNorm
 
 
 class GPTConfig:
@@ -81,11 +82,9 @@ class GPTMLP(nn.Module):
 class GPTBlock(nn.Module):
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
-        self.ln1 = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
-                                **factory)
+        self.ln1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **factory)
         self.attn = GPTAttention(cfg, **factory)
-        self.ln2 = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
-                                **factory)
+        self.ln2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **factory)
         self.mlp = GPTMLP(cfg, **factory)
 
     def forward(self, x):
@@ -101,8 +100,8 @@ class GPTModel(nn.Module):
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size, **factory)
         self.blocks = nn.ModuleList([GPTBlock(cfg, **factory)
                                      for _ in range(cfg.num_layers)])
-        self.ln_f = nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
-                                 **factory)
+        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                              **factory)
 
     def forward(self, input_ids):
         l = input_ids.shape[1]

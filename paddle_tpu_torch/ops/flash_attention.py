@@ -1,18 +1,34 @@
 """Flash attention forward and backward (counterpart of
-paddle_tpu/ops/pallas/flash_attention.py).
+paddle_tpu/ops/pallas/flash_attention.py), under each dot strategy.
 
-The three Pallas TPU kernels of the reference (`_fwd_kernel`, `_dq_kernel`,
-`_dkv_kernel`) are CUDA kernels written for Hopper in
-csrc/flash_attention.cu. Beside each stands its plain PyTorch version
-(`flash_fwd_plain`, `flash_bwd_plain`), which the CPU tests hold against the
-reference and which the card run holds the kernels against.
+Every Pallas TPU kernel of the reference, the capability probe included,
+is a CUDA kernel written for Hopper in csrc/flash_attention.cu. The
+reference's dot strategies
+(FLAGS_flash_dot_impl) each run three kernels, named in STRATEGY_KERNELS:
+  bf16  storage-dtype operands into every dot: flash_fwd, flash_dq,
+        flash_dkv (`_fwd_kernel`, `_dq_kernel`, `_dkv_kernel`).
+  nn    the same function from K^T and V^T ([B, H, D, L], transposed by
+        torch outside the kernels): flash_fwd_nn, flash_dq_nn
+        (`_dq_kernel_nn`), flash_dkv_nn.
+  nn2   nn whose dK/dV kernel also takes Q^T and dO^T and gives dK^T and
+        dV^T, transposed back outside: flash_dkv_nn2 (`_dkv_kernel_nn2`).
+  f32   every dot in f32, P and dS never rounded, outputs rounded to the
+        storage dtype: flash_fwd_f32dot, flash_dq_f32dot, flash_dkv_f32dot.
+  auto  the probe's verdict for the card (`resolve_dot_impl`).
+Beside each kernel stands its plain PyTorch version (`*_plain`), which the
+CPU tests hold against the reference and which the card run holds the
+kernel against. nn and nn2 compute bf16's function, so their plain
+versions are bf16's, taking and giving the transposed layouts.
 
 Dispatch: tensors on the CPU take the plain versions; tensors on a CUDA
-device launch the kernels, which raise on what they do not take. Nothing
-falls back from one to the other.
+device launch the kernels (`*_cuda`), which raise on what they do not take.
+Nothing falls back from one to the other. On f32 storage every strategy's
+kernels are f32-dot kernels (the storage dtype's dots are f32 dots there),
+nn and nn2 in their transposed forms.
 
 Layout: q, k, v, o and their gradients are [B, L, H, D] (the public
-layout); LSE and delta are [B, H, L] float32 (the reference's [BH, 1, L]).
+layout); their transposes are [B, H, D, L]; LSE and delta are [B, H, L]
+float32 (the reference's [BH, 1, L]).
 """
 from __future__ import annotations
 
@@ -22,14 +38,30 @@ import math
 
 import torch
 
+from ..core.flags import flag
+
+# the three kernels (forward, dQ, dK/dV) that each dot strategy launches
+STRATEGY_KERNELS = {
+    "bf16": ("flash_fwd", "flash_dq", "flash_dkv"),
+    "nn": ("flash_fwd_nn", "flash_dq_nn", "flash_dkv_nn"),
+    "nn2": ("flash_fwd_nn", "flash_dq_nn", "flash_dkv_nn2"),
+    "f32": ("flash_fwd_f32dot", "flash_dq_f32dot", "flash_dkv_f32dot"),
+}
+# pointer arguments of each flash kernel's C entry point paddle_<name>
+_POINTERS = {"flash_fwd": 5, "flash_fwd_nn": 5, "flash_fwd_f32dot": 5,
+             "flash_dq": 7, "flash_dq_nn": 8, "flash_dq_f32dot": 7,
+             "flash_dkv": 8, "flash_dkv_nn": 8, "flash_dkv_nn2": 10,
+             "flash_dkv_f32dot": 8}
+
 # Launches of each CUDA kernel since the last reset; a wrapper adds one
 # where it launches its kernel and nowhere else.
-LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+LAUNCHES = {name: 0 for name in (*_POINTERS, "flash_probe")}
 
 _NEG_INF = -1e30
 _KERNEL_TILE = 64          # rows of the CUDA kernels' inner tiles
 _KERNEL_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_PROBE_N = 128             # the probe's tiles are 128 x 128
 
 
 def reset_launch_counts() -> None:
@@ -45,6 +77,16 @@ def flash_attention_supported(q_shape, d_model_last: int, causal: bool,
     L = q_shape[1]
     return (L % block_q == 0 and L % block_k == 0 and L >= block_q
             and d_model_last <= 256)
+
+
+def to_t(x: torch.Tensor) -> torch.Tensor:
+    """[B, L, H, D] -> contiguous [B, H, D, L]: K^T, V^T, Q^T, dO^T."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def from_t(xt: torch.Tensor) -> torch.Tensor:
+    """[B, H, D, L] -> contiguous [B, L, H, D]."""
+    return xt.permute(0, 3, 1, 2).contiguous()
 
 
 # ---------------------------------------------------------- plain versions --
@@ -64,30 +106,35 @@ def _scores(qh, kh, causal: bool, sm_scale: float) -> torch.Tensor:
     return s
 
 
-def flash_fwd_plain(q, k, v, causal: bool, sm_scale: float):
+def flash_fwd_plain(q, k, v, causal: bool, sm_scale: float,
+                    f32_dots: bool = False):
     """(O [B, L, H, D] in q's dtype, LSE [B, H, L] f32): the function of
     `_fwd_kernel`, computed whole in f32, with P rounded to V's dtype before
-    P.V as the kernels round it."""
+    P.V as the kernels round it; with `f32_dots` (strategy f32), P enters
+    P.V unrounded."""
     qh, kh, vh = _heads(q), _heads(k), _heads(v)
     s = _scores(qh, kh, causal, sm_scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    o = (p.to(v.dtype).float() @ vh) / l
+    o = ((p if f32_dots else p.to(v.dtype).float()) @ vh) / l
     lse = (m + torch.log(l)).squeeze(-1)
     return o.transpose(1, 2).to(q.dtype).contiguous(), lse
 
 
-def flash_bwd_plain(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
+def flash_bwd_plain(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
+                    f32_dots: bool = False):
     """(dQ, dK, dV) in the inputs' dtype: the functions of `_dq_kernel` and
     `_dkv_kernel`. P = exp(S - LSE), dS = P * (dO.V^T - delta) * scale;
-    P and dS are rounded to the input dtype where they enter a dot."""
+    P and dS are rounded to the input dtype where they enter a dot, except
+    with `f32_dots` (strategy f32), where they stay f32."""
     qh, kh, vh, doh = _heads(q), _heads(k), _heads(v), _heads(do)
     s = _scores(qh, kh, causal, sm_scale)
     p = torch.exp(s - lse[..., None])
     dp = doh @ vh.transpose(-1, -2)
     ds = p * (dp - delta[..., None]) * sm_scale
-    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    if not f32_dots:
+        p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
     dq = ds @ kh
     dk = ds.transpose(-1, -2) @ qh
     dv = p.transpose(-1, -2) @ doh
@@ -95,130 +142,386 @@ def flash_bwd_plain(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
                  for x in (dq, dk, dv))
 
 
+def flash_dq_plain(q, k, v, do, lse, delta, causal, sm_scale,
+                   f32_dots=False):
+    return flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale,
+                           f32_dots)[0]
+
+
+def flash_dkv_plain(q, k, v, do, lse, delta, causal, sm_scale,
+                    f32_dots=False):
+    return flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale,
+                           f32_dots)[1:]
+
+
+def flash_fwd_nn_plain(q, kt, v, causal, sm_scale):
+    return flash_fwd_plain(q, from_t(kt), v, causal, sm_scale)
+
+
+def flash_dq_nn_plain(q, k, kt, vt, do, lse, delta, causal, sm_scale):
+    return flash_dq_plain(q, k, from_t(vt), do, lse, delta, causal, sm_scale)
+
+
+def flash_dkv_nn_plain(q, kt, vt, do, lse, delta, causal, sm_scale):
+    return flash_dkv_plain(q, from_t(kt), from_t(vt), do, lse, delta, causal,
+                           sm_scale)
+
+
+def flash_dkv_nn2_plain(q, qt, kt, vt, do, dot, lse, delta, causal,
+                        sm_scale):
+    """(dK^T, dV^T) [B, H, D, L]."""
+    dk, dv = flash_dkv_plain(from_t(qt), from_t(kt), from_t(vt), from_t(dot),
+                             lse, delta, causal, sm_scale)
+    return to_t(dk), to_t(dv)
+
+
+def flash_probe_plain(a, a32, b):
+    """The probe's four 128 x 128 products in f32, [4, 128, 128]: NT
+    (A.B^T), TN (A^T.B), NN (A.B), and A32 transposed and cast to bf16,
+    then NN with B."""
+    af, bf = a.float(), b.float()
+    at32 = a32.t().to(torch.bfloat16).float()
+    return torch.stack([af @ bf.t(), af.t() @ bf, af @ bf, at32 @ bf])
+
+
 # ------------------------------------------------------------ CUDA kernels --
 @functools.cache
 def _lib():
-    """The kernels' library (built at first use), with its C signatures."""
+    """The library built from csrc/flash_attention.cu (at first use), with
+    its C signatures."""
     from ._build import load
 
     lib = load("flash_attention")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [I, I, I, I, I, I, F, P]   # B, H, L, D, dtype, causal, scale, stream
-    lib.paddle_flash_fwd.argtypes = [P] * 5 + tail
-    lib.paddle_flash_dq.argtypes = [P] * 7 + tail
-    lib.paddle_flash_dkv.argtypes = [P] * 8 + tail
-    for fn in (lib.paddle_flash_fwd, lib.paddle_flash_dq,
-               lib.paddle_flash_dkv):
+    # B, H, L, D, dtype, causal, scale, stream
+    tail = [I, I, I, I, I, I, F, P]
+    for kernel_name, n in _POINTERS.items():
+        fn = getattr(lib, "paddle_" + kernel_name)
+        fn.argtypes = [P] * n + tail
         fn.restype = I
+    lib.paddle_flash_probe.argtypes = [P] * 5
+    lib.paddle_flash_probe.restype = I
     lib.paddle_cuda_error_string.argtypes = [I]
     lib.paddle_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(name: str, like: torch.Tensor, *tensors, stats=()):
-    """Validate what a kernel takes: CUDA, one dtype (bf16 or f32),
-    contiguous [B, L, H, D] of one shape, head_dim 64 or 128, L a multiple
-    of the kernels' tile; stats are contiguous f32 [B, H, L]."""
-    if like.device.type != "cuda":
+def _check(name: str, q: torch.Tensor, rows=(), cols=(), stats=()):
+    """Validate what a kernel takes: CUDA, one dtype (bf16 or f32), q and
+    `rows` contiguous [B, L, H, D] of one shape, `cols`
+    contiguous [B, H, D, L] of the same sizes, all 16-byte aligned; head_dim
+    64 or 128, L a multiple of the kernels' tile; `stats` contiguous f32
+    [B, H, L]."""
+    if q.device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got "
-                         f"{like.device}")
-    if like.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: dtype {like.dtype} not supported "
+                         f"{q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {q.dtype} not supported "
                          f"(bfloat16 or float32)")
-    if like.dim() != 4:
+    if q.dim() != 4:
         raise ValueError(f"{name}: expected [B, L, H, D], got "
-                         f"{tuple(like.shape)}")
-    B, L, H, D = like.shape
+                         f"{tuple(q.shape)}")
+    B, L, H, D = q.shape
     if D not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {D} not supported by the CUDA "
                          f"kernel (64 or 128)")
     if L % _KERNEL_TILE:
         raise ValueError(f"{name}: sequence length {L} is not a multiple "
                          f"of {_KERNEL_TILE}")
-    for t in (like, *tensors):
-        if (t.shape != like.shape or t.dtype != like.dtype
-                or t.device != like.device or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise ValueError(f"{name}: every input must be a contiguous, "
-                             f"16-byte aligned {like.dtype} tensor of shape "
-                             f"{tuple(like.shape)} on {like.device}")
+    for group, shape in (((q, *rows), (B, L, H, D)), (cols, (B, H, D, L))):
+        for t in group:
+            if (t.shape != shape or t.dtype != q.dtype
+                    or t.device != q.device or not t.is_contiguous()
+                    or t.data_ptr() % 16):
+                raise ValueError(f"{name}: every input must be a contiguous,"
+                                 f" 16-byte aligned {q.dtype} tensor of shape"
+                                 f" {shape} on {q.device}")
     for t in stats:
         if (t.shape != (B, H, L) or t.dtype != torch.float32
-                or t.device != like.device or not t.is_contiguous()):
+                or t.device != q.device or not t.is_contiguous()):
             raise ValueError(f"{name}: LSE and delta must be contiguous "
-                             f"float32 [B, H, L] on {like.device}")
+                             f"float32 [B, H, L] on {q.device}")
     return B, L, H, D
 
 
-def _launch(lib, fn, name: str, ptrs, q, causal, sm_scale):
+def _launch(name: str, ptrs, q, causal, sm_scale):
+    lib = _lib()
     B, L, H, D = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*[t.data_ptr() for t in ptrs], B, H, L, D,
-                 _DTYPE_CODES[q.dtype], int(bool(causal)), float(sm_scale),
-                 stream)
+        err = getattr(lib, "paddle_" + name)(
+            *[t.data_ptr() for t in ptrs], B, H, L, D, _DTYPE_CODES[q.dtype],
+            int(bool(causal)), float(sm_scale), stream)
     if err != 0:
         msg = lib.paddle_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
     LAUNCHES[name] += 1
 
 
-def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
-    """Launch the forward kernel: (O, LSE)."""
-    B, L, H, D = _check("flash_fwd", q, k, v)
-    o = torch.empty_like(q)
-    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
-    lib = _lib()
-    _launch(lib, lib.paddle_flash_fwd, "flash_fwd", (q, k, v, o, lse), q,
-            causal, sm_scale)
+def _stats(q):
+    B, L, H, _ = q.shape
+    return torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+
+
+def _fwd_cuda(name, q, k, v, causal, sm_scale, kt_layout=False):
+    _check(name, q, rows=(v,) if kt_layout else (k, v),
+           cols=(k,) if kt_layout else ())
+    o, lse = torch.empty_like(q), _stats(q)
+    _launch(name, (q, k, v, o, lse), q, causal, sm_scale)
     return o, lse
+
+
+def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
+    """Launch the forward kernel: (O, LSE). bf16 runs on the tensor cores;
+    f32 storage takes the f32-dot kernel (its storage-dtype dots are f32
+    dots)."""
+    return _fwd_cuda("flash_fwd", q, k, v, causal, sm_scale)
+
+
+def flash_fwd_nn_cuda(q, kt, v, causal: bool, sm_scale: float):
+    """Launch the forward kernel that reads K^T [B, H, D, L]: (O, LSE)."""
+    return _fwd_cuda("flash_fwd_nn", q, kt, v, causal, sm_scale,
+                     kt_layout=True)
+
+
+def flash_fwd_f32dot_cuda(q, k, v, causal: bool, sm_scale: float):
+    """Launch the f32-dot forward kernel: (O, LSE)."""
+    return _fwd_cuda("flash_fwd_f32dot", q, k, v, causal, sm_scale)
+
+
+def _dq_cuda(name, q, k, v, do, lse, delta, causal, sm_scale):
+    _check(name, q, rows=(k, v, do), stats=(lse, delta))
+    dq = torch.empty_like(q)
+    _launch(name, (q, k, v, do, lse, delta, dq), q, causal, sm_scale)
+    return dq
 
 
 def flash_dq_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
     """Launch the dQ kernel."""
-    _check("flash_dq", q, k, v, do, stats=(lse, delta))
+    return _dq_cuda("flash_dq", q, k, v, do, lse, delta, causal, sm_scale)
+
+
+def flash_dq_f32dot_cuda(q, k, v, do, lse, delta, causal: bool,
+                         sm_scale: float):
+    """Launch the f32-dot dQ kernel."""
+    return _dq_cuda("flash_dq_f32dot", q, k, v, do, lse, delta, causal,
+                    sm_scale)
+
+
+def flash_dq_nn_cuda(q, k, kt, vt, do, lse, delta, causal: bool,
+                     sm_scale: float):
+    """Launch `_dq_kernel_nn`'s counterpart: dQ from K, K^T and V^T."""
+    _check("flash_dq_nn", q, rows=(k, do), cols=(kt, vt), stats=(lse, delta))
     dq = torch.empty_like(q)
-    lib = _lib()
-    _launch(lib, lib.paddle_flash_dq, "flash_dq",
-            (q, k, v, do, lse, delta, dq), q, causal, sm_scale)
+    _launch("flash_dq_nn", (q, k, kt, vt, do, lse, delta, dq), q, causal,
+            sm_scale)
     return dq
+
+
+def _dkv_cuda(name, q, k, v, do, lse, delta, causal, sm_scale,
+              kv_layout=False):
+    _check(name, q, rows=(do,) if kv_layout else (k, v, do),
+           cols=(k, v) if kv_layout else (), stats=(lse, delta))
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    _launch(name, (q, k, v, do, lse, delta, dk, dv), q, causal, sm_scale)
+    return dk, dv
 
 
 def flash_dkv_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
     """Launch the dK/dV kernel: (dK, dV)."""
-    _check("flash_dkv", q, k, v, do, stats=(lse, delta))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    return _dkv_cuda("flash_dkv", q, k, v, do, lse, delta, causal, sm_scale)
+
+
+def flash_dkv_nn_cuda(q, kt, vt, do, lse, delta, causal: bool,
+                      sm_scale: float):
+    """Launch the dK/dV kernel that reads K^T and V^T: (dK, dV)."""
+    return _dkv_cuda("flash_dkv_nn", q, kt, vt, do, lse, delta, causal,
+                     sm_scale, kv_layout=True)
+
+
+def flash_dkv_f32dot_cuda(q, k, v, do, lse, delta, causal: bool,
+                          sm_scale: float):
+    """Launch the f32-dot dK/dV kernel: (dK, dV)."""
+    return _dkv_cuda("flash_dkv_f32dot", q, k, v, do, lse, delta, causal,
+                     sm_scale)
+
+
+def flash_dkv_nn2_cuda(q, qt, kt, vt, do, dot, lse, delta, causal: bool,
+                       sm_scale: float):
+    """Launch `_dkv_kernel_nn2`'s counterpart: (dK^T, dV^T) [B, H, D, L]
+    from Q, Q^T, K^T, V^T, dO and dO^T."""
+    _check("flash_dkv_nn2", q, rows=(do,), cols=(qt, kt, vt, dot),
+           stats=(lse, delta))
+    dkt, dvt = torch.empty_like(kt), torch.empty_like(vt)
+    _launch("flash_dkv_nn2", (q, qt, kt, vt, do, dot, lse, delta, dkt, dvt),
+            q, causal, sm_scale)
+    return dkt, dvt
+
+
+def flash_probe_cuda(a, a32, b):
+    """Launch the probe: its four products, [4, 128, 128] f32 (see
+    flash_probe_plain). a, b: [128, 128] bf16; a32: [128, 128] f32."""
+    n = _PROBE_N
+    if a.device.type != "cuda":
+        raise ValueError(f"flash_probe: the CUDA kernel needs CUDA tensors, "
+                         f"got {a.device}")
+    for t, dt in ((a, torch.bfloat16), (a32, torch.float32),
+                  (b, torch.bfloat16)):
+        if (t.shape != (n, n) or t.dtype != dt or t.device != a.device
+                or not t.is_contiguous()):
+            raise ValueError(f"flash_probe: expected contiguous [{n}, {n}] "
+                             f"tiles (a, b bfloat16, a32 float32) on "
+                             f"{a.device}")
+    out = torch.empty(4, n, n, dtype=torch.float32, device=a.device)
     lib = _lib()
-    _launch(lib, lib.paddle_flash_dkv, "flash_dkv",
-            (q, k, v, do, lse, delta, dk, dv), q, causal, sm_scale)
-    return dk, dv
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.paddle_flash_probe(a.data_ptr(), a32.data_ptr(),
+                                     b.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        msg = lib.paddle_cuda_error_string(err).decode()
+        raise RuntimeError(f"flash_probe kernel launch failed: {msg} ({err})")
+    LAUNCHES["flash_probe"] += 1
+    return out
 
 
-# ---------------------------------------------------------------- dispatch --
-def flash_fwd(q, k, v, causal: bool, sm_scale: float):
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal, sm_scale)
-    return flash_fwd_cuda(q, k, v, causal, sm_scale)
+# the plain version and the CUDA wrapper of each flash kernel
+PLAIN = {
+    "flash_fwd": flash_fwd_plain,
+    "flash_fwd_nn": flash_fwd_nn_plain,
+    "flash_fwd_f32dot": functools.partial(flash_fwd_plain, f32_dots=True),
+    "flash_dq": flash_dq_plain,
+    "flash_dq_nn": flash_dq_nn_plain,
+    "flash_dq_f32dot": functools.partial(flash_dq_plain, f32_dots=True),
+    "flash_dkv": flash_dkv_plain,
+    "flash_dkv_nn": flash_dkv_nn_plain,
+    "flash_dkv_nn2": flash_dkv_nn2_plain,
+    "flash_dkv_f32dot": functools.partial(flash_dkv_plain, f32_dots=True),
+}
+CUDA = {
+    "flash_fwd": flash_fwd_cuda, "flash_fwd_nn": flash_fwd_nn_cuda,
+    "flash_fwd_f32dot": flash_fwd_f32dot_cuda, "flash_dq": flash_dq_cuda,
+    "flash_dq_nn": flash_dq_nn_cuda, "flash_dq_f32dot": flash_dq_f32dot_cuda,
+    "flash_dkv": flash_dkv_cuda, "flash_dkv_nn": flash_dkv_nn_cuda,
+    "flash_dkv_nn2": flash_dkv_nn2_cuda,
+    "flash_dkv_f32dot": flash_dkv_f32dot_cuda,
+}
 
 
-def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
-    if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale)
-    dq = flash_dq_cuda(q, k, v, do, lse, delta, causal, sm_scale)
-    dk, dv = flash_dkv_cuda(q, k, v, do, lse, delta, causal, sm_scale)
-    return dq, dk, dv
+def kernel(name: str, on: torch.Tensor):
+    """Flash kernel `name` for tensors on `on`'s device: its plain version
+    on the CPU, its CUDA kernel otherwise."""
+    return (PLAIN if on.device.type == "cpu" else CUDA)[name]
 
 
+# ------------------------------------------------------- dot strategies --
+def flash_fwd(q, k, v, causal: bool, sm_scale: float, impl: str = "bf16"):
+    """(O, LSE) under dot strategy `impl` (the reference's `_fwd`); nn and
+    nn2 hand the kernel K^T, transposed here as XLA does at :139."""
+    fwd = kernel(STRATEGY_KERNELS[impl][0], q)
+    if impl in ("nn", "nn2"):
+        k = to_t(k)
+    return fwd(q, k, v, causal, sm_scale)
+
+
+def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
+              impl: str = "bf16"):
+    """(dQ, dK, dV) under dot strategy `impl` (the reference's `_bwd`, whose
+    transposes for nn and nn2, :337-404, are done here)."""
+    _, dq_name, dkv_name = STRATEGY_KERNELS[impl]
+    dq_fn, dkv_fn = kernel(dq_name, q), kernel(dkv_name, q)
+    rest = (lse, delta, causal, sm_scale)
+    if impl not in ("nn", "nn2"):
+        return (dq_fn(q, k, v, do, *rest), *dkv_fn(q, k, v, do, *rest))
+    kt, vt = to_t(k), to_t(v)
+    dq = dq_fn(q, k, kt, vt, do, *rest)
+    if impl == "nn":
+        return (dq, *dkv_fn(q, kt, vt, do, *rest))
+    dkt, dvt = dkv_fn(q, to_t(q), kt, vt, do, to_t(do), *rest)
+    return dq, from_t(dkt), from_t(dvt)
+
+
+# ------------------------------------------------- strategy resolution --
+_IMPL_MEMO: dict = {}     # card index -> strategy picked by "auto"
+
+
+def probe_inputs(device):
+    """The probe's tiles: small integers, so every product is exact in f32
+    whatever the order of its sums. (a bf16, a32 = a in f32, b bf16.)"""
+    g = torch.Generator(device=device).manual_seed(0)
+    n = _PROBE_N
+    a, b = (torch.randint(-4, 5, (n, n), generator=g, device=device)
+            .to(torch.bfloat16) for _ in range(2))
+    return a, a.float(), b
+
+
+def probe_caps(device) -> dict:
+    """Run the probe kernel on CUDA card `device` and hold each form's
+    product against the exact one: {"nt_bf16": NT and TN right, "nn_bf16":
+    NN right, "transpose_f32": the f32-transposed form right}. Raises below
+    compute capability 9.0, where the sm_90a kernels cannot run, and when
+    the probe does not build or launch."""
+    device = torch.device(device)
+    cap = torch.cuda.get_device_capability(device)
+    if cap < (9, 0):
+        raise RuntimeError(
+            f"flash attention: {torch.cuda.get_device_name(device)} has "
+            f"compute capability {cap[0]}.{cap[1]}; the CUDA kernels are "
+            f"built for sm_90a and need 9.0")
+    a, a32, b = probe_inputs(device)
+    got = flash_probe_cuda(a, a32, b)
+    right = [bool(torch.equal(x, y))
+             for x, y in zip(got, flash_probe_plain(a, a32, b))]
+    return {"nt_bf16": right[0] and right[1], "nn_bf16": right[2],
+            "transpose_f32": right[3]}
+
+
+def strategy_from_caps(caps: dict) -> str:
+    """bf16 > nn > nn2 > f32, as `_resolve_dot_impl` (:518-525) picks."""
+    if caps.get("nt_bf16"):
+        return "bf16"
+    if caps.get("nn_bf16") and caps.get("transpose_f32"):
+        return "nn"
+    if caps.get("nn_bf16"):
+        return "nn2"
+    return "f32"
+
+
+def resolve_dot_impl(device) -> str:
+    """FLAGS_flash_dot_impl as a concrete strategy for tensors on `device`
+    (counterpart of `_resolve_dot_impl`). An explicit value is returned as
+    it is. "auto" on a CUDA card runs the probe once per process and card
+    and keeps the verdict in memory; on the CPU, where the plain versions
+    run, it means "bf16", as the reference's does off the TPU."""
+    impl = flag("flash_dot_impl")
+    if impl != "auto":
+        if impl not in STRATEGY_KERNELS:
+            raise ValueError(
+                f"FLAGS_flash_dot_impl must be auto|bf16|nn|nn2|f32, "
+                f"got {impl!r}")
+        return impl
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "bf16"
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    if index not in _IMPL_MEMO:
+        _IMPL_MEMO[index] = strategy_from_caps(
+            probe_caps(torch.device("cuda", index)))
+    return _IMPL_MEMO[index]
+
+
+# ---------------------------------------------------------------- autograd --
 class FlashAttentionFunction(torch.autograd.Function):
     """Counterpart of the reference's `_flash` custom_vjp: saves
     (q, k, v, o, lse); the backward forms delta = rowsum(dO * O) in f32
-    outside the kernels, as `_bwd` does."""
+    outside the kernels, as `_bwd` does. `impl` is a concrete strategy."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        o, lse = flash_fwd(q, k, v, causal, sm_scale)
+    def forward(ctx, q, k, v, causal, sm_scale, impl):
+        o, lse = flash_fwd(q, k, v, causal, sm_scale, impl)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.sm_scale, ctx.impl = causal, sm_scale, impl
         return o
 
     @staticmethod
@@ -227,22 +530,30 @@ class FlashAttentionFunction(torch.autograd.Function):
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, ctx.causal,
-                               ctx.sm_scale)
-        return dq, dk, dv, None, None
+                               ctx.sm_scale, ctx.impl)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = False, sm_scale=None,
-                    block_q: int = 128, block_k: int = 128):
+                    block_q: int = 128, block_k: int = 128,
+                    impl: str | None = None):
     """q, k, v: [B, L, H, D] -> [B, L, H, D]; differentiable.
 
     Self attention with equal q/k lengths; bf16 or f32 inputs, f32
-    accumulation. `block_q`/`block_k` are the reference's tiles, checked by
-    the shape gate; the CUDA kernels pick their own inner tiles."""
+    accumulation. `impl` (bf16, nn, nn2 or f32) overrides the dot strategy
+    that FLAGS_flash_dot_impl resolves to (`resolve_dot_impl`).
+    `block_q`/`block_k` are the reference's tiles, checked by the shape
+    gate; the CUDA kernels pick their own inner tiles."""
     D = q.shape[-1]
     if not flash_attention_supported(q.shape, D, causal, block_q, block_k):
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} fails the "
                          f"gate for blocks ({block_q}, {block_k})")
+    if impl is None:
+        impl = resolve_dot_impl(q.device)
+    elif impl not in STRATEGY_KERNELS:
+        raise ValueError(f"flash_attention: impl must be bf16|nn|nn2|f32, "
+                         f"got {impl!r}")
     sm_scale = 1.0 / math.sqrt(D) if sm_scale is None else float(sm_scale)
     return FlashAttentionFunction.apply(q.contiguous(), k.contiguous(),
                                         v.contiguous(), bool(causal),
-                                        sm_scale)
+                                        sm_scale, impl)

@@ -5,12 +5,14 @@ On the CPU the port's wrappers take the plain PyTorch versions of the CUDA
 kernels, so these tests hold the plain versions, the autograd.Function and
 the attention routing against the reference; chip_smoke.py holds the CUDA
 kernels against the same plain versions on the card."""
+import importlib
 import math
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import paddle_tpu as paddle
@@ -148,3 +150,76 @@ def test_sdpa_routing_matches_reference(use_flash, lq, lk, causal,
         set_flags({"use_flash_attention": True})
     assert routed == (["flash"] if use_flash and lq == lk else [])
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-5)
+
+
+class _TPUHost:
+    """`jax` as the reference's routing sees it on a TPU host."""
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+    @staticmethod
+    def default_backend():
+        return "tpu"
+
+
+NO_BF16_FORM = {"nt_bf16": False, "nn_bf16": False, "transpose_f32": False}
+NN_FORMS = {"nt_bf16": False, "nn_bf16": True, "transpose_f32": True}
+
+
+@pytest.mark.parametrize("dot_impl,caps,force,seq,flash", [
+    ("auto", NO_BF16_FORM, False, 128, False),   # auto-resolved f32, short
+    ("auto", NO_BF16_FORM, True, 128, True),     # force_flash_attention
+    ("f32", NO_BF16_FORM, False, 128, True),     # an explicit f32 flag
+    ("auto", NO_BF16_FORM, False, 2048, True),   # auto f32 from seq 2048
+    ("auto", NN_FORMS, False, 128, True),        # auto-resolved nn
+    ("nn2", NO_BF16_FORM, False, 128, True),
+])
+def test_sdpa_strategy_routing_matches_reference(dot_impl, caps, force, seq,
+                                                 flash, monkeypatch):
+    """Whether attention takes the flash path under each dot strategy, as
+    the reference's `_sdpa_p` decides it on a TPU backend whose probe gave
+    `caps` (the port's probe on a card stands in the same way): an f32
+    that "auto" picked takes flash only from seq 2048, an explicit f32 flag
+    or force_flash_attention always. Both flash calls are replaced by spies
+    that record the strategy; the einsum paths run."""
+    jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
+    import paddle_tpu.ops.pallas as jpallas
+    from paddle_tpu.core.flags import set_flags as jax_set_flags
+
+    routed = {"port": [], "reference": []}
+
+    def port_spy(q, k, v, **kw):
+        routed["port"].append(kw["impl"])
+        return torch.zeros_like(q)
+
+    def ref_spy(q, k, v, **kw):
+        routed["reference"].append(kw["impl"])
+        return jnp.zeros_like(q)
+
+    monkeypatch.setattr(TF, "flash_attention", port_spy)
+    monkeypatch.setattr(fa, "probe_caps", lambda device: caps)
+    monkeypatch.setattr(fa, "_IMPL_MEMO", {})
+    monkeypatch.setattr(TF, "resolve_dot_impl",
+                        lambda device: fa.resolve_dot_impl(
+                            torch.device("cuda", 0)))
+    monkeypatch.setattr(jpallas, "flash_attention", ref_spy)
+    monkeypatch.setattr(jfa, "_load_caps", lambda backend: caps)
+    monkeypatch.setattr(jfa, "_IMPL_MEMO", {})
+    monkeypatch.setattr(PF, "jax", _TPUHost())
+    flags = {"flash_dot_impl": dot_impl, "force_flash_attention": force}
+    rng = np.random.RandomState(3)
+    q, k, v = (rng.randn(1, seq, H, D).astype(np.float32) for _ in range(3))
+    set_flags(flags)
+    jax_set_flags(flags)
+    try:
+        TF.scaled_dot_product_attention(
+            *(torch.from_numpy(x) for x in (q, k, v)), is_causal=True)
+        PF._sdpa_p._pure_fn(*(jnp.asarray(x) for x in (q, k, v)),
+                            is_causal=True)
+    finally:
+        reset = {"flash_dot_impl": "auto", "force_flash_attention": False}
+        set_flags(reset)
+        jax_set_flags(reset)
+    assert routed["port"] == routed["reference"]
+    assert bool(routed["port"]) == flash

@@ -21,6 +21,7 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.jit", "paddle_tpu_torch.models",
            "paddle_tpu_torch.nn.functional",
            "paddle_tpu_torch.nn.functional_more",
+           "paddle_tpu_torch.nn.norm",
            "paddle_tpu_torch.ops._build",
            "paddle_tpu_torch.ops.flash_attention",
            "paddle_tpu_torch.optimizer"]
