@@ -7,18 +7,24 @@ flash dot strategy (FLAGS_flash_dot_impl): auto (the default) for 5 steps,
 then nn, nn2 and f32 for 3 steps each, every one through its own kernels.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare OTHER_CHECKOUT
 
 Needs one CUDA card (written for an H100, sm_90a) and nvcc. Prints the
-card and its power limit, a `kernels` JSON line (time, launches on the
-training path, bound, plain and library times, error of each kernel) and,
-as the last line, {"ok": true, "device": {...}}. Any failed check exits
-non-zero without that line.
+card and its power limit, a `kernels` JSON line (time, achieved TFLOP/s,
+launches on the training path, bound, plain and library times, error of
+each kernel) and, as the last line, {"ok": true, "device": {...}}. Any
+failed check exits non-zero without that line. With --compare, it only
+times every flash kernel of this checkout and of OTHER_CHECKOUT (another
+tree of the repo, e.g. the parent commit unpacked by `git archive`) at the
+training shape by the same method, in turns (other, this, this, other),
+each in a process of its own that builds that tree's kernels.
 """
 from __future__ import annotations
 
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -121,7 +127,11 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps=15, warmup=3):
+def median_ms(fn, reps=7, launches=20, warmup=3):
+    """Device time of one call of fn: CUDA events around `launches` calls
+    back to back, divided by their count; the median of `reps` such runs.
+    Back to back, the card is not left idle while the host prepares the
+    next launch (one launch between events would add that host time)."""
     import torch
 
     for _ in range(warmup):
@@ -131,10 +141,11 @@ def median_ms(fn, reps=15, warmup=3):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        for _ in range(launches):
+            fn()
         e.record()
         e.synchronize()
-        times.append(s.elapsed_time(e))
+        times.append(s.elapsed_time(e) / launches)
     times.sort()
     return times[len(times) // 2]
 
@@ -346,7 +357,7 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed):
         b = bound(flops[kind], in_bytes + r["out_bytes"],
                   "float32" if r["f32dot"] else "bfloat16")
         ms = median_ms(lambda: fa.CUDA[name](*args))
-        plain = median_ms(lambda: fa.PLAIN[name](*args), reps=7)
+        plain = median_ms(lambda: fa.PLAIN[name](*args), reps=5, launches=3)
         rows.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
@@ -354,7 +365,8 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed):
             "max_abs_err": r["max_abs_err"], "row_err": r["row_err"],
             **({"mismatch_share": r["mismatch_share"]}
                if r["mismatch_share"] is not None else {}),
-            "ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1],
+            "ms": ms, "tflops": flops[kind] / ms * 1e-9, "plain_ms": plain,
+            "bound_ms": b[0], "bound_by": b[1],
             "library_ms": lib["f32dot" if r["f32dot"] else "mma"][
                 "fwd" if kind == "fwd" else "bwd"],
             **({"diff_vs_bf16": r["diff_vs_bf16"]} if name in BF16_TWIN
@@ -387,13 +399,15 @@ def probe_phase():
     check(picked == "bf16", f"auto resolved to {picked} on this card, not "
                             f"bf16: caps {caps}")
     n = a.shape[0]
-    b_ = bound(4 * 2 * n ** 3, sum(x.numel() * x.element_size()
-                                   for x in (a, a32, b, got)), "bfloat16")
+    flops = 4 * 2 * n ** 3
+    b_ = bound(flops, sum(x.numel() * x.element_size()
+                          for x in (a, a32, b, got)), "bfloat16")
+    ms = median_ms(lambda: fa.flash_probe_cuda(a, a32, b))
     return {"name": "flash_probe", "route": "cuda",
             "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": f"{REF}:{REPLACES['flash_probe']}",
             "max_abs_err": err, "caps": caps,
-            "ms": median_ms(lambda: fa.flash_probe_cuda(a, a32, b)),
+            "ms": ms, "tflops": flops / ms * 1e-9,
             "plain_ms": median_ms(lambda: fa.flash_probe_plain(a, a32, b)),
             "bound_ms": b_[0], "bound_by": b_[1], "library_ms": None}
 
@@ -578,6 +592,9 @@ def build_kernels():
         for fn, s in zip(fns, spills):
             if s:
                 log(f"  spills {s} bytes: {fn}")
+        for line in rep.splitlines():
+            if "warning" in line.lower():
+                log(f"  {line.strip()}")
 
 
 def main():
@@ -600,6 +617,11 @@ def main():
     kernel_phase(8, 1024, 16, 64, "bfloat16", False, timed=False)
     kernel_phase(8, 1024, 8, 128, "bfloat16", True, timed=False)
     kernel_phase(2, 256, 4, 64, "float32", True, timed=False)
+    # L = 192, a multiple of 64 but not of 128: the half tiles of the
+    # 128-row kernels; at D = 128 with 160 heads, so that every block of
+    # the persistent grids walks several (head, tile) items
+    kernel_phase(2, 192, 4, 64, "bfloat16", True, timed=False)
+    kernel_phase(4, 192, 40, 128, "bfloat16", True, timed=False)
 
     weights = reference_layout_weights(PRESETS["gpt3-medium"], SEED)
     launches, bf16_loss = {}, None
@@ -624,8 +646,75 @@ def main():
     return 0
 
 
+def time_kernels(root):
+    """Time every flash kernel of the checkout at `root` at the training
+    shape (its package imported from there, its kernels built there); print
+    {"root": root, "ms": {name: ms}}."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    check(os.path.abspath(fa.__file__).startswith(os.path.abspath(root)),
+          f"imported {fa.__file__}, not the package under {root}")
+    B, L, H, D, causal = 8, 1024, 16, 64, True
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, do = (torch.randn(B, L, H, D, device="cuda",
+                               dtype=torch.bfloat16, generator=g)
+                   for _ in range(4))
+    sc = 1.0 / math.sqrt(D)
+    o, lse = fa.flash_fwd_plain(q, k, v, causal, sc)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    t = {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta,
+         "qt": fa.to_t(q), "kt": fa.to_t(k), "vt": fa.to_t(v),
+         "dot": fa.to_t(do)}
+    ms = {}
+    for name in ARGS:
+        args = [t[a] for a in ARGS[name]] + [causal, sc]
+        ms[name] = median_ms(lambda: fa.CUDA[name](*args))
+    print(json.dumps({"root": root, "ms": ms}), flush=True)
+    return 0
+
+
+def compare(other):
+    """Each flash kernel of `other` (another checkout) and of this one,
+    timed by time_kernels in turns: other, this, this, other."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    card = card_line()
+    log(f"card: {card}")
+    runs = []
+    for root in (other, ".", ".", other):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--time-kernels",
+             root], capture_output=True, text=True, timeout=900)
+        check(out.returncode == 0, f"timing {root} failed:\n{out.stderr}")
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1])["ms"])
+        log(f"{root}: {runs[-1]}")
+    result = {}
+    for name in ARGS:
+        mine, theirs = (runs[1][name], runs[2][name]), (runs[0][name],
+                                                         runs[3][name])
+        result[name] = {"ms": mine, "other_ms": theirs,
+                        "ratio": (min(mine) / max(theirs),
+                                  max(mine) / min(theirs))}
+        log(f"{name:18s} {mine[0]:.4f} {mine[1]:.4f} ms against "
+            f"{theirs[0]:.4f} {theirs[1]:.4f}: "
+            f"x{result[name]['ratio'][0]:.3f}-{result[name]['ratio'][1]:.3f}")
+    print(card)
+    print(json.dumps({"compare": result, "other": other}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--time-kernels"]:
+            sys.exit(time_kernels(sys.argv[2]))
+        if sys.argv[1:2] == ["--compare"]:
+            sys.exit(compare(sys.argv[2]))
         sys.exit(main())
     except (SmokeFailure, ImportError) as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -36,28 +36,40 @@
 //
 // Tiling. The TPU kernels hold a whole K/V row of the head in VMEM; on the
 // H100 that is 256 KB at L = 1024, D = 64 in bf16, beyond a block's 227 KB
-// of shared memory, so every kernel streams 64-row tiles through shared
-// memory. A block owns one 64-row tile of its output (grid (B*H, L/64)):
-// dQ is owned per query tile and dK/dV per key tile, so no block reduces
-// across blocks and no atomics are needed. The causal loop bounds of the
-// TPU kernels (kmax, qstart) are kept. The public gate keeps the TPU's
-// 128-row tiles; the 64-row inner tiles change only the order of f32 sums.
+// of shared memory, so every kernel streams tiles through shared memory. A
+// block owns output tiles that no other block touches: the forward and dQ
+// per query tile, dK/dV per key tile, so no block reduces across blocks and
+// no atomics are needed. The causal loop bounds of the TPU kernels (kmax,
+// qstart) are kept. The forward's key tiles are 128 wide, the reference's
+// flash_block_k, so P is rounded against the running max at the
+// reference's own block boundaries; elsewhere the tile sizes change only
+// the order of f32 sums.
 //
 // Bound. At the GPT-350M training shape (B*H = 128, L = 1024, D = 64,
 // causal, bf16) each kernel reads and writes 67-134 MB and does 1.7e10 to
 // 3.4e10 flops, so on the tensor cores bytes and flops bound it about
-// equally, at 20-40 us. The mma kernels (bf16, nn, nn2) put every dot on
-// the tensor cores with mma.sync and read each tile from device memory once
-// per block, reusing it 64 times from shared memory; what still keeps them
-// from the bound is latency (no copy/compute overlap, a barrier per tile,
-// transposes through shared memory), which cp.async or TMA pipelining and
-// wgmma are for. The f32-dot kernels run on the CUDA cores (67 TFLOP/s;
-// tensor cores have no full-f32 product), operations-bound.
+// equally, at 20-40 us. The forward and dK/dV (the Hopper path below) are
+// persistent and warp-specialised: a producer warpgroup keeps TMA loads of
+// the streamed tiles in flight in a ring of shared-memory stages across
+// work items, two consumer warpgroups run every product as wgmma, and the
+// score tile stays in registers as the A operand of the next product. On
+// an H100 80GB HBM3 at 700 W (chip_smoke.py) the forward takes 0.073 ms,
+// 28% of its bound, and dK/dV 0.104 ms, 34%. At D = 64 the softmax's
+// exponentials (one MUFU op per score) take as many cycles as the
+// products; the consumers take turns at the tensor cores so that one's
+// softmax overlaps the other's products (PERF.md has the ablations). dQ
+// still runs mma.sync m16n8k16 on tiles copied through registers. The
+// f32-dot kernels run on the CUDA cores (67 TFLOP/s; tensor cores have no
+// full-f32 product), operations-bound.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -130,13 +142,6 @@ __device__ __forceinline__ void load_transposed(bf16* dst, int ds,
 #pragma unroll
     for (int j = 0; j < 8; ++j) dst[(c + j) * ds + r] = e[j];
   }
-}
-
-// Shared memory above 48 KB has to be allowed per kernel before launch.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 // -------------------------------------------------------- f32-dot path
@@ -525,29 +530,23 @@ flash_dkv_f32dot_kernel(const T* __restrict__ q, const T* __restrict__ qt,
 }
 
 // ------------------------------------------------------------ mma path
-// Every dot on the tensor cores: mma.sync m16n8k16, bf16 operands, f32
-// accumulation. A block of 4 warps owns a 64-row tile of its output and
-// each warp 16 of its rows. Tiles sit in shared memory as bf16 rows padded
-// to D + 8 elements, so a fragment's 32-bit loads from 8 rows x 4 lanes
-// hit 32 distinct banks; an operand read down a column (V for P.V, K for
-// dS.K, Q and dO for the dK/dV products) is stored transposed, [D][64 + 8].
-// A score tile's accumulator fragments, rounded to bf16 in pairs, are the
-// A fragments of the next product (P.V, dS.K, P^T.dO, dS^T.Q) without a
-// trip through shared memory. Numerics are those of the f32-dot kernels
+// dQ (bf16, nn, nn2): every dot on the tensor cores with mma.sync
+// m16n8k16, bf16 operands, f32 accumulation. A block of 4 warps owns a
+// 64-row query tile and each warp 16 of its rows. Tiles sit in shared
+// memory as bf16 rows padded to D + 8 elements, so a fragment's 32-bit
+// loads from 8 rows x 4 lanes hit 32 distinct banks; K, read down a column
+// for dS.K, is stored transposed, [D][64 + 8]. The dS tile's accumulator
+// fragments, rounded to bf16 in pairs, are the A fragments of dS.K without
+// a trip through shared memory. Numerics are those of the f32-dot kernels
 // with P and dS rounded to bf16 where they enter a dot: only the order of
 // the f32 sums inside a product differs.
 //
 // The Form parameter says which operands arrive transposed ([B, H, D, L])
-// and so how each tile reaches its shared-memory layout:
-//   kStd  rows of K and V, Q and dO: straight copies of the rows a tile
-//         keeps as rows, transposed loads of those it keeps as columns.
-//   kNN   K^T and V^T: the forward and dK/dV kernels transpose them into
-//         row tiles as they load them; the dQ kernel copies K^T straight
-//         into its column tile for dS.K and transposes V^T for dO.V^T.
-//   kNN2  dK/dV only: also Q^T and dO^T, copied straight into the column
-//         tiles, and dK^T and dV^T written out through shared memory.
-// Every form feeds the tensor cores the same fragments in the same order,
-// so nn and nn2 give bitwise the bf16 kernels' results.
+// and so how each tile reaches its shared-memory layout: kStd copies rows
+// of K and V and transposes K into its column tile; kNN (_dq_kernel_nn)
+// transposes V^T into row tiles and copies K^T straight into the column
+// tile. Both feed the tensor cores the same fragments in the same order,
+// so nn and nn2 give bitwise the bf16 kernel's results.
 
 constexpr int kMmaThreads = 128;
 constexpr int kTRow = kTile + 8;  // row stride of a transposed [D][64] tile
@@ -640,103 +639,6 @@ __device__ __forceinline__ float quad_sum(float x) {
 // Accumulator element e of n-tile n sits at row g (e < 2) or g + 8, and at
 // column 8*n + 2*t + (e & 1) of the 64-column tile.
 
-// k is K [B, L, H, D] (kStd) or K^T [B, H, D, L] (kNN).
-template <int D, int Form>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int H, int L, float scale,
-                     int causal) {
-  constexpr int S = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][S]
-  bf16* Ks = Qs + kTile * S;                     // [64][S]
-  bf16* Vt = Ks + kTile * S;                     // [D][kTRow]
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * kTile;
-  const int rs = H * D;
-  const size_t base = ((size_t)b * L * H + h) * D;
-  const size_t tb = (size_t)bh * D * L;  // head base of a [B, H, D, L] tensor
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-
-  rows_to_rows<D>(Qs, q + base, q0, rs);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) load_a(qa[ks], Qs, S, r0, ks * 16, g, t);
-
-  float acc[D / 8][4] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  const int num_k = L / kTile;
-  const int kmax = causal ? min((q0 + kTile + kTile - 1) / kTile, num_k)
-                          : num_k;
-
-  for (int kt = 0; kt < kmax; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    if constexpr (Form == kStd) rows_to_rows<D>(Ks, k + base, k0, rs);
-    else cols_to_rows<D>(Ks, k + tb, k0, L);
-    rows_to_cols<D>(Vt, v + base, k0, rs);
-    __syncthreads();
-
-    float s[8][4] = {};
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const bf16* krow = Ks + (n * 8 + g) * S + ks * 16 + 2 * t;
-        mma_bf16(s[n], qa[ks], ld32(krow), ld32(krow + 8));
-      }
-
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale;
-        if (causal && rows[e >> 1] < k0 + n * 8 + 2 * t + (e & 1)) x = kNegInf;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[n][e] - m[e >> 1]);
-        sum[e >> 1] += p;
-        s[n][e] = p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dn][e] *= alpha[e >> 1];
-
-    tile_dot_acc_mma<D>(acc, s, Vt, g, t);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    bf16* orow = o + base + (size_t)rows[i] * rs + 2 * t;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(orow + dn * 8) =
-          pack_bf16(acc[dn][2 * i] / l[i], acc[dn][2 * i + 1] / l[i]);
-    if (t == 0) lse[(size_t)bh * L + rows[i]] = m[i] + logf(l[i]);
-  }
-}
-
 // kStd: v is V [B, L, H, D] and kt is unused. kNN (_dq_kernel_nn): kt is
 // K^T and v is V^T, both [B, H, D, L]; k stays [B, L, H, D], as there.
 template <int D, int Form>
@@ -815,120 +717,894 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           pack_bf16(acc[dn][2 * i], acc[dn][2 * i + 1]);
   }
 }
+// ---------------------------------------------------------- Hopper path
+// The forward and dK/dV kernels. A block has three warpgroups: a producer
+// (warpgroup 0, its registers cut to kProducerRegs by setmaxnreg), whose
+// first thread issues every TMA load, and two consumers (warpgroups 1 and
+// 2, raised to kConsumerRegs), each owning 64 rows of the block's output
+// tile and running every product as wgmma. The streamed tiles pass through
+// a ring of shared-memory stages, each with a `full` mbarrier (the
+// producer's arrival with the byte count, completed by the TMA) and an
+// `empty` one (every consumer thread arrives when its products on the
+// stage are done).
+//
+// Every tile sits in shared memory as TMA leaves it under the 128-byte
+// swizzle: rows of 64 bf16 (128 bytes), eight rows to a 1024-byte atom, a
+// wider row split into 64-column chunks. One such tile is read K-major (its
+// 64 columns are the product's depth) or, through the descriptor's
+// transpose bit, MN-major (its rows are the depth): so a tile that two
+// products read along different dimensions is loaded once, and the
+// transposed operands of nn and nn2 come by TMA in their own layout with
+// the bits swapped. The tensor cores then see the same products as for
+// bf16, which keeps nn and nn2 bitwise bf16's.
+//
+// Budget: 128 threads x 40 registers + 256 x 232 = 64,512 of the SM's
+// 65,536, so one block per SM. Each kernel's shared memory is at least
+// kOneBlockSmem, more than half of the SM's 228 KB less the 1 KB each block
+// reserves, so that no second block is placed beside it (its consumers
+// could not get their registers).
 
-// kStd: k, v are K, V and dk, dv are dK, dV, all [B, L, H, D]; qt and
-// doutt are unused. kNN: k, v are K^T, V^T [B, H, D, L]. kNN2
-// (_dkv_kernel_nn2): also qt, doutt = Q^T, dO^T, and dk, dv are dK^T, dV^T,
-// all [B, H, D, L].
+constexpr int kWG = 128;                  // threads of a warpgroup
+constexpr int kHopperThreads = 3 * kWG;   // producer + two consumers
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kSeg = 64;                  // bf16 in one 128-byte row
+constexpr int kRowBytes = 128;
+constexpr int kAtomBytes = 8 * kRowBytes; // one swizzle atom: 8 rows
+constexpr int kChunk = 64 * kRowBytes;    // 64 rows x 64 columns
+constexpr int kBig = 128;                 // forward key tile, dK/dV block
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr size_t kOneBlockSmem = 116 * 1024;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 2^x in one MUFU instruction (subnormal results flush to 0; P enters the
+// products in bf16, whose smallest normal is f32's)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// Work item `it` of this block in a persistent grid of G blocks: the
+// items (head, tile) are numbered heaviest causal tile first (rank =
+// idx / n_heads, rank 0 the heaviest; head = idx % n_heads) and dealt in
+// snake order, block b taking item it * G + b in even rounds and it * G +
+// G - 1 - b in odd ones, so that every block gets about the same work.
+// False past the last item.
+__device__ __forceinline__ bool work_item(int it, int n_heads, int n_items,
+                                          int& bh, int& rank) {
+  const int G = gridDim.x, blk = blockIdx.x;
+  const int idx = it * G + ((it & 1) ? G - 1 - blk : blk);
+  if (idx >= n_items) return false;
+  bh = idx % n_heads;
+  rank = idx / n_heads;
+  return true;
+}
+
+// Byte offset of element (r, c), c < 64, in a [rows][64] bf16 tile under
+// the 128-byte swizzle (16-byte chunk c/8 of row r moved to (c/8) ^ (r%8)).
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kRowBytes + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Arrive, and expect `bytes` more from the copies that complete on `bar`.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+// Wait for the completion of the barrier's phase of this parity. A wait
+// that lasts 2^34 clocks (about 10 s) traps: the launch then fails with an
+// error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_addr(bar);
+  long long start = 0;
+  for (int n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (n == 0) start = clock64();
+    else if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// The box of `map` at (c0 = column, c1 = row) into shared memory at dst.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// `bytes` contiguous bytes (a multiple of 16) from global memory.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
+         "r"(c0), "r"(c1)
+      : "memory");
+}
+// Commit this thread's stores and wait until they have read shared memory.
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Make this thread's shared-memory stores visible to the TMA.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// wgmma descriptor of a 128-byte-swizzled tile at shared address `addr`:
+// 8-row groups 1024 bytes apart (SBO); `lbo`, the distance between 64-wide
+// blocks of the M or N dimension, matters only to an MN-major read.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo = 16) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(kAtomBytes >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of wgmmas are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keep the compiler from moving reads or writes of accumulator registers
+// across a wgmma fence or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+// The same for register A fragments, which a running wgmma still reads.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e]) :: "memory");
+}
+
+// Accumulator operands of a wgmma: "+f"(d[0]) .. "+f"(d[N - 1]).
+#define WG_F8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_F32 WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+#define WG_F64 WG_F32, WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+
+// d (64 x 64, f32) = A.B, + d if scale_d; A and B from shared memory,
+// transposed (MN-major) where TA / TB is 1
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : WG_F32
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64, f32) += A.B: A (64 x 16, bf16) from registers, B from
+// shared memory, transposed where TB is 1
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, "
+      "%38;\n}\n"
+      : WG_F32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// d (64 x 128, f32) = A.B, + d if scale_d; A and B from shared memory,
+// transposed (MN-major) where TA / TB is 1
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : WG_F64
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 128, f32) += A.B: A (64 x 16, bf16) from registers, B from
+// shared memory, transposed where TB is 1
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, "
+      "%70;\n}\n"
+      : WG_F64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+
+template <int TA, int TB, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 32) wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
+  else wgmma_ss_n128<TA, TB>(d, da, db, scale_d);
+}
+template <int TB, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 32) wgmma_rs_n64<TB>(d, a, db);
+  else wgmma_rs_n128<TB>(d, a, db);
+}
+
+// A wgmma accumulator (64 rows, N/2 floats a thread) holds, in thread
+// (warp w, lane 4g + t) of its warpgroup, element i at row 16w + g +
+// 8 * ((i >> 1) & 1) and column 8 * (i >> 2) + 2t + (i & 1). Columns
+// 16kk .. 16kk+15 of it, rounded to bf16 in pairs, are the register A
+// fragment of a product whose depth runs over those columns.
+template <int N>
+__device__ __forceinline__ void acc_to_a16(uint32_t (&a)[4],
+                                           const float (&acc)[N], int kk) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    a[e] = pack_bf16(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1]);
+}
+
+// Shared memory of the forward: two buffers of a 128-row Q tile (64 rows
+// for each consumer; item k uses buffer k % 2, so the next item's Q loads
+// while this one finishes), then kStages ring stages of a 128-key K tile
+// and of a V tile, then the barriers. At D = 64: 2 x 16 + 3 x 32 KB; at
+// D = 128: 2 x 32 + 2 x 64 KB.
+template <int D>
+struct FwdSmem {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kQ = kChunk * (D / kSeg);            // 64 query rows
+  static constexpr int kKV = 2 * kChunk * (D / kSeg);       // 128 keys
+  static constexpr size_t kBytes =
+      4 * kQ + 2 * kStages * kKV + 8 * (4 + 3 * kStages) + 1024;
+  static_assert(kBytes >= kOneBlockSmem, "one block per SM");
+};
+
+// Forward (_fwd_kernel :83). Bound: bytes, 0.020 ms at the training shape
+// (Q, K, V read once, O and LSE written once). A persistent grid, one
+// block per SM, walks the (head, 128-row query tile) items heaviest causal
+// tile first (work_item). The producer loads each item's Q into one of two
+// buffers and every K and V tile of its causal range into the ring, across
+// item boundaries. A consumer runs, per key tile, S = Q.K^T (wgmma, both
+// from shared memory: kStd reads K K-major, kNN reads K^T's tile through
+// the transpose bit), the online softmax in registers (the causal mask
+// only on the diagonal tile, keys past L only on a last half tile), and O
+// += P.V with P from registers and V's row tile read through the transpose
+// bit. The next tile's S is issued with this tile's P.V, and the two
+// consumers take turns at issuing products (named barriers), so that one
+// runs its softmax while the tensor cores run the other's products. O
+// leaves through the consumer's Q rows and a TMA store; LSE (natural log)
+// as [B, H, L] f32. Rows past L (L = 64 mod 128) are skipped by their
+// consumer, which still walks the ring and takes its turns.
+// map_q, map_o: [B*L, H*D], boxes of 64 rows; map_v and, for kStd, map_k:
+// [B*L, H*D], boxes of 128 rows; kNN's map_k: K^T as [B*H*D, L], boxes of
+// D rows.
 template <int D, int Form>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ qt,
-                     const bf16* __restrict__ k, const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout,
-                     const bf16* __restrict__ doutt,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int H, int L, float scale,
-                     int causal) {
-  constexpr int S = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [64][S]
-  bf16* Vs = Ks + kTile * S;                     // [64][S]
-  bf16* Qs = Vs + kTile * S;                     // [64][S]
-  bf16* dOs = Qs + kTile * S;                    // [64][S]
-  bf16* Qt = dOs + kTile * S;                    // [D][kTRow]
-  bf16* dOt = Qt + D * kTRow;                    // [D][kTRow]
-  float* lse_s = reinterpret_cast<float*>(dOt + D * kTRow);
-  float* delta_s = lse_s + kTile;
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_o,
+                     float* __restrict__ lse, int BH, int H, int L,
+                     float scale, int causal) {
+  using Smem = FwdSmem<D>;
+  constexpr int C = D / kSeg, S = Smem::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = align_1024(smem_raw);   // [buffer][consumer]
+  unsigned char* k_s = q_s + 4 * Smem::kQ;
+  unsigned char* v_s = k_s + S * Smem::kKV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + S * Smem::kKV);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* k_full = q_empty + 2;
+  uint64_t* v_full = k_full + S;
+  uint64_t* empty = v_full + S;
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.y * kTile;
-  const int rs = H * D;
-  const size_t base = ((size_t)b * L * H + h) * D;
-  const size_t tb = (size_t)bh * D * L;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-  // this warp's key rows; the score tiles here are transposed, S^T[key][query]
-  const int keys[2] = {k0 + r0 + g, k0 + r0 + g + 8};
+  const int num_t = (L + kBig - 1) / kBig;
+  const int n_items = BH * num_t;
 
-  if constexpr (Form == kStd) {
-    rows_to_rows<D>(Ks, k + base, k0, rs);
-    rows_to_rows<D>(Vs, v + base, k0, rs);
-  } else {
-    cols_to_rows<D>(Ks, k + tb, k0, L);
-    cols_to_rows<D>(Vs, v + tb, k0, L);
-  }
-  float acc_k[D / 8][4] = {}, acc_v[D / 8][4] = {};
-  const int num_q = L / kTile;
-  const int qstart = causal ? k0 / kTile : 0;
-
-  for (int qt_i = qstart; qt_i < num_q; ++qt_i) {
-    const int q0 = qt_i * kTile;
-    __syncthreads();
-    rows_to_rows<D>(Qs, q + base, q0, rs);
-    rows_to_rows<D>(dOs, dout + base, q0, rs);
-    if constexpr (Form == kNN2) {
-      cols_to_cols<D>(Qt, qt + tb, q0, L);
-      cols_to_cols<D>(dOt, doutt + tb, q0, L);
-    } else {
-      rows_to_cols<D>(Qt, q + base, q0, rs);
-      rows_to_cols<D>(dOt, dout + base, q0, rs);
-    }
-    if (threadIdx.x < kTile) {
-      lse_s[threadIdx.x] = lse[(size_t)bh * L + q0 + threadIdx.x];
-      delta_s[threadIdx.x] = delta[(size_t)bh * L + q0 + threadIdx.x];
-    }
-    __syncthreads();
-
-    float st[8][4] = {}, dpt[8][4] = {};
-    tile_dot_nt_mma<D>(st, Ks, Qs, r0, g, t);
-    tile_dot_nt_mma<D>(dpt, Vs, dOs, r0, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1);  // query within the tile
-        float x = st[n][e] * scale;
-        if (causal && q0 + c < keys[e >> 1]) x = kNegInf;
-        const float p = expf(x - lse_s[c]);
-        dpt[n][e] = p * (dpt[n][e] - delta_s[c]) * scale;  // dS^T
-        st[n][e] = p;                                        // P^T
-      }
-    tile_dot_acc_mma<D>(acc_v, st, dOt, g, t);
-    tile_dot_acc_mma<D>(acc_k, dpt, Qt, g, t);
-  }
-
-  if constexpr (Form == kNN2) {
-    // dK^T and dV^T: stage each [D][64] tile in shared memory (the Qt and
-    // dOt tiles, free once every warp is past its last product), then
-    // write whole 16-byte runs of keys. A warp's 2-byte stores hit banks
-    // 8*t + g/2: no conflict.
-    __syncthreads();
-#pragma unroll
+  if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
-      const int key = r0 + g + 8 * i;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int d = dn * 8 + 2 * t + j;
-          Qt[d * kTRow + key] = __float2bfloat16_rn(acc_k[dn][2 * i + j]);
-          dOt[d * kTRow + key] = __float2bfloat16_rn(acc_v[dn][2 * i + j]);
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 2);        // one thread of each consumer
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 2 * kWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    // ---- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int n = 0;   // K/V tiles loaded so far
+      int bh, rank;
+      for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
+        const int b = bh / H, h = bh % H, qt = num_t - 1 - rank;
+        const int row0 = b * L, q0 = qt * kBig;
+        const int kmax = causal ? qt + 1 : num_t;
+        const int qb = it & 1;
+        if (it >= 2) mbar_wait(&q_empty[qb], ((it >> 1) - 1) & 1);
+        mbar_expect_tx(&q_full[qb], 2 * Smem::kQ);
+        for (int w = 0; w < 2; ++w)
+          for (int c = 0; c < C; ++c)
+            tma_load(q_s + (2 * qb + w) * Smem::kQ + c * kChunk, &map_q,
+                     &q_full[qb], h * D + c * kSeg, row0 + q0 + w * 64);
+        for (int j = 0; j < kmax; ++j, ++n) {
+          const int s = n % S, k0 = j * kBig;
+          if (n >= S) mbar_wait(&empty[s], (n / S - 1) & 1);
+          unsigned char* kd = k_s + s * Smem::kKV;
+          unsigned char* vd = v_s + s * Smem::kKV;
+          mbar_expect_tx(&k_full[s], Smem::kKV);
+          if constexpr (Form == kStd) {
+            for (int c = 0; c < C; ++c)
+              tma_load(kd + c * 2 * kChunk, &map_k, &k_full[s],
+                       h * D + c * kSeg, row0 + k0);
+          } else {
+            for (int u = 0; u < 2; ++u)   // [D][64] slabs of keys
+              tma_load(kd + u * D * kRowBytes, &map_k, &k_full[s],
+                       k0 + u * kSeg, bh * D);
+          }
+          mbar_expect_tx(&v_full[s], Smem::kKV);
+          for (int c = 0; c < C; ++c)
+            tma_load(vd + c * 2 * kChunk, &map_v, &v_full[s],
+                     h * D + c * kSeg, row0 + k0);
         }
+      }
     }
-    __syncthreads();
-    copy_slab<D, kTile, kMmaThreads>(dk + tb + k0, L, Qt, kTRow);
-    copy_slab<D, kTile, kMmaThreads>(dv + tb + k0, L, dOt, kTRow);
   } else {
+    // ---- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = threadIdx.x / kWG - 1;
+    const bool leader = (threadIdx.x & (kWG - 1)) == 0;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = 16 * warp + g;          // rows r_lo and r_lo + 8
+    // The consumers take turns at issuing products (named barriers 3 and
+    // 4): one issues while the other runs its softmax. Consumer 0 first.
+    auto my_turn = [&]() { named_sync(3 + w, 2 * kWG); };
+    auto pass_turn = [&]() { named_arrive(4 - w, 2 * kWG); };
+    if (w == 1) named_arrive(3, 2 * kWG);
+    int n = 0;                               // K/V tiles consumed so far
+    int bh, rank;
+    for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
+      const int b = bh / H, h = bh % H, qt = num_t - 1 - rank;
+      const int q0 = qt * kBig, row_lo = q0 + w * 64 + r_lo;
+      const int kmax = causal ? qt + 1 : num_t;
+      const int qb = it & 1, n0 = n;
+      n += kmax;
+      mbar_wait(&q_full[qb], (it >> 1) & 1);
+      if (q0 + w * 64 >= L) {   // rows past L: walk the ring and the turns
+        for (int j = 0; j <= kmax; ++j) {
+          my_turn();
+          pass_turn();
+          if (j == kmax) break;
+          const int s = (n0 + j) % S, parity = ((n0 + j) / S) & 1;
+          mbar_wait(&k_full[s], parity);
+          mbar_wait(&v_full[s], parity);
+          mbar_arrive(&empty[s]);
+        }
+        if (leader) mbar_arrive(&q_empty[qb]);
+        continue;
+      }
+      unsigned char* my_q = q_s + (2 * qb + w) * Smem::kQ;
+      const uint32_t qa = smem_addr(my_q);
+
+      float o[D / 2];
 #pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+      float sc[64];        // S, then P, of one key tile
+      uint32_t pa[8][4];   // P in bf16, the A fragments of P.V
+
+      // Issue S = Q.K^T of key tile j into sc (waited for by the caller).
+      auto issue_s = [&](int j) {
+        const int s = (n0 + j) % S;
+        const uint32_t kb = smem_addr(k_s + s * Smem::kKV);
+        mbar_wait(&k_full[s], ((n0 + j) / S) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint64_t da = desc(qa + (ks / 4) * kChunk + (ks % 4) * 32);
+          if constexpr (Form == kStd)
+            wgmma_ss<0, 0>(sc, da,
+                           desc(kb + (ks / 4) * 2 * kChunk + (ks % 4) * 32),
+                           ks);
+          else
+            wgmma_ss<0, 1>(sc, da, desc(kb + ks * 16 * kRowBytes,
+                                        D * kRowBytes), ks);
+        }
+        wgmma_commit();
+      };
+      // Issue O += P.V of key tile j from pa.
+      auto issue_pv = [&](int j) {
+        const int s = (n0 + j) % S;
+        const uint32_t vb = smem_addr(v_s + s * Smem::kKV);
+        mbar_wait(&v_full[s], ((n0 + j) / S) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_rs<1>(o, pa[kk], desc(vb + kk * 16 * kRowBytes, 2 * kChunk));
+        wgmma_commit();
+      };
+      // The online softmax of key tile j: sc from S to P (f32, against the
+      // running max m of the scaled scores), m and l updated; alpha
+      // rescales the O of earlier tiles. The scale is applied in f32 inside
+      // the exponent's FMA (scale * log2 e folded in); a masked score is
+      // -inf there, so its P is 0, as exp(-1e30 - m) is, and the max of a
+      // row's scaled scores is its largest raw score times the scale
+      // (every row has a key it sees in every tile it visits).
+      auto softmax = [&](int j, float (&alpha)[2]) {
+        const int k0 = j * kBig;
+        const bool edge = (causal && j == kmax - 1) || k0 + kBig > L;
+        const float scale_log2 = scale * kLog2e;
+        if (edge) {   // a branch around the loop: only edge tiles pay
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+            const int row = row_lo + 8 * ((i >> 1) & 1);
+            if ((causal && key > row) || key >= L) sc[i] = -INFINITY;
+          }
+        }
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        float neg_m[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale);
+          alpha[r] = ex2((m[r] - m_new) * kLog2e);
+          m[r] = m_new;
+          neg_m[r] = -m_new * kLog2e;
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int r = (i >> 1) & 1;
+          const float p = ex2(fmaf(sc[i], scale_log2, neg_m[r]));
+          sum[r] += p;
+          sc[i] = p;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+      };
+      auto pack_p = [&]() {
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) acc_to_a16(pa[kk], sc, kk);
+      };
+
+      // Tile j's S and tile j-1's P.V are issued together, and S is waited
+      // for alone (wait_group 1). (ptxas hoists the wait for P.V above the
+      // softmax; the overlap comes from the consumers' turns.)
+      float alpha[2];
+      my_turn();
+      issue_s(0);
+      pass_turn();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      softmax(0, alpha);
+      pack_p();
+      for (int j = 1; j < kmax; ++j) {
+        my_turn();
+        issue_s(j);
+        issue_pv(j - 1);
+        pass_turn();
+        wgmma_wait<1>();
+        fence_regs(sc);
+        softmax(j, alpha);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        mbar_arrive(&empty[(n0 + j - 1) % S]);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        pack_p();
+      }
+      my_turn();
+      issue_pv(kmax - 1);
+      pass_turn();
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(&empty[(n0 + kmax - 1) % S]);
+
+      // O = acc / l in bf16, staged in this consumer's Q rows (free since
+      // its last S product) as the store map's swizzled boxes
+#pragma unroll
+      for (int j8 = 0; j8 < D / 8; ++j8)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int c = 8 * j8 + 2 * t;
+          *reinterpret_cast<uint32_t*>(
+              my_q + (c / kSeg) * kChunk + swz(r_lo + 8 * r, c % kSeg)) =
+              pack_bf16(o[4 * j8 + 2 * r] / l[r],
+                        o[4 * j8 + 2 * r + 1] / l[r]);
+        }
+      if (t == 0)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          lse[(size_t)bh * L + row_lo + 8 * r] = m[r] + logf(l[r]);
+      fence_async_smem();
+      named_sync(1 + w, kWG);
+      if (leader) {
+        for (int c = 0; c < C; ++c)
+          tma_store(&map_o, my_q + c * kChunk, h * D + c * kSeg,
+                    b * L + q0 + w * 64);
+        tma_store_wait();            // the buffer may take the next Q
+        mbar_arrive(&q_empty[qb]);
+      }
+    }
+  }
+}
+
+// Shared memory of dK/dV: two buffers (item k uses buffer k % 2) of the
+// K and V rows of the two consumers, then kStages ring stages of a
+// 64-query Q tile, a dO tile and their LSE and delta runs, then the
+// barriers. At D = 64: 2 x 32 + 4 x 16.5 KB; at D = 128: 2 x 64 + 2 x 32.5
+// KB.
+template <int D>
+struct DkvSmem {
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kT = kChunk * (D / kSeg);   // 64 rows of one operand
+  static constexpr int kStats = 2 * 64 * sizeof(float);
+  static constexpr size_t kBytes =
+      8 * kT + kStages * (2 * kT + kStats) + 8 * (4 + 2 * kStages) + 1024;
+  static_assert(kBytes >= kOneBlockSmem, "one block per SM");
+};
+
+// dK, dV (_dkv_kernel :233; kNN2: _dkv_kernel_nn2 :289). Bound:
+// operations, 0.035 ms at the training shape (8 D flops per causal pair,
+// four products). A persistent grid, one block per SM, walks the (head,
+// 128-key tile) items heaviest causal tile (key tile 0) first
+// (work_item); a block owns its key tile's dK and dV, so no atomics. The
+// producer loads each item's K and V into one of two buffers and, per
+// 64-query tile from the causal start, Q, dO and their 256-byte LSE and
+// delta runs into the ring, across item boundaries. A consumer (64 keys)
+// runs, per query tile, S^T = K.Q^T and dP^T = V.dO^T (wgmma from shared
+// memory, Q and dO read K-major as B), P^T = exp(S^T - LSE) and dS^T =
+// P^T (dP^T - delta) in registers (the causal mask only on the diagonal
+// tile, tiles wholly above it skipped), then dV += P^T.dO and dK +=
+// dS^T.Q with P^T and dS^T as register A fragments and the same Q and dO
+// tiles read MN-major through the transpose bit: each of Q and dO is read
+// once per tile. kNN reads K^T and V^T as MN-major A; kNN2 also takes Q^T
+// and dO^T, whose transpose bits are the other way round, and writes dK^T
+// and dV^T. dK and dV leave through the consumer's K and V rows and TMA
+// stores. Keys past L (L = 64 mod 128) are skipped by their consumer,
+// which still walks the ring. Maps: [B*L, H*D] with boxes of 64 rows for
+// the operands that arrive as rows, [B*H*D, L] with boxes of D rows for
+// the transposed ones.
+template <int D, int Form>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do,
+                     const __grid_constant__ CUtensorMap map_dk,
+                     const __grid_constant__ CUtensorMap map_dv,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, int BH, int H, int L,
+                     float scale, int causal) {
+  using Smem = DkvSmem<D>;
+  constexpr int C = D / kSeg, S = Smem::kStages, T = Smem::kT;
+  constexpr int kKt = Form != kStd;    // K, V arrive as K^T, V^T
+  constexpr int kQt = Form == kNN2;    // Q, dO as Q^T, dO^T; dK^T, dV^T out
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* k_s = align_1024(smem_raw);   // [buffer][consumer]
+  unsigned char* v_s = k_s + 4 * T;
+  unsigned char* q_s = v_s + 4 * T;
+  unsigned char* do_s = q_s + S * T;
+  float* stats = reinterpret_cast<float*>(do_s + S * T);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + S * 128);
+  uint64_t* kv_empty = kv_full + 2;
+  uint64_t* full = kv_empty + 2;
+  uint64_t* empty = full + S;
+
+  const int num_t = (L + kBig - 1) / kBig;
+  const int n_items = BH * num_t;
+
+  if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
-      const size_t off = base + (size_t)keys[i] * rs + 2 * t;
+      mbar_init(&kv_full[i], 1);
+      mbar_init(&kv_empty[i], 2);       // one thread of each consumer
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * kWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    // ---- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int n = 0;   // query tiles loaded so far
+      int bh, rank;
+      for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
+        const int b = bh / H, h = bh % H, k0 = rank * kBig;
+        const int qstart = causal ? k0 / 64 : 0, n_tiles = L / 64 - qstart;
+        const int kb = it & 1;
+        if (it >= 2) mbar_wait(&kv_empty[kb], ((it >> 1) - 1) & 1);
+        mbar_expect_tx(&kv_full[kb], 4 * T);
+        for (int w = 0; w < 2; ++w) {
+          unsigned char* kd = k_s + (2 * kb + w) * T;
+          unsigned char* vd = v_s + (2 * kb + w) * T;
+          const int kw0 = k0 + w * 64;
+          if constexpr (kKt) {
+            tma_load(kd, &map_k, &kv_full[kb], kw0, bh * D);
+            tma_load(vd, &map_v, &kv_full[kb], kw0, bh * D);
+          } else {
+            for (int c = 0; c < C; ++c) {
+              tma_load(kd + c * kChunk, &map_k, &kv_full[kb],
+                       h * D + c * kSeg, b * L + kw0);
+              tma_load(vd + c * kChunk, &map_v, &kv_full[kb],
+                       h * D + c * kSeg, b * L + kw0);
+            }
+          }
+        }
+        for (int i = 0; i < n_tiles; ++i, ++n) {
+          const int s = n % S, q0 = (qstart + i) * 64;
+          if (n >= S) mbar_wait(&empty[s], (n / S - 1) & 1);
+          mbar_expect_tx(&full[s], 2 * T + Smem::kStats);
+          if constexpr (kQt) {
+            tma_load(q_s + s * T, &map_q, &full[s], q0, bh * D);
+            tma_load(do_s + s * T, &map_do, &full[s], q0, bh * D);
+          } else {
+            for (int c = 0; c < C; ++c) {
+              tma_load(q_s + s * T + c * kChunk, &map_q, &full[s],
+                       h * D + c * kSeg, b * L + q0);
+              tma_load(do_s + s * T + c * kChunk, &map_do, &full[s],
+                       h * D + c * kSeg, b * L + q0);
+            }
+          }
+          bulk_load(stats + s * 128, lse + (size_t)bh * L + q0, 256,
+                    &full[s]);
+          bulk_load(stats + s * 128 + 64, delta + (size_t)bh * L + q0, 256,
+                    &full[s]);
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = threadIdx.x / kWG - 1;
+    const bool leader = (threadIdx.x & (kWG - 1)) == 0;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = 16 * warp + g;        // key rows r_lo and r_lo + 8
+    int n = 0;                             // query tiles consumed so far
+    int bh, rank;
+    for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
+      const int b = bh / H, h = bh % H, k0 = rank * kBig, kw0 = k0 + w * 64;
+      const int qstart = causal ? k0 / 64 : 0, n_tiles = L / 64 - qstart;
+      const int kb = it & 1, n0 = n;
+      n += n_tiles;
+      mbar_wait(&kv_full[kb], (it >> 1) & 1);
+      if (kw0 >= L) {   // keys past L: walk the ring only
+        for (int i = 0; i < n_tiles; ++i) {
+          mbar_wait(&full[(n0 + i) % S], ((n0 + i) / S) & 1);
+          mbar_arrive(&empty[(n0 + i) % S]);
+        }
+        if (leader) mbar_arrive(&kv_empty[kb]);
+        continue;
+      }
+      unsigned char* my_k = k_s + (2 * kb + w) * T;
+      unsigned char* my_v = v_s + (2 * kb + w) * T;
+      const uint32_t ka = smem_addr(my_k), va = smem_addr(my_v);
+
+      float dk[D / 2], dv[D / 2];
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        *reinterpret_cast<uint32_t*>(dk + off + dn * 8) =
-            pack_bf16(acc_k[dn][2 * i], acc_k[dn][2 * i + 1]);
-        *reinterpret_cast<uint32_t*>(dv + off + dn * 8) =
-            pack_bf16(acc_v[dn][2 * i], acc_v[dn][2 * i + 1]);
+      for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = (n0 + i) % S, q0 = (qstart + i) * 64;
+        mbar_wait(&full[s], ((n0 + i) / S) & 1);
+        if (causal && q0 + 64 <= kw0) {   // every query before every key
+          mbar_arrive(&empty[s]);
+          continue;
+        }
+        const uint32_t qb = smem_addr(q_s + s * T);
+        const uint32_t dob = smem_addr(do_s + s * T);
+        float st[32], dpt[32];
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          // depth d = 16 ks .. 16 ks + 15: a column step in a row tile, a
+          // 16-row step in a transposed one
+          const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
+          const uint32_t col_step = ks * 16 * kRowBytes;
+          const uint32_t a_off = kKt ? col_step : row_step;
+          const uint32_t b_off = kQt ? col_step : row_step;
+          wgmma_ss<kKt, kQt>(st, desc(ka + a_off), desc(qb + b_off), ks);
+        }
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
+          const uint32_t col_step = ks * 16 * kRowBytes;
+          const uint32_t a_off = kKt ? col_step : row_step;
+          const uint32_t b_off = kQt ? col_step : row_step;
+          wgmma_ss<kKt, kQt>(dpt, desc(va + a_off), desc(dob + b_off), ks);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+
+        const float* lse_s = stats + s * 128;
+        const float* delta_s = lse_s + 64;
+        const bool diag = causal && q0 == kw0;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int col = 8 * (e >> 2) + 2 * t + (e & 1);   // query in tile
+          const int row = r_lo + 8 * ((e >> 1) & 1);        // key in tile
+          float p = ex2((st[e] * scale - lse_s[col]) * kLog2e);
+          if (diag && col < row) p = 0.f;                   // masked: -1e30
+          dpt[e] = p * (dpt[e] - delta_s[col]) * scale;     // dS^T
+          st[e] = p;                                        // P^T
+        }
+        uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          acc_to_a16(pa[kk], st, kk);
+          acc_to_a16(dsa[kk], dpt, kk);
+        }
+        fence_regs(dv);
+        fence_regs(dk);
+        wgmma_fence();
+        // depth: queries 16 kk .. 16 kk + 15, a 16-row step in a row tile
+        // of Q or dO (read MN-major), a column step in a transposed one
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1 - kQt>(dv, pa[kk],
+                            desc(dob + (kQt ? kk * 32 : kk * 16 * kRowBytes),
+                                 kChunk));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1 - kQt>(dk, dsa[kk],
+                            desc(qb + (kQt ? kk * 32 : kk * 16 * kRowBytes),
+                                 kChunk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        mbar_arrive(&empty[s]);
+      }
+
+      // dK, dV in bf16, staged in this consumer's K and V rows (free since
+      // its last product) as the store maps' swizzled boxes: [D/64][64][64]
+      // for rows, [D][64] for kNN2's transposed stores
+#pragma unroll
+      for (int j8 = 0; j8 < D / 8; ++j8)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int key = r_lo + 8 * r, c = 8 * j8 + 2 * t;
+          const int i0 = 4 * j8 + 2 * r;
+          if constexpr (kQt) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int off = swz(c + u, key);   // row d, column key
+              *reinterpret_cast<bf16*>(my_k + off) =
+                  __float2bfloat16_rn(dk[i0 + u]);
+              *reinterpret_cast<bf16*>(my_v + off) =
+                  __float2bfloat16_rn(dv[i0 + u]);
+            }
+          } else {
+            const int off = (c / kSeg) * kChunk + swz(key, c % kSeg);
+            *reinterpret_cast<uint32_t*>(my_k + off) =
+                pack_bf16(dk[i0], dk[i0 + 1]);
+            *reinterpret_cast<uint32_t*>(my_v + off) =
+                pack_bf16(dv[i0], dv[i0 + 1]);
+          }
+        }
+      fence_async_smem();
+      named_sync(1 + w, kWG);
+      if (leader) {
+        if constexpr (kQt) {
+          tma_store(&map_dk, my_k, kw0, bh * D);
+          tma_store(&map_dv, my_v, kw0, bh * D);
+        } else {
+          for (int c = 0; c < C; ++c) {
+            tma_store(&map_dk, my_k + c * kChunk, h * D + c * kSeg,
+                      b * L + kw0);
+            tma_store(&map_dv, my_v + c * kChunk, h * D + c * kSeg,
+                      b * L + kw0);
+          }
+        }
+        tma_store_wait();            // the buffers may take the next K, V
+        mbar_arrive(&kv_empty[kb]);
       }
     }
   }
@@ -995,29 +1671,86 @@ flash_probe_kernel(const bf16* __restrict__ a, const float* __restrict__ a32,
     for (int e = 0; e < 4; ++e)
       o[(r0 + g + (e >> 1) * 8) * N + n * 8 + 2 * t + (e & 1)] = acc[n][e];
 }
-
 // ---------------------------------------------------------------- launch
 constexpr size_t tile_bytes(int d) { return sizeof(float) * kTile * (d + 1); }
 constexpr size_t score_bytes() { return sizeof(float) * kTile * kRowPad; }
 
-// One block per (head, 64-row output tile).
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int threads, size_t smem, int B, int H,
-                   int L, cudaStream_t stream, Args... args) {
-  cudaError_t err = allow_smem(kernel, smem);
+// Shared memory above 48 KB has to be allowed per kernel (and card) before
+// its first launch; this does it once per kernel instance and card.
+template <auto Kernel>
+cudaError_t allow_smem(size_t smem) {
+  static std::atomic<unsigned> done{0};   // bit d: allowed on card d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(B * H, L / kTile), threads, smem, stream>>>(args...);
+  const unsigned bit = 1u << (dev & 31);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <auto Kernel, typename... Args>
+cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                   Args... args) {
+  cudaError_t err = allow_smem<Kernel>(smem);
+  if (err != cudaSuccess) return err;
+  Kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// One block per (head, 64-row output tile).
+dim3 grid64(int B, int H, int L) { return dim3(B * H, L / kTile); }
+// A persistent grid: one block per SM, or per (head, 128-row tile) where
+// there are fewer of those.
+dim3 persistent_grid(int B, int H, int L) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    sms = 0;
+  const long items = (long)B * H * ((L + kBig - 1) / kBig);
+  return dim3((unsigned)(sms > 0 && sms < items ? sms : items));
+}
+
+// A TMA map of a 2-D bf16 tensor, `rows` rows of `cols` elements with a
+// row stride of `stride` elements, moved in 128-byte-swizzled boxes of
+// box_rows rows x 64 columns (128 bytes, the swizzle's span). Boxes that
+// cross the tensor's edge are filled with zeros on load and cut on store.
+bool encode_map(CUtensorMap* map, const void* ptr, uint64_t cols,
+                uint64_t rows, uint64_t stride, uint32_t box_rows) {
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {stride * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)kSeg, box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(ptr), dims, strides, box, elem_strides,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+// [B, L, H, D] viewed as [B*L, H*D]
+bool rows_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int D,
+              int box_rows) {
+  return encode_map(map, ptr, (uint64_t)H * D, (uint64_t)B * L,
+                    (uint64_t)H * D, box_rows);
+}
+// [B, H, D, L] viewed as [B*H*D, L], boxes of D rows (one head's slab)
+bool cols_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int D) {
+  return encode_map(map, ptr, (uint64_t)L, (uint64_t)B * H * D, (uint64_t)L,
+                    D);
 }
 
 template <int D, typename T, int Form = kStd>
 cudaError_t fwd_f32dot(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int L, float scale,
                        int causal, cudaStream_t st) {
-  return launch(flash_fwd_f32dot_kernel<D, T, Form>, kThreads,
-                3 * tile_bytes(D) + score_bytes(), B, H, L, st,
-                (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
-                H, L, scale, causal);
+  return launch<flash_fwd_f32dot_kernel<D, T, Form>>(
+      grid64(B, H, L), kThreads, 3 * tile_bytes(D) + score_bytes(), st,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, H, L, scale,
+      causal);
 }
 
 template <int D, typename T, int Form = kStd>
@@ -1025,11 +1758,10 @@ cudaError_t dq_f32dot(const void* q, const void* k, const void* kt,
                       const void* v, const void* dout, const void* lse,
                       const void* delta, void* dq, int B, int H, int L,
                       float scale, int causal, cudaStream_t st) {
-  return launch(flash_dq_f32dot_kernel<D, T, Form>, kThreads,
-                4 * tile_bytes(D) + score_bytes(), B, H, L, st,
-                (const T*)q, (const T*)k, (const T*)kt, (const T*)v,
-                (const T*)dout, (const float*)lse, (const float*)delta,
-                (T*)dq, H, L, scale, causal);
+  return launch<flash_dq_f32dot_kernel<D, T, Form>>(
+      grid64(B, H, L), kThreads, 4 * tile_bytes(D) + score_bytes(), st,
+      (const T*)q, (const T*)k, (const T*)kt, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dq, H, L, scale, causal);
 }
 
 template <int D, typename T, int Form = kStd>
@@ -1038,23 +1770,29 @@ cudaError_t dkv_f32dot(const void* q, const void* qt, const void* k,
                        const void* lse, const void* delta, void* dk,
                        void* dv, int B, int H, int L, float scale,
                        int causal, cudaStream_t st) {
-  return launch(flash_dkv_f32dot_kernel<D, T, Form>, kThreads,
-                4 * tile_bytes(D) + 2 * score_bytes() +
-                    2 * sizeof(float) * kTile,
-                B, H, L, st, (const T*)q, (const T*)qt, (const T*)k,
-                (const T*)v, (const T*)dout, (const T*)doutt,
-                (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, H,
-                L, scale, causal);
+  return launch<flash_dkv_f32dot_kernel<D, T, Form>>(
+      grid64(B, H, L), kThreads,
+      4 * tile_bytes(D) + 2 * score_bytes() + 2 * sizeof(float) * kTile, st,
+      (const T*)q, (const T*)qt, (const T*)k, (const T*)v, (const T*)dout,
+      (const T*)doutt, (const float*)lse, (const float*)delta, (T*)dk,
+      (T*)dv, H, L, scale, causal);
 }
 
+// kStd: k is K [B, L, H, D]; kNN: K^T [B, H, D, L].
 template <int D, int Form>
 cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
                     void* lse, int B, int H, int L, float scale, int causal,
                     cudaStream_t st) {
-  return launch(flash_fwd_mma_kernel<D, Form>, kMmaThreads,
-                sizeof(bf16) * (2 * kTile * (D + 8) + D * kTRow), B, H, L,
-                st, (const bf16*)q, (const bf16*)k, (const bf16*)v,
-                (bf16*)o, (float*)lse, H, L, scale, causal);
+  CUtensorMap mq, mk, mv, mo;
+  const bool ok =
+      rows_map(&mq, q, B, H, L, D, 64) && rows_map(&mo, o, B, H, L, D, 64) &&
+      rows_map(&mv, v, B, H, L, D, kBig) &&
+      (Form == kStd ? rows_map(&mk, k, B, H, L, D, kBig)
+                    : cols_map(&mk, k, B, H, L, D));
+  if (!ok) return cudaErrorInvalidValue;
+  return launch<flash_fwd_mma_kernel<D, Form>>(
+      persistent_grid(B, H, L), kHopperThreads, FwdSmem<D>::kBytes, st, mq,
+      mk, mv, mo, (float*)lse, B * H, H, L, scale, causal);
 }
 
 template <int D, int Form>
@@ -1062,26 +1800,36 @@ cudaError_t dq_mma(const void* q, const void* k, const void* kt,
                    const void* v, const void* dout, const void* lse,
                    const void* delta, void* dq, int B, int H, int L,
                    float scale, int causal, cudaStream_t st) {
-  return launch(flash_dq_mma_kernel<D, Form>, kMmaThreads,
-                sizeof(bf16) * (4 * kTile * (D + 8) + D * kTRow), B, H, L,
-                st, (const bf16*)q, (const bf16*)k, (const bf16*)kt,
-                (const bf16*)v, (const bf16*)dout, (const float*)lse,
-                (const float*)delta, (bf16*)dq, H, L, scale, causal);
+  return launch<flash_dq_mma_kernel<D, Form>>(
+      grid64(B, H, L), kMmaThreads,
+      sizeof(bf16) * (4 * kTile * (D + 8) + D * kTRow), st, (const bf16*)q,
+      (const bf16*)k, (const bf16*)kt, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dq, H, L, scale, causal);
 }
 
+// kStd: q, k, v, dout, dk, dv all [B, L, H, D] (qt, doutt unused). kNN: k,
+// v are K^T, V^T [B, H, D, L]. kNN2: also qt, doutt = Q^T, dO^T (q, dout
+// unused), and dk, dv are dK^T, dV^T, all [B, H, D, L].
 template <int D, int Form>
 cudaError_t dkv_mma(const void* q, const void* qt, const void* k,
                     const void* v, const void* dout, const void* doutt,
                     const void* lse, const void* delta, void* dk, void* dv,
                     int B, int H, int L, float scale, int causal,
                     cudaStream_t st) {
-  return launch(flash_dkv_mma_kernel<D, Form>, kMmaThreads,
-                sizeof(bf16) * (4 * kTile * (D + 8) + 2 * D * kTRow) +
-                    2 * sizeof(float) * kTile,
-                B, H, L, st, (const bf16*)q, (const bf16*)qt,
-                (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-                (const bf16*)doutt, (const float*)lse, (const float*)delta,
-                (bf16*)dk, (bf16*)dv, H, L, scale, causal);
+  CUtensorMap mq, mk, mv, mdo, mdk, mdv;
+  auto map = [&](CUtensorMap* m, const void* p, bool transposed) {
+    return transposed ? cols_map(m, p, B, H, L, D)
+                      : rows_map(m, p, B, H, L, D, 64);
+  };
+  const bool kt = Form != kStd, qtr = Form == kNN2;
+  const bool ok = map(&mq, qtr ? qt : q, qtr) && map(&mk, k, kt) &&
+                  map(&mv, v, kt) && map(&mdo, qtr ? doutt : dout, qtr) &&
+                  map(&mdk, dk, qtr) && map(&mdv, dv, qtr);
+  if (!ok) return cudaErrorInvalidValue;
+  return launch<flash_dkv_mma_kernel<D, Form>>(
+      persistent_grid(B, H, L), kHopperThreads, DkvSmem<D>::kBytes, st, mq,
+      mk, mv, mdo, mdk, mdv, (const float*)lse, (const float*)delta, B * H,
+      H, L, scale, causal);
 }
 
 bool shape_ok(int B, int H, int L, int D) {
@@ -1259,7 +2007,7 @@ int paddle_flash_dkv_f32dot(const void* q, const void* k, const void* v,
 int paddle_flash_probe(const void* a, const void* a32, const void* b,
                        void* out, void* stream) {
   const size_t smem = sizeof(bf16) * 2 * kProbeN * kProbeS;
-  cudaError_t err = allow_smem(flash_probe_kernel, smem);
+  cudaError_t err = allow_smem<flash_probe_kernel>(smem);
   if (err != cudaSuccess) return (int)err;
   flash_probe_kernel<<<4, kProbeThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)a, (const float*)a32, (const bf16*)b, (float*)out);

@@ -58,7 +58,7 @@ _POINTERS = {"flash_fwd": 5, "flash_fwd_nn": 5, "flash_fwd_f32dot": 5,
 LAUNCHES = {name: 0 for name in (*_POINTERS, "flash_probe")}
 
 _NEG_INF = -1e30
-_KERNEL_TILE = 64          # rows of the CUDA kernels' inner tiles
+_KERNEL_TILE = 64          # L is a multiple of it (64-row tiles, half tiles)
 _KERNEL_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PROBE_N = 128             # the probe's tiles are 128 x 128
@@ -206,15 +206,19 @@ def _lib():
     return lib
 
 
+def _check_device(name: str, q: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got "
+                         f"{q.device}")
+
+
 def _check(name: str, q: torch.Tensor, rows=(), cols=(), stats=()):
     """Validate what a kernel takes: CUDA, one dtype (bf16 or f32), q and
     `rows` contiguous [B, L, H, D] of one shape, `cols`
     contiguous [B, H, D, L] of the same sizes, all 16-byte aligned; head_dim
-    64 or 128, L a multiple of the kernels' tile; `stats` contiguous f32
-    [B, H, L]."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got "
-                         f"{q.device}")
+    64 or 128, L a multiple of 64 (the 128-row kernels run a last half tile
+    of 64 rows); `stats` contiguous f32 [B, H, L]."""
+    _check_device(name, q)
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported "
                          f"(bfloat16 or float32)")

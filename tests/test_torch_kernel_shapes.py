@@ -1,0 +1,143 @@
+"""The shape contract of the port's CUDA flash kernels, checked on the CPU.
+
+Each CUDA wrapper in paddle_tpu_torch/ops/flash_attention.py validates its
+operands before it launches. Here the device test and the launch are
+replaced by stubs, so the wrappers' own validation and output allocation
+run on CPU tensors: every wrapper takes L = 192 (a multiple of 64 but not
+of 128, which the 128-row forward and dK/dV kernels run as a last half
+tile) and head_dim 64 and 128, and still refuses what it refused: L not a
+multiple of 64, another head_dim or dtype, mismatched, non-contiguous or
+misaligned operands, and LSE or delta of the wrong shape."""
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import flash_attention as fa
+
+torch.set_num_threads(1)
+
+# the operands of each wrapper, as chip_smoke.py hands them over
+ARGS = {
+    "flash_fwd": ("q", "k", "v"),
+    "flash_fwd_nn": ("q", "kt", "v"),
+    "flash_fwd_f32dot": ("q", "k", "v"),
+    "flash_dq": ("q", "k", "v", "do", "lse", "delta"),
+    "flash_dq_nn": ("q", "k", "kt", "vt", "do", "lse", "delta"),
+    "flash_dq_f32dot": ("q", "k", "v", "do", "lse", "delta"),
+    "flash_dkv": ("q", "k", "v", "do", "lse", "delta"),
+    "flash_dkv_nn": ("q", "kt", "vt", "do", "lse", "delta"),
+    "flash_dkv_nn2": ("q", "qt", "kt", "vt", "do", "dot", "lse", "delta"),
+    "flash_dkv_f32dot": ("q", "k", "v", "do", "lse", "delta"),
+}
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """Stub out the device test and the launch; record the launches."""
+    calls = []
+    monkeypatch.setattr(fa, "_check_device", lambda name, q: None)
+    monkeypatch.setattr(fa, "_launch",
+                        lambda name, ptrs, q, causal, sc: calls.append(name))
+    return calls
+
+
+def _operands(B, L, H, D, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(0)
+    rows = {n: torch.randn(B, L, H, D, generator=g).to(dtype)
+            for n in ("q", "k", "v", "do")}
+    t = dict(rows)
+    for n in ("q", "k", "v", "do"):
+        t[n + "t" if n != "do" else "dot"] = fa.to_t(rows[n])
+    t["lse"] = torch.zeros(B, H, L)
+    t["delta"] = torch.zeros(B, H, L)
+    return t
+
+
+def _call(name, t, **override):
+    args = [override.get(a, t[a]) for a in ARGS[name]]
+    return fa.CUDA[name](*args, True, 0.125)
+
+
+def test_every_cuda_wrapper_is_covered():
+    assert set(ARGS) == set(fa.CUDA)
+
+
+@pytest.mark.parametrize("name", sorted(ARGS))
+@pytest.mark.parametrize("L", [64, 192, 1024])
+@pytest.mark.parametrize("D", [64, 128])
+def test_wrapper_accepts(launches, name, L, D):
+    """L a multiple of 64 (192 included) and head_dim 64 or 128: the
+    wrapper launches once and returns outputs of the reference's shapes."""
+    B, H = 1, 2
+    out = _call(name, _operands(B, L, H, D))
+    assert launches == [name]
+    outs = out if isinstance(out, tuple) else (out,)
+    for x in outs:
+        assert x.shape in {(B, L, H, D), (B, H, D, L), (B, H, L)}
+    if name.startswith("flash_fwd"):
+        assert outs[1].shape == (B, H, L) and outs[1].dtype == torch.float32
+
+
+@pytest.mark.parametrize("name", sorted(ARGS))
+def test_wrapper_accepts_f32_storage(launches, name):
+    _call(name, _operands(1, 192, 2, 64, torch.float32))
+    assert launches == [name]
+
+
+def _misaligned(x):
+    """x's values in a contiguous tensor whose data sits 2 bytes off a
+    16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16
+    return y
+
+
+def _other_length(t):
+    """Every operand but q (and LSE, delta) at 128 positions, not 192."""
+    out = {n: t[n][:, :128].contiguous() for n in ("k", "v", "do")}
+    out.update({n: t[n][..., :128].contiguous()
+                for n in ("kt", "vt", "qt", "dot")})
+    return out
+
+
+REFUSALS = {
+    "L 96": lambda t: _operands(1, 96, 2, 64),
+    "L 160": lambda t: _operands(1, 160, 2, 64),
+    "head_dim 32": lambda t: _operands(1, 192, 2, 32),
+    "head_dim 256": lambda t: _operands(1, 64, 2, 256),
+    "float16": lambda t: {n: (v.half() if v.dtype == torch.bfloat16 else v)
+                          for n, v in t.items()},
+    "other length": _other_length,
+    "non-contiguous": lambda t: {"q": t["q"].transpose(1, 2).contiguous()
+                                 .transpose(1, 2)},
+    "misaligned": lambda t: {"q": _misaligned(t["q"])},
+    "stats shape": lambda t: {"lse": t["lse"][..., :128].contiguous(),
+                              "delta": t["delta"][..., :128].contiguous()},
+}
+
+
+# every (wrapper, refusal) pair but LSE and delta of the wrong shape for
+# the forward kernels, which take neither
+REFUSAL_CASES = [(name, case) for name in sorted(ARGS)
+                 for case in sorted(REFUSALS)
+                 if case != "stats shape" or "lse" in ARGS[name]]
+
+
+@pytest.mark.parametrize("name,case", REFUSAL_CASES)
+def test_wrapper_refuses(launches, name, case):
+    """What the kernels do not take raises ValueError before any launch."""
+    t = _operands(1, 192, 2, 64)
+    override = REFUSALS[case](t)
+    args = {a: override.get(a, t[a]) for a in ARGS[name]}
+    assert any(args[a] is not t[a] for a in ARGS[name])
+    with pytest.raises(ValueError):
+        fa.CUDA[name](*args.values(), True, 0.125)
+    assert launches == []
+
+
+def test_cuda_wrapper_still_needs_a_card():
+    """Without the stubs a CPU tensor is refused by the device test."""
+    t = _operands(1, 192, 2, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _call("flash_fwd", t)
