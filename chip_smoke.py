@@ -35,6 +35,13 @@ import time
 # f32 on the CUDA cores (f32 products run without TF32 here), HBM3.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# On bf16 storage an f32 dot needs no f32 product: a product of two bf16
+# values is exact in f32, and an f32 operand (P, dS) splits into three bf16
+# terms that hold its 24 significant bits. So the least time for an f32-dot
+# kernel there is that of its bf16 tensor-core passes, each of 2 D flops a
+# (query, key) pair: forward S, then P.V in three; dQ S, dP, then dS.K in
+# three; dK/dV S, dP, then P^T.dO and dS^T.Q in three each.
+F32DOT_BF16_PASSES = {"fwd": 1 + 3, "dq": 1 + 1 + 3, "dkv": 1 + 1 + 3 + 3}
 
 # Kernel vs plain version, as the largest error divided by the RMS of its
 # row (the D entries of one position and head), or by the RMS of the whole
@@ -48,9 +55,10 @@ PEAK_BYTES = 3.35e12
 # and the tensor cores sum in their own order. f32dot-bfloat16 (strategy
 # f32 on bf16 storage): P and dS stay f32 in both, so they differ only
 # where another order of f32 sums flips an output's final rounding to
-# bf16, one step of that entry. A kernel that skips one off-diagonal tile
-# reads far above each limit; `fault_readings` computes that reading in
-# every run.
+# bf16, one step of that entry (the forward's f32 products come from bf16
+# tensor-core passes, exact in f32, summed in the tensor cores' order). A
+# kernel that skips one off-diagonal tile reads far above each limit;
+# `fault_readings` computes that reading in every run.
 REL_TOL = {"float32": 1e-5, "bfloat16": 1e-1, "f32dot-bfloat16": 5e-2}
 # That one-step error cannot tell an f32-dot kernel from one that rounds P
 # and dS to bf16 (bf16's function): both part from the f32-dot plain
@@ -354,8 +362,18 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed):
         # (K and K^T for dq_nn, Q^T and dO^T for dkv_nn2) are layout
         in_bytes = sum(t[a].numel() * t[a].element_size()
                        for a in ARGS[BF16_TWIN.get(name, name)])
-        b = bound(flops[kind], in_bytes + r["out_bytes"],
-                  "float32" if r["f32dot"] else "bfloat16")
+        nbytes = in_bytes + r["out_bytes"]
+        extra = {}
+        if r["f32dot"] and dtype_name == "bfloat16":
+            b = bound(F32DOT_BF16_PASSES[kind] * 2 * D * pairs, nbytes,
+                      "bfloat16")
+            # the same function's f32 flops on the CUDA cores, the bound
+            # before the split (PERF.md gives both)
+            extra["cuda_core_bound_ms"] = bound(flops[kind], nbytes,
+                                                "float32")[0]
+        else:
+            b = bound(flops[kind], nbytes,
+                      "float32" if r["f32dot"] else "bfloat16")
         ms = median_ms(lambda: fa.CUDA[name](*args))
         plain = median_ms(lambda: fa.PLAIN[name](*args), reps=5, launches=3)
         rows.append({
@@ -366,7 +384,7 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed):
             **({"mismatch_share": r["mismatch_share"]}
                if r["mismatch_share"] is not None else {}),
             "ms": ms, "tflops": flops[kind] / ms * 1e-9, "plain_ms": plain,
-            "bound_ms": b[0], "bound_by": b[1],
+            "bound_ms": b[0], "bound_by": b[1], **extra,
             "library_ms": lib["f32dot" if r["f32dot"] else "mma"][
                 "fwd" if kind == "fwd" else "bwd"],
             **({"diff_vs_bf16": r["diff_vs_bf16"]} if name in BF16_TWIN
@@ -618,8 +636,9 @@ def main():
     kernel_phase(8, 1024, 8, 128, "bfloat16", True, timed=False)
     kernel_phase(2, 256, 4, 64, "float32", True, timed=False)
     # L = 192, a multiple of 64 but not of 128: the half tiles of the
-    # 128-row kernels; at D = 128 with 160 heads, so that every block of
-    # the persistent grids walks several (head, tile) items
+    # 128-row kernels (forward, dQ, dK/dV); at D = 128 with 160 heads, so
+    # that every block of the persistent grids walks several (head, tile)
+    # items
     kernel_phase(2, 192, 4, 64, "bfloat16", True, timed=False)
     kernel_phase(4, 192, 40, 128, "bfloat16", True, timed=False)
 

@@ -5,11 +5,13 @@
 // dot strategy (FLAGS_flash_dot_impl) of the reference:
 //   _fwd_kernel (:83)       bf16: flash_fwd_mma_kernel<D, kStd>
 //                           nn, nn2: flash_fwd_mma_kernel<D, kNN> (reads K^T)
-//                           f32: flash_fwd_f32dot_kernel<D, T>
+//                           f32: flash_fwd_mma_kernel<D, kStd, Split> on
+//                           bf16 storage, flash_fwd_f32dot_kernel<D, float>
+//                           on f32
 //   _dq_kernel (:174)       bf16: flash_dq_mma_kernel<D, kStd>
 //                           f32: flash_dq_f32dot_kernel<D, T>
-//   _dq_kernel_nn (:203)    nn, nn2: flash_dq_mma_kernel<D, kNN> (reads K,
-//                           K^T and V^T)
+//   _dq_kernel_nn (:203)    nn, nn2: flash_dq_mma_kernel<D, kNN> (reads K^T
+//                           and V^T)
 //   _dkv_kernel (:233)      bf16: flash_dkv_mma_kernel<D, kStd>
 //                           nn: flash_dkv_mma_kernel<D, kNN> (reads K^T, V^T)
 //                           f32: flash_dkv_f32dot_kernel<D, T>
@@ -25,7 +27,8 @@
 // to the input dtype before P.V, and P and dS are rounded to the input
 // dtype only where they enter a dot; the f32-dot kernels (strategy f32)
 // load the storage dtype, compute every dot in f32 and round only what they
-// store. delta = rowsum(dO * O) comes from the caller, in f32.
+// store (the Split forward forms its f32 dots from exact bf16 products, see
+// there). delta = rowsum(dO * O) comes from the caller, in f32.
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are [B, L, H, D] contiguous (the
 // public layout, read through strides); the transposed operands of nn and
@@ -48,19 +51,19 @@
 // Bound. At the GPT-350M training shape (B*H = 128, L = 1024, D = 64,
 // causal, bf16) each kernel reads and writes 67-134 MB and does 1.7e10 to
 // 3.4e10 flops, so on the tensor cores bytes and flops bound it about
-// equally, at 20-40 us. The forward and dK/dV (the Hopper path below) are
-// persistent and warp-specialised: a producer warpgroup keeps TMA loads of
-// the streamed tiles in flight in a ring of shared-memory stages across
-// work items, two consumer warpgroups run every product as wgmma, and the
-// score tile stays in registers as the A operand of the next product. On
-// an H100 80GB HBM3 at 700 W (chip_smoke.py) the forward takes 0.073 ms,
-// 28% of its bound, and dK/dV 0.104 ms, 34%. At D = 64 the softmax's
-// exponentials (one MUFU op per score) take as many cycles as the
-// products; the consumers take turns at the tensor cores so that one's
-// softmax overlaps the other's products (PERF.md has the ablations). dQ
-// still runs mma.sync m16n8k16 on tiles copied through registers. The
-// f32-dot kernels run on the CUDA cores (67 TFLOP/s; tensor cores have no
-// full-f32 product), operations-bound.
+// equally, at 20-40 us. The forward, dQ and dK/dV (the Hopper path below)
+// are persistent and warp-specialised: a producer warpgroup keeps TMA
+// loads of the streamed tiles in flight in a ring of shared-memory stages
+// across work items, two consumer warpgroups run every product as wgmma,
+// and the score tile stays in registers as the A operand of the next
+// product. At D = 64 the softmax's exponentials (one MUFU op per score)
+// take as many cycles as the products; the forward's consumers take turns
+// at the tensor cores so that one's softmax overlaps the other's products
+// (PERF.md has the ablations and each kernel's time on an H100). The
+// f32-dot forward on bf16 storage is the forward's Split instance, whose
+// f32 dots are bf16 tensor-core products (exact in f32) of split operands.
+// The other f32-dot kernels, and every kernel on f32 storage, run scalar
+// f32 FMAs on the CUDA cores (67 TFLOP/s), operations-bound.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -83,68 +86,14 @@ constexpr float kNegInf = -1e30f;
 // dV^T out of the dK/dV kernel (kNN2).
 enum Form { kStd = 0, kNN = 1, kNN2 = 2 };
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c += a.b for a 16x16 A (row-major fragment), a 16x8 B (column fragment)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of rows r .. r+15, columns c .. c+15 of a row-major tile
-// (row stride s); g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int s, int r, int c, int g, int t) {
-  a[0] = ld32(tile + (r + g) * s + c + 2 * t);
-  a[1] = ld32(tile + (r + g + 8) * s + c + 2 * t);
-  a[2] = ld32(tile + (r + g) * s + c + 8 + 2 * t);
-  a[3] = ld32(tile + (r + g + 8) * s + c + 8 + 2 * t);
-}
-
-// Copy an R x C slab (row strides rs and ds elements, C a multiple of 8,
-// rows 16-byte aligned) with NT threads, 16 B a load: global to shared
-// memory or back.
-template <int R, int C, int NT>
-__device__ __forceinline__ void copy_slab(bf16* dst, size_t ds,
-                                          const bf16* src, size_t rs) {
-  constexpr int V = C / 8;
-  for (int i = threadIdx.x; i < R * V; i += NT) {
-    const int r = i / V, c = (i % V) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ds + c) =
-        *reinterpret_cast<const uint4*>(src + r * rs + c);
-  }
-}
-
-// dst[c][r] = src[r][c] for an R x C slab of global memory (row stride rs,
-// C a multiple of 8), into shared memory of row stride ds. Each thread
-// reads 16 B of one row; the 32 lanes of a warp take 32 consecutive rows,
-// so each of their 2-byte stores lands on 16 consecutive 32-bit words: no
-// bank conflict, whatever ds is. R is a multiple of 32.
-template <int R, int C, int NT>
-__device__ __forceinline__ void load_transposed(bf16* dst, int ds,
-                                                const bf16* src, size_t rs) {
-  constexpr int V = C / 8;
-  for (int i = threadIdx.x; i < R * V; i += NT) {
-    const int r = i % R, c = (i / R) * 8;
-    const uint4 vec = *reinterpret_cast<const uint4*>(src + r * rs + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&vec);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c + j) * ds + r] = e[j];
-  }
-}
-
 // -------------------------------------------------------- f32-dot path
+// dQ and dK/dV of strategy f32, and the forward on f32 storage (on bf16
+// storage the f32-dot forward is flash_fwd_mma_kernel's Split instance).
 // Scalar f32 FMAs on tiles of storage type T (float or bf16), converted to
 // f32 as they are loaded. Tiles sit in shared memory as f32 rows padded to
 // D + 1 floats, so the column walks below hit 32 distinct banks. A block of
@@ -529,196 +478,8 @@ flash_dkv_f32dot_kernel(const T* __restrict__ q, const T* __restrict__ qt,
   }
 }
 
-// ------------------------------------------------------------ mma path
-// dQ (bf16, nn, nn2): every dot on the tensor cores with mma.sync
-// m16n8k16, bf16 operands, f32 accumulation. A block of 4 warps owns a
-// 64-row query tile and each warp 16 of its rows. Tiles sit in shared
-// memory as bf16 rows padded to D + 8 elements, so a fragment's 32-bit
-// loads from 8 rows x 4 lanes hit 32 distinct banks; K, read down a column
-// for dS.K, is stored transposed, [D][64 + 8]. The dS tile's accumulator
-// fragments, rounded to bf16 in pairs, are the A fragments of dS.K without
-// a trip through shared memory. Numerics are those of the f32-dot kernels
-// with P and dS rounded to bf16 where they enter a dot: only the order of
-// the f32 sums inside a product differs.
-//
-// The Form parameter says which operands arrive transposed ([B, H, D, L])
-// and so how each tile reaches its shared-memory layout: kStd copies rows
-// of K and V and transposes K into its column tile; kNN (_dq_kernel_nn)
-// transposes V^T into row tiles and copies K^T straight into the column
-// tile. Both feed the tensor cores the same fragments in the same order,
-// so nn and nn2 give bitwise the bf16 kernel's results.
-
-constexpr int kMmaThreads = 128;
-constexpr int kTRow = kTile + 8;  // row stride of a transposed [D][64] tile
-
-// The A fragment of key (or query) columns 16*kk .. 16*kk+15 of a 16 x 64
-// f32 accumulator tile acc[8][4], rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&acc)[8][4], int kk) {
-  a[0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
-  a[1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
-  a[2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-  a[3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
-}
-
-// acc[n] (16 x 8 for n = 0..7, a 16 x 64 tile) += A rows r.. of `a_tile`
-// times the transpose of rows 0..63 of `b_tile`, both row-major [64][D+8].
-template <int D>
-__device__ __forceinline__ void tile_dot_nt_mma(float (&acc)[8][4],
-                                                const bf16* a_tile,
-                                                const bf16* b_tile, int r,
-                                                int g, int t) {
-  constexpr int S = D + 8;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t a[4];
-    load_a(a, a_tile, S, r, ks * 16, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const bf16* brow = b_tile + (n * 8 + g) * S + ks * 16 + 2 * t;
-      mma_bf16(acc[n], a, ld32(brow), ld32(brow + 8));
-    }
-  }
-}
-
-// out[dn] (16 x D) += P (16 x 64, the accumulator tile p) times a 64 x D
-// operand stored transposed, bt = [D][64 + 8].
-template <int D>
-__device__ __forceinline__ void tile_dot_acc_mma(float (&out)[D / 8][4],
-                                                 const float (&p)[8][4],
-                                                 const bf16* bt, int g,
-                                                 int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    acc_to_a(a, p, kk);
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      const bf16* bcol = bt + (dn * 8 + g) * kTRow + kk * 16 + 2 * t;
-      mma_bf16(out[dn], a, ld32(bcol), ld32(bcol + 8));
-    }
-  }
-}
-
-// 64 rows of one head of a [B, L, H, D] tensor (from `row0`, stride rs)
-// into a [64][D + 8] tile; the same rows transposed into a [D][64 + 8]
-// tile; 64 columns (from `col0`) of one head of a [B, H, D, L] tensor
-// (head base tb) transposed into a [64][D + 8] tile, and copied straight
-// into a [D][64 + 8] tile.
-template <int D>
-__device__ __forceinline__ void rows_to_rows(bf16* dst, const bf16* src,
-                                             int row0, int rs) {
-  copy_slab<kTile, D, kMmaThreads>(dst, D + 8, src + (size_t)row0 * rs, rs);
-}
-template <int D>
-__device__ __forceinline__ void rows_to_cols(bf16* dst, const bf16* src,
-                                             int row0, int rs) {
-  load_transposed<kTile, D, kMmaThreads>(dst, kTRow,
-                                         src + (size_t)row0 * rs, rs);
-}
-template <int D>
-__device__ __forceinline__ void cols_to_rows(bf16* dst, const bf16* src,
-                                             int col0, int L) {
-  load_transposed<D, kTile, kMmaThreads>(dst, D + 8, src + col0, L);
-}
-template <int D>
-__device__ __forceinline__ void cols_to_cols(bf16* dst, const bf16* src,
-                                             int col0, int L) {
-  copy_slab<D, kTile, kMmaThreads>(dst, kTRow, src + col0, L);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Accumulator element e of n-tile n sits at row g (e < 2) or g + 8, and at
-// column 8*n + 2*t + (e & 1) of the 64-column tile.
-
-// kStd: v is V [B, L, H, D] and kt is unused. kNN (_dq_kernel_nn): kt is
-// K^T and v is V^T, both [B, H, D, L]; k stays [B, L, H, D], as there.
-template <int D, int Form>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ kt, const bf16* __restrict__ v,
-                    const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int H, int L, float scale, int causal) {
-  constexpr int S = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][S]
-  bf16* dOs = Qs + kTile * S;                    // [64][S]
-  bf16* Ks = dOs + kTile * S;                    // [64][S]
-  bf16* Vs = Ks + kTile * S;                     // [64][S]
-  bf16* Kt = Vs + kTile * S;                     // [D][kTRow]
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * kTile;
-  const int rs = H * D;
-  const size_t base = ((size_t)b * L * H + h) * D;
-  const size_t tb = (size_t)bh * D * L;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-
-  rows_to_rows<D>(Qs, q + base, q0, rs);
-  rows_to_rows<D>(dOs, dout + base, q0, rs);
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    row_lse[i] = lse[(size_t)bh * L + rows[i]];
-    row_delta[i] = delta[(size_t)bh * L + rows[i]];
-  }
-  float acc[D / 8][4] = {};
-  const int num_k = L / kTile;
-  const int kmax = causal ? min((q0 + kTile + kTile - 1) / kTile, num_k)
-                          : num_k;
-
-  for (int kt_i = 0; kt_i < kmax; ++kt_i) {
-    const int k0 = kt_i * kTile;
-    __syncthreads();
-    rows_to_rows<D>(Ks, k + base, k0, rs);
-    if constexpr (Form == kStd) {
-      rows_to_rows<D>(Vs, v + base, k0, rs);
-      rows_to_cols<D>(Kt, k + base, k0, rs);
-    } else {
-      cols_to_rows<D>(Vs, v + tb, k0, L);
-      cols_to_cols<D>(Kt, kt + tb, k0, L);
-    }
-    __syncthreads();
-
-    float s[8][4] = {}, dp[8][4] = {};
-    tile_dot_nt_mma<D>(s, Qs, Ks, r0, g, t);
-    tile_dot_nt_mma<D>(dp, dOs, Vs, r0, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        float x = s[n][e] * scale;
-        if (causal && rows[i] < k0 + n * 8 + 2 * t + (e & 1)) x = kNegInf;
-        const float p = expf(x - row_lse[i]);
-        s[n][e] = p * (dp[n][e] - row_delta[i]) * scale;  // dS
-      }
-    tile_dot_acc_mma<D>(acc, s, Kt, g, t);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    bf16* row = dq + base + (size_t)rows[i] * rs + 2 * t;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(row + dn * 8) =
-          pack_bf16(acc[dn][2 * i], acc[dn][2 * i + 1]);
-  }
-}
 // ---------------------------------------------------------- Hopper path
-// The forward and dK/dV kernels. A block has three warpgroups: a producer
+// The forward, dQ and dK/dV kernels. A block has three warpgroups: a producer
 // (warpgroup 0, its registers cut to kProducerRegs by setmaxnreg), whose
 // first thread issues every TMA load, and two consumers (warpgroups 1 and
 // 2, raised to kConsumerRegs), each owning 64 rows of the block's output
@@ -770,6 +531,17 @@ __device__ __forceinline__ float ex2(float x) {
 
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// max / sum over the 4 lanes (t = 0..3) that hold one row of an
+// accumulator
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Work item `it` of this block in a persistent grid of G blocks: the
@@ -1034,6 +806,33 @@ __device__ __forceinline__ void acc_to_a16(uint32_t (&a)[4],
     a[e] = pack_bf16(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1]);
 }
 
+// The same columns of an f32 accumulator split into three bf16 fragments,
+// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid): both
+// subtractions are exact in f32, and the three terms hold the 24
+// significant bits of x, so hi + mid + lo = x (for x in [0, 1], P's range,
+// down to about 2^-110, below which lo would be subnormal). Three bf16
+// products of the terms against one bf16 tile then form x.B with every
+// product exact in f32, as an f32 dot of x with the bf16 values forms it.
+template <int N>
+__device__ __forceinline__ void acc_to_a16_split(uint32_t (&hi)[4],
+                                                 uint32_t (&mid)[4],
+                                                 uint32_t (&lo)[4],
+                                                 const float (&acc)[N],
+                                                 int kk) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float x0 = acc[8 * kk + 2 * e], x1 = acc[8 * kk + 2 * e + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float r0 = x0 - __low2float(h), r1 = x1 - __high2float(h);
+    const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+    const __nv_bfloat162 l =
+        __floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m));
+    hi[e] = *reinterpret_cast<const uint32_t*>(&h);
+    mid[e] = *reinterpret_cast<const uint32_t*>(&m);
+    lo[e] = *reinterpret_cast<const uint32_t*>(&l);
+  }
+}
+
 // Shared memory of the forward: two buffers of a 128-row Q tile (64 rows
 // for each consumer; item k uses buffer k % 2, so the next item's Q loads
 // while this one finishes), then kStages ring stages of a 128-key K tile
@@ -1065,10 +864,23 @@ struct FwdSmem {
 // leaves through the consumer's Q rows and a TMA store; LSE (natural log)
 // as [B, H, L] f32. Rows past L (L = 64 mod 128) are skipped by their
 // consumer, which still walks the ring and takes its turns.
+//
+// Split (strategy f32 on bf16 storage, _fwd_kernel's f32 form :120): the
+// same kernel with every dot of the f32 function. S = Q.K^T is already
+// exact in its products (a product of two bf16 values is exact in f32), so
+// only P.V changes: P stays f32 for the row sums and LSE and is split into
+// three bf16 terms (acc_to_a16_split), each multiplied by the same V tile
+// into O, the small terms first. So P.V has P's f32 products, summed in
+// f32 by the tensor cores in their own order, where the scalar kernel took
+// 22 TFLOP/s of the CUDA cores' 67. The three fragments of P cost 48
+// registers a step, so a step covers 64 keys (half a ring stage): its
+// scores, its fragments and the previous step's fragments in flight fit
+// beside O at D = 128 too. Four bf16 passes of 2 D flops a causal pair
+// bound it: operations, 0.035 ms at the training shape.
 // map_q, map_o: [B*L, H*D], boxes of 64 rows; map_v and, for kStd, map_k:
 // [B*L, H*D], boxes of 128 rows; kNN's map_k: K^T as [B*H*D, L], boxes of
 // D rows.
-template <int D, int Form>
+template <int D, int Form, bool Split = false>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
@@ -1078,6 +890,10 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
                      float scale, int causal) {
   using Smem = FwdSmem<D>;
   constexpr int C = D / kSeg, S = Smem::kStages;
+  constexpr int NK = Split ? 64 : kBig;   // keys of one softmax step
+  constexpr int R = kBig / NK;            // steps per ring stage
+  constexpr int NP = Split ? 3 : 1;       // bf16 terms of P
+  constexpr int KK = NK / 16;             // depth steps of P.V
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s = align_1024(smem_raw);   // [buffer][consumer]
   unsigned char* k_s = q_s + 4 * Smem::kQ;
@@ -1163,15 +979,17 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
       const int b = bh / H, h = bh % H, qt = num_t - 1 - rank;
       const int q0 = qt * kBig, row_lo = q0 + w * 64 + r_lo;
       const int kmax = causal ? qt + 1 : num_t;
+      const int steps = kmax * R;
       const int qb = it & 1, n0 = n;
       n += kmax;
       mbar_wait(&q_full[qb], (it >> 1) & 1);
       if (q0 + w * 64 >= L) {   // rows past L: walk the ring and the turns
-        for (int j = 0; j <= kmax; ++j) {
+        for (int j = 0; j <= steps; ++j) {
           my_turn();
           pass_turn();
-          if (j == kmax) break;
-          const int s = (n0 + j) % S, parity = ((n0 + j) / S) & 1;
+          if (j == steps) break;
+          if (j % R) continue;
+          const int s = (n0 + j / R) % S, parity = ((n0 + j / R) / S) & 1;
           mbar_wait(&k_full[s], parity);
           mbar_wait(&v_full[s], parity);
           mbar_arrive(&empty[s]);
@@ -1186,53 +1004,62 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
       float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-      float sc[64];        // S, then P, of one key tile
-      uint32_t pa[8][4];   // P in bf16, the A fragments of P.V
+      float sc[NK / 2];       // S, then P, of one step's keys
+      uint32_t pa[NP * KK][4];  // P in bf16 (Split: lo, mid, hi), A of P.V
 
-      // Issue S = Q.K^T of key tile j into sc (waited for by the caller).
+      // Issue S = Q.K^T of step j's keys into sc (waited for by the caller).
       auto issue_s = [&](int j) {
-        const int s = (n0 + j) % S;
+        const int s = (n0 + j / R) % S, u = j % R;
         const uint32_t kb = smem_addr(k_s + s * Smem::kKV);
-        mbar_wait(&k_full[s], ((n0 + j) / S) & 1);
+        mbar_wait(&k_full[s], ((n0 + j / R) / S) & 1);
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < D / 16; ++ks) {
           const uint64_t da = desc(qa + (ks / 4) * kChunk + (ks % 4) * 32);
           if constexpr (Form == kStd)
             wgmma_ss<0, 0>(sc, da,
-                           desc(kb + (ks / 4) * 2 * kChunk + (ks % 4) * 32),
+                           desc(kb + u * kChunk + (ks / 4) * 2 * kChunk +
+                                (ks % 4) * 32),
                            ks);
           else
-            wgmma_ss<0, 1>(sc, da, desc(kb + ks * 16 * kRowBytes,
+            wgmma_ss<0, 1>(sc, da, desc(kb + u * D * kRowBytes +
+                                            ks * 16 * kRowBytes,
                                         D * kRowBytes), ks);
         }
         wgmma_commit();
       };
-      // Issue O += P.V of key tile j from pa.
+      // Issue O += P.V of step j's keys from pa.
       auto issue_pv = [&](int j) {
-        const int s = (n0 + j) % S;
-        const uint32_t vb = smem_addr(v_s + s * Smem::kKV);
-        mbar_wait(&v_full[s], ((n0 + j) / S) & 1);
+        const int s = (n0 + j / R) % S, u = j % R;
+        const uint32_t vb = smem_addr(v_s + s * Smem::kKV) + u * kChunk;
+        mbar_wait(&v_full[s], ((n0 + j / R) / S) & 1);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
-          wgmma_rs<1>(o, pa[kk], desc(vb + kk * 16 * kRowBytes, 2 * kChunk));
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int kk = 0; kk < KK; ++kk)
+            wgmma_rs<1>(o, pa[p * KK + kk],
+                        desc(vb + kk * 16 * kRowBytes, 2 * kChunk));
         wgmma_commit();
       };
-      // The online softmax of key tile j: sc from S to P (f32, against the
+      // Step j's stage is done with once its last P.V is.
+      auto release = [&](int j) {
+        if (j % R == R - 1) mbar_arrive(&empty[(n0 + j / R) % S]);
+      };
+      // The online softmax of step j: sc from S to P (f32, against the
       // running max m of the scaled scores), m and l updated; alpha
-      // rescales the O of earlier tiles. The scale is applied in f32 inside
+      // rescales the O of earlier steps. The scale is applied in f32 inside
       // the exponent's FMA (scale * log2 e folded in); a masked score is
       // -inf there, so its P is 0, as exp(-1e30 - m) is, and the max of a
       // row's scaled scores is its largest raw score times the scale
-      // (every row has a key it sees in every tile it visits).
+      // (every row sees key 0, in its first step).
       auto softmax = [&](int j, float (&alpha)[2]) {
-        const int k0 = j * kBig;
-        const bool edge = (causal && j == kmax - 1) || k0 + kBig > L;
+        const int k0 = j * NK;
+        const bool edge = (causal && k0 + NK > q0 + w * 64) || k0 + NK > L;
         const float scale_log2 = scale * kLog2e;
-        if (edge) {   // a branch around the loop: only edge tiles pay
+        if (edge) {   // a branch around the loop: only edge steps pay
 #pragma unroll
-          for (int i = 0; i < 64; ++i) {
+          for (int i = 0; i < NK / 2; ++i) {
             const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
             const int row = row_lo + 8 * ((i >> 1) & 1);
             if ((causal && key > row) || key >= L) sc[i] = -INFINITY;
@@ -1240,7 +1067,7 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
         }
         float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int i = 0; i < 64; ++i)
+        for (int i = 0; i < NK / 2; ++i)
           mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
         float neg_m[2], sum[2] = {0.f, 0.f};
 #pragma unroll
@@ -1251,7 +1078,7 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
           neg_m[r] = -m_new * kLog2e;
         }
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < NK / 2; ++i) {
           const int r = (i >> 1) & 1;
           const float p = ex2(fmaf(sc[i], scale_log2, neg_m[r]));
           sum[r] += p;
@@ -1263,10 +1090,15 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
       };
       auto pack_p = [&]() {
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) acc_to_a16(pa[kk], sc, kk);
+        for (int kk = 0; kk < KK; ++kk) {
+          if constexpr (Split)
+            acc_to_a16_split(pa[2 * KK + kk], pa[KK + kk], pa[kk], sc, kk);
+          else
+            acc_to_a16(pa[kk], sc, kk);
+        }
       };
 
-      // Tile j's S and tile j-1's P.V are issued together, and S is waited
+      // Step j's S and step j-1's P.V are issued together, and S is waited
       // for alone (wait_group 1). (ptxas hoists the wait for P.V above the
       // softmax; the overlap comes from the consumers' turns.)
       float alpha[2];
@@ -1277,7 +1109,7 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_regs(sc);
       softmax(0, alpha);
       pack_p();
-      for (int j = 1; j < kmax; ++j) {
+      for (int j = 1; j < steps; ++j) {
         my_turn();
         issue_s(j);
         issue_pv(j - 1);
@@ -1288,17 +1120,17 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
         wgmma_wait<0>();
         fence_regs(o);
         fence_regs(pa);
-        mbar_arrive(&empty[(n0 + j - 1) % S]);
+        release(j - 1);
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
         pack_p();
       }
       my_turn();
-      issue_pv(kmax - 1);
+      issue_pv(steps - 1);
       pass_turn();
       wgmma_wait<0>();
       fence_regs(o);
-      mbar_arrive(&empty[(n0 + kmax - 1) % S]);
+      release(steps - 1);
 
       // O = acc / l in bf16, staged in this consumer's Q rows (free since
       // its last S product) as the store map's swizzled boxes
@@ -1610,18 +1442,297 @@ flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// Shared memory of dQ: two buffers (item k uses buffer k % 2) of the Q and
+// dO rows of the two consumers and of their LSE and delta runs, then
+// kStages ring stages of a 64-key K tile and a V tile (K^T and V^T under
+// kNN), then the barriers. At D = 64: 2 x 33 + 4 x 16 KB; at D = 128:
+// 2 x 65 + 2 x 32 KB.
+template <int D>
+struct DqSmem {
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kT = kChunk * (D / kSeg);   // 64 rows of one operand
+  static constexpr int kStats = 2 * 64 * sizeof(float);   // LSE, delta
+  static constexpr size_t kBytes =
+      2 * (4 * kT + 2 * kStats) + kStages * 2 * kT + 8 * (4 + 2 * kStages) +
+      1024;
+  static_assert(kBytes >= kOneBlockSmem, "one block per SM");
+};
+
+// dQ (_dq_kernel :174; kNN: _dq_kernel_nn :203). Bound: operations, 0.026
+// ms at the training shape (6 D flops per causal pair, three products).
+// The forward's sibling: a persistent grid, one block per SM, walks the
+// (head, 128-row query tile) items heaviest causal tile first (work_item);
+// a block owns its query tile's dQ, so no atomics, and dQ's f32 sums keep
+// one order from run to run. The producer loads each item's Q and dO rows
+// into one of two buffers, with their 256-byte LSE and delta runs, and
+// every 64-key K and V tile of the item's causal range into the ring,
+// across item boundaries. A consumer (64 query rows) runs, per key tile,
+// S = Q.K^T and dP = dO.V^T (wgmma from shared memory), P = exp(S scale -
+// LSE) and dS = P (dP - delta) scale in registers (the causal mask only on
+// its diagonal tile, behind one branch; tiles wholly above the diagonal
+// skipped), then dQ += dS.K with dS rounded to bf16 as the register A
+// fragment and the same K tile read MN-major through the transpose bit: K
+// is loaded once and needs no transposed copy. The two consumers overlap
+// each other's softmax with their products; issuing the next tile's S and
+// dP behind this tile's dQ product, or taking turns at issuing as the
+// forward's consumers do, gained nothing or lost (PERF.md). kNN reads K^T
+// and V^T by TMA in their own layout with the transpose bits swapped (one
+// K^T tile serves S and dS.K; `k` goes unused): the tensor cores see the
+// same products in the same order, so dQ is bitwise kStd's. dQ leaves
+// through the consumer's Q rows and a TMA store. Rows past L (L = 64 mod
+// 128) are skipped by their consumer, which still walks the ring. Maps:
+// map_q, map_do, map_dq [B*L, H*D] with boxes of 64 rows; map_k, map_v the
+// same (kStd) or K^T, V^T as [B*H*D, L] with boxes of D rows (kNN).
+template <int D, int Form>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const __grid_constant__ CUtensorMap map_dq,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, int BH, int H, int L,
+                    float scale, int causal) {
+  using Smem = DqSmem<D>;
+  constexpr int C = D / kSeg, S = Smem::kStages, T = Smem::kT;
+  constexpr int kKt = Form != kStd;    // K, V arrive as K^T, V^T
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = align_1024(smem_raw);   // [buffer][consumer]
+  unsigned char* do_s = q_s + 4 * T;
+  unsigned char* k_s = do_s + 4 * T;
+  unsigned char* v_s = k_s + S * T;
+  float* stats = reinterpret_cast<float*>(v_s + S * T);  // [buf][cons][128]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(stats + 4 * 128);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + S;
+
+  const int num_t = (L + kBig - 1) / kBig;
+  const int n_items = BH * num_t;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 2);        // one thread of each consumer
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * kWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    // ---- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int n = 0;   // K/V tiles loaded so far
+      int bh, rank;
+      for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
+        const int b = bh / H, h = bh % H, q0 = (num_t - 1 - rank) * kBig;
+        const int kmax = causal ? min(q0 / 64 + 2, L / 64) : L / 64;
+        const int nw = q0 + 64 < L ? 2 : 1;    // consumers with rows
+        const int qb = it & 1;
+        if (it >= 2) mbar_wait(&q_empty[qb], ((it >> 1) - 1) & 1);
+        mbar_expect_tx(&q_full[qb], nw * (2 * T + Smem::kStats));
+        for (int w = 0; w < nw; ++w) {
+          const int slot = 2 * qb + w, r0 = q0 + 64 * w;
+          for (int c = 0; c < C; ++c) {
+            tma_load(q_s + slot * T + c * kChunk, &map_q, &q_full[qb],
+                     h * D + c * kSeg, b * L + r0);
+            tma_load(do_s + slot * T + c * kChunk, &map_do, &q_full[qb],
+                     h * D + c * kSeg, b * L + r0);
+          }
+          bulk_load(stats + slot * 128, lse + (size_t)bh * L + r0, 256,
+                    &q_full[qb]);
+          bulk_load(stats + slot * 128 + 64, delta + (size_t)bh * L + r0,
+                    256, &q_full[qb]);
+        }
+        for (int j = 0; j < kmax; ++j, ++n) {
+          const int s = n % S, k0 = j * 64;
+          if (n >= S) mbar_wait(&empty[s], (n / S - 1) & 1);
+          mbar_expect_tx(&full[s], 2 * T);
+          if constexpr (kKt) {
+            tma_load(k_s + s * T, &map_k, &full[s], k0, bh * D);
+            tma_load(v_s + s * T, &map_v, &full[s], k0, bh * D);
+          } else {
+            for (int c = 0; c < C; ++c) {
+              tma_load(k_s + s * T + c * kChunk, &map_k, &full[s],
+                       h * D + c * kSeg, b * L + k0);
+              tma_load(v_s + s * T + c * kChunk, &map_v, &full[s],
+                       h * D + c * kSeg, b * L + k0);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = threadIdx.x / kWG - 1;
+    const bool leader = (threadIdx.x & (kWG - 1)) == 0;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = 16 * warp + g;          // rows r_lo and r_lo + 8
+    const float scale_log2 = scale * kLog2e;
+    int n = 0;                               // K/V tiles consumed so far
+    int bh, rank;
+    for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
+      const int b = bh / H, h = bh % H, q0 = (num_t - 1 - rank) * kBig;
+      const int r0 = q0 + 64 * w;            // this consumer's first row
+      const int kmax = causal ? min(q0 / 64 + 2, L / 64) : L / 64;
+      // key tiles this consumer needs: 0 .. kend-1, the last one its
+      // diagonal tile under causal; the item's last is wholly above the
+      // diagonal for consumer 0
+      const int kend = causal ? r0 / 64 + 1 : kmax;
+      const int qb = it & 1, slot = 2 * qb + w, n0 = n;
+      n += kmax;
+      mbar_wait(&q_full[qb], (it >> 1) & 1);
+      if (r0 >= L) {   // rows past L: walk the ring only
+        for (int j = 0; j < kmax; ++j) {
+          mbar_wait(&full[(n0 + j) % S], ((n0 + j) / S) & 1);
+          mbar_arrive(&empty[(n0 + j) % S]);
+        }
+        if (leader) mbar_arrive(&q_empty[qb]);
+        continue;
+      }
+      unsigned char* my_q = q_s + slot * T;
+      const uint32_t qa = smem_addr(my_q), doa = smem_addr(do_s + slot * T);
+      const float* lse_s = stats + slot * 128;
+      float neg_lse[2], row_delta[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        neg_lse[r] = -lse_s[r_lo + 8 * r] * kLog2e;
+        row_delta[r] = lse_s[64 + r_lo + 8 * r];
+      }
+
+      float dq[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+      for (int j = 0; j < kmax; ++j) {
+        const int s = (n0 + j) % S;
+        mbar_wait(&full[s], ((n0 + j) / S) & 1);
+        if (j >= kend) {          // wholly above the diagonal
+          mbar_arrive(&empty[s]);
+          continue;
+        }
+        const uint32_t kb = smem_addr(k_s + s * T);
+        const uint32_t vb = smem_addr(v_s + s * T);
+        // S = Q.K^T, dP = dO.V^T. Depth d = 16 ks .. 16 ks + 15: a column
+        // step in a row tile, a 16-row step in a transposed one.
+        float st[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
+          const uint32_t b_off = kKt ? ks * 16 * kRowBytes : row_step;
+          wgmma_ss<0, kKt>(st, desc(qa + row_step), desc(kb + b_off), ks);
+        }
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
+          const uint32_t b_off = kKt ? ks * 16 * kRowBytes : row_step;
+          wgmma_ss<0, kKt>(dp, desc(doa + row_step), desc(vb + b_off), ks);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dp);
+
+        if (causal && j == kend - 1) {   // the diagonal tile: key > row
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int key = 8 * (e >> 2) + 2 * t + (e & 1);
+            const int row = r_lo + 8 * ((e >> 1) & 1);
+            if (key > row) st[e] = -INFINITY;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int r = (e >> 1) & 1;
+          const float p = ex2(fmaf(st[e], scale_log2, neg_lse[r]));
+          dp[e] = p * (dp[e] - row_delta[r]) * scale;   // dS
+        }
+        uint32_t dsa[4][4];   // dS in bf16, the A fragments of dS.K
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc_to_a16(dsa[kk], dp, kk);
+        fence_regs(dq);
+        wgmma_fence();
+        // dQ += dS.K. Depth: keys 16 kk .. 16 kk + 15, a 16-row step in
+        // K's row tile (read MN-major), a column step in K^T's tile (read
+        // K-major).
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1 - kKt>(dq, dsa[kk],
+                            desc(kb + (kKt ? kk * 32 : kk * 16 * kRowBytes),
+                                 kChunk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        mbar_arrive(&empty[s]);
+      }
+
+      // dQ in bf16, staged in this consumer's Q rows (free since its last
+      // S product) as the store map's swizzled boxes
+#pragma unroll
+      for (int j8 = 0; j8 < D / 8; ++j8)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int c = 8 * j8 + 2 * t;
+          *reinterpret_cast<uint32_t*>(
+              my_q + (c / kSeg) * kChunk + swz(r_lo + 8 * r, c % kSeg)) =
+              pack_bf16(dq[4 * j8 + 2 * r], dq[4 * j8 + 2 * r + 1]);
+        }
+      fence_async_smem();
+      named_sync(1 + w, kWG);
+      if (leader) {
+        for (int c = 0; c < C; ++c)
+          tma_store(&map_dq, my_q + c * kChunk, h * D + c * kSeg, b * L + r0);
+        tma_store_wait();            // the buffer may take the next Q, dO
+        mbar_arrive(&q_empty[qb]);
+      }
+    }
+  }
+}
+
 // ----------------------------------------------------------------- probe
 // On the TPU the probe asked whether the server's Mosaic compiler accepted
 // a 128 x 128 f32-out product of bf16 tiles in the NT, TN and NN forms, and
 // with an f32 A transposed and cast to bf16 in the kernel. Here every form
 // is compiled ahead of time (a form nvcc refused would fail the whole
 // build), so the probe asks the card instead: one block per form runs the
-// product through the flash kernels' mma.sync fragment path and writes it
-// out; the host holds each against a product it knows exactly, which with
-// the compute capability yields the caps {nt_bf16, nn_bf16, transpose_f32}
-// that the "auto" strategy is picked from (ops/flash_attention.py).
+// product on the tensor cores (mma.sync m16n8k16 on fragments loaded from
+// shared memory) and writes it out; the host holds each against a product
+// it knows exactly, which with the compute capability yields the caps
+// {nt_bf16, nn_bf16, transpose_f32} that the "auto" strategy is picked
+// from (ops/flash_attention.py).
 // Bound: 384 KB moved and 1.7e7 flops, about 0.1 us on an H100; it runs
 // once per process and card.
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c += a.b for a 16x16 A (row-major fragment), a 16x8 B (column fragment)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment of rows r .. r+15, columns c .. c+15 of a row-major tile
+// (row stride s); g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
+                                       int s, int r, int c, int g, int t) {
+  a[0] = ld32(tile + (r + g) * s + c + 2 * t);
+  a[1] = ld32(tile + (r + g + 8) * s + c + 2 * t);
+  a[2] = ld32(tile + (r + g) * s + c + 8 + 2 * t);
+  a[3] = ld32(tile + (r + g + 8) * s + c + 8 + 2 * t);
+}
 
 constexpr int kProbeN = 128;             // the probe's tiles are 128 x 128
 constexpr int kProbeS = kProbeN + 8;     // padded row of a bf16 tile in smem
@@ -1778,8 +1889,9 @@ cudaError_t dkv_f32dot(const void* q, const void* qt, const void* k,
       (T*)dv, H, L, scale, causal);
 }
 
-// kStd: k is K [B, L, H, D]; kNN: K^T [B, H, D, L].
-template <int D, int Form>
+// kStd: k is K [B, L, H, D]; kNN: K^T [B, H, D, L]. Split: the f32-dot
+// forward on bf16 storage.
+template <int D, int Form, bool Split = false>
 cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
                     void* lse, int B, int H, int L, float scale, int causal,
                     cudaStream_t st) {
@@ -1790,21 +1902,32 @@ cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
       (Form == kStd ? rows_map(&mk, k, B, H, L, D, kBig)
                     : cols_map(&mk, k, B, H, L, D));
   if (!ok) return cudaErrorInvalidValue;
-  return launch<flash_fwd_mma_kernel<D, Form>>(
+  return launch<flash_fwd_mma_kernel<D, Form, Split>>(
       persistent_grid(B, H, L), kHopperThreads, FwdSmem<D>::kBytes, st, mq,
       mk, mv, mo, (float*)lse, B * H, H, L, scale, causal);
 }
 
+// kStd: k, v are K, V [B, L, H, D] (kt unused). kNN: kt, v are K^T, V^T
+// [B, H, D, L] (k unused).
 template <int D, int Form>
 cudaError_t dq_mma(const void* q, const void* k, const void* kt,
                    const void* v, const void* dout, const void* lse,
                    const void* delta, void* dq, int B, int H, int L,
                    float scale, int causal, cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  const bool ok =
+      rows_map(&mq, q, B, H, L, D, 64) &&
+      rows_map(&mdo, dout, B, H, L, D, 64) &&
+      rows_map(&mdq, dq, B, H, L, D, 64) &&
+      (Form == kStd ? rows_map(&mk, k, B, H, L, D, 64) &&
+                          rows_map(&mv, v, B, H, L, D, 64)
+                    : cols_map(&mk, kt, B, H, L, D) &&
+                          cols_map(&mv, v, B, H, L, D));
+  if (!ok) return cudaErrorInvalidValue;
   return launch<flash_dq_mma_kernel<D, Form>>(
-      grid64(B, H, L), kMmaThreads,
-      sizeof(bf16) * (4 * kTile * (D + 8) + D * kTRow), st, (const bf16*)q,
-      (const bf16*)k, (const bf16*)kt, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, H, L, scale, causal);
+      persistent_grid(B, H, L), kHopperThreads, DqSmem<D>::kBytes, st, mq, mk,
+      mv, mdo, mdq, (const float*)lse, (const float*)delta, B * H, H, L,
+      scale, causal);
 }
 
 // kStd: q, k, v, dout, dk, dv all [B, L, H, D] (qt, doutt unused). kNN: k,
@@ -1963,8 +2086,8 @@ int paddle_flash_fwd_f32dot(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
     return D == 64
-        ? fwd_f32dot<64, bf16>(q, k, v, o, lse, B, H, L, scale, causal, st)
-        : fwd_f32dot<128, bf16>(q, k, v, o, lse, B, H, L, scale, causal, st);
+        ? fwd_mma<64, kStd, true>(q, k, v, o, lse, B, H, L, scale, causal, st)
+        : fwd_mma<128, kStd, true>(q, k, v, o, lse, B, H, L, scale, causal, st);
   return D == 64
       ? fwd_f32dot<64, float>(q, k, v, o, lse, B, H, L, scale, causal, st)
       : fwd_f32dot<128, float>(q, k, v, o, lse, B, H, L, scale, causal, st);

@@ -215,9 +215,11 @@ def _check_device(name: str, q: torch.Tensor) -> None:
 def _check(name: str, q: torch.Tensor, rows=(), cols=(), stats=()):
     """Validate what a kernel takes: CUDA, one dtype (bf16 or f32), q and
     `rows` contiguous [B, L, H, D] of one shape, `cols`
-    contiguous [B, H, D, L] of the same sizes, all 16-byte aligned; head_dim
-    64 or 128, L a multiple of 64 (the 128-row kernels run a last half tile
-    of 64 rows); `stats` contiguous f32 [B, H, L]."""
+    contiguous [B, H, D, L] of the same sizes; head_dim 64 or 128, L a
+    multiple of 64 (the 128-row kernels run a last half tile of 64 rows);
+    `stats` (LSE, delta) contiguous f32 [B, H, L]. Every operand 16-byte
+    aligned: the kernels read them with 16-byte loads or bulk copies (LSE
+    and delta in 256-byte runs)."""
     _check_device(name, q)
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported "
@@ -242,9 +244,11 @@ def _check(name: str, q: torch.Tensor, rows=(), cols=(), stats=()):
                                  f" {shape} on {q.device}")
     for t in stats:
         if (t.shape != (B, H, L) or t.dtype != torch.float32
-                or t.device != q.device or not t.is_contiguous()):
-            raise ValueError(f"{name}: LSE and delta must be contiguous "
-                             f"float32 [B, H, L] on {q.device}")
+                or t.device != q.device or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name}: LSE and delta must be contiguous, "
+                             f"16-byte aligned float32 [B, H, L] on "
+                             f"{q.device}")
     return B, L, H, D
 
 

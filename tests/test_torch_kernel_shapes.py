@@ -4,10 +4,11 @@ Each CUDA wrapper in paddle_tpu_torch/ops/flash_attention.py validates its
 operands before it launches. Here the device test and the launch are
 replaced by stubs, so the wrappers' own validation and output allocation
 run on CPU tensors: every wrapper takes L = 192 (a multiple of 64 but not
-of 128, which the 128-row forward and dK/dV kernels run as a last half
-tile) and head_dim 64 and 128, and still refuses what it refused: L not a
-multiple of 64, another head_dim or dtype, mismatched, non-contiguous or
-misaligned operands, and LSE or delta of the wrong shape."""
+of 128, which the 128-row forward, dQ and dK/dV kernels run as a last
+half tile) and head_dim 64 and 128, and still refuses what it refused: L
+not a multiple of 64, another head_dim or dtype, mismatched,
+non-contiguous or misaligned operands, and LSE or delta of the wrong
+shape or misaligned."""
 import pytest
 import torch
 
@@ -114,14 +115,18 @@ REFUSALS = {
     "misaligned": lambda t: {"q": _misaligned(t["q"])},
     "stats shape": lambda t: {"lse": t["lse"][..., :128].contiguous(),
                               "delta": t["delta"][..., :128].contiguous()},
+    "misaligned_stats": lambda t: {"lse": _misaligned(t["lse"]),
+                                   "delta": _misaligned(t["delta"])},
 }
+# the cases that alter only LSE and delta
+STATS_CASES = ("stats shape", "misaligned_stats")
 
 
-# every (wrapper, refusal) pair but LSE and delta of the wrong shape for
-# the forward kernels, which take neither
+# every (wrapper, refusal) pair but LSE and delta refusals for the forward
+# kernels, which take neither
 REFUSAL_CASES = [(name, case) for name in sorted(ARGS)
                  for case in sorted(REFUSALS)
-                 if case != "stats shape" or "lse" in ARGS[name]]
+                 if case not in STATS_CASES or "lse" in ARGS[name]]
 
 
 @pytest.mark.parametrize("name,case", REFUSAL_CASES)
