@@ -12,11 +12,14 @@ then nn, nn2 and f32 for 3 steps each, every one through its own kernels.
 Needs one CUDA card (written for an H100, sm_90a) and nvcc. Prints the
 card and its power limit, a `kernels` JSON line (time, achieved TFLOP/s,
 launches on the training path, bound, plain and library times, error of
-each kernel) and, as the last line, {"ok": true, "device": {...}}. Any
-failed check exits non-zero without that line. With --compare, it only
-times every flash kernel of this checkout and of OTHER_CHECKOUT (another
-tree of the repo, e.g. the parent commit unpacked by `git archive`) at the
-training shape by the same method, in turns (other, this, this, other),
+each kernel), before it an `off_path_kernels` line (the same for the
+kernels on f32 storage, which no training phase runs, timed at the
+training shape in f32) and, as the last line, {"ok": true, "device":
+{...}}. Any failed check exits non-zero without that line. With --compare,
+it only times every flash kernel of this checkout and of OTHER_CHECKOUT
+(another tree of the repo, e.g. the parent commit unpacked by `git
+archive`) at the training shape, in bf16 and, for the forward, dQ and
+dK/dV, in f32, by the same method, in turns (other, this, this, other),
 each in a process of its own that builds that tree's kernels.
 """
 from __future__ import annotations
@@ -42,6 +45,15 @@ PEAK_BYTES = 3.35e12
 # (query, key) pair: forward S, then P.V in three; dQ S, dP, then dS.K in
 # three; dK/dV S, dP, then P^T.dO and dS^T.Q in three each.
 F32DOT_BF16_PASSES = {"fwd": 1 + 3, "dq": 1 + 1 + 3, "dkv": 1 + 1 + 3 + 3}
+# On f32 storage both operands of every product are f32. Split into three
+# bf16 terms each, a product keeps f32's 24 bits with six bf16 passes (the
+# term pairs of weight 2^-16 and above: hi.hi, hi.mid, mid.hi, hi.lo,
+# mid.mid, lo.hi), so the least time such a split would take is that of six
+# passes a product: forward 2 products, dQ 3, dK/dV 4.
+F32_STORAGE_SPLIT_PASSES = {"fwd": 6 * 2, "dq": 6 * 3, "dkv": 6 * 4}
+# the kernels timed on f32 storage: the nn, nn2 and f32-dot entry points run
+# the same scalar kernels there (the nn forms bitwise, checked each run)
+F32_STORAGE_TIMED = ("flash_fwd", "flash_dq", "flash_dkv")
 
 # Kernel vs plain version, as the largest error divided by the RMS of its
 # row (the D entries of one position and head), or by the RMS of the whole
@@ -235,11 +247,11 @@ def named_outputs(name, out):
     return {"dK": out[0], "dV": out[1]}
 
 
-def kernel_phase(B, L, H, D, dtype_name, causal, timed):
+def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
     """Each flash kernel against its plain version on the card (the nn
     forms also against the bf16 kernels, bitwise); with `timed`, also the
-    CUDA-event medians, bounds and library times. Returns per-kernel
-    results (with `timed`)."""
+    CUDA-event medians, bounds and library times of the kernels named in
+    `time_names` (all by default). Returns their rows (with `timed`)."""
     import torch
 
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -342,6 +354,9 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = {}
     for key, ldt in (("mma", dt), ("f32dot", torch.float32)):
+        if ldt == dt and lib:     # f32 storage: one set of times for both
+            lib[key] = lib["mma"]
+            continue
         qh, kh, vh = (x.transpose(1, 2).to(ldt).contiguous().requires_grad_()
                       for x in (q, k, v))
         doh = do.transpose(1, 2).to(ldt).contiguous()
@@ -355,6 +370,8 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed):
 
     rows = []
     for name, r in results.items():
+        if time_names is not None and name not in time_names:
+            continue
         args = r["args"]
         kind = name.split("_")[1]
         # one copy of each operand of the function: an nn form computes its
@@ -374,6 +391,11 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed):
         else:
             b = bound(flops[kind], nbytes,
                       "float32" if r["f32dot"] else "bfloat16")
+        if dtype_name == "float32":
+            # the same work as bf16 passes of split f32 operands
+            extra["split_bound_ms"] = bound(
+                F32_STORAGE_SPLIT_PASSES[kind] * 2 * D * pairs, nbytes,
+                "bfloat16")[0]
         ms = median_ms(lambda: fa.CUDA[name](*args))
         plain = median_ms(lambda: fa.PLAIN[name](*args), reps=5, launches=3)
         rows.append({
@@ -632,6 +654,13 @@ def main():
 
     probe_row = probe_phase()
     rows = kernel_phase(8, 1024, 16, 64, "bfloat16", True, timed=True)
+    # f32 storage at the training shape: no training phase runs an f32
+    # model, so these rows stand apart from the launch check
+    off_path = kernel_phase(8, 1024, 16, 64, "float32", True, timed=True,
+                            time_names=F32_STORAGE_TIMED)
+    for r in off_path:
+        r.update(storage="float32", launches=0,
+                 path="f32 storage: no training phase runs it")
     kernel_phase(8, 1024, 16, 64, "bfloat16", False, timed=False)
     kernel_phase(8, 1024, 8, 128, "bfloat16", True, timed=False)
     kernel_phase(2, 256, 4, 64, "float32", True, timed=False)
@@ -656,6 +685,7 @@ def main():
         r["launches"] = launches.get(r["name"], 0)
         check(r["launches"] > 0, f"{r['name']} never launched on the "
                                  f"training path")
+    log(json.dumps({"off_path_kernels": off_path}))
     log(json.dumps({"kernels": rows + [probe_row]}))
     log(f"chip_smoke took {time.time() - t_start:.0f} s")
     print(card)
@@ -677,20 +707,21 @@ def time_kernels(root):
     check(os.path.abspath(fa.__file__).startswith(os.path.abspath(root)),
           f"imported {fa.__file__}, not the package under {root}")
     B, L, H, D, causal = 8, 1024, 16, 64, True
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    q, k, v, do = (torch.randn(B, L, H, D, device="cuda",
-                               dtype=torch.bfloat16, generator=g)
-                   for _ in range(4))
     sc = 1.0 / math.sqrt(D)
-    o, lse = fa.flash_fwd_plain(q, k, v, causal, sc)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    t = {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta,
-         "qt": fa.to_t(q), "kt": fa.to_t(k), "vt": fa.to_t(v),
-         "dot": fa.to_t(do)}
     ms = {}
-    for name in ARGS:
-        args = [t[a] for a in ARGS[name]] + [causal, sc]
-        ms[name] = median_ms(lambda: fa.CUDA[name](*args))
+    for dt, names, suffix in ((torch.bfloat16, ARGS, ""),
+                              (torch.float32, F32_STORAGE_TIMED, "@float32")):
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        q, k, v, do = (torch.randn(B, L, H, D, device="cuda", dtype=dt,
+                                   generator=g) for _ in range(4))
+        o, lse = fa.flash_fwd_plain(q, k, v, causal, sc)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        t = {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta,
+             "qt": fa.to_t(q), "kt": fa.to_t(k), "vt": fa.to_t(v),
+             "dot": fa.to_t(do)}
+        for name in names:
+            args = [t[a] for a in ARGS[name]] + [causal, sc]
+            ms[name + suffix] = median_ms(lambda: fa.CUDA[name](*args))
     print(json.dumps({"root": root, "ms": ms}), flush=True)
     return 0
 
@@ -714,13 +745,13 @@ def compare(other):
         runs.append(json.loads(out.stdout.strip().splitlines()[-1])["ms"])
         log(f"{root}: {runs[-1]}")
     result = {}
-    for name in ARGS:
+    for name in runs[0]:
         mine, theirs = (runs[1][name], runs[2][name]), (runs[0][name],
                                                          runs[3][name])
         result[name] = {"ms": mine, "other_ms": theirs,
                         "ratio": (min(mine) / max(theirs),
                                   max(mine) / min(theirs))}
-        log(f"{name:18s} {mine[0]:.4f} {mine[1]:.4f} ms against "
+        log(f"{name:26s} {mine[0]:.4f} {mine[1]:.4f} ms against "
             f"{theirs[0]:.4f} {theirs[1]:.4f}: "
             f"x{result[name]['ratio'][0]:.3f}-{result[name]['ratio'][1]:.3f}")
     print(card)

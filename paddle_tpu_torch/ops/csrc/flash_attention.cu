@@ -5,30 +5,30 @@
 // dot strategy (FLAGS_flash_dot_impl) of the reference:
 //   _fwd_kernel (:83)       bf16: flash_fwd_mma_kernel<D, kStd>
 //                           nn, nn2: flash_fwd_mma_kernel<D, kNN> (reads K^T)
-//                           f32: flash_fwd_mma_kernel<D, kStd, Split> on
-//                           bf16 storage, flash_fwd_f32dot_kernel<D, float>
-//                           on f32
+//                           f32: flash_fwd_mma_kernel<D, kStd, Split>
 //   _dq_kernel (:174)       bf16: flash_dq_mma_kernel<D, kStd>
-//                           f32: flash_dq_f32dot_kernel<D, T>
+//                           f32: flash_dq_mma_kernel<D, kStd, Split>
 //   _dq_kernel_nn (:203)    nn, nn2: flash_dq_mma_kernel<D, kNN> (reads K^T
 //                           and V^T)
 //   _dkv_kernel (:233)      bf16: flash_dkv_mma_kernel<D, kStd>
 //                           nn: flash_dkv_mma_kernel<D, kNN> (reads K^T, V^T)
-//                           f32: flash_dkv_f32dot_kernel<D, T>
+//                           f32: flash_dkv_mma_kernel<D, kStd, Split>
 //   _dkv_kernel_nn2 (:289)  nn2: flash_dkv_mma_kernel<D, kNN2> (reads K^T,
 //                           V^T, Q^T and dO^T, writes dK^T and dV^T)
 //   probe's kern (:467)     flash_probe_kernel (the dot-form probe)
-// On f32 storage every strategy runs the f32-dot kernels, whose dots are
-// the storage dtype's there; nn and nn2 run their Form instances, which
-// read the transposed operands as the mma forms do.
+// That is on bf16 storage. On f32 storage every strategy runs the scalar
+// f32-dot kernels (flash_fwd_f32dot_kernel, flash_dq_f32dot_kernel,
+// flash_dkv_f32dot_kernel), whose dots are the storage dtype's there; nn
+// and nn2 run their Form instances, which read the transposed operands as
+// the mma forms do.
 // Each computes what its TPU counterpart computes, with the same numerics:
 // dots accumulate in f32, sm_scale is applied in f32 after the Q.K dot,
 // masked scores are -1e30 (not -inf). Under bf16, nn and nn2, P is rounded
 // to the input dtype before P.V, and P and dS are rounded to the input
-// dtype only where they enter a dot; the f32-dot kernels (strategy f32)
-// load the storage dtype, compute every dot in f32 and round only what they
-// store (the Split forward forms its f32 dots from exact bf16 products, see
-// there). delta = rowsum(dO * O) comes from the caller, in f32.
+// dtype only where they enter a dot; strategy f32 computes every dot in
+// f32 and rounds only what it stores (on bf16 storage the Split instances
+// form their f32 dots from exact bf16 products, see the forward's note).
+// delta = rowsum(dO * O) comes from the caller, in f32.
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are [B, L, H, D] contiguous (the
 // public layout, read through strides); the transposed operands of nn and
@@ -60,10 +60,10 @@
 // take as many cycles as the products; the forward's consumers take turns
 // at the tensor cores so that one's softmax overlaps the other's products
 // (PERF.md has the ablations and each kernel's time on an H100). The
-// f32-dot forward on bf16 storage is the forward's Split instance, whose
-// f32 dots are bf16 tensor-core products (exact in f32) of split operands.
-// The other f32-dot kernels, and every kernel on f32 storage, run scalar
-// f32 FMAs on the CUDA cores (67 TFLOP/s), operations-bound.
+// f32-dot forward, dQ and dK/dV on bf16 storage are the Split instances of
+// these kernels, whose f32 dots are bf16 tensor-core products (exact in
+// f32) of split operands. Every kernel on f32 storage runs scalar f32 FMAs
+// on the CUDA cores (67 TFLOP/s), operations-bound.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -92,14 +92,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // -------------------------------------------------------- f32-dot path
-// dQ and dK/dV of strategy f32, and the forward on f32 storage (on bf16
-// storage the f32-dot forward is flash_fwd_mma_kernel's Split instance).
-// Scalar f32 FMAs on tiles of storage type T (float or bf16), converted to
-// f32 as they are loaded. Tiles sit in shared memory as f32 rows padded to
-// D + 1 floats, so the column walks below hit 32 distinct banks. A block of
-// 256 threads: thread (ty, tx) = (tid / 16, tid % 16) owns rows 4*ty ..
-// 4*ty+3 of every 64 x 64 score tile and of its output tile, at columns
-// tx + 16*j. The 16 threads of a row group are one half-warp, so row
+// Every strategy's forward, dQ and dK/dV on f32 storage (on bf16 storage
+// strategy f32 runs the Split instances of the Hopper kernels below).
+// Scalar f32 FMAs. Tiles sit in shared memory as f32 rows padded to D + 1
+// floats, so the column walks below hit 32 distinct banks. A block of 256
+// threads: thread (ty, tx) = (tid / 16, tid % 16) owns rows 4*ty .. 4*ty+3
+// of every 64 x 64 score tile and of its output tile, at columns tx +
+// 16*j. The 16 threads of a row group are one half-warp, so row
 // maxima and sums reduce with four xor-shuffles. P and dS stay f32.
 // The Form instances (f32 storage under nn and nn2) load each transposed
 // operand into the same row tile, so they give the kStd instance's results
@@ -107,13 +106,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 constexpr int kThreads = 256;
 constexpr int kRowPad = kTile + 1;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(bf16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // max / sum over the 16 lanes of a half-warp (one row group)
 __device__ __forceinline__ float group_max(float x) {
@@ -131,31 +123,31 @@ __device__ __forceinline__ float group_sum(float x) {
 
 // Copy rows row0 .. row0+63 of one head (row stride rs elements) into a
 // [64][D + 1] f32 tile in shared memory.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int rs) {
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int rs) {
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = to_f32(src[(size_t)(row0 + r) * rs + c]);
+    dst[r * (D + 1) + c] = src[(size_t)(row0 + r) * rs + c];
   }
 }
 
 // The same tile from columns row0 .. row0+63 of one head's [D][L] slab of a
 // [B, H, D, L] tensor, read along L.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile_t(float* dst, const T* src,
+template <int D>
+__device__ __forceinline__ void load_tile_t(float* dst, const float* src,
                                             int row0, int L) {
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i % kTile, c = i / kTile;
-    dst[r * (D + 1) + c] = to_f32(src[(size_t)c * L + row0 + r]);
+    dst[r * (D + 1) + c] = src[(size_t)c * L + row0 + r];
   }
 }
 
 // Rows row0 .. row0+63 of one head into a [64][D + 1] tile, from a
 // [B, L, H, D] tensor (head base `base`) or, `Transposed`, from a
 // [B, H, D, L] one (head base `tb`).
-template <int D, bool Transposed, typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
+template <int D, bool Transposed>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           size_t base, size_t tb, int row0,
                                           int rs, int L) {
   if constexpr (Transposed) load_tile_t<D>(dst, src + tb, row0, L);
@@ -184,10 +176,11 @@ __device__ __forceinline__ void tile_dot_nt(float (&acc)[4][4],
 
 // Forward: streaming softmax over key tiles 0 .. kmax-1. k is K (kStd) or
 // K^T (kNN).
-template <int D, typename T, int Form>
+template <int D, int Form>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_f32dot_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_f32dot_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
                         float* __restrict__ lse, int H, int L, float scale,
                         int causal) {
   constexpr int NJ = D / 16;
@@ -271,9 +264,9 @@ flash_fwd_f32dot_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int row = q0 + 4 * ty + a;
-    T* orow = o + base + (size_t)row * rs;
+    float* orow = o + base + (size_t)row * rs;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) store_f32(orow + tx + 16 * j, acc[a][j] / l[a]);
+    for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = acc[a][j] / l[a];
     if (tx == 0) lse[(size_t)bh * L + row] = m[a] + logf(l[a]);
   }
 }
@@ -282,13 +275,16 @@ flash_fwd_f32dot_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // P = exp(S - LSE) and dS = P * (dO.V^T - delta) * scale. kStd: k is K, v
 // is V, kt unused. kNN: kt is K^T and v is V^T; one row tile of K serves
 // both of its products here, so it is loaded from K^T and k goes unused.
-template <int D, typename T, int Form>
+template <int D, int Form>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_f32dot_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ kt, const T* __restrict__ v,
-                       const T* __restrict__ dout,
+flash_dq_f32dot_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ kt,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
                        const float* __restrict__ lse,
-                       const float* __restrict__ delta, T* __restrict__ dq,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dq,
                        int H, int L, float scale, int causal) {
   constexpr int NJ = D / 16;
   extern __shared__ float smem[];
@@ -360,9 +356,9 @@ flash_dq_f32dot_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    T* row = dq + base + (size_t)(q0 + 4 * ty + a) * rs;
+    float* row = dq + base + (size_t)(q0 + 4 * ty + a) * rs;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) store_f32(row + tx + 16 * j, acc[a][j]);
+    for (int j = 0; j < NJ; ++j) row[tx + 16 * j] = acc[a][j];
   }
 }
 
@@ -370,16 +366,18 @@ flash_dq_f32dot_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // start: dV += P^T.dO and dK += dS^T.Q. The pointers are those of
 // flash_dkv_mma_kernel: kStd reads q, k, v, dout; kNN k, v as K^T, V^T;
 // kNN2 also Q^T, dO^T (qt, doutt; q and dout unused) and writes dK^T, dV^T.
-template <int D, typename T, int Form>
+template <int D, int Form>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_f32dot_kernel(const T* __restrict__ q, const T* __restrict__ qt,
-                        const T* __restrict__ k, const T* __restrict__ v,
-                        const T* __restrict__ dout,
-                        const T* __restrict__ doutt,
+flash_dkv_f32dot_kernel(const float* __restrict__ q,
+                        const float* __restrict__ qt,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ doutt,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dk,
-                        T* __restrict__ dv, int H, int L, float scale,
-                        int causal) {
+                        const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv, int H,
+                        int L, float scale, int causal) {
   constexpr int NJ = D / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -472,8 +470,8 @@ flash_dkv_f32dot_kernel(const T* __restrict__ q, const T* __restrict__ qt,
       const int d = tx + 16 * j;
       const size_t off = Form == kNN2 ? tb + (size_t)d * L + key
                                       : base + (size_t)key * rs + d;
-      store_f32(dk + off, acc_k[a][j]);
-      store_f32(dv + off, acc_v[a][j]);
+      dk[off] = acc_k[a][j];
+      dv[off] = acc_v[a][j];
     }
   }
 }
@@ -693,8 +691,24 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #define WG_F8(i)                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_F32 WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+#define WG_F16 WG_F8(0), WG_F8(8)
+#define WG_F32 WG_F16, WG_F8(16), WG_F8(24)
 #define WG_F64 WG_F32, WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+
+// d (64 x 32, f32) = A.B, + d if scale_d; A and B from shared memory,
+// transposed (MN-major) where TA / TB is 1
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : WG_F16
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
 
 // d (64 x 64, f32) = A.B, + d if scale_d; A and B from shared memory,
 // transposed (MN-major) where TA / TB is 1
@@ -782,7 +796,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 template <int TA, int TB, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N], uint64_t da,
                                          uint64_t db, int scale_d) {
-  if constexpr (N == 32) wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
+  if constexpr (N == 16) wgmma_ss_n32<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 32) wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
   else wgmma_ss_n128<TA, TB>(d, da, db, scale_d);
 }
 template <int TB, int N>
@@ -809,8 +824,9 @@ __device__ __forceinline__ void acc_to_a16(uint32_t (&a)[4],
 // The same columns of an f32 accumulator split into three bf16 fragments,
 // hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid): both
 // subtractions are exact in f32, and the three terms hold the 24
-// significant bits of x, so hi + mid + lo = x (for x in [0, 1], P's range,
-// down to about 2^-110, below which lo would be subnormal). Three bf16
+// significant bits of x, so hi + mid + lo = x, of either sign (P in [0,
+// 1], dS signed and unbounded), for |x| down to about 2^-110, below which
+// lo would be subnormal (an error under 2^-126 absolute). Three bf16
 // products of the terms against one bf16 tile then form x.B with every
 // product exact in f32, as an f32 dot of x with the bf16 values forms it.
 template <int N>
@@ -1197,7 +1213,24 @@ struct DkvSmem {
 // which still walks the ring. Maps: [B*L, H*D] with boxes of 64 rows for
 // the operands that arrive as rows, [B*H*D, L] with boxes of D rows for
 // the transposed ones.
-template <int D, int Form>
+//
+// Split (strategy f32 on bf16 storage, _dkv_kernel's f32 form :275-278):
+// S^T and dP^T stay one bf16 wgmma each (their products are exact in f32);
+// P^T and dS^T stay f32 and are each split into three bf16 terms
+// (acc_to_a16_split), so dV += P^T.dO and dK += dS^T.Q take three passes
+// each against the same dO and Q tiles, the small terms first. Each
+// split is 48 registers of fragments beside dK and dV (D floats) and the
+// f32 scores S^T and dP^T (32 floats each). At D = 64 that fits: both are
+// packed before dV's and dK's passes are issued together, as in the bf16
+// instances. At D = 128 it does not, even with dV's passes retired before
+// dS^T is packed (dK, dV, dS^T's f32 and P^T's fragments, 208 registers
+// before any address: ptxas spilled 28 bytes). So that instance takes each
+// 64-query tile in two halves of 32 queries (m64n32 products for S^T and
+// dP^T, 24 registers of fragments each, about 128 + 48 at the peak): the
+// same products, dV and dK summed half by half, with twice the issues of
+// S^T and dP^T. Eight bf16 passes of 2 D flops a causal pair bound it:
+// operations, 0.070 ms at the training shape.
+template <int D, int Form, bool Split = false>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
@@ -1212,6 +1245,12 @@ flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
   constexpr int C = D / kSeg, S = Smem::kStages, T = Smem::kT;
   constexpr int kKt = Form != kStd;    // K, V arrive as K^T, V^T
   constexpr int kQt = Form == kNN2;    // Q, dO as Q^T, dO^T; dK^T, dV^T out
+  constexpr int NP = Split ? 3 : 1;    // bf16 terms of P^T and of dS^T
+  // queries of one step: Split at D = 128 takes a query tile in two halves
+  // (see above)
+  constexpr int NQ = Split && D == 128 ? 32 : 64;
+  constexpr int KK = NQ / 16;          // depth steps of P^T.dO, dS^T.Q
+  static_assert(!Split || Form == kStd, "Split reads Q and dO as rows");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* k_s = align_1024(smem_raw);   // [buffer][consumer]
   unsigned char* v_s = k_s + 4 * T;
@@ -1330,68 +1369,89 @@ flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
         }
         const uint32_t qb = smem_addr(q_s + s * T);
         const uint32_t dob = smem_addr(do_s + s * T);
-        float st[32], dpt[32];
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
-          // depth d = 16 ks .. 16 ks + 15: a column step in a row tile, a
-          // 16-row step in a transposed one
-          const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
-          const uint32_t col_step = ks * 16 * kRowBytes;
-          const uint32_t a_off = kKt ? col_step : row_step;
-          const uint32_t b_off = kQt ? col_step : row_step;
-          wgmma_ss<kKt, kQt>(st, desc(ka + a_off), desc(qb + b_off), ks);
-        }
-#pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
-          const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
-          const uint32_t col_step = ks * 16 * kRowBytes;
-          const uint32_t a_off = kKt ? col_step : row_step;
-          const uint32_t b_off = kQt ? col_step : row_step;
-          wgmma_ss<kKt, kQt>(dpt, desc(va + a_off), desc(dob + b_off), ks);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(st);
-        fence_regs(dpt);
-
         const float* lse_s = stats + s * 128;
         const float* delta_s = lse_s + 64;
         const bool diag = causal && q0 == kw0;
+#pragma unroll 1
+        for (int hq = 0; hq < 64 / NQ; ++hq) {
+          // S^T and dP^T of queries hq NQ .. hq NQ + NQ-1: their rows of Q
+          // and dO, a 16-row step each in a row tile (kQt has one step)
+          const uint32_t q_off = hq * NQ * kRowBytes;
+          float st[NQ / 2], dpt[NQ / 2];
+          wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
-          const int col = 8 * (e >> 2) + 2 * t + (e & 1);   // query in tile
-          const int row = r_lo + 8 * ((e >> 1) & 1);        // key in tile
-          float p = ex2((st[e] * scale - lse_s[col]) * kLog2e);
-          if (diag && col < row) p = 0.f;                   // masked: -1e30
-          dpt[e] = p * (dpt[e] - delta_s[col]) * scale;     // dS^T
-          st[e] = p;                                        // P^T
+          for (int ks = 0; ks < D / 16; ++ks) {
+            // depth d = 16 ks .. 16 ks + 15: a column step in a row tile,
+            // a 16-row step in a transposed one
+            const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
+            const uint32_t col_step = ks * 16 * kRowBytes;
+            const uint32_t a_off = kKt ? col_step : row_step;
+            const uint32_t b_off = q_off + (kQt ? col_step : row_step);
+            wgmma_ss<kKt, kQt>(st, desc(ka + a_off), desc(qb + b_off), ks);
+          }
+#pragma unroll
+          for (int ks = 0; ks < D / 16; ++ks) {
+            const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
+            const uint32_t col_step = ks * 16 * kRowBytes;
+            const uint32_t a_off = kKt ? col_step : row_step;
+            const uint32_t b_off = q_off + (kQt ? col_step : row_step);
+            wgmma_ss<kKt, kQt>(dpt, desc(va + a_off), desc(dob + b_off), ks);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(st);
+          fence_regs(dpt);
+
+#pragma unroll
+          for (int e = 0; e < NQ / 2; ++e) {
+            const int col = hq * NQ + 8 * (e >> 2) + 2 * t + (e & 1);  // query
+            const int row = r_lo + 8 * ((e >> 1) & 1);                 // key
+            float p = ex2((st[e] * scale - lse_s[col]) * kLog2e);
+            if (diag && col < row) p = 0.f;                 // masked: -1e30
+            dpt[e] = p * (dpt[e] - delta_s[col]) * scale;   // dS^T
+            st[e] = p;                                      // P^T
+          }
+          // P^T and dS^T in bf16 (Split: their lo, mid and hi terms), the
+          // A fragments of P^T.dO and dS^T.Q
+          uint32_t pa[NP * KK][4], dsa[NP * KK][4];
+#pragma unroll
+          for (int kk = 0; kk < KK; ++kk) {
+            if constexpr (Split) {
+              acc_to_a16_split(pa[2 * KK + kk], pa[KK + kk], pa[kk], st, kk);
+              acc_to_a16_split(dsa[2 * KK + kk], dsa[KK + kk], dsa[kk], dpt,
+                               kk);
+            } else {
+              acc_to_a16(pa[kk], st, kk);
+              acc_to_a16(dsa[kk], dpt, kk);
+            }
+          }
+          fence_regs(dv);
+          fence_regs(dk);
+          wgmma_fence();
+          // acc += A.B, the small terms first. Depth: queries hq NQ + 16 kk
+          // .. + 15, a 16-row step in a row tile of Q or dO (read
+          // MN-major), a column step in a transposed one.
+          auto issue = [&](float (&acc)[D / 2],
+                           const uint32_t (&a)[NP * KK][4], uint32_t b) {
+#pragma unroll
+            for (int p = 0; p < NP; ++p)
+#pragma unroll
+              for (int kk = 0; kk < KK; ++kk) {
+                const int kq = hq * KK + kk;
+                wgmma_rs<1 - kQt>(
+                    acc, a[p * KK + kk],
+                    desc(b + (kQt ? kq * 32 : kq * 16 * kRowBytes), kChunk));
+              }
+          };
+          issue(dv, pa, dob);
+          issue(dk, dsa, qb);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dv);
+          fence_regs(dk);
+          fence_regs(pa);
+          fence_regs(dsa);
         }
-        uint32_t pa[4][4], dsa[4][4];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          acc_to_a16(pa[kk], st, kk);
-          acc_to_a16(dsa[kk], dpt, kk);
-        }
-        fence_regs(dv);
-        fence_regs(dk);
-        wgmma_fence();
-        // depth: queries 16 kk .. 16 kk + 15, a 16-row step in a row tile
-        // of Q or dO (read MN-major), a column step in a transposed one
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<1 - kQt>(dv, pa[kk],
-                            desc(dob + (kQt ? kk * 32 : kk * 16 * kRowBytes),
-                                 kChunk));
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<1 - kQt>(dk, dsa[kk],
-                            desc(qb + (kQt ? kk * 32 : kk * 16 * kRowBytes),
-                                 kChunk));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dv);
-        fence_regs(dk);
         mbar_arrive(&empty[s]);
       }
 
@@ -1483,7 +1543,15 @@ struct DqSmem {
 // 128) are skipped by their consumer, which still walks the ring. Maps:
 // map_q, map_do, map_dq [B*L, H*D] with boxes of 64 rows; map_k, map_v the
 // same (kStd) or K^T, V^T as [B*H*D, L] with boxes of D rows (kNN).
-template <int D, int Form>
+//
+// Split (strategy f32 on bf16 storage, _dq_kernel's f32 form :194): S and
+// dP stay one bf16 wgmma each (their products are exact in f32); dS stays
+// f32 and is split into three bf16 terms (acc_to_a16_split), each
+// multiplied by the same K tile into dQ, the small terms first. The three
+// fragment sets (48 registers) fit beside dQ (32 or 64 floats), so nothing
+// else changes. Five bf16 passes of 2 D flops a causal pair bound it:
+// operations, 0.044 ms at the training shape.
+template <int D, int Form, bool Split = false>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
@@ -1496,6 +1564,7 @@ flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
   using Smem = DqSmem<D>;
   constexpr int C = D / kSeg, S = Smem::kStages, T = Smem::kT;
   constexpr int kKt = Form != kStd;    // K, V arrive as K^T, V^T
+  constexpr int NP = Split ? 3 : 1;    // bf16 terms of dS
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s = align_1024(smem_raw);   // [buffer][consumer]
   unsigned char* do_s = q_s + 4 * T;
@@ -1654,22 +1723,32 @@ flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
           const float p = ex2(fmaf(st[e], scale_log2, neg_lse[r]));
           dp[e] = p * (dp[e] - row_delta[r]) * scale;   // dS
         }
-        uint32_t dsa[4][4];   // dS in bf16, the A fragments of dS.K
+        // dS in bf16 (Split: its lo, mid and hi terms), the A fragments
+        // of dS.K
+        uint32_t dsa[NP * 4][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) acc_to_a16(dsa[kk], dp, kk);
+        for (int kk = 0; kk < 4; ++kk) {
+          if constexpr (Split)
+            acc_to_a16_split(dsa[8 + kk], dsa[4 + kk], dsa[kk], dp, kk);
+          else
+            acc_to_a16(dsa[kk], dp, kk);
+        }
         fence_regs(dq);
         wgmma_fence();
-        // dQ += dS.K. Depth: keys 16 kk .. 16 kk + 15, a 16-row step in
-        // K's row tile (read MN-major), a column step in K^T's tile (read
-        // K-major).
+        // dQ += dS.K, the small terms first. Depth: keys 16 kk .. 16 kk +
+        // 15, a 16-row step in K's row tile (read MN-major), a column step
+        // in K^T's tile (read K-major).
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<1 - kKt>(dq, dsa[kk],
-                            desc(kb + (kKt ? kk * 32 : kk * 16 * kRowBytes),
-                                 kChunk));
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs<1 - kKt>(dq, dsa[p * 4 + kk],
+                              desc(kb + (kKt ? kk * 32 : kk * 16 * kRowBytes),
+                                   kChunk));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
+        fence_regs(dsa);
         mbar_arrive(&empty[s]);
       }
 
@@ -1854,39 +1933,39 @@ bool cols_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int D) {
                     D);
 }
 
-template <int D, typename T, int Form = kStd>
+typedef const float* cf32;   // an f32 operand of a scalar kernel
+
+template <int D, int Form = kStd>
 cudaError_t fwd_f32dot(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int L, float scale,
                        int causal, cudaStream_t st) {
-  return launch<flash_fwd_f32dot_kernel<D, T, Form>>(
+  return launch<flash_fwd_f32dot_kernel<D, Form>>(
       grid64(B, H, L), kThreads, 3 * tile_bytes(D) + score_bytes(), st,
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, H, L, scale,
-      causal);
+      (cf32)q, (cf32)k, (cf32)v, (float*)o, (float*)lse, H, L, scale, causal);
 }
 
-template <int D, typename T, int Form = kStd>
+template <int D, int Form = kStd>
 cudaError_t dq_f32dot(const void* q, const void* k, const void* kt,
                       const void* v, const void* dout, const void* lse,
                       const void* delta, void* dq, int B, int H, int L,
                       float scale, int causal, cudaStream_t st) {
-  return launch<flash_dq_f32dot_kernel<D, T, Form>>(
+  return launch<flash_dq_f32dot_kernel<D, Form>>(
       grid64(B, H, L), kThreads, 4 * tile_bytes(D) + score_bytes(), st,
-      (const T*)q, (const T*)k, (const T*)kt, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dq, H, L, scale, causal);
+      (cf32)q, (cf32)k, (cf32)kt, (cf32)v, (cf32)dout, (cf32)lse, (cf32)delta, (float*)dq, H, L,
+      scale, causal);
 }
 
-template <int D, typename T, int Form = kStd>
+template <int D, int Form = kStd>
 cudaError_t dkv_f32dot(const void* q, const void* qt, const void* k,
                        const void* v, const void* dout, const void* doutt,
                        const void* lse, const void* delta, void* dk,
                        void* dv, int B, int H, int L, float scale,
                        int causal, cudaStream_t st) {
-  return launch<flash_dkv_f32dot_kernel<D, T, Form>>(
+  return launch<flash_dkv_f32dot_kernel<D, Form>>(
       grid64(B, H, L), kThreads,
       4 * tile_bytes(D) + 2 * score_bytes() + 2 * sizeof(float) * kTile, st,
-      (const T*)q, (const T*)qt, (const T*)k, (const T*)v, (const T*)dout,
-      (const T*)doutt, (const float*)lse, (const float*)delta, (T*)dk,
-      (T*)dv, H, L, scale, causal);
+      (cf32)q, (cf32)qt, (cf32)k, (cf32)v, (cf32)dout, (cf32)doutt, (cf32)lse, (cf32)delta,
+      (float*)dk, (float*)dv, H, L, scale, causal);
 }
 
 // kStd: k is K [B, L, H, D]; kNN: K^T [B, H, D, L]. Split: the f32-dot
@@ -1908,8 +1987,8 @@ cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
 }
 
 // kStd: k, v are K, V [B, L, H, D] (kt unused). kNN: kt, v are K^T, V^T
-// [B, H, D, L] (k unused).
-template <int D, int Form>
+// [B, H, D, L] (k unused). Split: the f32-dot dQ on bf16 storage.
+template <int D, int Form, bool Split = false>
 cudaError_t dq_mma(const void* q, const void* k, const void* kt,
                    const void* v, const void* dout, const void* lse,
                    const void* delta, void* dq, int B, int H, int L,
@@ -1924,7 +2003,7 @@ cudaError_t dq_mma(const void* q, const void* k, const void* kt,
                     : cols_map(&mk, kt, B, H, L, D) &&
                           cols_map(&mv, v, B, H, L, D));
   if (!ok) return cudaErrorInvalidValue;
-  return launch<flash_dq_mma_kernel<D, Form>>(
+  return launch<flash_dq_mma_kernel<D, Form, Split>>(
       persistent_grid(B, H, L), kHopperThreads, DqSmem<D>::kBytes, st, mq, mk,
       mv, mdo, mdq, (const float*)lse, (const float*)delta, B * H, H, L,
       scale, causal);
@@ -1932,8 +2011,9 @@ cudaError_t dq_mma(const void* q, const void* k, const void* kt,
 
 // kStd: q, k, v, dout, dk, dv all [B, L, H, D] (qt, doutt unused). kNN: k,
 // v are K^T, V^T [B, H, D, L]. kNN2: also qt, doutt = Q^T, dO^T (q, dout
-// unused), and dk, dv are dK^T, dV^T, all [B, H, D, L].
-template <int D, int Form>
+// unused), and dk, dv are dK^T, dV^T, all [B, H, D, L]. Split: the
+// f32-dot dK/dV on bf16 storage.
+template <int D, int Form, bool Split = false>
 cudaError_t dkv_mma(const void* q, const void* qt, const void* k,
                     const void* v, const void* dout, const void* doutt,
                     const void* lse, const void* delta, void* dk, void* dv,
@@ -1949,7 +2029,7 @@ cudaError_t dkv_mma(const void* q, const void* qt, const void* k,
                   map(&mv, v, kt) && map(&mdo, qtr ? doutt : dout, qtr) &&
                   map(&mdk, dk, qtr) && map(&mdv, dv, qtr);
   if (!ok) return cudaErrorInvalidValue;
-  return launch<flash_dkv_mma_kernel<D, Form>>(
+  return launch<flash_dkv_mma_kernel<D, Form, Split>>(
       persistent_grid(B, H, L), kHopperThreads, DkvSmem<D>::kBytes, st, mq,
       mk, mv, mdo, mdk, mdv, (const float*)lse, (const float*)delta, B * H,
       H, L, scale, causal);
@@ -1981,8 +2061,8 @@ int paddle_flash_fwd(const void* q, const void* k, const void* v, void* o,
         ? fwd_mma<64, kStd>(q, k, v, o, lse, B, H, L, scale, causal, st)
         : fwd_mma<128, kStd>(q, k, v, o, lse, B, H, L, scale, causal, st);
   return D == 64
-      ? fwd_f32dot<64, float>(q, k, v, o, lse, B, H, L, scale, causal, st)
-      : fwd_f32dot<128, float>(q, k, v, o, lse, B, H, L, scale, causal, st);
+      ? fwd_f32dot<64>(q, k, v, o, lse, B, H, L, scale, causal, st)
+      : fwd_f32dot<128>(q, k, v, o, lse, B, H, L, scale, causal, st);
 }
 
 int paddle_flash_dq(const void* q, const void* k, const void* v,
@@ -1996,8 +2076,8 @@ int paddle_flash_dq(const void* q, const void* k, const void* v,
         ? dq_mma<64, kStd>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st)
         : dq_mma<128, kStd>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st);
   return D == 64
-      ? dq_f32dot<64, float>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st)
-      : dq_f32dot<128, float>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st);
+      ? dq_f32dot<64>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st)
+      : dq_f32dot<128>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st);
 }
 
 int paddle_flash_dkv(const void* q, const void* k, const void* v,
@@ -2011,8 +2091,8 @@ int paddle_flash_dkv(const void* q, const void* k, const void* v,
         ? dkv_mma<64, kStd>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
         : dkv_mma<128, kStd>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
   return D == 64
-      ? dkv_f32dot<64, float>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
-      : dkv_f32dot<128, float>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
+      ? dkv_f32dot<64>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
+      : dkv_f32dot<128>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
 }
 
 // Strategies nn and nn2.
@@ -2026,8 +2106,8 @@ int paddle_flash_fwd_nn(const void* q, const void* kt, const void* v,
         ? fwd_mma<64, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, st)
         : fwd_mma<128, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, st);
   return D == 64
-      ? fwd_f32dot<64, float, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, st)
-      : fwd_f32dot<128, float, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, st);
+      ? fwd_f32dot<64, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, st)
+      : fwd_f32dot<128, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, st);
 }
 
 int paddle_flash_dq_nn(const void* q, const void* k, const void* kt,
@@ -2042,8 +2122,8 @@ int paddle_flash_dq_nn(const void* q, const void* k, const void* kt,
         ? dq_mma<64, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, st)
         : dq_mma<128, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, st);
   return D == 64
-      ? dq_f32dot<64, float, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, st)
-      : dq_f32dot<128, float, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, st);
+      ? dq_f32dot<64, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, st)
+      : dq_f32dot<128, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, st);
 }
 
 int paddle_flash_dkv_nn(const void* q, const void* kt, const void* vt,
@@ -2057,8 +2137,8 @@ int paddle_flash_dkv_nn(const void* q, const void* kt, const void* vt,
         ? dkv_mma<64, kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
         : dkv_mma<128, kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
   return D == 64
-      ? dkv_f32dot<64, float, kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
-      : dkv_f32dot<128, float, kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
+      ? dkv_f32dot<64, kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
+      : dkv_f32dot<128, kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
 }
 
 int paddle_flash_dkv_nn2(const void* q, const void* qt, const void* kt,
@@ -2073,11 +2153,12 @@ int paddle_flash_dkv_nn2(const void* q, const void* qt, const void* kt,
         ? dkv_mma<64, kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt, B, H, L, scale, causal, st)
         : dkv_mma<128, kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt, B, H, L, scale, causal, st);
   return D == 64
-      ? dkv_f32dot<64, float, kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt, B, H, L, scale, causal, st)
-      : dkv_f32dot<128, float, kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt, B, H, L, scale, causal, st);
+      ? dkv_f32dot<64, kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt, B, H, L, scale, causal, st)
+      : dkv_f32dot<128, kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt, B, H, L, scale, causal, st);
 }
 
-// Strategy f32: every dot in f32 on the storage dtype, f32 or bf16.
+// Strategy f32: every dot in f32. On bf16 storage the Split instances of
+// the Hopper kernels; on f32 the scalar kernels.
 int paddle_flash_fwd_f32dot(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int H, int L, int D,
                             int dtype, int causal, float scale,
@@ -2089,8 +2170,8 @@ int paddle_flash_fwd_f32dot(const void* q, const void* k, const void* v,
         ? fwd_mma<64, kStd, true>(q, k, v, o, lse, B, H, L, scale, causal, st)
         : fwd_mma<128, kStd, true>(q, k, v, o, lse, B, H, L, scale, causal, st);
   return D == 64
-      ? fwd_f32dot<64, float>(q, k, v, o, lse, B, H, L, scale, causal, st)
-      : fwd_f32dot<128, float>(q, k, v, o, lse, B, H, L, scale, causal, st);
+      ? fwd_f32dot<64>(q, k, v, o, lse, B, H, L, scale, causal, st)
+      : fwd_f32dot<128>(q, k, v, o, lse, B, H, L, scale, causal, st);
 }
 
 int paddle_flash_dq_f32dot(const void* q, const void* k, const void* v,
@@ -2102,11 +2183,11 @@ int paddle_flash_dq_f32dot(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
     return D == 64
-        ? dq_f32dot<64, bf16>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st)
-        : dq_f32dot<128, bf16>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st);
+        ? dq_mma<64, kStd, true>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st)
+        : dq_mma<128, kStd, true>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st);
   return D == 64
-      ? dq_f32dot<64, float>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st)
-      : dq_f32dot<128, float>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st);
+      ? dq_f32dot<64>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st)
+      : dq_f32dot<128>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st);
 }
 
 int paddle_flash_dkv_f32dot(const void* q, const void* k, const void* v,
@@ -2118,11 +2199,11 @@ int paddle_flash_dkv_f32dot(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
     return D == 64
-        ? dkv_f32dot<64, bf16>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
-        : dkv_f32dot<128, bf16>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
+        ? dkv_mma<64, kStd, true>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
+        : dkv_mma<128, kStd, true>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
   return D == 64
-      ? dkv_f32dot<64, float>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
-      : dkv_f32dot<128, float>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
+      ? dkv_f32dot<64>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
+      : dkv_f32dot<128>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
 }
 
 // The dot-form probe. a, b: [128, 128] bf16; a32: [128, 128] f32; out:

@@ -1,17 +1,19 @@
-"""The premise of the f32-dot forward kernel on bf16 storage
-(flash_fwd_mma_kernel's Split instance in
-paddle_tpu_torch/ops/csrc/flash_attention.cu), checked on the CPU.
+"""The premise of the f32-dot kernels on bf16 storage (the Split
+instances of flash_fwd_mma_kernel, flash_dq_mma_kernel and
+flash_dkv_mma_kernel in paddle_tpu_torch/ops/csrc/flash_attention.cu),
+checked on the CPU.
 
-Strategy f32 asks for every dot in f32. On bf16 storage the kernel runs
-them as bf16 tensor-core products: S = Q.K^T as one (a product of two bf16
-values is exact in f32), and P.V as three, P split into bf16 terms hi, mid
-and lo that rebuild it exactly. Here a plain model of that design (the
-kernel's 64-key steps, its online softmax in base 2 and its three P.V
-products, every sum in f32) is held against the port's f32-dot plain
-version and against the reference's f32 strategy in interpret mode, by the
-share of bf16 outputs that differ: the limit chip_smoke.py holds the
-kernel to on the card. The model is a test helper, not a version of the
-port."""
+Strategy f32 asks for every dot in f32. On bf16 storage the kernels run
+them as bf16 tensor-core products: a dot of two bf16 operands (S = Q.K^T,
+dP = dO.V^T) as one, since a product of two bf16 values is exact in f32,
+and a dot with an f32 operand (P.V, dS.K, P^T.dO, dS^T.Q) as three, the
+f32 operand split into bf16 terms hi, mid and lo that rebuild it exactly.
+Here plain models of that design (the forward's 64-key steps and online
+softmax in base 2, dQ's 64-key tiles, dK/dV's 64-query tiles, every sum in
+f32) are held against the port's f32-dot plain versions and against the
+reference's f32 strategy in interpret mode, by the share of bf16 outputs
+that differ: the limit chip_smoke.py holds the kernels to on the card. The
+models are test helpers, not versions of the port."""
 import importlib
 import math
 
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from chip_smoke import SHARE_TOL
@@ -31,14 +34,15 @@ torch.set_num_threads(1)
 B, H, L, D = 1, 2, 128, 64
 SC = 1.0 / math.sqrt(D)
 LOG2E = 1.4426950408889634
-STEP = 64                # keys of one softmax step of the kernel
+STEP = 64                # keys of one softmax step, rows of a tile
 
 
-def _inputs(seed=0):
-    """q, k, v [B, L, H, D] as bf16 values (numpy f32 from a seed)."""
+def _inputs(seed=0, n=3):
+    """q, k, v (and with n = 4, dO) [B, L, H, D] as bf16 values (numpy f32
+    from a seed)."""
     rng = np.random.RandomState(seed)
     return [torch.from_numpy(rng.randn(B, L, H, D).astype(np.float32))
-            .to(torch.bfloat16) for _ in range(3)]
+            .to(torch.bfloat16) for _ in range(n)]
 
 
 def _split(p):
@@ -77,6 +81,56 @@ def _split_forward(q, k, v, causal):
     return out, (m + torch.log(l)).squeeze(-1)
 
 
+def _tile_p_ds(q, k, v, do, lse, delta, rows, keys, causal, fused):
+    """P and dS (f32, [B, H, rows, keys]) of one tile as the kernels form
+    them: S and dP from bf16 values with f32 sums, masked keys at -inf,
+    P = 2^(S scale log2 e - LSE log2 e), with the scale folded into one FMA
+    (dQ, `fused`) or applied before LSE is taken off (dK/dV), then dS = P
+    (dP - delta) scale."""
+    s = q[:, :, rows] @ k[:, :, keys].transpose(-1, -2)
+    dp = do[:, :, rows] @ v[:, :, keys].transpose(-1, -2)
+    if causal:
+        r = torch.arange(L)[rows][:, None]
+        c = torch.arange(L)[keys][None, :]
+        s = s.masked_fill(c > r, -math.inf)
+    lse_t = lse[:, :, rows, None]
+    if fused:
+        p = torch.exp2(s * (SC * LOG2E) - lse_t * LOG2E)
+    else:
+        p = torch.exp2((s * SC - lse_t) * LOG2E)
+    return p, p * (dp - delta[:, :, rows, None]) * SC
+
+
+def _split_dot(acc, x, b, rounded=False):
+    """acc + x.b with x f32 as the kernels take it: the dots of x's lo, mid
+    and hi terms with b, small terms first, each summed into acc in f32.
+    `rounded`: x rounded to bf16 instead (bf16's function), one dot."""
+    terms = [x.to(torch.bfloat16)] if rounded else reversed(_split(x))
+    for term in terms:
+        acc = acc + term.float() @ b
+    return acc
+
+
+def _split_backward(q, k, v, do, lse, delta, causal, rounded=False):
+    """(dQ, dK, dV) in bf16 as the split kernels compute them: dQ over
+    64-key tiles, dQ += lo.K + mid.K + hi.K; dK and dV over 64-query tiles,
+    dV += P^T's terms . dO and dK += dS^T's terms . Q; every sum in f32."""
+    qh, kh, vh, doh = (x.transpose(1, 2).float() for x in (q, k, v, do))
+    dq = torch.zeros(B, H, L, D)
+    dk, dv = torch.zeros(B, H, L, D), torch.zeros(B, H, L, D)
+    every = slice(0, L)
+    for t0 in range(0, L, STEP):
+        tile = slice(t0, t0 + STEP)
+        _, ds = _tile_p_ds(qh, kh, vh, doh, lse, delta, every, tile, causal,
+                           fused=True)
+        dq = _split_dot(dq, ds, kh[:, :, tile], rounded)
+        p, ds = _tile_p_ds(qh, kh, vh, doh, lse, delta, tile, every, causal,
+                           fused=False)
+        dv = _split_dot(dv, p.transpose(-1, -2), doh[:, :, tile], rounded)
+        dk = _split_dot(dk, ds.transpose(-1, -2), qh[:, :, tile], rounded)
+    return tuple(x.transpose(1, 2).to(torch.bfloat16) for x in (dq, dk, dv))
+
+
 def _share(a, b):
     return float((a.float() != b.float()).float().mean())
 
@@ -95,19 +149,37 @@ def test_bf16_products_are_exact_in_f32():
     assert torch.equal(f32.double(), f64)
 
 
-def test_split_rebuilds_p_bitwise():
-    """hi + mid + lo of f32 P values in [0, 1], exact 0 and 1 included,
-    rebuild P bitwise, in f32 and in f64."""
+def _split_operand(kind):
+    """f32 values of the operands the kernels split: P in [0, 1], exact 0
+    and 1 included; dS signed across magnitudes 2^-100 to 2^10, with 0
+    and -0."""
     rng = np.random.RandomState(2)
-    p = np.concatenate([np.exp(-rng.uniform(0, 60, 4096)),
-                        rng.uniform(0, 1, 4096), [0.0, 1.0]])
-    p = torch.from_numpy(p.astype(np.float32))
-    hi, mid, lo = _split(p)
-    assert torch.equal(hi.float() + mid.float() + lo.float(), p)
-    assert torch.equal(hi.double() + mid.double() + lo.double(), p.double())
+    if kind == "P":
+        x = np.concatenate([np.exp(-rng.uniform(0, 60, 4096)),
+                            rng.uniform(0, 1, 4096), [0.0, 1.0]])
+    else:
+        x = (rng.uniform(1, 2, 8192) * 2.0 ** rng.randint(-100, 11, 8192)
+             * rng.choice([-1.0, 1.0], 8192))
+        x = np.concatenate([x, [0.0, -0.0]])
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["P", "dS"])
+def test_split_rebuilds_p_bitwise(kind):
+    """hi + mid + lo of the f32 values rebuild them bitwise, in f32 and in
+    f64; -0 is rebuilt as +0 (-0 + 0 = +0), equal by value, which no dot
+    can tell apart: the kernels' sums start from +0."""
+    x = _split_operand(kind)
+    hi, mid, lo = _split(x)
+    for dt in (torch.float32, torch.float64):
+        back = hi.to(dt) + mid.to(dt) + lo.to(dt)
+        assert torch.equal(back, x.to(dt))
+    back = (hi.float() + mid.float() + lo.float()).view(torch.int32)
+    nonzero = x != 0
+    assert torch.equal(back[nonzero], x.view(torch.int32)[nonzero])
     # each term holds what the ones before it left: the split is not a
-    # rounding of P to bf16 (which differs from P in almost every entry)
-    assert _share(hi, p) > 0.9
+    # rounding to bf16 (which differs from x in almost every entry)
+    assert _share(hi, x) > 0.9
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -138,3 +210,73 @@ def test_split_model_matches_reference_f32(causal):
                               interpret=True, impl="f32")
     ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
     assert _share(o, ref) < SHARE_TOL
+
+
+def _bwd_inputs(causal):
+    """q, k, v, dO (bf16) and the forward's LSE and delta = rowsum(dO * O)
+    in f32, from the port's f32-dot plain forward."""
+    q, k, v, do = _inputs(3, n=4)
+    o, lse = fa.flash_fwd_plain(q, k, v, causal, SC, f32_dots=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_backward_matches_f32dot_plain(causal):
+    """The split backward model against the port's f32-dot plain version on
+    the same LSE and delta: the share of differing bf16 entries of dQ, dK
+    and dV below the kernels' limit. P and dS rounded to bf16 (bf16's
+    function, in the same model) read above it."""
+    args = _bwd_inputs(causal)
+    got = _split_backward(*args, causal)
+    want = fa.flash_bwd_plain(*args, causal, SC, f32_dots=True)
+    rounded = _split_backward(*args, causal, rounded=True)
+    for name, g, w, r in zip(("dQ", "dK", "dV"), got, want, rounded):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert _share(g, w) < SHARE_TOL, name
+        assert _share(r, w) > SHARE_TOL, name
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_backward_matches_reference_f32(causal):
+    """The split forward and backward models against the gradients of the
+    reference's f32 strategy in interpret mode (`jax.vjp` of
+    `flash_attention(impl="f32")`), on inputs and dO from a numpy seed: the
+    share of differing bf16 entries of dQ, dK and dV below the kernels'
+    limit."""
+    q, k, v, do = _inputs(4, n=4)
+    o, lse = _split_forward(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    got = _split_backward(q, k, v, do, lse, delta, causal)
+    jq, jk, jv, jdo = (jnp.asarray(x.float().numpy(), jnp.bfloat16)
+                       for x in (q, k, v, do))
+    _, vjp = jax.vjp(
+        lambda a, b, c: jfa.flash_attention(a, b, c, causal=causal,
+                                            sm_scale=SC, interpret=True,
+                                            impl="f32"), jq, jk, jv)
+    for name, g, ref in zip(("dQ", "dK", "dV"), got, vjp(jdo)):
+        ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+        assert _share(g, ref) < SHARE_TOL, name
+
+
+def test_dq_share_sits_in_the_first_causal_rows():
+    """Why the f32-dot dQ is held to a share of differing entries and not
+    bitwise: in a causal head's first rows P is near one-hot and dP - delta
+    cancels to a small remainder, so another order of dP's f32 sums (here
+    f64 sums rounded to f32, as the tensor cores' order stands in for)
+    moves dQ's bf16 rounding in many entries of those rows and in few of
+    the rest. At this size the share stays below the kernels' limit."""
+    q, k, v, do, lse, delta = _bwd_inputs(True)
+    want = fa.flash_bwd_plain(q, k, v, do, lse, delta, True, SC,
+                              f32_dots=True)[0]
+    qh, kh, vh, doh = (x.transpose(1, 2).float() for x in (q, k, v, do))
+    s = (qh @ kh.transpose(-1, -2) * SC).masked_fill(
+        ~torch.ones(L, L, dtype=torch.bool).tril(), -1e30)
+    p = torch.exp(s - lse[..., None])
+    dp = (doh.double() @ vh.double().transpose(-1, -2)).float()
+    ds = p * (dp - delta[..., None]) * SC
+    dq = (ds @ kh).transpose(1, 2).to(torch.bfloat16)
+    first = 8
+    assert _share(dq[:, :first], want[:, :first]) > 0.02
+    assert _share(dq[:, first:], want[:, first:]) < 1e-3
+    assert _share(dq, want) < SHARE_TOL
