@@ -1,10 +1,14 @@
 """Card smoke test of paddle_tpu_torch: builds the CUDA kernels from this
 checkout, holds each against its plain PyTorch version at the training
-path's shapes, runs the dot-form probe, then trains GPT-350M (gpt3-medium:
-hidden 1024, 24 layers, 16 heads, vocab 50304; batch 8 x seq 1024, bf16
-O2, AdamW with f32 masters, chunked fused LM-head cross-entropy) under each
-flash dot strategy (FLAGS_flash_dot_impl): auto (the default) for 5 steps,
-then nn, nn2 and f32 for 3 steps each, every one through its own kernels.
+path's shapes (and, through the padding of ops.flash_attention, at head_dims
+and lengths the kernels do not take), runs the dot-form probe, then trains
+GPT-350M (gpt3-medium: hidden 1024, 24 layers, 16 heads, vocab 50304; batch
+8 x seq 1024, bf16 O2, AdamW with f32 masters, chunked fused LM-head
+cross-entropy) under each flash dot strategy (FLAGS_flash_dot_impl): auto
+(the default) for 5 steps, then nn, nn2 and f32 for 3 steps each, every
+one through its own kernels; then the same model in f32 (no amp.decorate:
+the f32-storage kernels) and gpt3-large cut to 4 layers (head_dim 96,
+padded to 128) for 3 steps each.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
@@ -12,15 +16,15 @@ then nn, nn2 and f32 for 3 steps each, every one through its own kernels.
 Needs one CUDA card (written for an H100, sm_90a) and nvcc. Prints the
 card and its power limit, a `kernels` JSON line (time, achieved TFLOP/s,
 launches on the training path, bound, plain and library times, error of
-each kernel), before it an `off_path_kernels` line (the same for the
-kernels on f32 storage, which no training phase runs, timed at the
-training shape in f32) and, as the last line, {"ok": true, "device":
-{...}}. Any failed check exits non-zero without that line. With --compare,
-it only times every flash kernel of this checkout and of OTHER_CHECKOUT
-(another tree of the repo, e.g. the parent commit unpacked by `git
-archive`) at the training shape, in bf16 and, for the forward, dQ and
-dK/dV, in f32, by the same method, in turns (other, this, this, other),
-each in a process of its own that builds that tree's kernels.
+each kernel; the f32-storage forward, dQ and dK/dV as `name@float32`, the
+dQ row with the time of the split pass it runs) and, as the last line,
+{"ok": true, "device": {...}}. Any failed check exits non-zero without that
+line. With --compare, it only times every flash kernel of this checkout
+and of OTHER_CHECKOUT (another tree of the repo, e.g. the parent commit
+unpacked by `git archive`) at the training shape, in bf16 and, for the
+forward, dQ, dK/dV and the whole backward (flash_bwd), in f32, by the same
+method, in turns (other, this, this, other), each in a process of its own
+that builds that tree's kernels.
 """
 from __future__ import annotations
 
@@ -48,11 +52,12 @@ F32DOT_BF16_PASSES = {"fwd": 1 + 3, "dq": 1 + 1 + 3, "dkv": 1 + 1 + 3 + 3}
 # On f32 storage both operands of every product are f32. Split into three
 # bf16 terms each, a product keeps f32's 24 bits with six bf16 passes (the
 # term pairs of weight 2^-16 and above: hi.hi, hi.mid, mid.hi, hi.lo,
-# mid.mid, lo.hi), so the least time such a split would take is that of six
-# passes a product: forward 2 products, dQ 3, dK/dV 4.
+# mid.mid, lo.hi): the f32-storage dQ and dK/dV run so (bound by six passes
+# a product: dQ 3 products, dK/dV 4); the forward, still scalar, would be
+# bound so at 2 products.
 F32_STORAGE_SPLIT_PASSES = {"fwd": 6 * 2, "dq": 6 * 3, "dkv": 6 * 4}
 # the kernels timed on f32 storage: the nn, nn2 and f32-dot entry points run
-# the same scalar kernels there (the nn forms bitwise, checked each run)
+# the same kernels there (the nn forms bitwise, checked each run)
 F32_STORAGE_TIMED = ("flash_fwd", "flash_dq", "flash_dkv")
 
 # Kernel vs plain version, as the largest error divided by the RMS of its
@@ -60,7 +65,13 @@ F32_STORAGE_TIMED = ("flash_fwd", "flash_dq", "flash_dkv")
 # tensor where the row's is smaller: a row that sees many keys has small
 # entries, and a wrong tile there must not hide under the rounding of the
 # few large rows. float32 (every kernel on f32 storage, the nn forms'
-# included): the two differ only in the order of f32 sums.
+# included): the kernel's own f32 rounding, against the plain version
+# evaluated in f64 on the same inputs (LSE and delta included). The plain
+# version in f32 is no yardstick at that limit: in a causal head's first
+# rows P is one-hot and dP - delta cancels, so its own dQ there is f32
+# noise, 1.2e-5 of the tensor's RMS from f64's at D = 128 (and 2.0e-5 of
+# the f32 dQ on the card at the training shape read against it alone; see
+# tests/test_torch_f32_storage_split.py).
 # bfloat16 (the tensor-core kernels of bf16, nn and nn2): outputs carry 8
 # significant bits (a relative step of 2^-8), the kernel rounds P to bf16
 # against the running row max where the plain version uses the final max,
@@ -95,8 +106,17 @@ LOSS_ATOL = 1e-3
 # at initialisation little.
 LOSS_SAME_ATOL = 0.0
 LOSS_F32_ATOL = 1e-3
+# Step-1 loss of the f32 model (f32 storage) through the kernels vs the
+# plain einsum attention on the same f32 model: the two differ in the order
+# of f32 sums only.
+LOSS_F32_MODEL_ATOL = 1e-4
 
 STRATEGY_STEPS = {"auto": 5, "nn": 3, "nn2": 3, "f32": 3}
+# the phases after the strategy phases: gpt3-medium in f32 (the f32-storage
+# kernels), and gpt3-large (head_dim 96, padded to 128) cut to 4 layers,
+# bf16 O2; 3 steps each under auto
+F32_MODEL_STEPS = 3
+D96_LAYERS, D96_STEPS = 4, 3
 SEED = 0
 
 REF = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -193,10 +213,10 @@ def mismatch_share(a, b):
     return float((a != b).float().mean())
 
 
-def fault_readings(q, k, v, do, sc, ref):
+def fault_readings(q, k, v, do, sc, ref, T=64):
     """What the error metrics read for kernels that each skip one tile:
     the forward and dQ kernels the keys of K/V tile t for query tile s, the
-    dK/dV kernel query tile s for K/V tile t. s is the last 64-row tile and
+    dK/dV kernel query tile s for K/V tile t. s is the last T-row tile and
     t the middle one, off the diagonal: a pair whose loss changes the
     outputs little, since the last queries see the most keys and add the
     least to each key's gradients. The faulty outputs are the plain
@@ -205,7 +225,7 @@ def fault_readings(q, k, v, do, sc, ref):
     import torch
 
     o, lse, delta, dq, dk, dv = ref
-    L, T = q.shape[1], 64
+    L = q.shape[1]
     s0, t0 = L - T, (L // 2 // T) * T
     rows, cols = slice(s0, s0 + T), slice(t0, t0 + T)
     heads = lambda x: x.transpose(1, 2).float()           # noqa: E731
@@ -289,7 +309,9 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
         args = [t[a] for a in ARGS[name]] + [causal, sc]
         got = named_outputs(name, fa.CUDA[name](*args))
         torch.cuda.synchronize()
-        want = named_outputs(name, fa.PLAIN[name](*args))
+        ref_args = ([a.double() if torch.is_tensor(a) else a for a in args]
+                    if dtype_name == "float32" else args)
+        want = named_outputs(name, fa.PLAIN[name](*ref_args))
         got_by_name[name] = got
         f32dot = name.endswith("f32dot") or dtype_name == "float32"
         fam = "f32dot" if f32dot else "mma"
@@ -368,6 +390,13 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
         lib[key] = {"fwd": lib_fwd, "bwd": lib_bwd}
         del qh, kh, vh, doh, out
 
+    # f32 storage: dQ and dK/dV timed as the training path calls them, from
+    # the terms one split made (the dQ call of a backward splits, the dK/dV
+    # call reads), and the split pass by itself as the difference of the dQ
+    # call with and without it
+    terms = fa.split_terms(q) if dtype_name == "float32" else None
+    if terms is not None:
+        fa.CUDA["flash_dq"](*results["flash_dq"]["args"], terms=terms)
     rows = []
     for name, r in results.items():
         if time_names is not None and name not in time_names:
@@ -381,7 +410,15 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
                        for a in ARGS[BF16_TWIN.get(name, name)])
         nbytes = in_bytes + r["out_bytes"]
         extra = {}
-        if r["f32dot"] and dtype_name == "bfloat16":
+        split_pass = terms is not None and kind in ("dq", "dkv")
+        if split_pass:
+            # six bf16 passes of split operands a product, on the tensor
+            # cores; the same f32 flops on the CUDA cores beside it
+            b = bound(F32_STORAGE_SPLIT_PASSES[kind] * 2 * D * pairs, nbytes,
+                      "bfloat16")
+            extra["cuda_core_bound_ms"] = bound(flops[kind], nbytes,
+                                                "float32")[0]
+        elif r["f32dot"] and dtype_name == "bfloat16":
             b = bound(F32DOT_BF16_PASSES[kind] * 2 * D * pairs, nbytes,
                       "bfloat16")
             # the same function's f32 flops on the CUDA cores, the bound
@@ -391,15 +428,28 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
         else:
             b = bound(flops[kind], nbytes,
                       "float32" if r["f32dot"] else "bfloat16")
-        if dtype_name == "float32":
-            # the same work as bf16 passes of split f32 operands
-            extra["split_bound_ms"] = bound(
-                F32_STORAGE_SPLIT_PASSES[kind] * 2 * D * pairs, nbytes,
-                "bfloat16")[0]
-        ms = median_ms(lambda: fa.CUDA[name](*args))
+            if dtype_name == "float32":
+                # the same work as bf16 passes of split f32 operands
+                extra["split_bound_ms"] = bound(
+                    F32_STORAGE_SPLIT_PASSES[kind] * 2 * D * pairs, nbytes,
+                    "bfloat16")[0]
+        if split_pass:
+            ms = median_ms(lambda: fa.CUDA[name](*args, terms=terms,
+                                                 split=False))
+            if kind == "dq":
+                with_split = median_ms(lambda: fa.CUDA[name](*args,
+                                                             terms=terms))
+                extra["split_ms"] = with_split - ms
+                # the split pass reads 4 and writes 6 bytes an element
+                extra["split_pass_bound_ms"] = bound(
+                    0, sum(t[a].numel() for a in ("q", "k", "v", "do"))
+                    * (4 + 6), "bfloat16")[0]
+        else:
+            ms = median_ms(lambda: fa.CUDA[name](*args))
         plain = median_ms(lambda: fa.PLAIN[name](*args), reps=5, launches=3)
         rows.append({
-            "name": name, "route": "cuda",
+            "name": name + ("@float32" if dtype_name == "float32" else ""),
+            "route": "cuda",
             "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": f"{REF}:{REPLACES[name]}",
             "max_abs_err": r["max_abs_err"], "row_err": r["row_err"],
@@ -411,7 +461,74 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
                 "fwd" if kind == "fwd" else "bwd"],
             **({"diff_vs_bf16": r["diff_vs_bf16"]} if name in BF16_TWIN
                else {})})
+    if terms is not None:
+        # the backward pair as a training step runs it: the split, dQ and
+        # dK/dV, beside SDPA's f32 backward
+        by = {r["name"]: r for r in rows}
+        dq_row, dkv_row = by["flash_dq@float32"], by["flash_dkv@float32"]
+        pair = dq_row["split_ms"] + dq_row["ms"] + dkv_row["ms"]
+        for r in (dq_row, dkv_row):
+            r["pair_ms"] = pair
+        log(f"f32-storage backward pair [{tag}]: split "
+            f"{dq_row['split_ms']:.4f} + dQ {dq_row['ms']:.4f} + dK/dV "
+            f"{dkv_row['ms']:.4f} = {pair:.4f} ms; SDPA's f32 backward "
+            f"{dq_row['library_ms']:.4f} ms")
     return rows
+
+
+def padded_phase(B, L, H, D, dtype_name, causal, block):
+    """flash attention at a head_dim or length the kernels do not take,
+    through the padding on the card (ops.flash_attention.padded_fwd and
+    padded_bwd, strategy bf16: the storage dtype's kernels), against the
+    plain versions at the true shape: O, LSE, dQ, dK and dV, under the
+    kernel phase's limits, and what a kernel skipping one `block`-row tile
+    would read there."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, do = (torch.randn(B, L, H, D, device="cuda", dtype=dt,
+                               generator=g) for _ in range(4))
+    sc = 1.0 / math.sqrt(D)
+    o, lse, saved = fa.padded_fwd(q, k, v, causal, sc)
+    grads = fa.padded_bwd(saved, do, causal, sc)
+    torch.cuda.synchronize()
+
+    def plain(*x):
+        o_p, lse_p = fa.flash_fwd_plain(*x[:3], causal, sc)
+        acc = torch.promote_types(o_p.dtype, torch.float32)
+        delta = (x[3].to(acc) * o_p.to(acc)).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        return (o_p, lse_p, delta,
+                *fa.flash_bwd_plain(*x, lse_p, delta, causal, sc))
+
+    ref = plain(q, k, v, do)
+    # f32 storage: against the plain version in f64 (see REL_TOL)
+    want = (plain(*(x.double() for x in (q, k, v, do)))
+            if dtype_name == "float32" else ref)
+    tol = REL_TOL[dtype_name]
+    errs = {n: row_err(x, y) for n, x, y in
+            zip(("O", "dQ", "dK", "dV"), (o, *grads), (want[0], *want[3:]))}
+    fault, lse_fault = fault_readings(q, k, v, do, sc, ref, T=block)
+    lse_err = abs_err(lse, want[1])
+    Lp, Dp = fa.kernel_shape(L, D)
+    tag = (f"B={B} L={L} H={H} D={D} {dtype_name} causal={causal}, padded "
+           f"to L={Lp} D={Dp}")
+    log(f"padded flash vs plain [{tag}]: row-normalised err "
+        f"{ {n: f'{e:.3e}' for n, e in errs.items()} } (tol {tol}; a kernel "
+        f"skipping one {block}-row tile reads "
+        f"{ {n: f'{fault[n]:.3e}' for n in errs} }), LSE abs err "
+        f"{lse_err:.3e} (tol {LSE_ATOL}; skipping: {lse_fault:.3e})")
+    for n, e in errs.items():
+        check(e <= tol, f"padded {n} disagrees with the plain version "
+                        f"[{tag}]: {e:.3e} > {tol}")
+        check(fault[n] > tol, f"the padded {n} check would pass a kernel "
+                              f"that skips a tile [{tag}]")
+    check(lse_err <= LSE_ATOL, f"padded LSE disagrees [{tag}]: {lse_err}")
+    check(lse_fault > LSE_ATOL, f"the padded LSE check would pass a kernel "
+                                f"that skips a tile [{tag}]")
 
 
 def probe_phase():
@@ -479,14 +596,17 @@ def reference_layout_weights(cfg, seed):
     }
 
 
-def training_phase(impl, weights, bf16_loss=None):
-    """gpt3-medium, bench.py's configuration, STRATEGY_STEPS[impl] TrainStep
-    steps under FLAGS_flash_dot_impl=impl, from the same weights and batch
-    in every phase. Checks that the loss is finite and falls, that each of
-    the strategy's three kernels launched once per layer and step and no
-    other flash kernel launched, and the step-1 loss against the einsum
-    attention (auto) or the bf16 phase (the others). Returns (launches,
-    losses)."""
+def training_phase(label, impl, weights, cfg, steps, o2=True,
+                   plain_tol=None, bf16_loss=None):
+    """`cfg` at bench.py's batch 8 x seq 1024 from `weights` (the same
+    batch in every phase), `steps` TrainStep steps under
+    FLAGS_flash_dot_impl=impl, bf16 O2 with f32 masters (`o2`) or in f32.
+    Checks that the loss is finite and falls, that each of the strategy's
+    three kernels launched once per layer and step and no other flash
+    kernel launched (the probe once under auto), the step-1 loss against
+    the einsum attention on the same model (`plain_tol`) and against the
+    bf16 phase's (`bf16_loss`: the nn, nn2 and f32 strategies). Returns
+    (launches, losses)."""
     import numpy as np
     import torch
 
@@ -494,22 +614,22 @@ def training_phase(impl, weights, bf16_loss=None):
     from paddle_tpu_torch.core.flags import set_flags
     from paddle_tpu_torch.framework_io import params_from_paddle_tpu
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.models import GPTForCausalLM, PRESETS
+    from paddle_tpu_torch.models import GPTForCausalLM
     from paddle_tpu_torch.nn.functional_more import \
         fused_linear_cross_entropy
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.optimizer import AdamW
 
-    cfg = PRESETS["gpt3-medium"]
-    batch, seq, steps = 8, 1024, STRATEGY_STEPS[impl]
+    batch, seq = 8, 1024
     t0 = time.time()
     set_flags({"flash_dot_impl": impl})
     model = GPTForCausalLM(cfg, device="cuda")
     model.load_state_dict(params_from_paddle_tpu(weights))
     model.train()
-    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    if o2:
+        model = amp.decorate(model, level="O2", dtype="bfloat16")
     opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
-                multi_precision=True)
+                multi_precision=o2)
 
     def loss_fn(m, ids, labels):
         return fused_linear_cross_entropy(m.hidden(ids), m.head_weight(),
@@ -522,12 +642,15 @@ def training_phase(impl, weights, bf16_loss=None):
     labels = np.roll(ids, -1, axis=1)
     ids_t = torch.as_tensor(ids, device="cuda")
     labels_t = torch.as_tensor(labels, device="cuda")
-    log(f"[{impl}] gpt3-medium: "
+    head_dim = cfg.hidden_size // cfg.num_heads
+    log(f"[{label}] {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_heads} heads (head_dim {head_dim}), "
+        f"{'bf16 O2' if o2 else 'f32'}, impl {impl}: "
         f"{sum(p.numel() for p in model.parameters())} parameters, set-up "
         f"{time.time() - t0:.1f} s")
 
     plain_loss = None
-    if impl == "auto":
+    if plain_tol is not None:
         # step 1's loss through the plain einsum attention, same weights
         set_flags({"use_flash_attention": False})
         try:
@@ -535,7 +658,7 @@ def training_phase(impl, weights, bf16_loss=None):
                 plain_loss = float(loss_fn(model, ids_t, labels_t))
         finally:
             set_flags({"use_flash_attention": True})
-        fa._IMPL_MEMO.clear()     # so this run's first attention probes
+    fa._IMPL_MEMO.clear()     # so that an auto run's first attention probes
 
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
@@ -549,37 +672,37 @@ def training_phase(impl, weights, bf16_loss=None):
     launches = dict(fa.LAUNCHES)
     resolved = fa.resolve_dot_impl(torch.device("cuda", 0))
 
-    log(f"[{impl}] resolved to {resolved}; losses {losses}; launches "
+    log(f"[{label}] resolved to {resolved}; losses {losses}; launches "
         f"{ {n: c for n, c in launches.items() if c} }")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
-    check(losses[-1] < losses[0], f"[{impl}] loss did not fall: {losses}")
+    check(losses[-1] < losses[0], f"[{label}] loss did not fall: {losses}")
     if plain_loss is not None:
-        log(f"[{impl}] step-1 loss: kernels {losses[0]:.6f}, plain attention "
-            f"{plain_loss:.6f}, diff {abs(losses[0] - plain_loss):.2e} "
-            f"(tol {LOSS_ATOL})")
-        check(abs(losses[0] - plain_loss) <= LOSS_ATOL,
-              f"step-1 loss {losses[0]} disagrees with plain attention "
-              f"{plain_loss}")
+        diff = abs(losses[0] - plain_loss)
+        log(f"[{label}] step-1 loss: kernels {losses[0]:.6f}, plain "
+            f"attention {plain_loss:.6f}, diff {diff:.2e} (tol {plain_tol})")
+        check(diff <= plain_tol, f"[{label}] step-1 loss {losses[0]} "
+                                 f"disagrees with plain attention "
+                                 f"{plain_loss}")
     if bf16_loss is not None:
         tol = LOSS_F32_ATOL if impl == "f32" else LOSS_SAME_ATOL
         diff = abs(losses[0] - bf16_loss)
-        log(f"[{impl}] step-1 loss vs the bf16 phase's: {losses[0]!r} vs "
+        log(f"[{label}] step-1 loss vs the bf16 phase's: {losses[0]!r} vs "
             f"{bf16_loss!r}, diff {diff:.3e} (tol {tol})")
-        check(diff <= tol, f"[{impl}] step-1 loss {losses[0]} vs bf16 "
+        check(diff <= tol, f"[{label}] step-1 loss {losses[0]} vs bf16 "
                            f"{bf16_loss}: {diff} > {tol}")
     want = cfg.num_layers * steps
     mine = set(fa.STRATEGY_KERNELS[resolved])
     for name, n in launches.items():
         expected = (want if name in mine else
                     int(impl == "auto") if name == "flash_probe" else 0)
-        check(n == expected, f"[{impl}] {name} launched {n} times in "
+        check(n == expected, f"[{label}] {name} launched {n} times in "
                              f"{steps} steps, expected {expected}")
     step_s = statistics.median(times[1:])
-    log(f"[{impl}] step times s {times}; median of steps 2-{steps}: "
+    log(f"[{label}] step times s {times}; median of steps 2-{steps}: "
         f"{step_s:.4f} s, {batch * seq / step_s:.0f} tokens/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_step(step, ids_t, labels_t, step_s,
-                 top=12 if impl == "auto" else 6)
+    profile_step(step, ids_t, labels_t, step_s, cfg.vocab_size,
+                 top=12 if label in ("auto", "f32-model") else 6)
     set_flags({"flash_dot_impl": "auto"})
     del step, opt, model
     gc.collect()
@@ -587,17 +710,19 @@ def training_phase(impl, weights, bf16_loss=None):
     return launches, losses
 
 
-def profile_step(step, ids, labels, step_s, top):
+def profile_step(step, ids, labels, step_s, vocab, top):
     """One more train step under torch.profiler: the device time of each
-    kernel, summed by name, and the device's idle share of an unprofiled
-    step (the profiler's own host cost would inflate the profiled one)."""
+    kernel, summed by name; that of the LM-head CE's GEMMs (the aten::mm
+    calls with the vocab in a shape); and the device's idle share of an
+    unprofiled step (the profiler's own host cost would inflate the
+    profiled one)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         step(ids, labels)
         torch.cuda.synchronize()
     kernels = sorted(((e.device_time_total, e.count, e.key)
@@ -607,8 +732,15 @@ def profile_step(step, ids, labels, step_s, top):
     if not busy_us:
         log("profiled step: the profiler recorded no device time")
         return
+    ce = [e for e in prof.key_averages(group_by_input_shape=True)
+          if e.key == "aten::mm"
+          and any(vocab in shape for shape in e.input_shapes if shape)]
+    ce_us = sum(e.device_time_total for e in ce)
     log(f"profiled step: device busy {busy_us / 1e3:.1f} ms; idle share of "
-        f"a {step_s * 1e3:.1f} ms step {1 - busy_us / (step_s * 1e6):.3f}")
+        f"a {step_s * 1e3:.1f} ms step {1 - busy_us / (step_s * 1e6):.3f}; "
+        f"LM-head CE GEMMs {ce_us / 1e3:.2f} ms in {sum(e.count for e in ce)}"
+        f" calls" + ("" if ce_us else " (not measured: no device time on "
+                                       "aten::mm)"))
     for us, n, name in kernels[:top]:
         log(f"  {us / 1e3:8.2f} ms {100 * us / busy_us:5.1f}% x{n:<5d} "
             f"{name[:90]}")
@@ -654,39 +786,70 @@ def main():
 
     probe_row = probe_phase()
     rows = kernel_phase(8, 1024, 16, 64, "bfloat16", True, timed=True)
-    # f32 storage at the training shape: no training phase runs an f32
-    # model, so these rows stand apart from the launch check
-    off_path = kernel_phase(8, 1024, 16, 64, "float32", True, timed=True,
+    # f32 storage at the training shape: the f32 model phase runs these
+    f32_rows = kernel_phase(8, 1024, 16, 64, "float32", True, timed=True,
                             time_names=F32_STORAGE_TIMED)
-    for r in off_path:
-        r.update(storage="float32", launches=0,
-                 path="f32 storage: no training phase runs it")
     kernel_phase(8, 1024, 16, 64, "bfloat16", False, timed=False)
     kernel_phase(8, 1024, 8, 128, "bfloat16", True, timed=False)
     kernel_phase(2, 256, 4, 64, "float32", True, timed=False)
+    kernel_phase(2, 256, 4, 64, "float32", False, timed=False)
+    kernel_phase(2, 512, 8, 128, "float32", True, timed=False)
     # L = 192, a multiple of 64 but not of 128: the half tiles of the
     # 128-row kernels (forward, dQ, dK/dV); at D = 128 with 160 heads, so
     # that every block of the persistent grids walks several (head, tile)
-    # items
+    # items (on f32 storage, where a D = 128 block has one consumer, its
+    # second round of the last tile is empty)
     kernel_phase(2, 192, 4, 64, "bfloat16", True, timed=False)
     kernel_phase(4, 192, 40, 128, "bfloat16", True, timed=False)
+    kernel_phase(4, 192, 40, 128, "float32", True, timed=False)
+    # head_dims and lengths the kernels take only padded: gpt3-large's 96
+    # and gpt3-tiny's 16 (to 128 and 64), and L = 96 (blocks of 32, to 128
+    # with the keys past 96 masked)
+    padded_phase(2, 256, 8, 96, "bfloat16", True, 64)
+    padded_phase(2, 256, 8, 16, "bfloat16", True, 64)
+    padded_phase(2, 96, 4, 64, "bfloat16", True, 32)
+    padded_phase(2, 96, 4, 64, "bfloat16", False, 32)
+    padded_phase(2, 96, 4, 64, "float32", False, 32)
 
-    weights = reference_layout_weights(PRESETS["gpt3-medium"], SEED)
+    cfg = PRESETS["gpt3-medium"]
+    weights = reference_layout_weights(cfg, SEED)
     launches, bf16_loss = {}, None
     for impl, steps in STRATEGY_STEPS.items():
-        counts, losses = training_phase(impl, weights, bf16_loss)
+        counts, losses = training_phase(
+            impl, impl, weights, cfg, steps,
+            plain_tol=LOSS_ATOL if impl == "auto" else None,
+            bf16_loss=bf16_loss)
         bf16_loss = losses[0] if impl == "auto" else bf16_loss
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
         for r in rows + [probe_row]:
             if counts[r["name"]]:
                 r["launches_per_step"] = counts[r["name"]] / steps
+    # the same weights in f32, no amp.decorate: every attention runs the
+    # f32-storage kernels (auto resolves to bf16, whose kernels on f32
+    # storage are the f32-storage forward, dQ and dK/dV)
+    counts, _ = training_phase("f32-model", "auto", weights, cfg,
+                               F32_MODEL_STEPS, o2=False,
+                               plain_tol=LOSS_F32_MODEL_ATOL)
+    for r in f32_rows:
+        name = r["name"].split("@")[0]
+        r["launches"] = counts[name]
+        r["launches_per_step"] = counts[name] / F32_MODEL_STEPS
+        check(r["launches"] > 0, f"{r['name']} never launched in the f32 "
+                                 f"model phase")
+    launches["flash_probe"] += counts["flash_probe"]
+    # head_dim 96 (gpt3-large, cut to D96_LAYERS layers): padded to 128
+    large = PRESETS["gpt3-large"]
+    large = type(large)(**{**vars(large), "num_layers": D96_LAYERS})
+    counts, _ = training_phase("d96", "auto", reference_layout_weights(
+        large, SEED), large, D96_STEPS, plain_tol=LOSS_ATOL)
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
     for r in rows + [probe_row]:
         r["launches"] = launches.get(r["name"], 0)
         check(r["launches"] > 0, f"{r['name']} never launched on the "
                                  f"training path")
-    log(json.dumps({"off_path_kernels": off_path}))
-    log(json.dumps({"kernels": rows + [probe_row]}))
+    log(json.dumps({"kernels": rows + f32_rows + [probe_row]}))
     log(f"chip_smoke took {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -722,6 +885,10 @@ def time_kernels(root):
         for name in names:
             args = [t[a] for a in ARGS[name]] + [causal, sc]
             ms[name + suffix] = median_ms(lambda: fa.CUDA[name](*args))
+        if dt == torch.float32:
+            # the whole f32-storage backward as a training step calls it
+            ms["flash_bwd" + suffix] = median_ms(lambda: fa.flash_bwd(
+                q, k, v, do, lse, delta, causal, sc))
     print(json.dumps({"root": root, "ms": ms}), flush=True)
     return 0
 

@@ -7,20 +7,22 @@
 //                           nn, nn2: flash_fwd_mma_kernel<D, kNN> (reads K^T)
 //                           f32: flash_fwd_mma_kernel<D, kStd, Split>
 //   _dq_kernel (:174)       bf16: flash_dq_mma_kernel<D, kStd>
-//                           f32: flash_dq_mma_kernel<D, kStd, Split>
+//                           f32: flash_dq_mma_kernel<D, kStd, kSplit>
 //   _dq_kernel_nn (:203)    nn, nn2: flash_dq_mma_kernel<D, kNN> (reads K^T
 //                           and V^T)
 //   _dkv_kernel (:233)      bf16: flash_dkv_mma_kernel<D, kStd>
 //                           nn: flash_dkv_mma_kernel<D, kNN> (reads K^T, V^T)
-//                           f32: flash_dkv_mma_kernel<D, kStd, Split>
+//                           f32: flash_dkv_mma_kernel<D, kStd, kSplit>
 //   _dkv_kernel_nn2 (:289)  nn2: flash_dkv_mma_kernel<D, kNN2> (reads K^T,
 //                           V^T, Q^T and dO^T, writes dK^T and dV^T)
 //   probe's kern (:467)     flash_probe_kernel (the dot-form probe)
 // That is on bf16 storage. On f32 storage every strategy runs the scalar
-// f32-dot kernels (flash_fwd_f32dot_kernel, flash_dq_f32dot_kernel,
-// flash_dkv_f32dot_kernel), whose dots are the storage dtype's there; nn
-// and nn2 run their Form instances, which read the transposed operands as
-// the mma forms do.
+// forward flash_fwd_f32dot_kernel (nn and nn2 its kNN instance, which reads
+// K^T) and the kF32 instances flash_dq_mma_kernel<D, kStd, kF32> and
+// flash_dkv_mma_kernel<D, kStd, kF32>, which read Q, K, V and dO as the
+// bf16 terms flash_split_kernel made of them (nn and nn2 split their
+// transposed operands into the same terms, and nn2's dK/dV stores dK^T and
+// dV^T).
 // Each computes what its TPU counterpart computes, with the same numerics:
 // dots accumulate in f32, sm_scale is applied in f32 after the Q.K dot,
 // masked scores are -1e30 (not -inf). Under bf16, nn and nn2, P is rounded
@@ -35,7 +37,10 @@
 // nn2 (K^T, V^T, Q^T, dO^T, dK^T, dV^T) are [B, H, D, L] contiguous, made
 // and undone by torch transposes outside the kernels, as XLA makes them
 // outside the TPU kernels. LSE and delta are [B, H, L] f32. D is 64 or 128;
-// L a multiple of 64.
+// L a multiple of 64. Other head_dims up to 128 and lengths that are a
+// multiple of a smaller block reach the kernels zero-padded (by the caller,
+// ops/flash_attention.py): zero columns add exact zeros to every score,
+// and the forward and dQ mask the keys at and past kv_len, the true length.
 //
 // Tiling. The TPU kernels hold a whole K/V row of the head in VMEM; on the
 // H100 that is 256 KB at L = 1024, D = 64 in bf16, beyond a block's 227 KB
@@ -62,8 +67,10 @@
 // (PERF.md has the ablations and each kernel's time on an H100). The
 // f32-dot forward, dQ and dK/dV on bf16 storage are the Split instances of
 // these kernels, whose f32 dots are bf16 tensor-core products (exact in
-// f32) of split operands. Every kernel on f32 storage runs scalar f32 FMAs
-// on the CUDA cores (67 TFLOP/s), operations-bound.
+// f32) of split operands. On f32 storage the forward runs scalar f32 FMAs
+// on the CUDA cores (67 TFLOP/s), operations-bound; dQ and dK/dV split
+// both operands of every product and run six bf16 tensor-core passes a
+// product (kF32), operations-bound on the tensor cores.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -91,18 +98,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// -------------------------------------------------------- f32-dot path
-// Every strategy's forward, dQ and dK/dV on f32 storage (on bf16 storage
-// strategy f32 runs the Split instances of the Hopper kernels below).
-// Scalar f32 FMAs. Tiles sit in shared memory as f32 rows padded to D + 1
-// floats, so the column walks below hit 32 distinct banks. A block of 256
-// threads: thread (ty, tx) = (tid / 16, tid % 16) owns rows 4*ty .. 4*ty+3
-// of every 64 x 64 score tile and of its output tile, at columns tx +
-// 16*j. The 16 threads of a row group are one half-warp, so row
-// maxima and sums reduce with four xor-shuffles. P and dS stay f32.
-// The Form instances (f32 storage under nn and nn2) load each transposed
-// operand into the same row tile, so they give the kStd instance's results
-// bitwise; kNN2 writes dK^T and dV^T straight from its accumulators.
+// ------------------------------------------------- f32-storage forward
+// Every strategy's forward on f32 storage (on bf16 storage strategy f32
+// runs the Split instance of the Hopper forward below; the f32-storage dQ
+// and dK/dV are the F32 instances of the Hopper kernels). Scalar f32 FMAs.
+// Tiles sit in shared memory as f32 rows padded to D + 1 floats, so the
+// column walks below hit 32 distinct banks. A block of 256 threads: thread
+// (ty, tx) = (tid / 16, tid % 16) owns rows 4*ty .. 4*ty+3 of every
+// 64 x 64 score tile and of its output tile, at columns tx + 16*j. The 16
+// threads of a row group are one half-warp, so row maxima and sums reduce
+// with four xor-shuffles. P stays f32. The kNN instance (f32 storage under
+// nn and nn2) loads K^T into the same row tile, so it gives the kStd
+// instance's results bitwise.
 
 constexpr int kThreads = 256;
 constexpr int kRowPad = kTile + 1;
@@ -143,17 +150,6 @@ __device__ __forceinline__ void load_tile_t(float* dst, const float* src,
   }
 }
 
-// Rows row0 .. row0+63 of one head into a [64][D + 1] tile, from a
-// [B, L, H, D] tensor (head base `base`) or, `Transposed`, from a
-// [B, H, D, L] one (head base `tb`).
-template <int D, bool Transposed>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          size_t base, size_t tb, int row0,
-                                          int rs, int L) {
-  if constexpr (Transposed) load_tile_t<D>(dst, src + tb, row0, L);
-  else load_tile<D>(dst, src + base, row0, rs);
-}
-
 // Scores of one 64 x 64 tile for this thread's 4 x 4 entries:
 // acc[a][c] += sum_d A[4*ty + a][d] * Bt[tx + 16*c][d].
 template <int D>
@@ -175,14 +171,15 @@ __device__ __forceinline__ void tile_dot_nt(float (&acc)[4][4],
 }
 
 // Forward: streaming softmax over key tiles 0 .. kmax-1. k is K (kStd) or
-// K^T (kNN).
+// K^T (kNN). Keys at and past kv_len (the true length of zero-padded
+// inputs) are masked as the causal mask masks.
 template <int D, int Form>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32dot_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ o,
                         float* __restrict__ lse, int H, int L, float scale,
-                        int causal) {
+                        int causal, int kv_len) {
   constexpr int NJ = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -214,7 +211,8 @@ flash_fwd_f32dot_kernel(const float* __restrict__ q,
   for (int kt_i = 0; kt_i < kmax; ++kt_i) {
     const int k0 = kt_i * kTile;
     __syncthreads();  // the previous tile's readers of Ks, Vs, Ps are done
-    load_rows<D, Form != kStd>(Ks, k, base, tb, k0, rs, L);
+    if constexpr (Form == kStd) load_tile<D>(Ks, k + base, k0, rs);
+    else load_tile_t<D>(Ks, k + tb, k0, L);
     load_tile<D>(Vs, v + base, k0, rs);
     __syncthreads();
 
@@ -222,12 +220,15 @@ flash_fwd_f32dot_kernel(const float* __restrict__ q,
     tile_dot_nt<D>(s, Qs, Ks, ty, tx);
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
+      // keys at and past `end` are masked: past the row (causal) or at and
+      // past kv_len
       const int row = q0 + 4 * ty + a;
+      const int end = causal ? min(row + 1, kv_len) : kv_len;
       float mx = kNegInf;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         float x = s[a][c] * scale;
-        if (causal && row < k0 + tx + 16 * c) x = kNegInf;
+        if (k0 + tx + 16 * c >= end) x = kNegInf;
         s[a][c] = x;
         mx = fmaxf(mx, x);
       }
@@ -271,211 +272,6 @@ flash_fwd_f32dot_kernel(const float* __restrict__ q,
   }
 }
 
-// dQ = sum over key tiles of dS.K, with
-// P = exp(S - LSE) and dS = P * (dO.V^T - delta) * scale. kStd: k is K, v
-// is V, kt unused. kNN: kt is K^T and v is V^T; one row tile of K serves
-// both of its products here, so it is loaded from K^T and k goes unused.
-template <int D, int Form>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_f32dot_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ kt,
-                       const float* __restrict__ v,
-                       const float* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       float* __restrict__ dq,
-                       int H, int L, float scale, int causal) {
-  constexpr int NJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kTile * (D + 1);
-  float* Ks = dOs + kTile * (D + 1);
-  float* Vs = Ks + kTile * (D + 1);
-  float* dSs = Vs + kTile * (D + 1);  // [64][65]
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * kTile;
-  const int rs = H * D;
-  const size_t base = ((size_t)b * L * H + h) * D;
-  const size_t tb = (size_t)bh * D * L;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile<D>(Qs, q + base, q0, rs);
-  load_tile<D>(dOs, dout + base, q0, rs);
-  float row_lse[4], row_delta[4], acc[4][NJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    row_lse[a] = lse[(size_t)bh * L + q0 + 4 * ty + a];
-    row_delta[a] = delta[(size_t)bh * L + q0 + 4 * ty + a];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[a][j] = 0.f;
-  }
-  const int num_k = L / kTile;
-  const int kmax = causal ? min((q0 + kTile + kTile - 1) / kTile, num_k)
-                          : num_k;
-
-  for (int kt_i = 0; kt_i < kmax; ++kt_i) {
-    const int k0 = kt_i * kTile;
-    __syncthreads();
-    load_rows<D, Form != kStd>(Ks, Form == kStd ? k : kt, base, tb, k0, rs,
-                               L);
-    load_rows<D, Form != kStd>(Vs, v, base, tb, k0, rs, L);
-    __syncthreads();
-
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot_nt<D>(s, Qs, Ks, ty, tx);
-    tile_dot_nt<D>(dp, dOs, Vs, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int row = q0 + 4 * ty + a;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[a][c] * scale;
-        if (causal && row < k0 + tx + 16 * c) x = kNegInf;
-        const float p = expf(x - row_lse[a]);
-        const float ds = p * (dp[a][c] - row_delta[a]) * scale;
-        dSs[(4 * ty + a) * kRowPad + tx + 16 * c] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float dsv[4], kv[NJ];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) dsv[a] = dSs[(4 * ty + a) * kRowPad + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) kv[j] = Ks[kk * (D + 1) + tx + 16 * j];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[a][j] = fmaf(dsv[a], kv[j], acc[a][j]);
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    float* row = dq + base + (size_t)(q0 + 4 * ty + a) * rs;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) row[tx + 16 * j] = acc[a][j];
-  }
-}
-
-// dK, dV: for one key tile, walk query tiles from the causal
-// start: dV += P^T.dO and dK += dS^T.Q. The pointers are those of
-// flash_dkv_mma_kernel: kStd reads q, k, v, dout; kNN k, v as K^T, V^T;
-// kNN2 also Q^T, dO^T (qt, doutt; q and dout unused) and writes dK^T, dV^T.
-template <int D, int Form>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_f32dot_kernel(const float* __restrict__ q,
-                        const float* __restrict__ qt,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ doutt,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        float* __restrict__ dk, float* __restrict__ dv, int H,
-                        int L, float scale, int causal) {
-  constexpr int NJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kTile * (D + 1);
-  float* Qs = Vs + kTile * (D + 1);
-  float* dOs = Qs + kTile * (D + 1);
-  float* Ps = dOs + kTile * (D + 1);  // [64][65]
-  float* dSs = Ps + kTile * kRowPad;  // [64][65]
-  float* lse_s = dSs + kTile * kRowPad;
-  float* delta_s = lse_s + kTile;
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.y * kTile;
-  const int rs = H * D;
-  const size_t base = ((size_t)b * L * H + h) * D;
-  const size_t tb = (size_t)bh * D * L;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_rows<D, Form != kStd>(Ks, k, base, tb, k0, rs, L);
-  load_rows<D, Form != kStd>(Vs, v, base, tb, k0, rs, L);
-  float acc_k[4][NJ], acc_v[4][NJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc_k[a][j] = acc_v[a][j] = 0.f;
-
-  const int num_q = L / kTile;
-  const int qstart = causal ? k0 / kTile : 0;
-  for (int qt_i = qstart; qt_i < num_q; ++qt_i) {
-    const int q0 = qt_i * kTile;
-    __syncthreads();
-    load_rows<D, Form == kNN2>(Qs, Form == kNN2 ? qt : q, base, tb, q0, rs,
-                               L);
-    load_rows<D, Form == kNN2>(dOs, Form == kNN2 ? doutt : dout, base, tb,
-                               q0, rs, L);
-    if (threadIdx.x < kTile) {
-      lse_s[threadIdx.x] = lse[(size_t)bh * L + q0 + threadIdx.x];
-      delta_s[threadIdx.x] = delta[(size_t)bh * L + q0 + threadIdx.x];
-    }
-    __syncthreads();
-
-    // rows of this score tile are queries (4*ty + a), columns keys
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot_nt<D>(s, Qs, Ks, ty, tx);
-    tile_dot_nt<D>(dp, dOs, Vs, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = 4 * ty + a;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[a][c] * scale;
-        if (causal && q0 + r < k0 + tx + 16 * c) x = kNegInf;
-        const float p = expf(x - lse_s[r]);
-        const float ds = p * (dp[a][c] - delta_s[r]) * scale;
-        Ps[r * kRowPad + tx + 16 * c] = p;
-        dSs[r * kRowPad + tx + 16 * c] = ds;
-      }
-    }
-    __syncthreads();
-
-    // this thread's output rows are keys 4*ty + a, columns tx + 16*j
-#pragma unroll 4
-    for (int r = 0; r < kTile; ++r) {
-      float pv[4], dsv[4], dov[NJ], qv[NJ];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        pv[a] = Ps[r * kRowPad + 4 * ty + a];
-        dsv[a] = dSs[r * kRowPad + 4 * ty + a];
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        dov[j] = dOs[r * (D + 1) + tx + 16 * j];
-        qv[j] = Qs[r * (D + 1) + tx + 16 * j];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          acc_v[a][j] = fmaf(pv[a], dov[j], acc_v[a][j]);
-          acc_k[a][j] = fmaf(dsv[a], qv[j], acc_k[a][j]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int key = k0 + 4 * ty + a;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      const size_t off = Form == kNN2 ? tb + (size_t)d * L + key
-                                      : base + (size_t)key * rs + d;
-      dk[off] = acc_k[a][j];
-      dv[off] = acc_v[a][j];
-    }
-  }
-}
-
 // ---------------------------------------------------------- Hopper path
 // The forward, dQ and dK/dV kernels. A block has three warpgroups: a producer
 // (warpgroup 0, its registers cut to kProducerRegs by setmaxnreg), whose
@@ -498,7 +294,8 @@ flash_dkv_f32dot_kernel(const float* __restrict__ q,
 // bf16, which keeps nn and nn2 bitwise bf16's.
 //
 // Budget: 128 threads x 40 registers + 256 x 232 = 64,512 of the SM's
-// 65,536, so one block per SM. Each kernel's shared memory is at least
+// 65,536, so one block per SM (a block with one consumer: 128 x 40 + 128 x
+// 256). Each kernel's shared memory is at least
 // kOneBlockSmem, more than half of the SM's 228 KB less the 1 KB each block
 // reserves, so that no second block is placed beside it (its consumers
 // could not get their registers).
@@ -507,6 +304,9 @@ constexpr int kWG = 128;                  // threads of a warpgroup
 constexpr int kHopperThreads = 3 * kWG;   // producer + two consumers
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
+// a block with one consumer (kF32 at D = 128) gives it the most setmaxnreg
+// allows: 128 x 40 + 128 x 256 of the 256 x 168 the block starts with
+constexpr int kSoleConsumerRegs = 256;
 constexpr int kSeg = 64;                  // bf16 in one 128-byte row
 constexpr int kRowBytes = 128;
 constexpr int kAtomBytes = 8 * kRowBytes; // one swizzle atom: 8 rows
@@ -821,14 +621,27 @@ __device__ __forceinline__ void acc_to_a16(uint32_t (&a)[4],
     a[e] = pack_bf16(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1]);
 }
 
-// The same columns of an f32 accumulator split into three bf16 fragments,
-// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid): both
-// subtractions are exact in f32, and the three terms hold the 24
-// significant bits of x, so hi + mid + lo = x, of either sign (P in [0,
-// 1], dS signed and unbounded), for |x| down to about 2^-110, below which
-// lo would be subnormal (an error under 2^-126 absolute). Three bf16
-// products of the terms against one bf16 tile then form x.B with every
-// product exact in f32, as an f32 dot of x with the bf16 values forms it.
+// Two f32 values x0, x1 split into three bf16 pairs, hi = bf16(x), mid =
+// bf16(x - hi), lo = bf16(x - hi - mid): both subtractions are exact in
+// f32, and the three terms hold the 24 significant bits of x, so hi + mid +
+// lo = x, of either sign, for |x| down to about 2^-110, below which lo
+// would be subnormal (an error under 2^-126 absolute).
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float r0 = x0 - __low2float(h), r1 = x1 - __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The same columns of an f32 accumulator split into three bf16 fragments
+// (split_pair; P in [0, 1], dS signed and unbounded). Three bf16 products
+// of the terms against one bf16 tile then form x.B with every product
+// exact in f32, as an f32 dot of x with the bf16 values forms it.
 template <int N>
 __device__ __forceinline__ void acc_to_a16_split(uint32_t (&hi)[4],
                                                  uint32_t (&mid)[4],
@@ -836,17 +649,9 @@ __device__ __forceinline__ void acc_to_a16_split(uint32_t (&hi)[4],
                                                  const float (&acc)[N],
                                                  int kk) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float x0 = acc[8 * kk + 2 * e], x1 = acc[8 * kk + 2 * e + 1];
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    const float r0 = x0 - __low2float(h), r1 = x1 - __high2float(h);
-    const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
-    const __nv_bfloat162 l =
-        __floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m));
-    hi[e] = *reinterpret_cast<const uint32_t*>(&h);
-    mid[e] = *reinterpret_cast<const uint32_t*>(&m);
-    lo[e] = *reinterpret_cast<const uint32_t*>(&l);
-  }
+  for (int e = 0; e < 4; ++e)
+    split_pair(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1], hi[e], mid[e],
+               lo[e]);
 }
 
 // Shared memory of the forward: two buffers of a 128-row Q tile (64 rows
@@ -872,7 +677,8 @@ struct FwdSmem {
 // item boundaries. A consumer runs, per key tile, S = Q.K^T (wgmma, both
 // from shared memory: kStd reads K K-major, kNN reads K^T's tile through
 // the transpose bit), the online softmax in registers (the causal mask
-// only on the diagonal tile, keys past L only on a last half tile), and O
+// only on the diagonal tile, keys at and past kv_len, the true length of
+// zero-padded inputs, or past L only on a last tile), and O
 // += P.V with P from registers and V's row tile read through the transpose
 // bit. The next tile's S is issued with this tile's P.V, and the two
 // consumers take turns at issuing products (named barriers), so that one
@@ -903,7 +709,7 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_v,
                      const __grid_constant__ CUtensorMap map_o,
                      float* __restrict__ lse, int BH, int H, int L,
-                     float scale, int causal) {
+                     float scale, int causal, int kv_len) {
   using Smem = FwdSmem<D>;
   constexpr int C = D / kSeg, S = Smem::kStages;
   constexpr int NK = Split ? 64 : kBig;   // keys of one softmax step
@@ -1065,20 +871,22 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
       // The online softmax of step j: sc from S to P (f32, against the
       // running max m of the scaled scores), m and l updated; alpha
       // rescales the O of earlier steps. The scale is applied in f32 inside
-      // the exponent's FMA (scale * log2 e folded in); a masked score is
-      // -inf there, so its P is 0, as exp(-1e30 - m) is, and the max of a
+      // the exponent's FMA (scale * log2 e folded in); a masked score (past
+      // the causal diagonal, or a key at or past kv_len) is -inf there, so
+      // its P is 0, as exp(-1e30 - m) is, and the max of a
       // row's scaled scores is its largest raw score times the scale
       // (every row sees key 0, in its first step).
       auto softmax = [&](int j, float (&alpha)[2]) {
         const int k0 = j * NK;
-        const bool edge = (causal && k0 + NK > q0 + w * 64) || k0 + NK > L;
+        const bool edge =
+            (causal && k0 + NK > q0 + w * 64) || k0 + NK > kv_len;
         const float scale_log2 = scale * kLog2e;
         if (edge) {   // a branch around the loop: only edge steps pay
 #pragma unroll
           for (int i = 0; i < NK / 2; ++i) {
             const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
             const int row = row_lo + 8 * ((i >> 1) & 1);
-            if ((causal && key > row) || key >= L) sc[i] = -INFINITY;
+            if ((causal && key > row) || key >= kv_len) sc[i] = -INFINITY;
           }
         }
         float mx[2] = {-INFINITY, -INFINITY};
@@ -1177,20 +985,71 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// Shared memory of dK/dV: two buffers (item k uses buffer k % 2) of the
-// K and V rows of the two consumers, then kStages ring stages of a
-// 64-query Q tile, a dO tile and their LSE and delta runs, then the
-// barriers. At D = 64: 2 x 32 + 4 x 16.5 KB; at D = 128: 2 x 64 + 2 x 32.5
-// KB.
-template <int D>
-struct DkvSmem {
-  static constexpr int kStages = D == 64 ? 4 : 2;
-  static constexpr int kT = kChunk * (D / kSeg);   // 64 rows of one operand
-  static constexpr int kStats = 2 * 64 * sizeof(float);
-  static constexpr size_t kBytes =
-      8 * kT + kStages * (2 * kT + kStats) + 8 * (4 + 2 * kStages) + 1024;
+// Operand modes of the dQ and dK/dV kernels:
+//   kBf16   bf16 storage, P and dS rounded to bf16 for their products
+//           (strategies bf16, nn and nn2);
+//   kSplit  bf16 storage, P and dS kept f32 and each split into three bf16
+//           terms (strategy f32);
+//   kF32    f32 storage (every strategy): Q, K, V and dO arrive as the
+//           hi, mid and lo bf16 terms that flash_split_kernel made of them,
+//           every f32 product runs as six bf16 passes of term pairs
+//           (pass_a, pass_b), and dQ, dK and dV are stored in f32.
+enum Mode { kBf16 = 0, kSplit = 1, kF32 = 2 };
+
+// The six term pairs (a, b) of a product of two split f32 values (term 0
+// hi, 1 mid, 2 lo), small weights first: lo.hi, hi.lo and mid.mid (about
+// 2^-16 of the product), mid.hi and hi.mid (2^-8), hi.hi. The pairs left
+// out, mid.lo, lo.mid and lo.lo, weigh under 2^-24 of the product, below
+// f32's own rounding. Every pass is exact in its products.
+constexpr int kPasses = 6;
+// the pass loops of S and dP (S^T and dP^T) read both operands from shared
+// memory, so a pass index need not be a constant: at D = 128 (kF32) they
+// stay rolled, which keeps ptxas from holding every pass's descriptors
+template <int D, int Mode>
+constexpr int kUnrollPasses = Mode == kF32 && D == 128 ? 1 : kPasses;
+__host__ __device__ constexpr int pass_a(int p) {
+  return p == 0 ? 2 : (p == 2 || p == 3) ? 1 : 0;
+}
+__host__ __device__ constexpr int pass_b(int p) {
+  return p == 1 ? 2 : (p == 2 || p == 4) ? 1 : 0;
+}
+
+// Shared memory of the dQ and dK/dV kernels by operand mode. A block's
+// resident rows (dQ: the Q and dO rows of its consumers, with their LSE and
+// delta runs; dK/dV: their K and V rows) sit in kNB buffers (round u uses
+// buffer u % kNB, so with two the next round's rows load while this one
+// finishes); the streamed tiles (dQ: 64-key K and V tiles; dK/dV: 64-query
+// Q and dO tiles with their LSE and delta runs) pass through kStages ring
+// stages; each operand is kNT bf16 terms. kF32's terms triple the tiles,
+// so it keeps one buffer; at D = 128 even that leaves room for the rows of
+// one consumer only, so a block has one consumer there, which takes an
+// item's two 64-row halves in turn (two rounds). Bytes: kBf16, kSplit at
+// D = 64 dQ 2 x 33 + 4 x 16 KB, dK/dV 2 x 32 + 4 x 16.5 KB; at D = 128 dQ
+// 2 x 65 + 2 x 32 KB, dK/dV 2 x 64 + 2 x 32.5 KB. kF32 at D = 64 (two
+// consumers) dQ 97 + 2 x 48 KB, dK/dV 96 + 2 x 48.5 KB; at D = 128 (one
+// consumer) dQ 96.5 + 96 KB, dK/dV 96 + 96.5 KB.
+template <int D, int Mode>
+struct BwdSmem {
+  static constexpr bool F32 = Mode == kF32;
+  static constexpr int kNC = F32 && D == 128 ? 1 : 2;   // consumers
+  static constexpr int kNB = F32 ? 1 : 2;               // resident buffers
+  static constexpr int kNT = F32 ? 3 : 1;               // terms an operand
+  static constexpr int kStages = F32 ? (D == 64 ? 2 : 1) : (D == 64 ? 4 : 2);
+  static constexpr int kT = kChunk * (D / kSeg);   // 64 rows of one term
+  static constexpr int kStats = 2 * 64 * sizeof(float);   // LSE, delta
+  static constexpr size_t kBytes = kNB * kNC * (2 * kNT * kT + kStats) +
+                                   kStages * (2 * kNT * kT + kStats) +
+                                   8 * (2 * kNB + 2 * kStages) + 1024;
   static_assert(kBytes >= kOneBlockSmem, "one block per SM");
+  static_assert(kBytes <= 227 * 1024, "fits in a block's shared memory");
 };
+
+// Threads of a dQ or dK/dV block: the producer and the consumers. A block
+// with one consumer is compiled for its 256 threads, so that ptxas may give
+// the consumer's code up to 255 registers (the sole consumer's 256 of
+// setmaxnreg), where 384 threads would hold it to 168.
+template <int D, int Mode>
+constexpr int kBwdThreads = (1 + BwdSmem<D, Mode>::kNC) * kWG;
 
 // dK, dV (_dkv_kernel :233; kNN2: _dkv_kernel_nn2 :289). Bound:
 // operations, 0.035 ms at the training shape (8 D flops per causal pair,
@@ -1212,9 +1071,11 @@ struct DkvSmem {
 // stores. Keys past L (L = 64 mod 128) are skipped by their consumer,
 // which still walks the ring. Maps: [B*L, H*D] with boxes of 64 rows for
 // the operands that arrive as rows, [B*H*D, L] with boxes of D rows for
-// the transposed ones.
+// the transposed ones. dK/dV needs no mask of keys past the true length of
+// zero-padded inputs: those keys' rows are cut off by the caller, and a
+// padded query, whose dO is 0, adds nothing to any row.
 //
-// Split (strategy f32 on bf16 storage, _dkv_kernel's f32 form :275-278):
+// kSplit (strategy f32 on bf16 storage, _dkv_kernel's f32 form :275-278):
 // S^T and dP^T stay one bf16 wgmma each (their products are exact in f32);
 // P^T and dS^T stay f32 and are each split into three bf16 terms
 // (acc_to_a16_split), so dV += P^T.dO and dK += dS^T.Q take three passes
@@ -1230,8 +1091,22 @@ struct DkvSmem {
 // same products, dV and dK summed half by half, with twice the issues of
 // S^T and dP^T. Eight bf16 passes of 2 D flops a causal pair bound it:
 // operations, 0.070 ms at the training shape.
-template <int D, int Form, bool Split = false>
-__global__ void __launch_bounds__(kHopperThreads, 1)
+//
+// kF32 (f32 storage, every strategy): K, V, Q and dO arrive as split terms
+// (BwdSmem: one resident buffer; one consumer at D = 128). S^T and dP^T
+// are six passes each over the term tiles, P^T and dS^T are split in
+// registers as in kSplit (the D = 128 halves too), and dV and dK take six
+// passes each. The tensor cores sum a product's f32 terms in their own
+// order and rounding, so those six passes land in a fresh accumulator per
+// query step and 64-column chunk of dV or dK, which is then added to dV or
+// dK on the CUDA cores in f32 ("promotion"): each output sums its L / 64
+// query steps as f32 additions, and only a step's own 6 x 4 passes run in
+// the tensor cores' accumulator. dK and dV leave in f32 by plain stores
+// (dK^T and dV^T where `out_t` is set, for nn2). 24 bf16 passes of 2 D
+// flops a causal pair bound it: operations, 0.209 ms at the training
+// shape.
+template <int D, int Form, int Mode = kBf16>
+__global__ void __launch_bounds__(kBwdThreads<D, Mode>, 1)
 flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
@@ -1239,40 +1114,49 @@ flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_dk,
                      const __grid_constant__ CUtensorMap map_dv,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, int BH, int H, int L,
-                     float scale, int causal) {
-  using Smem = DkvSmem<D>;
+                     const float* __restrict__ delta,
+                     float* __restrict__ dk_f32, float* __restrict__ dv_f32,
+                     int out_t, int BH, int H, int L, float scale,
+                     int causal) {
+  using Smem = BwdSmem<D, Mode>;
+  constexpr bool Split = Mode != kBf16, F32 = Mode == kF32;
   constexpr int C = D / kSeg, S = Smem::kStages, T = Smem::kT;
+  constexpr int NC = Smem::kNC, NB = Smem::kNB, NT = Smem::kNT;
+  constexpr int NR = 2 / NC;           // rounds of an item
   constexpr int kKt = Form != kStd;    // K, V arrive as K^T, V^T
   constexpr int kQt = Form == kNN2;    // Q, dO as Q^T, dO^T; dK^T, dV^T out
   constexpr int NP = Split ? 3 : 1;    // bf16 terms of P^T and of dS^T
+  constexpr int NS = F32 ? kPasses : 1;   // passes of S^T and of dP^T
+  constexpr int UP = kUnrollPasses<D, Mode>;
   // queries of one step: Split at D = 128 takes a query tile in two halves
   // (see above)
   constexpr int NQ = Split && D == 128 ? 32 : 64;
   constexpr int KK = NQ / 16;          // depth steps of P^T.dO, dS^T.Q
   static_assert(!Split || Form == kStd, "Split reads Q and dO as rows");
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* k_s = align_1024(smem_raw);   // [buffer][consumer]
-  unsigned char* v_s = k_s + 4 * T;
-  unsigned char* q_s = v_s + 4 * T;
-  unsigned char* do_s = q_s + S * T;
-  float* stats = reinterpret_cast<float*>(do_s + S * T);
+  // [buffer][consumer][term] resident rows, [stage][term] ring tiles
+  unsigned char* k_s = align_1024(smem_raw);
+  unsigned char* v_s = k_s + NB * NC * NT * T;
+  unsigned char* q_s = v_s + NB * NC * NT * T;
+  unsigned char* do_s = q_s + S * NT * T;
+  float* stats = reinterpret_cast<float*>(do_s + S * NT * T);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + S * 128);
-  uint64_t* kv_empty = kv_full + 2;
-  uint64_t* full = kv_empty + 2;
+  uint64_t* kv_empty = kv_full + NB;
+  uint64_t* full = kv_empty + NB;
   uint64_t* empty = full + S;
 
   const int num_t = (L + kBig - 1) / kBig;
   const int n_items = BH * num_t;
+  const int BL = BH / H * L;           // rows of one term
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < NB; ++i) {
       mbar_init(&kv_full[i], 1);
-      mbar_init(&kv_empty[i], 2);       // one thread of each consumer
+      mbar_init(&kv_empty[i], NC);      // one thread of each consumer
     }
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2 * kWG);
+      mbar_init(&empty[s], NC * kWG);
     }
     mbar_fence_init();
   }
@@ -1282,241 +1166,332 @@ flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---- producer
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
-      int n = 0;   // query tiles loaded so far
+      int n = 0, u = 0;   // query tiles and rounds loaded so far
       int bh, rank;
       for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
-        const int b = bh / H, h = bh % H, k0 = rank * kBig;
-        const int qstart = causal ? k0 / 64 : 0, n_tiles = L / 64 - qstart;
-        const int kb = it & 1;
-        if (it >= 2) mbar_wait(&kv_empty[kb], ((it >> 1) - 1) & 1);
-        mbar_expect_tx(&kv_full[kb], 4 * T);
-        for (int w = 0; w < 2; ++w) {
-          unsigned char* kd = k_s + (2 * kb + w) * T;
-          unsigned char* vd = v_s + (2 * kb + w) * T;
-          const int kw0 = k0 + w * 64;
-          if constexpr (kKt) {
-            tma_load(kd, &map_k, &kv_full[kb], kw0, bh * D);
-            tma_load(vd, &map_v, &kv_full[kb], kw0, bh * D);
-          } else {
-            for (int c = 0; c < C; ++c) {
-              tma_load(kd + c * kChunk, &map_k, &kv_full[kb],
-                       h * D + c * kSeg, b * L + kw0);
-              tma_load(vd + c * kChunk, &map_v, &kv_full[kb],
-                       h * D + c * kSeg, b * L + kw0);
+        const int b = bh / H, h = bh % H;
+        for (int r = 0; r < NR; ++r) {
+          const int k0 = rank * kBig + 64 * NC * r;   // the round's keys
+          if (k0 >= L) break;
+          const int qstart = causal ? k0 / 64 : 0, n_tiles = L / 64 - qstart;
+          const int kb = u % NB;
+          if (u >= NB) mbar_wait(&kv_empty[kb], (u / NB - 1) & 1);
+          ++u;
+          mbar_expect_tx(&kv_full[kb], 2 * NC * NT * T);
+          for (int w = 0; w < NC; ++w) {
+            const int kw0 = k0 + w * 64;
+            for (int term = 0; term < NT; ++term) {
+              unsigned char* kd = k_s + ((kb * NC + w) * NT + term) * T;
+              unsigned char* vd = v_s + ((kb * NC + w) * NT + term) * T;
+              if constexpr (kKt) {
+                tma_load(kd, &map_k, &kv_full[kb], kw0, bh * D);
+                tma_load(vd, &map_v, &kv_full[kb], kw0, bh * D);
+              } else {
+                const int row = term * BL + b * L + kw0;
+                for (int c = 0; c < C; ++c) {
+                  tma_load(kd + c * kChunk, &map_k, &kv_full[kb],
+                           h * D + c * kSeg, row);
+                  tma_load(vd + c * kChunk, &map_v, &kv_full[kb],
+                           h * D + c * kSeg, row);
+                }
+              }
             }
           }
-        }
-        for (int i = 0; i < n_tiles; ++i, ++n) {
-          const int s = n % S, q0 = (qstart + i) * 64;
-          if (n >= S) mbar_wait(&empty[s], (n / S - 1) & 1);
-          mbar_expect_tx(&full[s], 2 * T + Smem::kStats);
-          if constexpr (kQt) {
-            tma_load(q_s + s * T, &map_q, &full[s], q0, bh * D);
-            tma_load(do_s + s * T, &map_do, &full[s], q0, bh * D);
-          } else {
-            for (int c = 0; c < C; ++c) {
-              tma_load(q_s + s * T + c * kChunk, &map_q, &full[s],
-                       h * D + c * kSeg, b * L + q0);
-              tma_load(do_s + s * T + c * kChunk, &map_do, &full[s],
-                       h * D + c * kSeg, b * L + q0);
+          for (int i = 0; i < n_tiles; ++i, ++n) {
+            const int s = n % S, q0 = (qstart + i) * 64;
+            if (n >= S) mbar_wait(&empty[s], (n / S - 1) & 1);
+            mbar_expect_tx(&full[s], 2 * NT * T + Smem::kStats);
+            for (int term = 0; term < NT; ++term) {
+              unsigned char* qd = q_s + (s * NT + term) * T;
+              unsigned char* dod = do_s + (s * NT + term) * T;
+              if constexpr (kQt) {
+                tma_load(qd, &map_q, &full[s], q0, bh * D);
+                tma_load(dod, &map_do, &full[s], q0, bh * D);
+              } else {
+                const int row = term * BL + b * L + q0;
+                for (int c = 0; c < C; ++c) {
+                  tma_load(qd + c * kChunk, &map_q, &full[s],
+                           h * D + c * kSeg, row);
+                  tma_load(dod + c * kChunk, &map_do, &full[s],
+                           h * D + c * kSeg, row);
+                }
+              }
             }
+            bulk_load(stats + s * 128, lse + (size_t)bh * L + q0, 256,
+                      &full[s]);
+            bulk_load(stats + s * 128 + 64, delta + (size_t)bh * L + q0, 256,
+                      &full[s]);
           }
-          bulk_load(stats + s * 128, lse + (size_t)bh * L + q0, 256,
-                    &full[s]);
-          bulk_load(stats + s * 128 + 64, delta + (size_t)bh * L + q0, 256,
-                    &full[s]);
         }
       }
     }
   } else {
     // ---- consumers
-    setmaxnreg_inc<kConsumerRegs>();
+    setmaxnreg_inc<NC == 1 ? kSoleConsumerRegs : kConsumerRegs>();
     const int w = threadIdx.x / kWG - 1;
     const bool leader = (threadIdx.x & (kWG - 1)) == 0;
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
     const int r_lo = 16 * warp + g;        // key rows r_lo and r_lo + 8
-    int n = 0;                             // query tiles consumed so far
+    int n = 0, u = 0;                      // query tiles, rounds consumed
     int bh, rank;
     for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
-      const int b = bh / H, h = bh % H, k0 = rank * kBig, kw0 = k0 + w * 64;
-      const int qstart = causal ? k0 / 64 : 0, n_tiles = L / 64 - qstart;
-      const int kb = it & 1, n0 = n;
-      n += n_tiles;
-      mbar_wait(&kv_full[kb], (it >> 1) & 1);
-      if (kw0 >= L) {   // keys past L: walk the ring only
-        for (int i = 0; i < n_tiles; ++i) {
-          mbar_wait(&full[(n0 + i) % S], ((n0 + i) / S) & 1);
-          mbar_arrive(&empty[(n0 + i) % S]);
-        }
-        if (leader) mbar_arrive(&kv_empty[kb]);
-        continue;
-      }
-      unsigned char* my_k = k_s + (2 * kb + w) * T;
-      unsigned char* my_v = v_s + (2 * kb + w) * T;
-      const uint32_t ka = smem_addr(my_k), va = smem_addr(my_v);
-
-      float dk[D / 2], dv[D / 2];
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
-
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = (n0 + i) % S, q0 = (qstart + i) * 64;
-        mbar_wait(&full[s], ((n0 + i) / S) & 1);
-        if (causal && q0 + 64 <= kw0) {   // every query before every key
-          mbar_arrive(&empty[s]);
+      const int b = bh / H, h = bh % H;
+#pragma unroll 1
+      for (int r = 0; r < NR; ++r) {
+        const int k0 = rank * kBig + 64 * NC * r, kw0 = k0 + w * 64;
+        if (k0 >= L) break;
+        const int qstart = causal ? k0 / 64 : 0, n_tiles = L / 64 - qstart;
+        const int kb = u % NB, n0 = n;
+        mbar_wait(&kv_full[kb], (u / NB) & 1);
+        ++u;
+        n += n_tiles;
+        if (kw0 >= L) {   // keys past L: walk the ring only
+          for (int i = 0; i < n_tiles; ++i) {
+            mbar_wait(&full[(n0 + i) % S], ((n0 + i) / S) & 1);
+            mbar_arrive(&empty[(n0 + i) % S]);
+          }
+          if (leader) mbar_arrive(&kv_empty[kb]);
           continue;
         }
-        const uint32_t qb = smem_addr(q_s + s * T);
-        const uint32_t dob = smem_addr(do_s + s * T);
-        const float* lse_s = stats + s * 128;
-        const float* delta_s = lse_s + 64;
-        const bool diag = causal && q0 == kw0;
+        unsigned char* my_k = k_s + (kb * NC + w) * NT * T;
+        unsigned char* my_v = v_s + (kb * NC + w) * NT * T;
+        const uint32_t ka = smem_addr(my_k), va = smem_addr(my_v);
+
+        float dk[D / 2], dv[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+        for (int i = 0; i < n_tiles; ++i) {
+          const int s = (n0 + i) % S, q0 = (qstart + i) * 64;
+          mbar_wait(&full[s], ((n0 + i) / S) & 1);
+          if (causal && q0 + 64 <= kw0) {   // every query before every key
+            mbar_arrive(&empty[s]);
+            continue;
+          }
+          const uint32_t qb = smem_addr(q_s + s * NT * T);
+          const uint32_t dob = smem_addr(do_s + s * NT * T);
+          const float* lse_s = stats + s * 128;
+          const float* delta_s = lse_s + 64;
+          const bool diag = causal && q0 == kw0;
 #pragma unroll 1
-        for (int hq = 0; hq < 64 / NQ; ++hq) {
-          // S^T and dP^T of queries hq NQ .. hq NQ + NQ-1: their rows of Q
-          // and dO, a 16-row step each in a row tile (kQt has one step)
-          const uint32_t q_off = hq * NQ * kRowBytes;
-          float st[NQ / 2], dpt[NQ / 2];
-          wgmma_fence();
+          for (int hq = 0; hq < 64 / NQ; ++hq) {
+            // S^T and dP^T of queries hq NQ .. hq NQ + NQ-1: their rows of
+            // Q and dO, a 16-row step each in a row tile (kQt has one step)
+            const uint32_t q_off = hq * NQ * kRowBytes;
+            float st[NQ / 2], dpt[NQ / 2];
+            wgmma_fence();
+#pragma unroll (UP)
+            for (int p = 0; p < NS; ++p)
 #pragma unroll
-          for (int ks = 0; ks < D / 16; ++ks) {
-            // depth d = 16 ks .. 16 ks + 15: a column step in a row tile,
-            // a 16-row step in a transposed one
-            const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
-            const uint32_t col_step = ks * 16 * kRowBytes;
-            const uint32_t a_off = kKt ? col_step : row_step;
-            const uint32_t b_off = q_off + (kQt ? col_step : row_step);
-            wgmma_ss<kKt, kQt>(st, desc(ka + a_off), desc(qb + b_off), ks);
-          }
+              for (int ks = 0; ks < D / 16; ++ks) {
+                // depth d = 16 ks .. 16 ks + 15: a column step in a row
+                // tile, a 16-row step in a transposed one; kF32's pass p
+                // multiplies term pass_a(p) of K by term pass_b(p) of Q
+                const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
+                const uint32_t col_step = ks * 16 * kRowBytes;
+                const uint32_t a_off =
+                    (F32 ? pass_a(p) * T : 0) + (kKt ? col_step : row_step);
+                const uint32_t b_off = (F32 ? pass_b(p) * T : 0) + q_off +
+                                       (kQt ? col_step : row_step);
+                wgmma_ss<kKt, kQt>(st, desc(ka + a_off), desc(qb + b_off),
+                                   p > 0 || ks > 0);
+              }
+#pragma unroll (UP)
+            for (int p = 0; p < NS; ++p)
 #pragma unroll
-          for (int ks = 0; ks < D / 16; ++ks) {
-            const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
-            const uint32_t col_step = ks * 16 * kRowBytes;
-            const uint32_t a_off = kKt ? col_step : row_step;
-            const uint32_t b_off = q_off + (kQt ? col_step : row_step);
-            wgmma_ss<kKt, kQt>(dpt, desc(va + a_off), desc(dob + b_off), ks);
-          }
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(st);
-          fence_regs(dpt);
+              for (int ks = 0; ks < D / 16; ++ks) {
+                const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
+                const uint32_t col_step = ks * 16 * kRowBytes;
+                const uint32_t a_off =
+                    (F32 ? pass_a(p) * T : 0) + (kKt ? col_step : row_step);
+                const uint32_t b_off = (F32 ? pass_b(p) * T : 0) + q_off +
+                                       (kQt ? col_step : row_step);
+                wgmma_ss<kKt, kQt>(dpt, desc(va + a_off), desc(dob + b_off),
+                                   p > 0 || ks > 0);
+              }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(st);
+            fence_regs(dpt);
 
 #pragma unroll
-          for (int e = 0; e < NQ / 2; ++e) {
-            const int col = hq * NQ + 8 * (e >> 2) + 2 * t + (e & 1);  // query
-            const int row = r_lo + 8 * ((e >> 1) & 1);                 // key
-            float p = ex2((st[e] * scale - lse_s[col]) * kLog2e);
-            if (diag && col < row) p = 0.f;                 // masked: -1e30
-            dpt[e] = p * (dpt[e] - delta_s[col]) * scale;   // dS^T
-            st[e] = p;                                      // P^T
-          }
-          // P^T and dS^T in bf16 (Split: their lo, mid and hi terms), the
-          // A fragments of P^T.dO and dS^T.Q
-          uint32_t pa[NP * KK][4], dsa[NP * KK][4];
-#pragma unroll
-          for (int kk = 0; kk < KK; ++kk) {
-            if constexpr (Split) {
-              acc_to_a16_split(pa[2 * KK + kk], pa[KK + kk], pa[kk], st, kk);
-              acc_to_a16_split(dsa[2 * KK + kk], dsa[KK + kk], dsa[kk], dpt,
-                               kk);
-            } else {
-              acc_to_a16(pa[kk], st, kk);
-              acc_to_a16(dsa[kk], dpt, kk);
+            for (int e = 0; e < NQ / 2; ++e) {
+              const int col = hq * NQ + 8 * (e >> 2) + 2 * t + (e & 1);  // query
+              const int row = r_lo + 8 * ((e >> 1) & 1);                 // key
+              // kF32: exp(S scale - LSE) rounded where the plain version
+              // rounds it, in expf (ex2.approx of a base-2 argument moves P
+              // by a few units of its last place, past f32's check)
+              const float x = st[e] * scale - lse_s[col];
+              float p = F32 ? expf(x) : ex2(x * kLog2e);
+              if (diag && col < row) p = 0.f;                 // masked: -1e30
+              dpt[e] = p * (dpt[e] - delta_s[col]) * scale;   // dS^T
+              st[e] = p;                                      // P^T
             }
-          }
-          fence_regs(dv);
-          fence_regs(dk);
-          wgmma_fence();
-          // acc += A.B, the small terms first. Depth: queries hq NQ + 16 kk
-          // .. + 15, a 16-row step in a row tile of Q or dO (read
-          // MN-major), a column step in a transposed one.
-          auto issue = [&](float (&acc)[D / 2],
-                           const uint32_t (&a)[NP * KK][4], uint32_t b) {
+            if constexpr (F32) {
+              // out += A.B promoted: per 64-column chunk c of the dO or Q
+              // tile (read MN-major, depth queries hq NQ + 16 kk ..), the
+              // six passes into a fresh accumulator, then added in f32
+              auto promoted = [&](float (&out)[D / 2],
+                                  const uint32_t (&a)[3 * KK][4], uint32_t bt) {
 #pragma unroll
-            for (int p = 0; p < NP; ++p)
+                for (int c = 0; c < C; ++c) {
+                  float acc[32];
+#pragma unroll
+                  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+                  wgmma_fence();
+#pragma unroll
+                  for (int p = 0; p < kPasses; ++p)
+#pragma unroll
+                    for (int kk = 0; kk < KK; ++kk)
+                      wgmma_rs<1>(acc, a[pass_a(p) * KK + kk],
+                                  desc(bt + pass_b(p) * T + c * kChunk +
+                                           (hq * KK + kk) * 16 * kRowBytes,
+                                       kChunk));
+                  wgmma_commit();
+                  wgmma_wait<0>();
+                  fence_regs(acc);
+#pragma unroll
+                  for (int e = 0; e < 32; ++e) out[32 * c + e] += acc[e];
+                }
+              };
+              // P^T, then dS^T, as hi, mid and lo fragments ([term][kk]),
+              // dS^T packed once dV's passes are done with P^T's
+              uint32_t pa[3 * KK][4];
+#pragma unroll
+              for (int kk = 0; kk < KK; ++kk)
+                acc_to_a16_split(pa[kk], pa[KK + kk], pa[2 * KK + kk], st, kk);
+              promoted(dv, pa, dob);
+              fence_regs(pa);
+              uint32_t dsa[3 * KK][4];
+#pragma unroll
+              for (int kk = 0; kk < KK; ++kk)
+                acc_to_a16_split(dsa[kk], dsa[KK + kk], dsa[2 * KK + kk], dpt,
+                                 kk);
+              promoted(dk, dsa, qb);
+              fence_regs(dsa);
+            } else {
+              // P^T and dS^T in bf16 (kSplit: their lo, mid and hi terms),
+              // the A fragments of P^T.dO and dS^T.Q
+              uint32_t pa[NP * KK][4], dsa[NP * KK][4];
 #pragma unroll
               for (int kk = 0; kk < KK; ++kk) {
-                const int kq = hq * KK + kk;
-                wgmma_rs<1 - kQt>(
-                    acc, a[p * KK + kk],
-                    desc(b + (kQt ? kq * 32 : kq * 16 * kRowBytes), kChunk));
+                if constexpr (Split) {
+                  acc_to_a16_split(pa[2 * KK + kk], pa[KK + kk], pa[kk], st,
+                                   kk);
+                  acc_to_a16_split(dsa[2 * KK + kk], dsa[KK + kk], dsa[kk],
+                                   dpt, kk);
+                } else {
+                  acc_to_a16(pa[kk], st, kk);
+                  acc_to_a16(dsa[kk], dpt, kk);
+                }
               }
-          };
-          issue(dv, pa, dob);
-          issue(dk, dsa, qb);
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(dv);
-          fence_regs(dk);
-          fence_regs(pa);
-          fence_regs(dsa);
-        }
-        mbar_arrive(&empty[s]);
-      }
-
-      // dK, dV in bf16, staged in this consumer's K and V rows (free since
-      // its last product) as the store maps' swizzled boxes: [D/64][64][64]
-      // for rows, [D][64] for kNN2's transposed stores
+              fence_regs(dv);
+              fence_regs(dk);
+              wgmma_fence();
+              // acc += A.B, the small terms first. Depth: queries hq NQ +
+              // 16 kk .. + 15, a 16-row step in a row tile of Q or dO (read
+              // MN-major), a column step in a transposed one.
+              auto issue = [&](float (&acc)[D / 2],
+                               const uint32_t (&a)[NP * KK][4], uint32_t bt) {
 #pragma unroll
-      for (int j8 = 0; j8 < D / 8; ++j8)
+                for (int p = 0; p < NP; ++p)
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int key = r_lo + 8 * r, c = 8 * j8 + 2 * t;
-          const int i0 = 4 * j8 + 2 * r;
-          if constexpr (kQt) {
-#pragma unroll
-            for (int u = 0; u < 2; ++u) {
-              const int off = swz(c + u, key);   // row d, column key
-              *reinterpret_cast<bf16*>(my_k + off) =
-                  __float2bfloat16_rn(dk[i0 + u]);
-              *reinterpret_cast<bf16*>(my_v + off) =
-                  __float2bfloat16_rn(dv[i0 + u]);
+                  for (int kk = 0; kk < KK; ++kk) {
+                    const int kq = hq * KK + kk;
+                    wgmma_rs<1 - kQt>(
+                        acc, a[p * KK + kk],
+                        desc(bt + (kQt ? kq * 32 : kq * 16 * kRowBytes),
+                             kChunk));
+                  }
+              };
+              issue(dv, pa, dob);
+              issue(dk, dsa, qb);
+              wgmma_commit();
+              wgmma_wait<0>();
+              fence_regs(dv);
+              fence_regs(dk);
+              fence_regs(pa);
+              fence_regs(dsa);
             }
-          } else {
-            const int off = (c / kSeg) * kChunk + swz(key, c % kSeg);
-            *reinterpret_cast<uint32_t*>(my_k + off) =
-                pack_bf16(dk[i0], dk[i0 + 1]);
-            *reinterpret_cast<uint32_t*>(my_v + off) =
-                pack_bf16(dv[i0], dv[i0 + 1]);
           }
+          mbar_arrive(&empty[s]);
         }
-      fence_async_smem();
-      named_sync(1 + w, kWG);
-      if (leader) {
-        if constexpr (kQt) {
-          tma_store(&map_dk, my_k, kw0, bh * D);
-          tma_store(&map_dv, my_v, kw0, bh * D);
+
+        if constexpr (F32) {
+          // dK, dV in f32 from registers: rows (keys) of [B, L, H, D], or
+          // columns of dK^T, dV^T's [B, H, D, L] where out_t is set
+#pragma unroll
+          for (int j8 = 0; j8 < D / 8; ++j8)
+#pragma unroll
+            for (int r2 = 0; r2 < 2; ++r2) {
+              const int key = kw0 + r_lo + 8 * r2, c = 8 * j8 + 2 * t;
+              const int i0 = 4 * j8 + 2 * r2;
+              if (out_t) {
+                const size_t o = ((size_t)bh * D + c) * L + key;
+                dk_f32[o] = dk[i0];
+                dk_f32[o + L] = dk[i0 + 1];
+                dv_f32[o] = dv[i0];
+                dv_f32[o + L] = dv[i0 + 1];
+              } else {
+                const size_t o = ((size_t)(b * L + key) * H + h) * D + c;
+                *reinterpret_cast<float2*>(dk_f32 + o) =
+                    make_float2(dk[i0], dk[i0 + 1]);
+                *reinterpret_cast<float2*>(dv_f32 + o) =
+                    make_float2(dv[i0], dv[i0 + 1]);
+              }
+            }
+          named_sync(1 + w, kWG);      // every thread is done with K and V
+          if (leader) mbar_arrive(&kv_empty[kb]);
         } else {
-          for (int c = 0; c < C; ++c) {
-            tma_store(&map_dk, my_k + c * kChunk, h * D + c * kSeg,
-                      b * L + kw0);
-            tma_store(&map_dv, my_v + c * kChunk, h * D + c * kSeg,
-                      b * L + kw0);
+          // dK, dV in bf16, staged in this consumer's K and V rows (free
+          // since its last product) as the store maps' swizzled boxes:
+          // [D/64][64][64] for rows, [D][64] for kNN2's transposed stores
+#pragma unroll
+          for (int j8 = 0; j8 < D / 8; ++j8)
+#pragma unroll
+            for (int r2 = 0; r2 < 2; ++r2) {
+              const int key = r_lo + 8 * r2, c = 8 * j8 + 2 * t;
+              const int i0 = 4 * j8 + 2 * r2;
+              if constexpr (kQt) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int off = swz(c + e, key);   // row d, column key
+                  *reinterpret_cast<bf16*>(my_k + off) =
+                      __float2bfloat16_rn(dk[i0 + e]);
+                  *reinterpret_cast<bf16*>(my_v + off) =
+                      __float2bfloat16_rn(dv[i0 + e]);
+                }
+              } else {
+                const int off = (c / kSeg) * kChunk + swz(key, c % kSeg);
+                *reinterpret_cast<uint32_t*>(my_k + off) =
+                    pack_bf16(dk[i0], dk[i0 + 1]);
+                *reinterpret_cast<uint32_t*>(my_v + off) =
+                    pack_bf16(dv[i0], dv[i0 + 1]);
+              }
+            }
+          fence_async_smem();
+          named_sync(1 + w, kWG);
+          if (leader) {
+            if constexpr (kQt) {
+              tma_store(&map_dk, my_k, kw0, bh * D);
+              tma_store(&map_dv, my_v, kw0, bh * D);
+            } else {
+              for (int c = 0; c < C; ++c) {
+                tma_store(&map_dk, my_k + c * kChunk, h * D + c * kSeg,
+                          b * L + kw0);
+                tma_store(&map_dv, my_v + c * kChunk, h * D + c * kSeg,
+                          b * L + kw0);
+              }
+            }
+            tma_store_wait();          // the buffers may take the next K, V
+            mbar_arrive(&kv_empty[kb]);
           }
         }
-        tma_store_wait();            // the buffers may take the next K, V
-        mbar_arrive(&kv_empty[kb]);
       }
     }
   }
 }
-
-// Shared memory of dQ: two buffers (item k uses buffer k % 2) of the Q and
-// dO rows of the two consumers and of their LSE and delta runs, then
-// kStages ring stages of a 64-key K tile and a V tile (K^T and V^T under
-// kNN), then the barriers. At D = 64: 2 x 33 + 4 x 16 KB; at D = 128:
-// 2 x 65 + 2 x 32 KB.
-template <int D>
-struct DqSmem {
-  static constexpr int kStages = D == 64 ? 4 : 2;
-  static constexpr int kT = kChunk * (D / kSeg);   // 64 rows of one operand
-  static constexpr int kStats = 2 * 64 * sizeof(float);   // LSE, delta
-  static constexpr size_t kBytes =
-      2 * (4 * kT + 2 * kStats) + kStages * 2 * kT + 8 * (4 + 2 * kStages) +
-      1024;
-  static_assert(kBytes >= kOneBlockSmem, "one block per SM");
-};
 
 // dQ (_dq_kernel :174; kNN: _dq_kernel_nn :203). Bound: operations, 0.026
 // ms at the training shape (6 D flops per causal pair, three products).
@@ -1528,65 +1503,86 @@ struct DqSmem {
 // every 64-key K and V tile of the item's causal range into the ring,
 // across item boundaries. A consumer (64 query rows) runs, per key tile,
 // S = Q.K^T and dP = dO.V^T (wgmma from shared memory), P = exp(S scale -
-// LSE) and dS = P (dP - delta) scale in registers (the causal mask only on
-// its diagonal tile, behind one branch; tiles wholly above the diagonal
-// skipped), then dQ += dS.K with dS rounded to bf16 as the register A
-// fragment and the same K tile read MN-major through the transpose bit: K
-// is loaded once and needs no transposed copy. The two consumers overlap
-// each other's softmax with their products; issuing the next tile's S and
-// dP behind this tile's dQ product, or taking turns at issuing as the
-// forward's consumers do, gained nothing or lost (PERF.md). kNN reads K^T
-// and V^T by TMA in their own layout with the transpose bits swapped (one
-// K^T tile serves S and dS.K; `k` goes unused): the tensor cores see the
-// same products in the same order, so dQ is bitwise kStd's. dQ leaves
-// through the consumer's Q rows and a TMA store. Rows past L (L = 64 mod
-// 128) are skipped by their consumer, which still walks the ring. Maps:
-// map_q, map_do, map_dq [B*L, H*D] with boxes of 64 rows; map_k, map_v the
-// same (kStd) or K^T, V^T as [B*H*D, L] with boxes of D rows (kNN).
+// LSE) and dS = P (dP - delta) scale in registers (the causal mask, and
+// the mask of keys at and past kv_len, the true length of zero-padded
+// inputs, only on the tile that needs it, behind one branch; tiles wholly
+// above the diagonal skipped), then dQ += dS.K with dS rounded to bf16 as
+// the register A fragment and the same K tile read MN-major through the
+// transpose bit: K is loaded once and needs no transposed copy. The two
+// consumers overlap each other's softmax with their products; issuing the
+// next tile's S and dP behind this tile's dQ product, or taking turns at
+// issuing as the forward's consumers do, gained nothing or lost (PERF.md).
+// kNN reads K^T and V^T by TMA in their own layout with the transpose bits
+// swapped (one K^T tile serves S and dS.K; `k` goes unused): the tensor
+// cores see the same products in the same order, so dQ is bitwise kStd's.
+// dQ leaves through the consumer's Q rows and a TMA store. Rows past L (L
+// = 64 mod 128) are skipped by their consumer, which still walks the ring.
+// Maps: map_q, map_do, map_dq [B*L, H*D] with boxes of 64 rows; map_k,
+// map_v the same (kStd) or K^T, V^T as [B*H*D, L] with boxes of D rows
+// (kNN).
 //
-// Split (strategy f32 on bf16 storage, _dq_kernel's f32 form :194): S and
+// kSplit (strategy f32 on bf16 storage, _dq_kernel's f32 form :194): S and
 // dP stay one bf16 wgmma each (their products are exact in f32); dS stays
 // f32 and is split into three bf16 terms (acc_to_a16_split), each
 // multiplied by the same K tile into dQ, the small terms first. The three
 // fragment sets (48 registers) fit beside dQ (32 or 64 floats), so nothing
 // else changes. Five bf16 passes of 2 D flops a causal pair bound it:
 // operations, 0.044 ms at the training shape.
-template <int D, int Form, bool Split = false>
-__global__ void __launch_bounds__(kHopperThreads, 1)
+//
+// kF32 (f32 storage, every strategy): Q, dO, K and V arrive as split terms
+// (BwdSmem: one resident buffer; one consumer at D = 128, which takes the
+// item's halves in turn). S and dP are six passes each over the term
+// tiles; dS is split in registers and dQ's six passes (dS term by K term)
+// land in a fresh accumulator per key tile, which is added to dQ on the
+// CUDA cores in f32 (promotion, as in dK/dV): dQ sums its L / 64 key tiles
+// as f32 additions. dQ leaves in f32 by plain stores. 18 bf16 passes of
+// 2 D flops a causal pair bound it: operations, 0.157 ms at the training
+// shape.
+template <int D, int Form, int Mode = kBf16>
+__global__ void __launch_bounds__(kBwdThreads<D, Mode>, 1)
 flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
                     const __grid_constant__ CUtensorMap map_do,
                     const __grid_constant__ CUtensorMap map_dq,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, int BH, int H, int L,
-                    float scale, int causal) {
-  using Smem = DqSmem<D>;
+                    const float* __restrict__ delta,
+                    float* __restrict__ dq_f32, int BH, int H, int L,
+                    float scale, int causal, int kv_len) {
+  using Smem = BwdSmem<D, Mode>;
+  constexpr bool Split = Mode != kBf16, F32 = Mode == kF32;
   constexpr int C = D / kSeg, S = Smem::kStages, T = Smem::kT;
+  constexpr int NC = Smem::kNC, NB = Smem::kNB, NT = Smem::kNT;
+  constexpr int NR = 2 / NC;           // rounds of an item
   constexpr int kKt = Form != kStd;    // K, V arrive as K^T, V^T
   constexpr int NP = Split ? 3 : 1;    // bf16 terms of dS
+  constexpr int NS = F32 ? kPasses : 1;   // passes of S and of dP
+  constexpr int UP = kUnrollPasses<D, Mode>;
+  static_assert(!F32 || Form == kStd, "kF32 reads split terms as rows");
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* q_s = align_1024(smem_raw);   // [buffer][consumer]
-  unsigned char* do_s = q_s + 4 * T;
-  unsigned char* k_s = do_s + 4 * T;
-  unsigned char* v_s = k_s + S * T;
-  float* stats = reinterpret_cast<float*>(v_s + S * T);  // [buf][cons][128]
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(stats + 4 * 128);
-  uint64_t* q_empty = q_full + 2;
-  uint64_t* full = q_empty + 2;
+  // [buffer][consumer][term] resident rows, [stage][term] ring tiles
+  unsigned char* q_s = align_1024(smem_raw);
+  unsigned char* do_s = q_s + NB * NC * NT * T;
+  unsigned char* k_s = do_s + NB * NC * NT * T;
+  unsigned char* v_s = k_s + S * NT * T;
+  float* stats = reinterpret_cast<float*>(v_s + S * NT * T);  // [buf][cons]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(stats + NB * NC * 128);
+  uint64_t* q_empty = q_full + NB;
+  uint64_t* full = q_empty + NB;
   uint64_t* empty = full + S;
 
   const int num_t = (L + kBig - 1) / kBig;
   const int n_items = BH * num_t;
+  const int BL = BH / H * L;           // rows of one term
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < NB; ++i) {
       mbar_init(&q_full[i], 1);
-      mbar_init(&q_empty[i], 2);        // one thread of each consumer
+      mbar_init(&q_empty[i], NC);       // one thread of each consumer
     }
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2 * kWG);
+      mbar_init(&empty[s], NC * kWG);
     }
     mbar_fence_init();
   }
@@ -1596,41 +1592,54 @@ flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---- producer
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
-      int n = 0;   // K/V tiles loaded so far
+      int n = 0, u = 0;   // K/V tiles and rounds loaded so far
       int bh, rank;
       for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
-        const int b = bh / H, h = bh % H, q0 = (num_t - 1 - rank) * kBig;
-        const int kmax = causal ? min(q0 / 64 + 2, L / 64) : L / 64;
-        const int nw = q0 + 64 < L ? 2 : 1;    // consumers with rows
-        const int qb = it & 1;
-        if (it >= 2) mbar_wait(&q_empty[qb], ((it >> 1) - 1) & 1);
-        mbar_expect_tx(&q_full[qb], nw * (2 * T + Smem::kStats));
-        for (int w = 0; w < nw; ++w) {
-          const int slot = 2 * qb + w, r0 = q0 + 64 * w;
-          for (int c = 0; c < C; ++c) {
-            tma_load(q_s + slot * T + c * kChunk, &map_q, &q_full[qb],
-                     h * D + c * kSeg, b * L + r0);
-            tma_load(do_s + slot * T + c * kChunk, &map_do, &q_full[qb],
-                     h * D + c * kSeg, b * L + r0);
+        const int b = bh / H, h = bh % H;
+        for (int r = 0; r < NR; ++r) {
+          const int q0 = (num_t - 1 - rank) * kBig + 64 * NC * r;
+          if (q0 >= L) break;
+          const int kmax = causal ? min(q0 / 64 + NC, L / 64) : L / 64;
+          const int nw = min(NC, (L - q0) / 64);   // consumers with rows
+          const int qb = u % NB;
+          if (u >= NB) mbar_wait(&q_empty[qb], (u / NB - 1) & 1);
+          ++u;
+          mbar_expect_tx(&q_full[qb], nw * (2 * NT * T + Smem::kStats));
+          for (int w = 0; w < nw; ++w) {
+            const int slot = NC * qb + w, r0 = q0 + 64 * w;
+            for (int term = 0; term < NT; ++term) {
+              const int row = term * BL + b * L + r0;
+              for (int c = 0; c < C; ++c) {
+                tma_load(q_s + (slot * NT + term) * T + c * kChunk, &map_q,
+                         &q_full[qb], h * D + c * kSeg, row);
+                tma_load(do_s + (slot * NT + term) * T + c * kChunk, &map_do,
+                         &q_full[qb], h * D + c * kSeg, row);
+              }
+            }
+            bulk_load(stats + slot * 128, lse + (size_t)bh * L + r0, 256,
+                      &q_full[qb]);
+            bulk_load(stats + slot * 128 + 64, delta + (size_t)bh * L + r0,
+                      256, &q_full[qb]);
           }
-          bulk_load(stats + slot * 128, lse + (size_t)bh * L + r0, 256,
-                    &q_full[qb]);
-          bulk_load(stats + slot * 128 + 64, delta + (size_t)bh * L + r0,
-                    256, &q_full[qb]);
-        }
-        for (int j = 0; j < kmax; ++j, ++n) {
-          const int s = n % S, k0 = j * 64;
-          if (n >= S) mbar_wait(&empty[s], (n / S - 1) & 1);
-          mbar_expect_tx(&full[s], 2 * T);
-          if constexpr (kKt) {
-            tma_load(k_s + s * T, &map_k, &full[s], k0, bh * D);
-            tma_load(v_s + s * T, &map_v, &full[s], k0, bh * D);
-          } else {
-            for (int c = 0; c < C; ++c) {
-              tma_load(k_s + s * T + c * kChunk, &map_k, &full[s],
-                       h * D + c * kSeg, b * L + k0);
-              tma_load(v_s + s * T + c * kChunk, &map_v, &full[s],
-                       h * D + c * kSeg, b * L + k0);
+          for (int j = 0; j < kmax; ++j, ++n) {
+            const int s = n % S, k0 = j * 64;
+            if (n >= S) mbar_wait(&empty[s], (n / S - 1) & 1);
+            mbar_expect_tx(&full[s], 2 * NT * T);
+            for (int term = 0; term < NT; ++term) {
+              unsigned char* kd = k_s + (s * NT + term) * T;
+              unsigned char* vd = v_s + (s * NT + term) * T;
+              if constexpr (kKt) {
+                tma_load(kd, &map_k, &full[s], k0, bh * D);
+                tma_load(vd, &map_v, &full[s], k0, bh * D);
+              } else {
+                const int row = term * BL + b * L + k0;
+                for (int c = 0; c < C; ++c) {
+                  tma_load(kd + c * kChunk, &map_k, &full[s],
+                           h * D + c * kSeg, row);
+                  tma_load(vd + c * kChunk, &map_v, &full[s],
+                           h * D + c * kSeg, row);
+                }
+              }
             }
           }
         }
@@ -1638,140 +1647,258 @@ flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ---- consumers
-    setmaxnreg_inc<kConsumerRegs>();
+    setmaxnreg_inc<NC == 1 ? kSoleConsumerRegs : kConsumerRegs>();
     const int w = threadIdx.x / kWG - 1;
     const bool leader = (threadIdx.x & (kWG - 1)) == 0;
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
     const int r_lo = 16 * warp + g;          // rows r_lo and r_lo + 8
     const float scale_log2 = scale * kLog2e;
-    int n = 0;                               // K/V tiles consumed so far
+    int n = 0, u = 0;                        // K/V tiles, rounds consumed
     int bh, rank;
     for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
-      const int b = bh / H, h = bh % H, q0 = (num_t - 1 - rank) * kBig;
-      const int r0 = q0 + 64 * w;            // this consumer's first row
-      const int kmax = causal ? min(q0 / 64 + 2, L / 64) : L / 64;
-      // key tiles this consumer needs: 0 .. kend-1, the last one its
-      // diagonal tile under causal; the item's last is wholly above the
-      // diagonal for consumer 0
-      const int kend = causal ? r0 / 64 + 1 : kmax;
-      const int qb = it & 1, slot = 2 * qb + w, n0 = n;
-      n += kmax;
-      mbar_wait(&q_full[qb], (it >> 1) & 1);
-      if (r0 >= L) {   // rows past L: walk the ring only
-        for (int j = 0; j < kmax; ++j) {
-          mbar_wait(&full[(n0 + j) % S], ((n0 + j) / S) & 1);
-          mbar_arrive(&empty[(n0 + j) % S]);
-        }
-        if (leader) mbar_arrive(&q_empty[qb]);
-        continue;
-      }
-      unsigned char* my_q = q_s + slot * T;
-      const uint32_t qa = smem_addr(my_q), doa = smem_addr(do_s + slot * T);
-      const float* lse_s = stats + slot * 128;
-      float neg_lse[2], row_delta[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        neg_lse[r] = -lse_s[r_lo + 8 * r] * kLog2e;
-        row_delta[r] = lse_s[64 + r_lo + 8 * r];
-      }
-
-      float dq[D / 2];
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
-      for (int j = 0; j < kmax; ++j) {
-        const int s = (n0 + j) % S;
-        mbar_wait(&full[s], ((n0 + j) / S) & 1);
-        if (j >= kend) {          // wholly above the diagonal
-          mbar_arrive(&empty[s]);
+      const int b = bh / H, h = bh % H;
+#pragma unroll 1
+      for (int r = 0; r < NR; ++r) {
+        const int q0 = (num_t - 1 - rank) * kBig + 64 * NC * r;
+        if (q0 >= L) break;
+        const int r0 = q0 + 64 * w;            // this consumer's first row
+        const int kmax = causal ? min(q0 / 64 + NC, L / 64) : L / 64;
+        // key tiles this consumer needs: 0 .. kend-1, the last one its
+        // diagonal tile under causal; the round's last is wholly above the
+        // diagonal for consumer 0 of two
+        const int kend = causal ? r0 / 64 + 1 : kmax;
+        const int qb = u % NB, slot = NC * qb + w, n0 = n;
+        mbar_wait(&q_full[qb], (u / NB) & 1);
+        ++u;
+        n += kmax;
+        if (r0 >= L) {   // rows past L: walk the ring only
+          for (int j = 0; j < kmax; ++j) {
+            mbar_wait(&full[(n0 + j) % S], ((n0 + j) / S) & 1);
+            mbar_arrive(&empty[(n0 + j) % S]);
+          }
+          if (leader) mbar_arrive(&q_empty[qb]);
           continue;
         }
-        const uint32_t kb = smem_addr(k_s + s * T);
-        const uint32_t vb = smem_addr(v_s + s * T);
-        // S = Q.K^T, dP = dO.V^T. Depth d = 16 ks .. 16 ks + 15: a column
-        // step in a row tile, a 16-row step in a transposed one.
-        float st[32], dp[32];
-        wgmma_fence();
+        unsigned char* my_q = q_s + slot * NT * T;
+        const uint32_t qa = smem_addr(my_q);
+        const uint32_t doa = smem_addr(do_s + slot * NT * T);
+        const float* lse_s = stats + slot * 128;
+        float row_lse[2], neg_lse[2], row_delta[2];
 #pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
-          const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
-          const uint32_t b_off = kKt ? ks * 16 * kRowBytes : row_step;
-          wgmma_ss<0, kKt>(st, desc(qa + row_step), desc(kb + b_off), ks);
+        for (int r2 = 0; r2 < 2; ++r2) {
+          row_lse[r2] = lse_s[r_lo + 8 * r2];
+          neg_lse[r2] = -row_lse[r2] * kLog2e;
+          row_delta[r2] = lse_s[64 + r_lo + 8 * r2];
         }
-#pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
-          const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
-          const uint32_t b_off = kKt ? ks * 16 * kRowBytes : row_step;
-          wgmma_ss<0, kKt>(dp, desc(doa + row_step), desc(vb + b_off), ks);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(st);
-        fence_regs(dp);
 
-        if (causal && j == kend - 1) {   // the diagonal tile: key > row
+        float dq[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+        for (int j = 0; j < kmax; ++j) {
+          const int s = (n0 + j) % S, k0 = j * 64;
+          mbar_wait(&full[s], ((n0 + j) / S) & 1);
+          if (j >= kend) {          // wholly above the diagonal
+            mbar_arrive(&empty[s]);
+            continue;
+          }
+          const uint32_t kb = smem_addr(k_s + s * NT * T);
+          const uint32_t vb = smem_addr(v_s + s * NT * T);
+          // S = Q.K^T, dP = dO.V^T. Depth d = 16 ks .. 16 ks + 15: a column
+          // step in a row tile, a 16-row step in a transposed one; kF32's
+          // pass p multiplies term pass_a(p) of Q (dO) by term pass_b(p) of
+          // K (V).
+          float st[32], dp[32];
+          wgmma_fence();
+#pragma unroll (UP)
+          for (int p = 0; p < NS; ++p)
+#pragma unroll
+            for (int ks = 0; ks < D / 16; ++ks) {
+              const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
+              const uint32_t a_off = (F32 ? pass_a(p) * T : 0) + row_step;
+              const uint32_t b_off = (F32 ? pass_b(p) * T : 0) +
+                                     (kKt ? ks * 16 * kRowBytes : row_step);
+              wgmma_ss<0, kKt>(st, desc(qa + a_off), desc(kb + b_off),
+                               p > 0 || ks > 0);
+            }
+#pragma unroll (UP)
+          for (int p = 0; p < NS; ++p)
+#pragma unroll
+            for (int ks = 0; ks < D / 16; ++ks) {
+              const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
+              const uint32_t a_off = (F32 ? pass_a(p) * T : 0) + row_step;
+              const uint32_t b_off = (F32 ? pass_b(p) * T : 0) +
+                                     (kKt ? ks * 16 * kRowBytes : row_step);
+              wgmma_ss<0, kKt>(dp, desc(doa + a_off), desc(vb + b_off),
+                               p > 0 || ks > 0);
+            }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(st);
+          fence_regs(dp);
+
+          // the causal diagonal tile (key > row) and the tile with keys at
+          // and past kv_len
+          if ((causal && j == kend - 1) || k0 + 64 > kv_len) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+              const int key = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+              const int row = r0 + r_lo + 8 * ((e >> 1) & 1);
+              if ((causal && key > row) || key >= kv_len) st[e] = -INFINITY;
+            }
+          }
 #pragma unroll
           for (int e = 0; e < 32; ++e) {
-            const int key = 8 * (e >> 2) + 2 * t + (e & 1);
-            const int row = r_lo + 8 * ((e >> 1) & 1);
-            if (key > row) st[e] = -INFINITY;
+            const int r2 = (e >> 1) & 1;
+            // kF32: exp(S scale - LSE) as the plain version rounds it (see
+            // dK/dV)
+            const float p = F32 ? expf(st[e] * scale - row_lse[r2])
+                                : ex2(fmaf(st[e], scale_log2, neg_lse[r2]));
+            dp[e] = p * (dp[e] - row_delta[r2]) * scale;   // dS
+          }
+          if constexpr (F32) {
+            // dS as hi, mid and lo fragments ([term][kk]); dQ += dS.K
+            // promoted: per 64-column chunk c of K's row tile (read
+            // MN-major, depth keys 16 kk ..), the six passes into a fresh
+            // accumulator, then added in f32
+            uint32_t dsa[3 * 4][4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              acc_to_a16_split(dsa[kk], dsa[4 + kk], dsa[8 + kk], dp, kk);
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              float acc[32];
+#pragma unroll
+              for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+              wgmma_fence();
+#pragma unroll
+              for (int p = 0; p < kPasses; ++p)
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                  wgmma_rs<1>(acc, dsa[pass_a(p) * 4 + kk],
+                              desc(kb + pass_b(p) * T + c * kChunk +
+                                       kk * 16 * kRowBytes,
+                                   kChunk));
+              wgmma_commit();
+              wgmma_wait<0>();
+              fence_regs(acc);
+#pragma unroll
+              for (int e = 0; e < 32; ++e) dq[32 * c + e] += acc[e];
+            }
+            fence_regs(dsa);
+          } else {
+            // dS in bf16 (kSplit: its lo, mid and hi terms), the A
+            // fragments of dS.K
+            uint32_t dsa[NP * 4][4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              if constexpr (Split)
+                acc_to_a16_split(dsa[8 + kk], dsa[4 + kk], dsa[kk], dp, kk);
+              else
+                acc_to_a16(dsa[kk], dp, kk);
+            }
+            fence_regs(dq);
+            wgmma_fence();
+            // dQ += dS.K, the small terms first. Depth: keys 16 kk .. 16 kk
+            // + 15, a 16-row step in K's row tile (read MN-major), a column
+            // step in K^T's tile (read K-major).
+#pragma unroll
+            for (int p = 0; p < NP; ++p)
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                wgmma_rs<1 - kKt>(
+                    dq, dsa[p * 4 + kk],
+                    desc(kb + (kKt ? kk * 32 : kk * 16 * kRowBytes), kChunk));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dq);
+            fence_regs(dsa);
+          }
+          mbar_arrive(&empty[s]);
+        }
+
+        if constexpr (F32) {
+          // dQ in f32 from registers, rows of [B, L, H, D]
+#pragma unroll
+          for (int j8 = 0; j8 < D / 8; ++j8)
+#pragma unroll
+            for (int r2 = 0; r2 < 2; ++r2) {
+              const int row = r0 + r_lo + 8 * r2, c = 8 * j8 + 2 * t;
+              *reinterpret_cast<float2*>(
+                  dq_f32 + ((size_t)(b * L + row) * H + h) * D + c) =
+                  make_float2(dq[4 * j8 + 2 * r2], dq[4 * j8 + 2 * r2 + 1]);
+            }
+          named_sync(1 + w, kWG);      // every thread is done with Q and dO
+          if (leader) mbar_arrive(&q_empty[qb]);
+        } else {
+          // dQ in bf16, staged in this consumer's Q rows (free since its
+          // last S product) as the store map's swizzled boxes
+#pragma unroll
+          for (int j8 = 0; j8 < D / 8; ++j8)
+#pragma unroll
+            for (int r2 = 0; r2 < 2; ++r2) {
+              const int c = 8 * j8 + 2 * t;
+              *reinterpret_cast<uint32_t*>(
+                  my_q + (c / kSeg) * kChunk + swz(r_lo + 8 * r2, c % kSeg)) =
+                  pack_bf16(dq[4 * j8 + 2 * r2], dq[4 * j8 + 2 * r2 + 1]);
+            }
+          fence_async_smem();
+          named_sync(1 + w, kWG);
+          if (leader) {
+            for (int c = 0; c < C; ++c)
+              tma_store(&map_dq, my_q + c * kChunk, h * D + c * kSeg,
+                        b * L + r0);
+            tma_store_wait();          // the buffer may take the next Q, dO
+            mbar_arrive(&q_empty[qb]);
           }
         }
-#pragma unroll
-        for (int e = 0; e < 32; ++e) {
-          const int r = (e >> 1) & 1;
-          const float p = ex2(fmaf(st[e], scale_log2, neg_lse[r]));
-          dp[e] = p * (dp[e] - row_delta[r]) * scale;   // dS
-        }
-        // dS in bf16 (Split: its lo, mid and hi terms), the A fragments
-        // of dS.K
-        uint32_t dsa[NP * 4][4];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          if constexpr (Split)
-            acc_to_a16_split(dsa[8 + kk], dsa[4 + kk], dsa[kk], dp, kk);
-          else
-            acc_to_a16(dsa[kk], dp, kk);
-        }
-        fence_regs(dq);
-        wgmma_fence();
-        // dQ += dS.K, the small terms first. Depth: keys 16 kk .. 16 kk +
-        // 15, a 16-row step in K's row tile (read MN-major), a column step
-        // in K^T's tile (read K-major).
-#pragma unroll
-        for (int p = 0; p < NP; ++p)
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs<1 - kKt>(dq, dsa[p * 4 + kk],
-                              desc(kb + (kKt ? kk * 32 : kk * 16 * kRowBytes),
-                                   kChunk));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dq);
-        fence_regs(dsa);
-        mbar_arrive(&empty[s]);
-      }
-
-      // dQ in bf16, staged in this consumer's Q rows (free since its last
-      // S product) as the store map's swizzled boxes
-#pragma unroll
-      for (int j8 = 0; j8 < D / 8; ++j8)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int c = 8 * j8 + 2 * t;
-          *reinterpret_cast<uint32_t*>(
-              my_q + (c / kSeg) * kChunk + swz(r_lo + 8 * r, c % kSeg)) =
-              pack_bf16(dq[4 * j8 + 2 * r], dq[4 * j8 + 2 * r + 1]);
-        }
-      fence_async_smem();
-      named_sync(1 + w, kWG);
-      if (leader) {
-        for (int c = 0; c < C; ++c)
-          tma_store(&map_dq, my_q + c * kChunk, h * D + c * kSeg, b * L + r0);
-        tma_store_wait();            // the buffer may take the next Q, dO
-        mbar_arrive(&q_empty[qb]);
       }
     }
+  }
+}
+
+// --------------------------------------------------------------- split
+// f32 storage: Q, K, V and dO (operands 0 .. 3) each as three bf16 terms,
+// hi, mid and lo (split_pair), written as terms[operand][term] of
+// [B, L, H, D] bf16, which the kF32 instances of dQ and dK/dV read by TMA
+// as they read bf16 operands. Bit `op` of `transposed` marks an operand
+// given as [B, H, D, L] (nn and nn2), read across L. A thread splits four
+// neighbouring elements of a row (one 16-byte load where the operand is a
+// row). Bound: bytes, 4 read and 6 written an element: 0.10 ms for the
+// four operands at the training shape.
+__global__ void __launch_bounds__(256)
+flash_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout, int transposed,
+                   bf16* __restrict__ terms, int B, int H, int L, int D) {
+  const int op = blockIdx.y;
+  const float* src = op == 0 ? q : op == 1 ? k : op == 2 ? v : dout;
+  const size_t n = (size_t)B * L * H * D;
+  bf16* out = terms + (size_t)op * 3 * n;
+  const bool tr = (transposed >> op) & 1;
+  for (size_t i = 4 * ((size_t)blockIdx.x * blockDim.x + threadIdx.x); i < n;
+       i += 4 * (size_t)gridDim.x * blockDim.x) {
+    float x[4];
+    if (tr) {
+      const size_t row = i / D, b = row / ((size_t)L * H);
+      const int d = (int)(i % D), h = (int)(row % H);
+      const int l = (int)(row / H % L);
+      const float* p = src + ((b * H + h) * D + d) * L + l;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = p[(size_t)e * L];
+    } else {
+      const float4 f = *reinterpret_cast<const float4*>(src + i);
+      x[0] = f.x;
+      x[1] = f.y;
+      x[2] = f.z;
+      x[3] = f.w;
+    }
+    uint2 hi, mid, lo;
+    split_pair(x[0], x[1], hi.x, mid.x, lo.x);
+    split_pair(x[2], x[3], hi.y, mid.y, lo.y);
+    *reinterpret_cast<uint2*>(out + i) = hi;
+    *reinterpret_cast<uint2*>(out + n + i) = mid;
+    *reinterpret_cast<uint2*>(out + 2 * n + i) = lo;
   }
 }
 
@@ -1938,34 +2065,11 @@ typedef const float* cf32;   // an f32 operand of a scalar kernel
 template <int D, int Form = kStd>
 cudaError_t fwd_f32dot(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int L, float scale,
-                       int causal, cudaStream_t st) {
+                       int causal, int kv_len, cudaStream_t st) {
   return launch<flash_fwd_f32dot_kernel<D, Form>>(
       grid64(B, H, L), kThreads, 3 * tile_bytes(D) + score_bytes(), st,
-      (cf32)q, (cf32)k, (cf32)v, (float*)o, (float*)lse, H, L, scale, causal);
-}
-
-template <int D, int Form = kStd>
-cudaError_t dq_f32dot(const void* q, const void* k, const void* kt,
-                      const void* v, const void* dout, const void* lse,
-                      const void* delta, void* dq, int B, int H, int L,
-                      float scale, int causal, cudaStream_t st) {
-  return launch<flash_dq_f32dot_kernel<D, Form>>(
-      grid64(B, H, L), kThreads, 4 * tile_bytes(D) + score_bytes(), st,
-      (cf32)q, (cf32)k, (cf32)kt, (cf32)v, (cf32)dout, (cf32)lse, (cf32)delta, (float*)dq, H, L,
-      scale, causal);
-}
-
-template <int D, int Form = kStd>
-cudaError_t dkv_f32dot(const void* q, const void* qt, const void* k,
-                       const void* v, const void* dout, const void* doutt,
-                       const void* lse, const void* delta, void* dk,
-                       void* dv, int B, int H, int L, float scale,
-                       int causal, cudaStream_t st) {
-  return launch<flash_dkv_f32dot_kernel<D, Form>>(
-      grid64(B, H, L), kThreads,
-      4 * tile_bytes(D) + 2 * score_bytes() + 2 * sizeof(float) * kTile, st,
-      (cf32)q, (cf32)qt, (cf32)k, (cf32)v, (cf32)dout, (cf32)doutt, (cf32)lse, (cf32)delta,
-      (float*)dk, (float*)dv, H, L, scale, causal);
+      (cf32)q, (cf32)k, (cf32)v, (float*)o, (float*)lse, H, L, scale, causal,
+      kv_len);
 }
 
 // kStd: k is K [B, L, H, D]; kNN: K^T [B, H, D, L]. Split: the f32-dot
@@ -1973,7 +2077,7 @@ cudaError_t dkv_f32dot(const void* q, const void* qt, const void* k,
 template <int D, int Form, bool Split = false>
 cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
                     void* lse, int B, int H, int L, float scale, int causal,
-                    cudaStream_t st) {
+                    int kv_len, cudaStream_t st) {
   CUtensorMap mq, mk, mv, mo;
   const bool ok =
       rows_map(&mq, q, B, H, L, D, 64) && rows_map(&mo, o, B, H, L, D, 64) &&
@@ -1983,16 +2087,16 @@ cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
   if (!ok) return cudaErrorInvalidValue;
   return launch<flash_fwd_mma_kernel<D, Form, Split>>(
       persistent_grid(B, H, L), kHopperThreads, FwdSmem<D>::kBytes, st, mq,
-      mk, mv, mo, (float*)lse, B * H, H, L, scale, causal);
+      mk, mv, mo, (float*)lse, B * H, H, L, scale, causal, kv_len);
 }
 
 // kStd: k, v are K, V [B, L, H, D] (kt unused). kNN: kt, v are K^T, V^T
-// [B, H, D, L] (k unused). Split: the f32-dot dQ on bf16 storage.
-template <int D, int Form, bool Split = false>
+// [B, H, D, L] (k unused). kSplit: the f32-dot dQ on bf16 storage.
+template <int D, int Form, int Mode = kBf16>
 cudaError_t dq_mma(const void* q, const void* k, const void* kt,
                    const void* v, const void* dout, const void* lse,
                    const void* delta, void* dq, int B, int H, int L,
-                   float scale, int causal, cudaStream_t st) {
+                   float scale, int causal, int kv_len, cudaStream_t st) {
   CUtensorMap mq, mk, mv, mdo, mdq;
   const bool ok =
       rows_map(&mq, q, B, H, L, D, 64) &&
@@ -2003,17 +2107,18 @@ cudaError_t dq_mma(const void* q, const void* k, const void* kt,
                     : cols_map(&mk, kt, B, H, L, D) &&
                           cols_map(&mv, v, B, H, L, D));
   if (!ok) return cudaErrorInvalidValue;
-  return launch<flash_dq_mma_kernel<D, Form, Split>>(
-      persistent_grid(B, H, L), kHopperThreads, DqSmem<D>::kBytes, st, mq, mk,
-      mv, mdo, mdq, (const float*)lse, (const float*)delta, B * H, H, L,
-      scale, causal);
+  return launch<flash_dq_mma_kernel<D, Form, Mode>>(
+      persistent_grid(B, H, L), kBwdThreads<D, Mode>,
+      BwdSmem<D, Mode>::kBytes, st, mq, mk, mv, mdo, mdq, (const float*)lse,
+      (const float*)delta, (float*)nullptr, B * H, H, L, scale, causal,
+      kv_len);
 }
 
 // kStd: q, k, v, dout, dk, dv all [B, L, H, D] (qt, doutt unused). kNN: k,
 // v are K^T, V^T [B, H, D, L]. kNN2: also qt, doutt = Q^T, dO^T (q, dout
-// unused), and dk, dv are dK^T, dV^T, all [B, H, D, L]. Split: the
+// unused), and dk, dv are dK^T, dV^T, all [B, H, D, L]. kSplit: the
 // f32-dot dK/dV on bf16 storage.
-template <int D, int Form, bool Split = false>
+template <int D, int Form, int Mode = kBf16>
 cudaError_t dkv_mma(const void* q, const void* qt, const void* k,
                     const void* v, const void* dout, const void* doutt,
                     const void* lse, const void* delta, void* dk, void* dv,
@@ -2029,181 +2134,280 @@ cudaError_t dkv_mma(const void* q, const void* qt, const void* k,
                   map(&mv, v, kt) && map(&mdo, qtr ? doutt : dout, qtr) &&
                   map(&mdk, dk, qtr) && map(&mdv, dv, qtr);
   if (!ok) return cudaErrorInvalidValue;
-  return launch<flash_dkv_mma_kernel<D, Form, Split>>(
-      persistent_grid(B, H, L), kHopperThreads, DkvSmem<D>::kBytes, st, mq,
-      mk, mv, mdo, mdk, mdv, (const float*)lse, (const float*)delta, B * H,
-      H, L, scale, causal);
+  return launch<flash_dkv_mma_kernel<D, Form, Mode>>(
+      persistent_grid(B, H, L), kBwdThreads<D, Mode>,
+      BwdSmem<D, Mode>::kBytes, st, mq, mk, mv, mdo, mdk, mdv,
+      (const float*)lse, (const float*)delta, (float*)nullptr,
+      (float*)nullptr, 0, B * H, H, L, scale, causal);
+}
+
+// f32 storage. split_terms runs flash_split_kernel on Q, K, V and dO (bit i
+// of `transposed`: operand i given as [B, H, D, L]) into `terms`, [4, 3, B,
+// L, H, D] bf16; the kF32 instances of dQ and dK/dV read the terms, each
+// operand's three as one [3*B*L, H*D] map.
+cudaError_t split_terms(const void* q, const void* k, const void* v,
+                        const void* dout, int transposed, void* terms, int B,
+                        int H, int L, int D, cudaStream_t st) {
+  const size_t quads = (size_t)B * L * H * D / 4;
+  const unsigned blocks = (unsigned)((quads + 255) / 256 < 4096
+                                         ? (quads + 255) / 256 : 4096);
+  return launch<flash_split_kernel>(
+      dim3(blocks, 4), 256, 0, st, (cf32)q, (cf32)k, (cf32)v, (cf32)dout,
+      transposed, (bf16*)terms, B, H, L, D);
+}
+
+bool terms_maps(CUtensorMap (&m)[4], const void* terms, int B, int H, int L,
+                int D) {
+  const size_t n = (size_t)B * L * H * D;
+  for (int op = 0; op < 4; ++op)
+    if (!rows_map(&m[op], (const bf16*)terms + op * 3 * n, 3 * B, H, L, D,
+                  64))
+      return false;
+  return true;
+}
+
+template <int D>
+cudaError_t dq_f32(const void* terms, const void* lse, const void* delta,
+                   void* dq, int B, int H, int L, float scale, int causal,
+                   int kv_len, cudaStream_t st) {
+  CUtensorMap m[4];   // Q, K, V, dO
+  if (!terms_maps(m, terms, B, H, L, D)) return cudaErrorInvalidValue;
+  return launch<flash_dq_mma_kernel<D, kStd, kF32>>(
+      persistent_grid(B, H, L), kBwdThreads<D, kF32>,
+      BwdSmem<D, kF32>::kBytes, st, m[0], m[1], m[2], m[3], m[0],
+      (const float*)lse, (const float*)delta, (float*)dq, B * H, H, L, scale,
+      causal, kv_len);
+}
+
+template <int D>
+cudaError_t dkv_f32(const void* terms, const void* lse, const void* delta,
+                    void* dk, void* dv, int out_t, int B, int H, int L,
+                    float scale, int causal, cudaStream_t st) {
+  CUtensorMap m[4];
+  if (!terms_maps(m, terms, B, H, L, D)) return cudaErrorInvalidValue;
+  return launch<flash_dkv_mma_kernel<D, kStd, kF32>>(
+      persistent_grid(B, H, L), kBwdThreads<D, kF32>,
+      BwdSmem<D, kF32>::kBytes, st, m[0], m[1], m[2], m[3], m[0], m[0],
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, out_t,
+      B * H, H, L, scale, causal);
+}
+
+// dQ on f32 storage: the split first where `split` is set (the terms are
+// then this call's; else they are an earlier call's of the same operands).
+cudaError_t dq_storage_f32(const void* q, const void* k, const void* v,
+                           const void* dout, int transposed,
+                           const void* lse, const void* delta, void* dq,
+                           void* terms, int split, int B, int H, int L,
+                           int D, float scale, int causal, int kv_len,
+                           cudaStream_t st) {
+  if (split) {
+    const cudaError_t err =
+        split_terms(q, k, v, dout, transposed, terms, B, H, L, D, st);
+    if (err != cudaSuccess) return err;
+  }
+  return D == 64
+      ? dq_f32<64>(terms, lse, delta, dq, B, H, L, scale, causal, kv_len, st)
+      : dq_f32<128>(terms, lse, delta, dq, B, H, L, scale, causal, kv_len,
+                    st);
+}
+
+cudaError_t dkv_storage_f32(const void* q, const void* k, const void* v,
+                            const void* dout, int transposed,
+                            const void* lse, const void* delta, void* dk,
+                            void* dv, int out_t, void* terms, int split,
+                            int B, int H, int L, int D, float scale,
+                            int causal, cudaStream_t st) {
+  if (split) {
+    const cudaError_t err =
+        split_terms(q, k, v, dout, transposed, terms, B, H, L, D, st);
+    if (err != cudaSuccess) return err;
+  }
+  return D == 64
+      ? dkv_f32<64>(terms, lse, delta, dk, dv, out_t, B, H, L, scale, causal,
+                    st)
+      : dkv_f32<128>(terms, lse, delta, dk, dv, out_t, B, H, L, scale,
+                     causal, st);
 }
 
 bool shape_ok(int B, int H, int L, int D) {
   return B > 0 && H > 0 && L > 0 && L % kTile == 0 && L / kTile <= 65535 &&
          (D == 64 || D == 128);
 }
+// the true key count of zero-padded inputs: keys at and past it are masked
+bool keys_ok(int L, int kv_len) { return kv_len > 0 && kv_len <= L; }
 
 constexpr int kBad = (int)cudaErrorInvalidValue;
+constexpr int kTransposedKV = 0b0110;    // K^T, V^T (nn)
+constexpr int kTransposedAll = 0b1111;   // Q^T, K^T, V^T, dO^T (nn2)
 
 }  // namespace
 
 // C interface, bound with ctypes. dtype: 0 = float32, 1 = bfloat16: the
-// mma kernels on bf16, the f32-dot kernels on f32 storage (where the
-// storage-dtype dots are f32 dots), in the Form of the entry point. Every
-// launcher returns the cudaError_t of its launch (0 on success).
+// mma kernels on bf16; on f32 storage (where the storage-dtype dots are
+// f32 dots) the scalar forward and the kF32 instances of dQ and dK/dV, for
+// every strategy (nn and nn2 split their transposed operands into the same
+// terms, so they run the kStd instance and give its results bitwise; nn2's
+// dK/dV stores dK^T and dV^T). The forward and dQ take kv_len, the true
+// key count of zero-padded inputs. On f32 storage dQ and dK/dV take
+// `terms`, scratch of [4, 3, B, L, H, D] bf16, and split into it first
+// where `split` is set; on bf16 storage both are unused. Every launcher
+// returns the cudaError_t of its launch (0 on success).
 extern "C" {
 
 // Strategy bf16.
 int paddle_flash_fwd(const void* q, const void* k, const void* v, void* o,
                      void* lse, int B, int H, int L, int D, int dtype,
-                     int causal, float scale, void* stream) {
-  if (!shape_ok(B, H, L, D)) return kBad;
+                     int causal, float scale, int kv_len, void* stream) {
+  if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
     return D == 64
-        ? fwd_mma<64, kStd>(q, k, v, o, lse, B, H, L, scale, causal, st)
-        : fwd_mma<128, kStd>(q, k, v, o, lse, B, H, L, scale, causal, st);
+        ? fwd_mma<64, kStd>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st)
+        : fwd_mma<128, kStd>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st);
   return D == 64
-      ? fwd_f32dot<64>(q, k, v, o, lse, B, H, L, scale, causal, st)
-      : fwd_f32dot<128>(q, k, v, o, lse, B, H, L, scale, causal, st);
+      ? fwd_f32dot<64>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st)
+      : fwd_f32dot<128>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st);
 }
 
 int paddle_flash_dq(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
-                    void* dq, int B, int H, int L, int D, int dtype,
-                    int causal, float scale, void* stream) {
-  if (!shape_ok(B, H, L, D)) return kBad;
+                    void* dq, void* terms, int B, int H, int L, int D,
+                    int dtype, int causal, float scale, int kv_len,
+                    int split, void* stream) {
+  if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
     return D == 64
-        ? dq_mma<64, kStd>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st)
-        : dq_mma<128, kStd>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st);
-  return D == 64
-      ? dq_f32dot<64>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st)
-      : dq_f32dot<128>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st);
+        ? dq_mma<64, kStd>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st)
+        : dq_mma<128, kStd>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st);
+  return dq_storage_f32(q, k, v, dout, 0, lse, delta, dq, terms, split, B, H,
+                        L, D, scale, causal, kv_len, st);
 }
 
 int paddle_flash_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
-                     void* dk, void* dv, int B, int H, int L, int D,
-                     int dtype, int causal, float scale, void* stream) {
+                     void* dk, void* dv, void* terms, int B, int H, int L,
+                     int D, int dtype, int causal, float scale, int split,
+                     void* stream) {
   if (!shape_ok(B, H, L, D)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
     return D == 64
         ? dkv_mma<64, kStd>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
         : dkv_mma<128, kStd>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
-  return D == 64
-      ? dkv_f32dot<64>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
-      : dkv_f32dot<128>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
+  return dkv_storage_f32(q, k, v, dout, 0, lse, delta, dk, dv, 0, terms,
+                         split, B, H, L, D, scale, causal, st);
 }
 
 // Strategies nn and nn2.
 int paddle_flash_fwd_nn(const void* q, const void* kt, const void* v,
                         void* o, void* lse, int B, int H, int L, int D,
-                        int dtype, int causal, float scale, void* stream) {
-  if (!shape_ok(B, H, L, D)) return kBad;
+                        int dtype, int causal, float scale, int kv_len,
+                        void* stream) {
+  if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
     return D == 64
-        ? fwd_mma<64, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, st)
-        : fwd_mma<128, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, st);
+        ? fwd_mma<64, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, kv_len, st)
+        : fwd_mma<128, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, kv_len, st);
   return D == 64
-      ? fwd_f32dot<64, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, st)
-      : fwd_f32dot<128, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, st);
+      ? fwd_f32dot<64, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, kv_len, st)
+      : fwd_f32dot<128, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, kv_len, st);
 }
 
 int paddle_flash_dq_nn(const void* q, const void* k, const void* kt,
                        const void* vt, const void* dout, const void* lse,
-                       const void* delta, void* dq, int B, int H, int L,
-                       int D, int dtype, int causal, float scale,
-                       void* stream) {
-  if (!shape_ok(B, H, L, D)) return kBad;
+                       const void* delta, void* dq, void* terms, int B,
+                       int H, int L, int D, int dtype, int causal,
+                       float scale, int kv_len, int split, void* stream) {
+  if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
     return D == 64
-        ? dq_mma<64, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, st)
-        : dq_mma<128, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, st);
-  return D == 64
-      ? dq_f32dot<64, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, st)
-      : dq_f32dot<128, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, st);
+        ? dq_mma<64, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st)
+        : dq_mma<128, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st);
+  return dq_storage_f32(q, kt, vt, dout, kTransposedKV, lse, delta, dq, terms,
+                        split, B, H, L, D, scale, causal, kv_len, st);
 }
 
 int paddle_flash_dkv_nn(const void* q, const void* kt, const void* vt,
                         const void* dout, const void* lse, const void* delta,
-                        void* dk, void* dv, int B, int H, int L, int D,
-                        int dtype, int causal, float scale, void* stream) {
+                        void* dk, void* dv, void* terms, int B, int H, int L,
+                        int D, int dtype, int causal, float scale, int split,
+                        void* stream) {
   if (!shape_ok(B, H, L, D)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
     return D == 64
         ? dkv_mma<64, kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
         : dkv_mma<128, kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
-  return D == 64
-      ? dkv_f32dot<64, kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
-      : dkv_f32dot<128, kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
+  return dkv_storage_f32(q, kt, vt, dout, kTransposedKV, lse, delta, dk, dv,
+                         0, terms, split, B, H, L, D, scale, causal, st);
 }
 
 int paddle_flash_dkv_nn2(const void* q, const void* qt, const void* kt,
                          const void* vt, const void* dout, const void* doutt,
                          const void* lse, const void* delta, void* dkt,
-                         void* dvt, int B, int H, int L, int D, int dtype,
-                         int causal, float scale, void* stream) {
+                         void* dvt, void* terms, int B, int H, int L, int D,
+                         int dtype, int causal, float scale, int split,
+                         void* stream) {
   if (!shape_ok(B, H, L, D)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
     return D == 64
         ? dkv_mma<64, kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt, B, H, L, scale, causal, st)
         : dkv_mma<128, kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt, B, H, L, scale, causal, st);
-  return D == 64
-      ? dkv_f32dot<64, kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt, B, H, L, scale, causal, st)
-      : dkv_f32dot<128, kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt, B, H, L, scale, causal, st);
+  return dkv_storage_f32(qt, kt, vt, doutt, kTransposedAll, lse, delta, dkt,
+                         dvt, 1, terms, split, B, H, L, D, scale, causal, st);
 }
 
 // Strategy f32: every dot in f32. On bf16 storage the Split instances of
-// the Hopper kernels; on f32 the scalar kernels.
+// the Hopper kernels; on f32 the kernels of every strategy there.
 int paddle_flash_fwd_f32dot(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int H, int L, int D,
-                            int dtype, int causal, float scale,
+                            int dtype, int causal, float scale, int kv_len,
+                            void* stream) {
+  if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    return D == 64
+        ? fwd_mma<64, kStd, true>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st)
+        : fwd_mma<128, kStd, true>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st);
+  return D == 64
+      ? fwd_f32dot<64>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st)
+      : fwd_f32dot<128>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st);
+}
+
+int paddle_flash_dq_f32dot(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, void* terms, int B,
+                           int H, int L, int D, int dtype, int causal,
+                           float scale, int kv_len, int split,
+                           void* stream) {
+  if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    return D == 64
+        ? dq_mma<64, kStd, kSplit>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st)
+        : dq_mma<128, kStd, kSplit>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st);
+  return dq_storage_f32(q, k, v, dout, 0, lse, delta, dq, terms, split, B, H,
+                        L, D, scale, causal, kv_len, st);
+}
+
+int paddle_flash_dkv_f32dot(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv,
+                            void* terms, int B, int H, int L, int D,
+                            int dtype, int causal, float scale, int split,
                             void* stream) {
   if (!shape_ok(B, H, L, D)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
     return D == 64
-        ? fwd_mma<64, kStd, true>(q, k, v, o, lse, B, H, L, scale, causal, st)
-        : fwd_mma<128, kStd, true>(q, k, v, o, lse, B, H, L, scale, causal, st);
-  return D == 64
-      ? fwd_f32dot<64>(q, k, v, o, lse, B, H, L, scale, causal, st)
-      : fwd_f32dot<128>(q, k, v, o, lse, B, H, L, scale, causal, st);
-}
-
-int paddle_flash_dq_f32dot(const void* q, const void* k, const void* v,
-                           const void* dout, const void* lse,
-                           const void* delta, void* dq, int B, int H, int L,
-                           int D, int dtype, int causal, float scale,
-                           void* stream) {
-  if (!shape_ok(B, H, L, D)) return kBad;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1)
-    return D == 64
-        ? dq_mma<64, kStd, true>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st)
-        : dq_mma<128, kStd, true>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st);
-  return D == 64
-      ? dq_f32dot<64>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st)
-      : dq_f32dot<128>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, st);
-}
-
-int paddle_flash_dkv_f32dot(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
-                            const void* delta, void* dk, void* dv, int B,
-                            int H, int L, int D, int dtype, int causal,
-                            float scale, void* stream) {
-  if (!shape_ok(B, H, L, D)) return kBad;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1)
-    return D == 64
-        ? dkv_mma<64, kStd, true>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
-        : dkv_mma<128, kStd, true>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
-  return D == 64
-      ? dkv_f32dot<64>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
-      : dkv_f32dot<128>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
+        ? dkv_mma<64, kStd, kSplit>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
+        : dkv_mma<128, kStd, kSplit>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
+  return dkv_storage_f32(q, k, v, dout, 0, lse, delta, dk, dv, 0, terms,
+                         split, B, H, L, D, scale, causal, st);
 }
 
 // The dot-form probe. a, b: [128, 128] bf16; a32: [128, 128] f32; out:

@@ -23,8 +23,21 @@ versions are bf16's, taking and giving the transposed layouts.
 Dispatch: tensors on the CPU take the plain versions; tensors on a CUDA
 device launch the kernels (`*_cuda`), which raise on what they do not take.
 Nothing falls back from one to the other. On f32 storage every strategy's
-kernels are f32-dot kernels (the storage dtype's dots are f32 dots there),
-nn and nn2 in their transposed forms.
+kernels are f32-dot kernels (the storage dtype's dots are f32 dots there):
+the scalar forward (nn and nn2 its K^T form), and dQ and dK/dV on the
+tensor cores from bf16 terms of Q, K, V and dO, which the dQ kernel's call
+splits once per backward into scratch that the dK/dV call reads (nn and
+nn2 split their transposed operands into the same terms).
+
+Padding: the kernels take head_dim 64 or 128 and L a multiple of 64; the
+reference's gate admits any head_dim up to 256 and L a multiple of its
+blocks. `padded_fwd` and `padded_bwd` (what flash_attention runs, on every
+device) zero-pad head_dims below 128 up to 64 or 128 and L up to a
+multiple of 64, and cut the outputs back: zero columns add exact zeros to
+every score, the forward and dQ kernels mask keys at and past the true
+length (`kv_len`), and a padded query row, whose dO is 0, adds nothing to
+dK or dV. Head_dims above 128 still reach the kernels as they are, which
+refuse them.
 
 Layout: q, k, v, o and their gradients are [B, L, H, D] (the public
 layout); their transposes are [B, H, D, L]; LSE and delta are [B, H, L]
@@ -47,11 +60,17 @@ STRATEGY_KERNELS = {
     "nn2": ("flash_fwd_nn", "flash_dq_nn", "flash_dkv_nn2"),
     "f32": ("flash_fwd_f32dot", "flash_dq_f32dot", "flash_dkv_f32dot"),
 }
-# pointer arguments of each flash kernel's C entry point paddle_<name>
+# pointer arguments of each flash kernel's C entry point paddle_<name> (dQ
+# and dK/dV: the operands, then the f32-storage split terms)
 _POINTERS = {"flash_fwd": 5, "flash_fwd_nn": 5, "flash_fwd_f32dot": 5,
-             "flash_dq": 7, "flash_dq_nn": 8, "flash_dq_f32dot": 7,
-             "flash_dkv": 8, "flash_dkv_nn": 8, "flash_dkv_nn2": 10,
-             "flash_dkv_f32dot": 8}
+             "flash_dq": 8, "flash_dq_nn": 9, "flash_dq_f32dot": 8,
+             "flash_dkv": 9, "flash_dkv_nn": 9, "flash_dkv_nn2": 11,
+             "flash_dkv_f32dot": 9}
+# the entry points that take the true key count (forward, dQ) and the
+# split flag (dQ, dK/dV) after the common arguments
+_MASKED = tuple(n for n in _POINTERS if n.startswith(("flash_fwd",
+                                                      "flash_dq")))
+_SPLIT = tuple(n for n in _POINTERS if not n.startswith("flash_fwd"))
 
 # Launches of each CUDA kernel since the last reset; a wrapper adds one
 # where it launches its kernel and nowhere else.
@@ -72,8 +91,8 @@ def reset_launch_counts() -> None:
 def flash_attention_supported(q_shape, d_model_last: int, causal: bool,
                               block_q: int = 128, block_k: int = 128) -> bool:
     """Shape gate, the reference's: seq divisible by both blocks, head_dim
-    at most 256. The CUDA kernels further take only head_dim 64 or 128 and
-    raise on anything else."""
+    at most 256. flash_attention pads head_dims up to 128 and lengths to
+    what the CUDA kernels take; above 128 the kernels raise."""
     L = q_shape[1]
     return (L % block_q == 0 and L % block_k == 0 and L >= block_q
             and d_model_last <= 256)
@@ -91,50 +110,58 @@ def from_t(xt: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------- plain versions --
 def _heads(x: torch.Tensor) -> torch.Tensor:
-    """[B, L, H, D] -> [B, H, L, D] in float32."""
-    return x.transpose(1, 2).float()
+    """[B, L, H, D] -> [B, H, L, D] in float32 (float64 stays float64: the
+    plain versions then compute the same function in f64)."""
+    return x.transpose(1, 2).to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _causal_keep(L: int, device) -> torch.Tensor:
     return torch.ones(L, L, dtype=torch.bool, device=device).tril()
 
 
-def _scores(qh, kh, causal: bool, sm_scale: float) -> torch.Tensor:
+def _scores(qh, kh, causal: bool, sm_scale: float,
+            kv_len=None) -> torch.Tensor:
+    """Scaled scores, -1e30 past the causal diagonal and at keys at and
+    past kv_len (the true length of zero-padded inputs)."""
     s = (qh @ kh.transpose(-1, -2)) * sm_scale
     if causal:
         s = s.masked_fill(~_causal_keep(s.shape[-1], s.device), _NEG_INF)
+    if kv_len is not None and kv_len < s.shape[-1]:
+        s[..., kv_len:] = _NEG_INF
     return s
 
 
 def flash_fwd_plain(q, k, v, causal: bool, sm_scale: float,
-                    f32_dots: bool = False):
+                    f32_dots: bool = False, kv_len=None):
     """(O [B, L, H, D] in q's dtype, LSE [B, H, L] f32): the function of
     `_fwd_kernel`, computed whole in f32, with P rounded to V's dtype before
     P.V as the kernels round it; with `f32_dots` (strategy f32), P enters
-    P.V unrounded."""
+    P.V unrounded. Keys at and past `kv_len` are masked."""
     qh, kh, vh = _heads(q), _heads(k), _heads(v)
-    s = _scores(qh, kh, causal, sm_scale)
+    s = _scores(qh, kh, causal, sm_scale, kv_len)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    o = ((p if f32_dots else p.to(v.dtype).float()) @ vh) / l
+    o = ((p if f32_dots else p.to(v.dtype).to(p.dtype)) @ vh) / l
     lse = (m + torch.log(l)).squeeze(-1)
     return o.transpose(1, 2).to(q.dtype).contiguous(), lse
 
 
 def flash_bwd_plain(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
-                    f32_dots: bool = False):
+                    f32_dots: bool = False, kv_len=None):
     """(dQ, dK, dV) in the inputs' dtype: the functions of `_dq_kernel` and
     `_dkv_kernel`. P = exp(S - LSE), dS = P * (dO.V^T - delta) * scale;
     P and dS are rounded to the input dtype where they enter a dot, except
-    with `f32_dots` (strategy f32), where they stay f32."""
+    with `f32_dots` (strategy f32), where they stay f32. Keys at and past
+    `kv_len` are masked (as the dQ kernel masks them; the dK/dV kernel
+    leaves them, whose rows the caller cuts off)."""
     qh, kh, vh, doh = _heads(q), _heads(k), _heads(v), _heads(do)
-    s = _scores(qh, kh, causal, sm_scale)
+    s = _scores(qh, kh, causal, sm_scale, kv_len)
     p = torch.exp(s - lse[..., None])
     dp = doh @ vh.transpose(-1, -2)
     ds = p * (dp - delta[..., None]) * sm_scale
     if not f32_dots:
-        p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+        p, ds = p.to(q.dtype).to(p.dtype), ds.to(q.dtype).to(ds.dtype)
     dq = ds @ kh
     dk = ds.transpose(-1, -2) @ qh
     dv = p.transpose(-1, -2) @ doh
@@ -143,9 +170,9 @@ def flash_bwd_plain(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
 
 
 def flash_dq_plain(q, k, v, do, lse, delta, causal, sm_scale,
-                   f32_dots=False):
+                   f32_dots=False, kv_len=None):
     return flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale,
-                           f32_dots)[0]
+                           f32_dots, kv_len)[0]
 
 
 def flash_dkv_plain(q, k, v, do, lse, delta, causal, sm_scale,
@@ -154,12 +181,15 @@ def flash_dkv_plain(q, k, v, do, lse, delta, causal, sm_scale,
                            f32_dots)[1:]
 
 
-def flash_fwd_nn_plain(q, kt, v, causal, sm_scale):
-    return flash_fwd_plain(q, from_t(kt), v, causal, sm_scale)
+def flash_fwd_nn_plain(q, kt, v, causal, sm_scale, kv_len=None):
+    return flash_fwd_plain(q, from_t(kt), v, causal, sm_scale,
+                           kv_len=kv_len)
 
 
-def flash_dq_nn_plain(q, k, kt, vt, do, lse, delta, causal, sm_scale):
-    return flash_dq_plain(q, k, from_t(vt), do, lse, delta, causal, sm_scale)
+def flash_dq_nn_plain(q, k, kt, vt, do, lse, delta, causal, sm_scale,
+                      kv_len=None):
+    return flash_dq_plain(q, k, from_t(vt), do, lse, delta, causal, sm_scale,
+                          kv_len=kv_len)
 
 
 def flash_dkv_nn_plain(q, kt, vt, do, lse, delta, causal, sm_scale):
@@ -193,11 +223,12 @@ def _lib():
 
     lib = load("flash_attention")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # B, H, L, D, dtype, causal, scale, stream
-    tail = [I, I, I, I, I, I, F, P]
     for kernel_name, n in _POINTERS.items():
         fn = getattr(lib, "paddle_" + kernel_name)
-        fn.argtypes = [P] * n + tail
+        # B, H, L, D, dtype, causal, scale[, kv_len][, split], stream
+        fn.argtypes = ([P] * n + [I] * 6 + [F]
+                       + [I] * ((kernel_name in _MASKED)
+                                + (kernel_name in _SPLIT)) + [P])
         fn.restype = I
     lib.paddle_flash_probe.argtypes = [P] * 5
     lib.paddle_flash_probe.restype = I
@@ -212,12 +243,14 @@ def _check_device(name: str, q: torch.Tensor) -> None:
                          f"{q.device}")
 
 
-def _check(name: str, q: torch.Tensor, rows=(), cols=(), stats=()):
+def _check(name: str, q: torch.Tensor, rows=(), cols=(), stats=(),
+           kv_len=None):
     """Validate what a kernel takes: CUDA, one dtype (bf16 or f32), q and
     `rows` contiguous [B, L, H, D] of one shape, `cols`
     contiguous [B, H, D, L] of the same sizes; head_dim 64 or 128, L a
     multiple of 64 (the 128-row kernels run a last half tile of 64 rows);
-    `stats` (LSE, delta) contiguous f32 [B, H, L]. Every operand 16-byte
+    `stats` (LSE, delta) contiguous f32 [B, H, L]; `kv_len`, the true key
+    count of zero-padded inputs, in 1 .. L. Every operand 16-byte
     aligned: the kernels read them with 16-byte loads or bulk copies (LSE
     and delta in 256-byte runs)."""
     _check_device(name, q)
@@ -234,6 +267,8 @@ def _check(name: str, q: torch.Tensor, rows=(), cols=(), stats=()):
     if L % _KERNEL_TILE:
         raise ValueError(f"{name}: sequence length {L} is not a multiple "
                          f"of {_KERNEL_TILE}")
+    if kv_len is not None and not 0 < kv_len <= L:
+        raise ValueError(f"{name}: kv_len {kv_len} outside 1 .. {L}")
     for group, shape in (((q, *rows), (B, L, H, D)), (cols, (B, H, D, L))):
         for t in group:
             if (t.shape != shape or t.dtype != q.dtype
@@ -252,18 +287,65 @@ def _check(name: str, q: torch.Tensor, rows=(), cols=(), stats=()):
     return B, L, H, D
 
 
-def _launch(name: str, ptrs, q, causal, sm_scale):
+def split_terms(q: torch.Tensor) -> torch.Tensor:
+    """Scratch for the f32-storage dQ and dK/dV: Q, K, V and dO as hi, mid
+    and lo bf16 terms, [4, 3, B, L, H, D] (written by the dQ kernel's call
+    where it splits, read by both)."""
+    return torch.empty(4, 3, *q.shape, dtype=torch.bfloat16, device=q.device)
+
+
+def _terms(name: str, q: torch.Tensor, terms, split: bool):
+    """The split terms a dQ or dK/dV kernel on f32 storage works from (None
+    on bf16 storage): `terms` as given, to be written by this call where
+    `split` is set, else fresh scratch, which this call must split into."""
+    if q.dtype != torch.float32:
+        return None
+    if terms is None:
+        if not split:
+            raise ValueError(f"{name}: split=False needs the terms of an "
+                             f"earlier split")
+        return split_terms(q)
+    if (terms.shape != (4, 3, *q.shape) or terms.dtype != torch.bfloat16
+            or terms.device != q.device or not terms.is_contiguous()
+            or terms.data_ptr() % 16):
+        raise ValueError(f"{name}: the split terms must be a contiguous, "
+                         f"16-byte aligned bfloat16 tensor of shape "
+                         f"{(4, 3, *q.shape)} on {q.device}")
+    return terms
+
+
+def _launch(name: str, ptrs, q, causal, sm_scale, kv_len=None, split=True):
+    """Launch paddle_<name> on q's card and stream. `kv_len` (forward, dQ;
+    None: L) masks keys at and past it; `split` (dQ, dK/dV on f32 storage)
+    splits the operands into the terms first. A pointer of None is NULL."""
     lib = _lib()
     B, L, H, D = q.shape
+    ints = [B, H, L, D, _DTYPE_CODES[q.dtype], int(bool(causal)),
+            float(sm_scale)]
+    if name in _MASKED:
+        ints.append(L if kv_len is None else int(kv_len))
+    if name in _SPLIT:
+        ints.append(int(bool(split)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, "paddle_" + name)(
-            *[t.data_ptr() for t in ptrs], B, H, L, D, _DTYPE_CODES[q.dtype],
-            int(bool(causal)), float(sm_scale), stream)
+            *[None if t is None else t.data_ptr() for t in ptrs], *ints,
+            stream)
     if err != 0:
         msg = lib.paddle_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
     LAUNCHES[name] += 1
+
+
+def _options(q, kv_len=None, split=True):
+    """The keyword arguments of _launch that differ from its defaults (a
+    kv_len of L masks nothing)."""
+    opts = {}
+    if kv_len is not None and kv_len != q.shape[1]:
+        opts["kv_len"] = int(kv_len)
+    if not split:
+        opts["split"] = False
+    return opts
 
 
 def _stats(q):
@@ -271,98 +353,123 @@ def _stats(q):
     return torch.empty(B, H, L, dtype=torch.float32, device=q.device)
 
 
-def _fwd_cuda(name, q, k, v, causal, sm_scale, kt_layout=False):
+def _fwd_cuda(name, q, k, v, causal, sm_scale, kt_layout=False,
+              kv_len=None):
     _check(name, q, rows=(v,) if kt_layout else (k, v),
-           cols=(k,) if kt_layout else ())
+           cols=(k,) if kt_layout else (), kv_len=kv_len)
     o, lse = torch.empty_like(q), _stats(q)
-    _launch(name, (q, k, v, o, lse), q, causal, sm_scale)
+    _launch(name, (q, k, v, o, lse), q, causal, sm_scale,
+            **_options(q, kv_len))
     return o, lse
 
 
-def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
+def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, kv_len=None):
     """Launch the forward kernel: (O, LSE). bf16 runs on the tensor cores;
     f32 storage takes the f32-dot kernel (its storage-dtype dots are f32
-    dots)."""
-    return _fwd_cuda("flash_fwd", q, k, v, causal, sm_scale)
+    dots). Keys at and past `kv_len` are masked."""
+    return _fwd_cuda("flash_fwd", q, k, v, causal, sm_scale, kv_len=kv_len)
 
 
-def flash_fwd_nn_cuda(q, kt, v, causal: bool, sm_scale: float):
+def flash_fwd_nn_cuda(q, kt, v, causal: bool, sm_scale: float, kv_len=None):
     """Launch the forward kernel that reads K^T [B, H, D, L]: (O, LSE)."""
     return _fwd_cuda("flash_fwd_nn", q, kt, v, causal, sm_scale,
-                     kt_layout=True)
+                     kt_layout=True, kv_len=kv_len)
 
 
-def flash_fwd_f32dot_cuda(q, k, v, causal: bool, sm_scale: float):
+def flash_fwd_f32dot_cuda(q, k, v, causal: bool, sm_scale: float,
+                          kv_len=None):
     """Launch the f32-dot forward kernel: (O, LSE)."""
-    return _fwd_cuda("flash_fwd_f32dot", q, k, v, causal, sm_scale)
+    return _fwd_cuda("flash_fwd_f32dot", q, k, v, causal, sm_scale,
+                     kv_len=kv_len)
 
 
-def _dq_cuda(name, q, k, v, do, lse, delta, causal, sm_scale):
-    _check(name, q, rows=(k, v, do), stats=(lse, delta))
+def _dq_cuda(name, q, k, v, do, lse, delta, causal, sm_scale, kv_len, terms,
+             split):
+    _check(name, q, rows=(k, v, do), stats=(lse, delta), kv_len=kv_len)
+    terms = _terms(name, q, terms, split)
     dq = torch.empty_like(q)
-    _launch(name, (q, k, v, do, lse, delta, dq), q, causal, sm_scale)
+    _launch(name, (q, k, v, do, lse, delta, dq, terms), q, causal, sm_scale,
+            **_options(q, kv_len, split))
     return dq
 
 
-def flash_dq_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
-    """Launch the dQ kernel."""
-    return _dq_cuda("flash_dq", q, k, v, do, lse, delta, causal, sm_scale)
+def flash_dq_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
+                  kv_len=None, terms=None, split=True):
+    """Launch the dQ kernel. On f32 storage it works from `terms`
+    (split_terms), which it first splits Q, K, V and dO into unless
+    `split` is False (the terms of an earlier call); fresh scratch where
+    `terms` is None."""
+    return _dq_cuda("flash_dq", q, k, v, do, lse, delta, causal, sm_scale,
+                    kv_len, terms, split)
 
 
 def flash_dq_f32dot_cuda(q, k, v, do, lse, delta, causal: bool,
-                         sm_scale: float):
-    """Launch the f32-dot dQ kernel."""
+                         sm_scale: float, kv_len=None, terms=None,
+                         split=True):
+    """Launch the f32-dot dQ kernel (f32 storage: as flash_dq_cuda)."""
     return _dq_cuda("flash_dq_f32dot", q, k, v, do, lse, delta, causal,
-                    sm_scale)
+                    sm_scale, kv_len, terms, split)
 
 
 def flash_dq_nn_cuda(q, k, kt, vt, do, lse, delta, causal: bool,
-                     sm_scale: float):
-    """Launch `_dq_kernel_nn`'s counterpart: dQ from K, K^T and V^T."""
-    _check("flash_dq_nn", q, rows=(k, do), cols=(kt, vt), stats=(lse, delta))
+                     sm_scale: float, kv_len=None, terms=None, split=True):
+    """Launch `_dq_kernel_nn`'s counterpart: dQ from K, K^T and V^T (f32
+    storage: the terms of Q, K^T, V^T and dO, as flash_dq_cuda)."""
+    _check("flash_dq_nn", q, rows=(k, do), cols=(kt, vt), stats=(lse, delta),
+           kv_len=kv_len)
+    terms = _terms("flash_dq_nn", q, terms, split)
     dq = torch.empty_like(q)
-    _launch("flash_dq_nn", (q, k, kt, vt, do, lse, delta, dq), q, causal,
-            sm_scale)
+    _launch("flash_dq_nn", (q, k, kt, vt, do, lse, delta, dq, terms), q,
+            causal, sm_scale, **_options(q, kv_len, split))
     return dq
 
 
-def _dkv_cuda(name, q, k, v, do, lse, delta, causal, sm_scale,
+def _dkv_cuda(name, q, k, v, do, lse, delta, causal, sm_scale, terms, split,
               kv_layout=False):
     _check(name, q, rows=(do,) if kv_layout else (k, v, do),
            cols=(k, v) if kv_layout else (), stats=(lse, delta))
+    terms = _terms(name, q, terms, split)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    _launch(name, (q, k, v, do, lse, delta, dk, dv), q, causal, sm_scale)
+    _launch(name, (q, k, v, do, lse, delta, dk, dv, terms), q, causal,
+            sm_scale, **_options(q, split=split))
     return dk, dv
 
 
-def flash_dkv_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
-    """Launch the dK/dV kernel: (dK, dV)."""
-    return _dkv_cuda("flash_dkv", q, k, v, do, lse, delta, causal, sm_scale)
+def flash_dkv_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
+                   terms=None, split=True):
+    """Launch the dK/dV kernel: (dK, dV). On f32 storage it works from
+    `terms` as flash_dq_cuda does (split=False: the terms the dQ call of the
+    same backward split)."""
+    return _dkv_cuda("flash_dkv", q, k, v, do, lse, delta, causal, sm_scale,
+                     terms, split)
 
 
 def flash_dkv_nn_cuda(q, kt, vt, do, lse, delta, causal: bool,
-                      sm_scale: float):
+                      sm_scale: float, terms=None, split=True):
     """Launch the dK/dV kernel that reads K^T and V^T: (dK, dV)."""
     return _dkv_cuda("flash_dkv_nn", q, kt, vt, do, lse, delta, causal,
-                     sm_scale, kv_layout=True)
+                     sm_scale, terms, split, kv_layout=True)
 
 
 def flash_dkv_f32dot_cuda(q, k, v, do, lse, delta, causal: bool,
-                          sm_scale: float):
+                          sm_scale: float, terms=None, split=True):
     """Launch the f32-dot dK/dV kernel: (dK, dV)."""
     return _dkv_cuda("flash_dkv_f32dot", q, k, v, do, lse, delta, causal,
-                     sm_scale)
+                     sm_scale, terms, split)
 
 
 def flash_dkv_nn2_cuda(q, qt, kt, vt, do, dot, lse, delta, causal: bool,
-                       sm_scale: float):
+                       sm_scale: float, terms=None, split=True):
     """Launch `_dkv_kernel_nn2`'s counterpart: (dK^T, dV^T) [B, H, D, L]
-    from Q, Q^T, K^T, V^T, dO and dO^T."""
+    from Q, Q^T, K^T, V^T, dO and dO^T (f32 storage: the terms of Q^T, K^T,
+    V^T and dO^T)."""
     _check("flash_dkv_nn2", q, rows=(do,), cols=(qt, kt, vt, dot),
            stats=(lse, delta))
+    terms = _terms("flash_dkv_nn2", q, terms, split)
     dkt, dvt = torch.empty_like(kt), torch.empty_like(vt)
-    _launch("flash_dkv_nn2", (q, qt, kt, vt, do, dot, lse, delta, dkt, dvt),
-            q, causal, sm_scale)
+    _launch("flash_dkv_nn2",
+            (q, qt, kt, vt, do, dot, lse, delta, dkt, dvt, terms), q, causal,
+            sm_scale, **_options(q, split=split))
     return dkt, dvt
 
 
@@ -423,30 +530,97 @@ def kernel(name: str, on: torch.Tensor):
 
 
 # ------------------------------------------------------- dot strategies --
-def flash_fwd(q, k, v, causal: bool, sm_scale: float, impl: str = "bf16"):
+def flash_fwd(q, k, v, causal: bool, sm_scale: float, impl: str = "bf16",
+              kv_len=None):
     """(O, LSE) under dot strategy `impl` (the reference's `_fwd`); nn and
-    nn2 hand the kernel K^T, transposed here as XLA does at :139."""
+    nn2 hand the kernel K^T, transposed here as XLA does at :139. Keys at
+    and past `kv_len` are masked."""
     fwd = kernel(STRATEGY_KERNELS[impl][0], q)
     if impl in ("nn", "nn2"):
         k = to_t(k)
-    return fwd(q, k, v, causal, sm_scale)
+    return fwd(q, k, v, causal, sm_scale, kv_len=kv_len)
 
 
 def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
-              impl: str = "bf16"):
+              impl: str = "bf16", kv_len=None):
     """(dQ, dK, dV) under dot strategy `impl` (the reference's `_bwd`, whose
-    transposes for nn and nn2, :337-404, are done here)."""
+    transposes for nn and nn2, :337-404, are done here). dQ masks keys at
+    and past `kv_len`. On a card and f32 storage the dQ kernel's call
+    splits Q, K, V and dO into terms that the dK/dV kernel's call reads."""
     _, dq_name, dkv_name = STRATEGY_KERNELS[impl]
     dq_fn, dkv_fn = kernel(dq_name, q), kernel(dkv_name, q)
     rest = (lse, delta, causal, sm_scale)
+    split = {}
+    if q.is_cuda and q.dtype == torch.float32:
+        split = {"terms": split_terms(q)}
+    reuse = dict(split, split=False) if split else {}
     if impl not in ("nn", "nn2"):
-        return (dq_fn(q, k, v, do, *rest), *dkv_fn(q, k, v, do, *rest))
+        return (dq_fn(q, k, v, do, *rest, kv_len=kv_len, **split),
+                *dkv_fn(q, k, v, do, *rest, **reuse))
     kt, vt = to_t(k), to_t(v)
-    dq = dq_fn(q, k, kt, vt, do, *rest)
+    dq = dq_fn(q, k, kt, vt, do, *rest, kv_len=kv_len, **split)
     if impl == "nn":
-        return (dq, *dkv_fn(q, kt, vt, do, *rest))
-    dkt, dvt = dkv_fn(q, to_t(q), kt, vt, do, to_t(do), *rest)
+        return (dq, *dkv_fn(q, kt, vt, do, *rest, **reuse))
+    dkt, dvt = dkv_fn(q, to_t(q), kt, vt, do, to_t(do), *rest, **reuse)
     return dq, from_t(dkt), from_t(dvt)
+
+
+# --------------------------------------------------------------- padding --
+def kernel_shape(L: int, D: int):
+    """(L, head_dim) as the kernels take them: L up to a multiple of 64, a
+    head_dim up to 128 up to 64 or 128 (above 128 as it is: the kernels
+    refuse it)."""
+    Lp = -(-L // _KERNEL_TILE) * _KERNEL_TILE
+    Dp = next((d for d in _KERNEL_HEAD_DIMS if D <= d), D)
+    return Lp, Dp
+
+
+def _pad(x, L: int, D: int):
+    """[B, l, H, d] zero-padded to [B, L, H, D] (x itself if it is)."""
+    if (x.shape[1], x.shape[3]) == (L, D):
+        return x
+    return torch.nn.functional.pad(
+        x, (0, D - x.shape[3], 0, 0, 0, L - x.shape[1]))
+
+
+def _cut(x, L: int, D: int):
+    """The first L positions and D columns of [B, Lp, H, Dp], contiguous."""
+    if (x.shape[1], x.shape[3]) == (L, D):
+        return x
+    return x[:, :L, :, :D].contiguous()
+
+
+def padded_fwd(q, k, v, causal: bool, sm_scale: float, impl: str = "bf16"):
+    """(O, LSE, saved): flash_fwd on q, k, v zero-padded to kernel_shape,
+    the keys past the true length masked; O [B, L, H, D] and LSE [B, H, L]
+    cut back to the true shape; `saved` (the padded q, k, v, O and LSE) is
+    what padded_bwd takes. `sm_scale` is the caller's, from the true
+    head_dim."""
+    B, L, H, D = q.shape
+    Lp, Dp = kernel_shape(L, D)
+    qp, kp, vp = (_pad(x, Lp, Dp) for x in (q, k, v))
+    o, lse = flash_fwd(qp, kp, vp, causal, sm_scale, impl, kv_len=L)
+    lse_cut = lse if Lp == L else lse[..., :L].contiguous()
+    return _cut(o, L, D), lse_cut, (qp, kp, vp, o, lse)
+
+
+def padded_bwd(saved, do, causal: bool, sm_scale: float,
+               impl: str = "bf16"):
+    """(dQ, dK, dV) [B, L, H, D] of padded_fwd's call from its `saved` and
+    dO [B, L, H, D]. delta = rowsum(dO * O) is formed at the true shape in
+    f32, as the reference's `_bwd` forms it, and padded with zeros; the
+    padded rows of dO are zeros, so their dS is 0 and they add nothing to
+    dK or dV. The rows and columns past the true shape are cut off."""
+    qp, kp, vp, o, lse = saved
+    do = do.contiguous()
+    L, D = do.shape[1], do.shape[3]
+    Lp, Dp = o.shape[1], o.shape[3]
+    delta = (do.float() * _cut(o, L, D).float()).sum(-1)
+    delta = torch.nn.functional.pad(delta, (0, 0, 0, Lp - L))
+    delta = delta.transpose(1, 2).contiguous()
+    grads = flash_bwd(qp, kp, vp, _pad(do, Lp, Dp), lse, delta, causal,
+                      sm_scale, impl, kv_len=L)
+    return tuple(_cut(g, L, D) for g in grads)
 
 
 # ------------------------------------------------- strategy resolution --
@@ -522,23 +696,21 @@ def resolve_dot_impl(device) -> str:
 # ---------------------------------------------------------------- autograd --
 class FlashAttentionFunction(torch.autograd.Function):
     """Counterpart of the reference's `_flash` custom_vjp: saves
-    (q, k, v, o, lse); the backward forms delta = rowsum(dO * O) in f32
+    (q, k, v, o, lse), padded to the kernels' shape where the inputs are
+    not (padded_fwd); the backward forms delta = rowsum(dO * O) in f32
     outside the kernels, as `_bwd` does. `impl` is a concrete strategy."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, impl):
-        o, lse = flash_fwd(q, k, v, causal, sm_scale, impl)
-        ctx.save_for_backward(q, k, v, o, lse)
+        o, _, saved = padded_fwd(q, k, v, causal, sm_scale, impl)
+        ctx.save_for_backward(*saved)
         ctx.causal, ctx.sm_scale, ctx.impl = causal, sm_scale, impl
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, ctx.causal,
-                               ctx.sm_scale, ctx.impl)
+        dq, dk, dv = padded_bwd(ctx.saved_tensors, do, ctx.causal,
+                                ctx.sm_scale, ctx.impl)
         return dq, dk, dv, None, None, None
 
 
