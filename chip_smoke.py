@@ -1,14 +1,16 @@
 """Card smoke test of paddle_tpu_torch: builds the CUDA kernels from this
 checkout, holds each against its plain PyTorch version at the training
-path's shapes (and, through the padding of ops.flash_attention, at head_dims
-and lengths the kernels do not take), runs the dot-form probe, then trains
-GPT-350M (gpt3-medium: hidden 1024, 24 layers, 16 heads, vocab 50304; batch
-8 x seq 1024, bf16 O2, AdamW with f32 masters, chunked fused LM-head
-cross-entropy) under each flash dot strategy (FLAGS_flash_dot_impl): auto
-(the default) for 5 steps, then nn, nn2 and f32 for 3 steps each, every
-one through its own kernels; then the same model in f32 (no amp.decorate:
-the f32-storage kernels) and gpt3-large cut to 4 layers (head_dim 96,
-padded to 128) for 3 steps each.
+path's shapes and at head_dim 256 (and, through the padding of
+ops.flash_attention, at head_dims and lengths the kernels do not take),
+runs the dot-form probe, then trains GPT-350M (gpt3-medium: hidden 1024,
+24 layers, 16 heads, vocab 50304; batch 8 x seq 1024, bf16 O2, AdamW with
+f32 masters, chunked fused LM-head cross-entropy) under each flash dot
+strategy (FLAGS_flash_dot_impl): auto (the default) for 5 steps, then nn,
+nn2 and f32 for 3 steps each, every one through its own kernels; then the
+same model in f32 (no amp.decorate: the f32-storage kernels) and
+gpt3-large cut to 4 layers (head_dim 96, padded to 128) for 3 steps each;
+then gpt3-xl's widths with 8 heads (head_dim 256: the D = 256 kernels) cut
+to 2 layers, bf16 O2 under auto, nn, nn2 and f32 and in f32, 3 steps each.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
@@ -17,7 +19,8 @@ Needs one CUDA card (written for an H100, sm_90a) and nvcc. Prints the
 card and its power limit, a `kernels` JSON line (time, achieved TFLOP/s,
 launches on the training path, bound, plain and library times, error of
 each kernel; the f32-storage forward, dQ and dK/dV as `name@float32`, the
-dQ row with the time of the split pass it runs) and, as the last line,
+forward and dQ rows with the time of the split pass they run; the D = 256
+kernels as `name@D256` and `name@float32@D256`) and, as the last line,
 {"ok": true, "device": {...}}. Any failed check exits non-zero without that
 line. With --compare, it only times every flash kernel of this checkout
 and of OTHER_CHECKOUT (another tree of the repo, e.g. the parent commit
@@ -52,9 +55,9 @@ F32DOT_BF16_PASSES = {"fwd": 1 + 3, "dq": 1 + 1 + 3, "dkv": 1 + 1 + 3 + 3}
 # On f32 storage both operands of every product are f32. Split into three
 # bf16 terms each, a product keeps f32's 24 bits with six bf16 passes (the
 # term pairs of weight 2^-16 and above: hi.hi, hi.mid, mid.hi, hi.lo,
-# mid.mid, lo.hi): the f32-storage dQ and dK/dV run so (bound by six passes
-# a product: dQ 3 products, dK/dV 4); the forward, still scalar, would be
-# bound so at 2 products.
+# mid.mid, lo.hi): the f32-storage forward, dQ and dK/dV run so at head_dim
+# 64 and 128 (bound by six passes a product: forward 2 products, dQ 3,
+# dK/dV 4). At head_dim 256 every kernel runs on the CUDA cores.
 F32_STORAGE_SPLIT_PASSES = {"fwd": 6 * 2, "dq": 6 * 3, "dkv": 6 * 4}
 # the kernels timed on f32 storage: the nn, nn2 and f32-dot entry points run
 # the same kernels there (the nn forms bitwise, checked each run)
@@ -117,6 +120,9 @@ STRATEGY_STEPS = {"auto": 5, "nn": 3, "nn2": 3, "f32": 3}
 # bf16 O2; 3 steps each under auto
 F32_MODEL_STEPS = 3
 D96_LAYERS, D96_STEPS = 4, 3
+# head_dim 256: gpt3-xl's widths (hidden 2048) with 8 heads, cut to 2
+# layers; bf16 O2 under each strategy, then in f32 under auto, 3 steps each
+D256_HEADS, D256_LAYERS, D256_STEPS = 8, 2, 3
 SEED = 0
 
 REF = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -390,13 +396,18 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
         lib[key] = {"fwd": lib_fwd, "bwd": lib_bwd}
         del qh, kh, vh, doh, out
 
-    # f32 storage: dQ and dK/dV timed as the training path calls them, from
-    # the terms one split made (the dQ call of a backward splits, the dK/dV
-    # call reads), and the split pass by itself as the difference of the dQ
-    # call with and without it
-    terms = fa.split_terms(q) if dtype_name == "float32" else None
-    if terms is not None:
-        fa.CUDA["flash_dq"](*results["flash_dq"]["args"], terms=terms)
+    # f32 storage at head_dim 64 and 128: each kernel timed as the training
+    # path calls it, from the terms one split made (the forward's call
+    # splits Q, K and V; the dQ call of a backward splits Q, K, V and dO,
+    # the dK/dV call reads them), and the split pass by itself as the
+    # difference of the forward's and the dQ call with and without it
+    terms = None
+    if fa.works_from_terms(q):
+        terms = {"fwd": fa.split_terms(q, 3), "dq": fa.split_terms(q)}
+        terms["dkv"] = terms["dq"]
+        fa.CUDA["flash_fwd"](*results["flash_fwd"]["args"],
+                             terms=terms["fwd"])
+        fa.CUDA["flash_dq"](*results["flash_dq"]["args"], terms=terms["dq"])
     rows = []
     for name, r in results.items():
         if time_names is not None and name not in time_names:
@@ -410,8 +421,7 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
                        for a in ARGS[BF16_TWIN.get(name, name)])
         nbytes = in_bytes + r["out_bytes"]
         extra = {}
-        split_pass = terms is not None and kind in ("dq", "dkv")
-        if split_pass:
+        if terms is not None:
             # six bf16 passes of split operands a product, on the tensor
             # cores; the same f32 flops on the CUDA cores beside it
             b = bound(F32_STORAGE_SPLIT_PASSES[kind] * 2 * D * pairs, nbytes,
@@ -433,22 +443,31 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
                 extra["split_bound_ms"] = bound(
                     F32_STORAGE_SPLIT_PASSES[kind] * 2 * D * pairs, nbytes,
                     "bfloat16")[0]
-        if split_pass:
-            ms = median_ms(lambda: fa.CUDA[name](*args, terms=terms,
+            else:
+                # the D = 256 kernels run on the CUDA cores: their bound
+                # there beside the tensor cores'
+                extra["cuda_core_bound_ms"] = bound(flops[kind], nbytes,
+                                                    "float32")[0]
+        if terms is not None:
+            mine = terms[kind]
+            ms = median_ms(lambda: fa.CUDA[name](*args, terms=mine,
                                                  split=False))
-            if kind == "dq":
+            if kind in ("fwd", "dq"):
                 with_split = median_ms(lambda: fa.CUDA[name](*args,
-                                                             terms=terms))
+                                                             terms=mine))
                 extra["split_ms"] = with_split - ms
-                # the split pass reads 4 and writes 6 bytes an element
+                # the split pass reads 4 and writes 6 bytes an element of
+                # each operand it splits
+                ops = ("q", "k", "v") + (("do",) if kind == "dq" else ())
                 extra["split_pass_bound_ms"] = bound(
-                    0, sum(t[a].numel() for a in ("q", "k", "v", "do"))
-                    * (4 + 6), "bfloat16")[0]
+                    0, sum(t[a].numel() for a in ops) * (4 + 6),
+                    "bfloat16")[0]
         else:
             ms = median_ms(lambda: fa.CUDA[name](*args))
         plain = median_ms(lambda: fa.PLAIN[name](*args), reps=5, launches=3)
         rows.append({
-            "name": name + ("@float32" if dtype_name == "float32" else ""),
+            "name": name + ("@float32" if dtype_name == "float32" else "")
+            + ("@D256" if D == 256 else ""),
             "route": "cuda",
             "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": f"{REF}:{REPLACES[name]}",
@@ -462,10 +481,15 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
             **({"diff_vs_bf16": r["diff_vs_bf16"]} if name in BF16_TWIN
                else {})})
     if terms is not None:
-        # the backward pair as a training step runs it: the split, dQ and
-        # dK/dV, beside SDPA's f32 backward
-        by = {r["name"]: r for r in rows}
-        dq_row, dkv_row = by["flash_dq@float32"], by["flash_dkv@float32"]
+        # the forward with its split, and the backward pair as a training
+        # step runs it (the split, dQ and dK/dV), beside SDPA's f32 calls
+        by = {r["name"].split("@")[0]: r for r in rows}
+        fwd_row, dq_row, dkv_row = by["flash_fwd"], by["flash_dq"], \
+            by["flash_dkv"]
+        log(f"f32-storage forward [{tag}]: split {fwd_row['split_ms']:.4f} "
+            f"+ kernel {fwd_row['ms']:.4f} = "
+            f"{fwd_row['split_ms'] + fwd_row['ms']:.4f} ms; SDPA's f32 "
+            f"forward {fwd_row['library_ms']:.4f} ms")
         pair = dq_row["split_ms"] + dq_row["ms"] + dkv_row["ms"]
         for r in (dq_row, dkv_row):
             r["pair_ms"] = pair
@@ -794,6 +818,12 @@ def main():
     kernel_phase(2, 256, 4, 64, "float32", True, timed=False)
     kernel_phase(2, 256, 4, 64, "float32", False, timed=False)
     kernel_phase(2, 512, 8, 128, "float32", True, timed=False)
+    # D = 128 on f32 storage at gpt3-xl's attention shape (batch 8 x 1024,
+    # 16 heads), the one-consumer kF32 kernels: timed, the forward's and the
+    # backward pair's times logged beside SDPA's (no model of this run
+    # trains at it, so its rows stay out of the kernels line)
+    kernel_phase(8, 1024, 16, 128, "float32", True, timed=True,
+                 time_names=F32_STORAGE_TIMED)
     # L = 192, a multiple of 64 but not of 128: the half tiles of the
     # 128-row kernels (forward, dQ, dK/dV); at D = 128 with 160 heads, so
     # that every block of the persistent grids walks several (head, tile)
@@ -810,6 +840,18 @@ def main():
     padded_phase(2, 96, 4, 64, "bfloat16", True, 32)
     padded_phase(2, 96, 4, 64, "bfloat16", False, 32)
     padded_phase(2, 96, 4, 64, "float32", False, 32)
+    # head_dim 256, the CUDA-core kernels: timed at B*H = 64, L = 1024
+    # (the D = 256 training phase's shape), causal; at L = 192 causal and
+    # not; and head_dims 160 and 192 through the padding to 256
+    rows256 = kernel_phase(4, 1024, 16, 256, "bfloat16", True, timed=True)
+    f32_rows256 = kernel_phase(4, 1024, 16, 256, "float32", True,
+                               timed=True, time_names=F32_STORAGE_TIMED)
+    for dtype_name in ("bfloat16", "float32"):
+        for causal in (True, False):
+            kernel_phase(2, 192, 8, 256, dtype_name, causal, timed=False)
+    padded_phase(2, 256, 8, 160, "bfloat16", True, 64)
+    padded_phase(2, 256, 8, 192, "bfloat16", True, 64)
+    padded_phase(2, 256, 8, 160, "float32", False, 64)
 
     cfg = PRESETS["gpt3-medium"]
     weights = reference_layout_weights(cfg, SEED)
@@ -849,7 +891,33 @@ def main():
         r["launches"] = launches.get(r["name"], 0)
         check(r["launches"] > 0, f"{r['name']} never launched on the "
                                  f"training path")
-    log(json.dumps({"kernels": rows + f32_rows + [probe_row]}))
+    # head_dim 256 (gpt3-xl's widths with D256_HEADS heads, cut to
+    # D256_LAYERS layers): the D = 256 kernels, under each strategy on bf16
+    # storage and in f32; every launch of these phases is one at D = 256
+    xl = PRESETS["gpt3-xl"]
+    wide = type(xl)(**{**vars(xl), "num_heads": D256_HEADS,
+                       "num_layers": D256_LAYERS})
+    wide_weights = reference_layout_weights(wide, SEED)
+    launches256, f32_counts256, bf16_loss = {}, {}, None
+    for impl in STRATEGY_STEPS:
+        counts, losses = training_phase(
+            f"d256-{impl}", impl, wide_weights, wide, D256_STEPS,
+            plain_tol=LOSS_ATOL if impl == "auto" else None,
+            bf16_loss=bf16_loss)
+        bf16_loss = losses[0] if impl == "auto" else bf16_loss
+        for name, n in counts.items():
+            launches256[name] = launches256.get(name, 0) + n
+    f32_counts256, _ = training_phase("d256-f32-model", "auto", wide_weights,
+                                      wide, D256_STEPS, o2=False,
+                                      plain_tol=LOSS_F32_MODEL_ATOL)
+    for r in rows256 + f32_rows256:
+        name = r["name"].split("@")[0]
+        counts = f32_counts256 if "@float32" in r["name"] else launches256
+        r["launches"] = counts[name]
+        check(r["launches"] > 0, f"{r['name']} never launched in the "
+                                 f"head_dim 256 phases")
+    log(json.dumps({"kernels": rows + f32_rows + rows256 + f32_rows256
+                    + [probe_row]}))
     log(f"chip_smoke took {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

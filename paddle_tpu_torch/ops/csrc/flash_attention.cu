@@ -5,7 +5,7 @@
 // dot strategy (FLAGS_flash_dot_impl) of the reference:
 //   _fwd_kernel (:83)       bf16: flash_fwd_mma_kernel<D, kStd>
 //                           nn, nn2: flash_fwd_mma_kernel<D, kNN> (reads K^T)
-//                           f32: flash_fwd_mma_kernel<D, kStd, Split>
+//                           f32: flash_fwd_mma_kernel<D, kStd, kSplit>
 //   _dq_kernel (:174)       bf16: flash_dq_mma_kernel<D, kStd>
 //                           f32: flash_dq_mma_kernel<D, kStd, kSplit>
 //   _dq_kernel_nn (:203)    nn, nn2: flash_dq_mma_kernel<D, kNN> (reads K^T
@@ -16,19 +16,21 @@
 //   _dkv_kernel_nn2 (:289)  nn2: flash_dkv_mma_kernel<D, kNN2> (reads K^T,
 //                           V^T, Q^T and dO^T, writes dK^T and dV^T)
 //   probe's kern (:467)     flash_probe_kernel (the dot-form probe)
-// That is on bf16 storage. On f32 storage every strategy runs the scalar
-// forward flash_fwd_f32dot_kernel (nn and nn2 its kNN instance, which reads
-// K^T) and the kF32 instances flash_dq_mma_kernel<D, kStd, kF32> and
-// flash_dkv_mma_kernel<D, kStd, kF32>, which read Q, K, V and dO as the
-// bf16 terms flash_split_kernel made of them (nn and nn2 split their
-// transposed operands into the same terms, and nn2's dK/dV stores dK^T and
-// dV^T).
+// That is on bf16 storage at D = 64 and 128. On f32 storage every strategy
+// runs the kF32 instances flash_fwd_mma_kernel<D, kStd, kF32>,
+// flash_dq_mma_kernel<D, kStd, kF32> and flash_dkv_mma_kernel<D, kStd,
+// kF32>, which read Q, K, V and dO as the bf16 terms flash_split_kernel
+// made of them (nn and nn2 split their transposed operands into the same
+// terms, and nn2's dK/dV stores dK^T and dV^T). At D = 256 every strategy
+// on both storages runs the CUDA-core kernels flash_fwd_wide_kernel,
+// flash_dq_wide_kernel and flash_dkv_wide_kernel (nn and nn2 read their
+// transposed operands into the same tiles).
 // Each computes what its TPU counterpart computes, with the same numerics:
 // dots accumulate in f32, sm_scale is applied in f32 after the Q.K dot,
 // masked scores are -1e30 (not -inf). Under bf16, nn and nn2, P is rounded
 // to the input dtype before P.V, and P and dS are rounded to the input
 // dtype only where they enter a dot; strategy f32 computes every dot in
-// f32 and rounds only what it stores (on bf16 storage the Split instances
+// f32 and rounds only what it stores (on bf16 storage the kSplit instances
 // form their f32 dots from exact bf16 products, see the forward's note).
 // delta = rowsum(dO * O) comes from the caller, in f32.
 //
@@ -36,8 +38,8 @@
 // public layout, read through strides); the transposed operands of nn and
 // nn2 (K^T, V^T, Q^T, dO^T, dK^T, dV^T) are [B, H, D, L] contiguous, made
 // and undone by torch transposes outside the kernels, as XLA makes them
-// outside the TPU kernels. LSE and delta are [B, H, L] f32. D is 64 or 128;
-// L a multiple of 64. Other head_dims up to 128 and lengths that are a
+// outside the TPU kernels. LSE and delta are [B, H, L] f32. D is 64, 128 or
+// 256; L a multiple of 64. Other head_dims up to 256 and lengths that are a
 // multiple of a smaller block reach the kernels zero-padded (by the caller,
 // ops/flash_attention.py): zero columns add exact zeros to every score,
 // and the forward and dQ mask the keys at and past kv_len, the true length.
@@ -65,12 +67,12 @@
 // take as many cycles as the products; the forward's consumers take turns
 // at the tensor cores so that one's softmax overlaps the other's products
 // (PERF.md has the ablations and each kernel's time on an H100). The
-// f32-dot forward, dQ and dK/dV on bf16 storage are the Split instances of
-// these kernels, whose f32 dots are bf16 tensor-core products (exact in
-// f32) of split operands. On f32 storage the forward runs scalar f32 FMAs
-// on the CUDA cores (67 TFLOP/s), operations-bound; dQ and dK/dV split
+// f32-dot forward, dQ and dK/dV on bf16 storage are the kSplit instances
+// of these kernels, whose f32 dots are bf16 tensor-core products (exact in
+// f32) of split operands. On f32 storage the forward, dQ and dK/dV split
 // both operands of every product and run six bf16 tensor-core passes a
-// product (kF32), operations-bound on the tensor cores.
+// product (kF32), operations-bound on the tensor cores. The D = 256
+// kernels run plain FMAs on the CUDA cores (67 TFLOP/s), operations-bound.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -98,21 +100,50 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ------------------------------------------------- f32-storage forward
-// Every strategy's forward on f32 storage (on bf16 storage strategy f32
-// runs the Split instance of the Hopper forward below; the f32-storage dQ
-// and dK/dV are the F32 instances of the Hopper kernels). Scalar f32 FMAs.
-// Tiles sit in shared memory as f32 rows padded to D + 1 floats, so the
-// column walks below hit 32 distinct banks. A block of 256 threads: thread
-// (ty, tx) = (tid / 16, tid % 16) owns rows 4*ty .. 4*ty+3 of every
-// 64 x 64 score tile and of its output tile, at columns tx + 16*j. The 16
-// threads of a row group are one half-warp, so row maxima and sums reduce
-// with four xor-shuffles. P stays f32. The kNN instance (f32 storage under
-// nn and nn2) loads K^T into the same row tile, so it gives the kStd
-// instance's results bitwise.
+// ------------------------------------------- CUDA-core kernels at D = 256
+// Head_dims in (128, 256] (zero-padded to 256 by the caller), every
+// strategy, both storages: flash_fwd_wide_kernel, flash_dq_wide_kernel and
+// flash_dkv_wide_kernel, plain FMAs on the CUDA cores, templated on the
+// storage type T. Every operand is loaded into the same f32 tile in shared
+// memory (rows padded to D + 1 floats, so that the column walks hit 32
+// distinct banks), whether it arrives as rows of [B, L, H, D] or as
+// columns of [B, H, D, L] (bit i of `transposed`: operand i of Q, K, V, dO
+// transposed, as nn and nn2 hand them over), so nn and nn2 give bf16's
+// results bitwise. `round` rounds P and dS to bf16 where the reference
+// rounds them (bf16, nn and nn2 on bf16 storage); f32 storage and strategy
+// f32 keep them f32. A product of two bf16 values is exact in f32, so on
+// bf16 storage the f32 FMAs give the reference's function up to the order
+// of the f32 sums. On f32 storage S and dP are summed in f64 (`Dot`), and
+// each tile's share of O, dQ, dK or dV is summed apart and then added in
+// f32 (promotion): plain f32 sums in one order over 256 columns and 1024
+// keys come to f32's check of 1e-5 against the f64 function, and this
+// design stays under it (tests/test_torch_f32_storage_split.py models it).
+// A block has 256 threads; thread (ty, tx) = (tid / 16, tid % 16), and the
+// 16 threads of a row group are one half-warp, so row maxima and sums
+// reduce with four xor-shuffles. Bound: operations; at the D = 256 kernel
+// phase's shape (B*H = 64, L = 1024, causal) the forward's 3.4e10 flops take
+// 0.51 ms at the CUDA cores' 67 TFLOP/s; these kernels are right first, and
+// the tensor-core D = 256 instances are later work (ROADMAP).
 
 constexpr int kThreads = 256;
-constexpr int kRowPad = kTile + 1;
+constexpr int kWideD = 256;                // head_dim of these kernels
+constexpr int kWidePad = kWideD + 1;       // an f32 row of a tile
+constexpr int kWideKeys = 32;              // dQ's key tile, dK/dV's key block
+
+// The type S and dP are summed in: f64 on f32 storage (see above)
+template <typename T> struct DotOf { typedef float type; };
+template <> struct DotOf<float> { typedef double type; };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_as(bf16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+// x as the storage dtype would round it where `round` is set
+__device__ __forceinline__ float round_bf16(float x, int round) {
+  return round ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
 
 // max / sum over the 16 lanes of a half-warp (one row group)
 __device__ __forceinline__ float group_max(float x) {
@@ -128,74 +159,55 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-// Copy rows row0 .. row0+63 of one head (row stride rs elements) into a
-// [64][D + 1] f32 tile in shared memory.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int rs) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = src[(size_t)(row0 + r) * rs + c];
+// Positions row0 .. row0+R-1 of head bh of one operand into an [R][D + 1]
+// f32 tile: rows of [B, L, H, D], or, where `tr`, columns of [B, H, D, L]
+// read along L.
+template <int R, typename T>
+__device__ __forceinline__ void load_wide(float* dst, const T* src, int tr,
+                                          int bh, int H, int L, int row0) {
+  constexpr int D = kWideD;
+  if (tr) {
+    const T* s = src + (size_t)bh * D * L + row0;
+    for (int i = threadIdx.x; i < R * D; i += kThreads) {
+      const int r = i % R, c = i / R;
+      dst[r * kWidePad + c] = to_f32(s[(size_t)c * L + r]);
+    }
+  } else {
+    const T* s = src + ((size_t)(bh / H) * L * H + bh % H) * D +
+                 (size_t)row0 * H * D;
+    for (int i = threadIdx.x; i < R * D; i += kThreads) {
+      const int r = i / D, c = i % D;
+      dst[r * kWidePad + c] = to_f32(s[(size_t)r * H * D + c]);
+    }
   }
 }
 
-// The same tile from columns row0 .. row0+63 of one head's [D][L] slab of a
-// [B, H, D, L] tensor, read along L.
-template <int D>
-__device__ __forceinline__ void load_tile_t(float* dst, const float* src,
-                                            int row0, int L) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i % kTile, c = i / kTile;
-    dst[r * (D + 1) + c] = src[(size_t)c * L + row0 + r];
-  }
-}
-
-// Scores of one 64 x 64 tile for this thread's 4 x 4 entries:
-// acc[a][c] += sum_d A[4*ty + a][d] * Bt[tx + 16*c][d].
-template <int D>
-__device__ __forceinline__ void tile_dot_nt(float (&acc)[4][4],
-                                            const float* A, const float* Bt,
-                                            int ty, int tx) {
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) av[a] = A[(4 * ty + a) * (D + 1) + d];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) bv[c] = Bt[(tx + 16 * c) * (D + 1) + d];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
-  }
-}
-
-// Forward: streaming softmax over key tiles 0 .. kmax-1. k is K (kStd) or
-// K^T (kNN). Keys at and past kv_len (the true length of zero-padded
-// inputs) are masked as the causal mask masks.
-template <int D, int Form>
+// Forward (_fwd_kernel :83 at D = 256). One block per (head, 64-row query
+// tile); thread (ty, tx) owns rows 4 ty .. 4 ty + 3 and output columns
+// tx + 16 j. The softmax runs over 128-key blocks, the reference's
+// flash_block_k, so P is rounded against the running max at the
+// reference's own block boundaries: S of a block's two 64-key tiles (K
+// through one tile buffer, K^T where bit 1 of `transposed` is set), the
+// online softmax, then P.V tile by tile through the same buffer. Keys at
+// and past kv_len (the true length of zero-padded inputs) are masked as the
+// causal mask masks. Shared memory: Q and K/V tiles, 2 x 64 x 257 floats,
+// and P of one block, 64 x 129: 164.6 KB.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_f32dot_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ o,
-                        float* __restrict__ lse, int H, int L, float scale,
-                        int causal, int kv_len) {
-  constexpr int NJ = D / 16;
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int H, int L, float scale,
+                      int causal, int kv_len, int transposed, int round) {
+  typedef typename DotOf<T>::type Dot;
+  constexpr int NJ = kWideD / 16, PS = 2 * kTile + 1;   // P's row stride
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* Ks = Qs + kTile * (D + 1);
-  float* Vs = Ks + kTile * (D + 1);
-  float* Ps = Vs + kTile * (D + 1);  // [64][65]
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * kTile;
-  const int rs = H * D;
-  const size_t base = ((size_t)b * L * H + h) * D;
-  const size_t tb = (size_t)bh * D * L;  // head base of a [B, H, D, L] tensor
+  float* KVs = Qs + kTile * kWidePad;
+  float* Ps = KVs + kTile * kWidePad;     // [64][129]
+  const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
-  load_tile<D>(Qs, q + base, q0, rs);
-
+  load_wide<kTile>(Qs, q, 0, bh, H, L, q0);
   float acc[4][NJ], m[4], l[4];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -204,71 +216,348 @@ flash_fwd_f32dot_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[a][j] = 0.f;
   }
-  const int num_k = L / kTile;
-  const int kmax = causal ? min((q0 + kTile + kTile - 1) / kTile, num_k)
-                          : num_k;
+  const int n_tiles = causal ? min(q0 / kTile + 1, L / kTile) : L / kTile;
 
-  for (int kt_i = 0; kt_i < kmax; ++kt_i) {
-    const int k0 = kt_i * kTile;
-    __syncthreads();  // the previous tile's readers of Ks, Vs, Ps are done
-    if constexpr (Form == kStd) load_tile<D>(Ks, k + base, k0, rs);
-    else load_tile_t<D>(Ks, k + tb, k0, L);
-    load_tile<D>(Vs, v + base, k0, rs);
-    __syncthreads();
-
-    float s[4][4] = {};
-    tile_dot_nt<D>(s, Qs, Ks, ty, tx);
+  for (int t0 = 0; t0 < n_tiles; t0 += 2) {   // 128-key softmax blocks
+    const int nt = min(2, n_tiles - t0);
+    float s[4][8];                             // columns tx + 16 c
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int k0 = (t0 + u) * kTile;
+      if (u < nt) {
+        __syncthreads();   // the last readers of KVs and Ps are done
+        load_wide<kTile>(KVs, k, (transposed >> 1) & 1, bh, H, L, k0);
+        __syncthreads();
+        Dot sd[4][4] = {};
+#pragma unroll 4
+        for (int d = 0; d < kWideD; ++d) {
+          Dot av[4], bv[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) av[a] = Qs[(4 * ty + a) * kWidePad + d];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            bv[c] = KVs[(tx + 16 * c) * kWidePad + d];
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) sd[a][c] += av[a] * bv[c];
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          // keys at and past `end` are masked: past the row (causal) or at
+          // and past kv_len
+          const int row = q0 + 4 * ty + a;
+          const int end = causal ? min(row + 1, kv_len) : kv_len;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            s[a][4 * u + c] = k0 + tx + 16 * c >= end
+                                  ? kNegInf : (float)sd[a][c] * scale;
+        }
+      } else {
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[a][4 * u + c] = kNegInf;
+      }
+    }
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      // keys at and past `end` are masked: past the row (causal) or at and
-      // past kv_len
-      const int row = q0 + 4 * ty + a;
-      const int end = causal ? min(row + 1, kv_len) : kv_len;
       float mx = kNegInf;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[a][c] * scale;
-        if (k0 + tx + 16 * c >= end) x = kNegInf;
-        s[a][c] = x;
-        mx = fmaxf(mx, x);
-      }
+      for (int c = 0; c < 8; ++c) mx = fmaxf(mx, s[a][c]);
       const float m_new = fmaxf(m[a], group_max(mx));
       const float alpha = expf(m[a] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < 8; ++c) {
         const float p = expf(s[a][c] - m_new);
         sum += p;
-        Ps[(4 * ty + a) * kRowPad + tx + 16 * c] = p;
+        Ps[(4 * ty + a) * PS + 64 * (c / 4) + tx + 16 * (c % 4)] =
+            round_bf16(p, round);
       }
       l[a] = l[a] * alpha + group_sum(sum);
       m[a] = m_new;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) acc[a][j] *= alpha;
     }
-    __syncthreads();
-
+    for (int u = 0; u < nt; ++u) {
+      __syncthreads();   // P written; the last readers of KVs are done
+      load_wide<kTile>(KVs, v, (transposed >> 2) & 1, bh, H, L,
+                       (t0 + u) * kTile);
+      __syncthreads();
+      float part[4][NJ] = {};
 #pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float pv[4], vv[NJ];
+      for (int kk = 0; kk < kTile; ++kk) {
+        float pv[4], vv[NJ];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) pv[a] = Ps[(4 * ty + a) * kRowPad + kk];
+        for (int a = 0; a < 4; ++a)
+          pv[a] = Ps[(4 * ty + a) * PS + 64 * u + kk];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = Vs[kk * (D + 1) + tx + 16 * j];
+        for (int j = 0; j < NJ; ++j) vv[j] = KVs[kk * kWidePad + tx + 16 * j];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            part[a][j] = fmaf(pv[a], vv[j], part[a][j]);
+      }
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[a][j] = fmaf(pv[a], vv[j], acc[a][j]);
+        for (int j = 0; j < NJ; ++j) acc[a][j] += part[a][j];
     }
   }
 
+  const size_t rs = (size_t)H * kWideD;
+  T* ob = o + ((size_t)(bh / H) * L * H + bh % H) * kWideD;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int row = q0 + 4 * ty + a;
-    float* orow = o + base + (size_t)row * rs;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = acc[a][j] / l[a];
+    for (int j = 0; j < NJ; ++j)
+      store_as(ob + row * rs + tx + 16 * j, acc[a][j] / l[a]);
     if (tx == 0) lse[(size_t)bh * L + row] = m[a] + logf(l[a]);
+  }
+}
+
+// dQ (_dq_kernel :174, _dq_kernel_nn :203 at D = 256). One block per
+// (head, 64-row query tile), Q and dO resident, 32-key K and V tiles
+// streamed (K^T and V^T where bits 1 and 2 of `transposed` are set); per
+// tile S and dP, P = exp(S scale - LSE) and dS = P (dP - delta) scale
+// (rounded where `round`), then dQ += dS.K from the same K tile. Keys past
+// the causal diagonal and at and past kv_len are masked. Shared memory:
+// (64 + 64 + 32 + 32) x 257 floats and dS, 64 x 33: 205.8 KB.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dq,
+                     int H, int L, float scale, int causal, int kv_len,
+                     int transposed, int round) {
+  typedef typename DotOf<T>::type Dot;
+  constexpr int NJ = kWideD / 16, NK = kWideKeys, DS = NK + 1;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + kTile * kWidePad;
+  float* Ks = dOs + kTile * kWidePad;
+  float* Vs = Ks + NK * kWidePad;
+  float* dSs = Vs + NK * kWidePad;        // [64][33]
+  const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+
+  load_wide<kTile>(Qs, q, 0, bh, H, L, q0);
+  load_wide<kTile>(dOs, dout, 0, bh, H, L, q0);
+  float row_lse[4], row_delta[4], acc[4][NJ];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    row_lse[a] = lse[(size_t)bh * L + q0 + 4 * ty + a];
+    row_delta[a] = delta[(size_t)bh * L + q0 + 4 * ty + a];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[a][j] = 0.f;
+  }
+  const int n_keys = causal ? q0 + kTile : L;
+
+  for (int k0 = 0; k0 < n_keys; k0 += NK) {
+    __syncthreads();   // the last readers of Ks, Vs, dSs are done
+    load_wide<NK>(Ks, k, (transposed >> 1) & 1, bh, H, L, k0);
+    load_wide<NK>(Vs, v, (transposed >> 2) & 1, bh, H, L, k0);
+    __syncthreads();
+    Dot sd[4][2] = {}, dpd[4][2] = {};
+#pragma unroll 4
+    for (int d = 0; d < kWideD; ++d) {
+      Dot qv[4], ov[4], kv[2], vv[2];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        qv[a] = Qs[(4 * ty + a) * kWidePad + d];
+        ov[a] = dOs[(4 * ty + a) * kWidePad + d];
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        kv[c] = Ks[(tx + 16 * c) * kWidePad + d];
+        vv[c] = Vs[(tx + 16 * c) * kWidePad + d];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          sd[a][c] += qv[a] * kv[c];
+          dpd[a][c] += ov[a] * vv[c];
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int row = q0 + 4 * ty + a;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + tx + 16 * c;
+        const float p = (causal && key > row) || key >= kv_len
+                            ? 0.f
+                            : expf((float)sd[a][c] * scale - row_lse[a]);
+        dSs[(4 * ty + a) * DS + tx + 16 * c] =
+            round_bf16(p * ((float)dpd[a][c] - row_delta[a]) * scale, round);
+      }
+    }
+    __syncthreads();
+    float part[4][NJ] = {};
+#pragma unroll 4
+    for (int kk = 0; kk < NK; ++kk) {
+      float dsv[4], kr[NJ];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) dsv[a] = dSs[(4 * ty + a) * DS + kk];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) kr[j] = Ks[kk * kWidePad + tx + 16 * j];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          part[a][j] = fmaf(dsv[a], kr[j], part[a][j]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[a][j] += part[a][j];
+  }
+
+  const size_t rs = (size_t)H * kWideD;
+  T* out = dq + ((size_t)(bh / H) * L * H + bh % H) * kWideD;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      store_as(out + (q0 + 4 * ty + a) * rs + tx + 16 * j, acc[a][j]);
+}
+
+// dK, dV (_dkv_kernel :233, _dkv_kernel_nn2 :289 at D = 256). One block per
+// (head, 32-key block): dK and dV of 32 keys x 256 columns are 64 f32
+// registers a thread (thread (ty, tx) owns keys 2 ty, 2 ty + 1 and columns
+// tx + 16 j). K and V resident, 64-query Q and dO tiles streamed from the
+// causal start, with their LSE and delta; per tile S^T and dP^T (queries
+// tx + 16 c), P^T and dS^T (rounded where `round`) into shared memory, then
+// dV += P^T.dO and dK += dS^T.Q. `transposed` marks Q^T, K^T, V^T, dO^T
+// (bits 0 to 3); `out_t` writes dK^T and dV^T ([B, H, D, L], nn2). Keys at
+// and past kv_len need no mask: the caller cuts their rows off, and a
+// padded query, whose dO and delta are 0, adds nothing. Shared memory:
+// (32 + 32 + 64 + 64) x 257 floats, P^T and dS^T 2 x 32 x 65, LSE and
+// delta 2 x 64: 214.5 KB.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int H, int L, float scale,
+                      int causal, int transposed, int out_t, int round) {
+  typedef typename DotOf<T>::type Dot;
+  constexpr int NJ = kWideD / 16, NK = kWideKeys, PS = kTile + 1;
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + NK * kWidePad;
+  float* Qs = Vs + NK * kWidePad;
+  float* dOs = Qs + kTile * kWidePad;
+  float* Pt = dOs + kTile * kWidePad;     // [32][65]
+  float* dSt = Pt + NK * PS;              // [32][65]
+  float* stats = dSt + NK * PS;           // LSE [64], delta [64]
+  const int bh = blockIdx.x, k0 = blockIdx.y * NK;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+
+  load_wide<NK>(Ks, k, (transposed >> 1) & 1, bh, H, L, k0);
+  load_wide<NK>(Vs, v, (transposed >> 2) & 1, bh, H, L, k0);
+  float gk[2][NJ], gv[2][NJ];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) gk[a][j] = gv[a][j] = 0.f;
+
+  for (int q0 = causal ? k0 / kTile * kTile : 0; q0 < L; q0 += kTile) {
+    __syncthreads();   // the last readers of Qs, dOs, Pt, dSt are done
+    load_wide<kTile>(Qs, q, transposed & 1, bh, H, L, q0);
+    load_wide<kTile>(dOs, dout, (transposed >> 3) & 1, bh, H, L, q0);
+    if (threadIdx.x < 2 * kTile)
+      stats[threadIdx.x] = (threadIdx.x < kTile ? lse : delta)
+          [(size_t)bh * L + q0 + threadIdx.x % kTile];
+    __syncthreads();
+    Dot sd[2][4] = {}, dpd[2][4] = {};
+#pragma unroll 4
+    for (int d = 0; d < kWideD; ++d) {
+      Dot kv[2], vv[2], qv[4], ov[4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        kv[a] = Ks[(2 * ty + a) * kWidePad + d];
+        vv[a] = Vs[(2 * ty + a) * kWidePad + d];
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        qv[c] = Qs[(tx + 16 * c) * kWidePad + d];
+        ov[c] = dOs[(tx + 16 * c) * kWidePad + d];
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          sd[a][c] += kv[a] * qv[c];
+          dpd[a][c] += vv[a] * ov[c];
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int key = k0 + 2 * ty + a;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = tx + 16 * c, query = q0 + col;
+        const float p = causal && query < key
+                            ? 0.f
+                            : expf((float)sd[a][c] * scale - stats[col]);
+        const float ds =
+            p * ((float)dpd[a][c] - stats[kTile + col]) * scale;
+        Pt[(2 * ty + a) * PS + col] = round_bf16(p, round);
+        dSt[(2 * ty + a) * PS + col] = round_bf16(ds, round);
+      }
+    }
+    __syncthreads();
+    float pk[2][NJ] = {}, pv[2][NJ] = {};
+#pragma unroll 2
+    for (int kk = 0; kk < kTile; ++kk) {
+      float pa[2], da[2], ov[NJ], qv[NJ];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        pa[a] = Pt[(2 * ty + a) * PS + kk];
+        da[a] = dSt[(2 * ty + a) * PS + kk];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        ov[j] = dOs[kk * kWidePad + tx + 16 * j];
+        qv[j] = Qs[kk * kWidePad + tx + 16 * j];
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          pv[a][j] = fmaf(pa[a], ov[j], pv[a][j]);
+          pk[a][j] = fmaf(da[a], qv[j], pk[a][j]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        gk[a][j] += pk[a][j];
+        gv[a][j] += pv[a][j];
+      }
+  }
+
+  const int b = bh / H, h = bh % H;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int key = k0 + 2 * ty + a;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = tx + 16 * j;
+      const size_t off = out_t
+          ? ((size_t)bh * kWideD + c) * L + key
+          : ((size_t)(b * L + key) * H + h) * kWideD + c;
+      store_as(dk + off, gk[a][j]);
+      store_as(dv + off, gv[a][j]);
+    }
   }
 }
 
@@ -654,6 +943,35 @@ __device__ __forceinline__ void acc_to_a16_split(uint32_t (&hi)[4],
                lo[e]);
 }
 
+// Operand modes of the forward, dQ and dK/dV kernels:
+//   kBf16   bf16 storage, P and dS rounded to bf16 for their products
+//           (strategies bf16, nn and nn2);
+//   kSplit  bf16 storage, P and dS kept f32 and each split into three bf16
+//           terms (strategy f32);
+//   kF32    f32 storage (every strategy): Q, K, V and dO arrive as the
+//           hi, mid and lo bf16 terms that flash_split_kernel made of them,
+//           every f32 product runs as six bf16 passes of term pairs
+//           (pass_a, pass_b), and O, dQ, dK and dV are stored in f32.
+enum Mode { kBf16 = 0, kSplit = 1, kF32 = 2 };
+
+// The six term pairs (a, b) of a product of two split f32 values (term 0
+// hi, 1 mid, 2 lo), small weights first: lo.hi, hi.lo and mid.mid (about
+// 2^-16 of the product), mid.hi and hi.mid (2^-8), hi.hi. The pairs left
+// out, mid.lo, lo.mid and lo.lo, weigh under 2^-24 of the product, below
+// f32's own rounding. Every pass is exact in its products.
+constexpr int kPasses = 6;
+// the pass loops of S and dP (S^T and dP^T) read both operands from shared
+// memory, so a pass index need not be a constant: at D = 128 (kF32) they
+// stay rolled, which keeps ptxas from holding every pass's descriptors
+template <int D, int Mode>
+constexpr int kUnrollPasses = Mode == kF32 && D == 128 ? 1 : kPasses;
+__host__ __device__ constexpr int pass_a(int p) {
+  return p == 0 ? 2 : (p == 2 || p == 3) ? 1 : 0;
+}
+__host__ __device__ constexpr int pass_b(int p) {
+  return p == 1 ? 2 : (p == 2 || p == 4) ? 1 : 0;
+}
+
 // Shared memory of the forward: two buffers of a 128-row Q tile (64 rows
 // for each consumer; item k uses buffer k % 2, so the next item's Q loads
 // while this one finishes), then kStages ring stages of a 128-key K tile
@@ -687,29 +1005,26 @@ struct FwdSmem {
 // as [B, H, L] f32. Rows past L (L = 64 mod 128) are skipped by their
 // consumer, which still walks the ring and takes its turns.
 //
-// Split (strategy f32 on bf16 storage, _fwd_kernel's f32 form :120): the
+// kSplit (strategy f32 on bf16 storage, _fwd_kernel's f32 form :120): the
 // same kernel with every dot of the f32 function. S = Q.K^T is already
 // exact in its products (a product of two bf16 values is exact in f32), so
 // only P.V changes: P stays f32 for the row sums and LSE and is split into
 // three bf16 terms (acc_to_a16_split), each multiplied by the same V tile
 // into O, the small terms first. So P.V has P's f32 products, summed in
-// f32 by the tensor cores in their own order, where the scalar kernel took
-// 22 TFLOP/s of the CUDA cores' 67. The three fragments of P cost 48
-// registers a step, so a step covers 64 keys (half a ring stage): its
+// f32 by the tensor cores in their own order. The three fragments of P
+// cost 48 registers a step, so a step covers 64 keys (half a ring stage): its
 // scores, its fragments and the previous step's fragments in flight fit
 // beside O at D = 128 too. Four bf16 passes of 2 D flops a causal pair
 // bound it: operations, 0.035 ms at the training shape.
 // map_q, map_o: [B*L, H*D], boxes of 64 rows; map_v and, for kStd, map_k:
 // [B*L, H*D], boxes of 128 rows; kNN's map_k: K^T as [B*H*D, L], boxes of
-// D rows.
-template <int D, int Form, bool Split = false>
-__global__ void __launch_bounds__(kHopperThreads, 1)
-flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
-                     const __grid_constant__ CUtensorMap map_k,
-                     const __grid_constant__ CUtensorMap map_v,
-                     const __grid_constant__ CUtensorMap map_o,
-                     float* __restrict__ lse, int BH, int H, int L,
-                     float scale, int causal, int kv_len) {
+// D rows. (The kernel's body on bf16 storage; kF32 is fwd_f32_body.)
+template <int D, int Form, bool Split>
+__device__ __forceinline__ void fwd_bf16_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, const CUtensorMap& map_o,
+    float* __restrict__ lse, int BH, int H, int L, float scale, int causal,
+    int kv_len) {
   using Smem = FwdSmem<D>;
   constexpr int C = D / kSeg, S = Smem::kStages;
   constexpr int NK = Split ? 64 : kBig;   // keys of one softmax step
@@ -985,33 +1300,331 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// Operand modes of the dQ and dK/dV kernels:
-//   kBf16   bf16 storage, P and dS rounded to bf16 for their products
-//           (strategies bf16, nn and nn2);
-//   kSplit  bf16 storage, P and dS kept f32 and each split into three bf16
-//           terms (strategy f32);
-//   kF32    f32 storage (every strategy): Q, K, V and dO arrive as the
-//           hi, mid and lo bf16 terms that flash_split_kernel made of them,
-//           every f32 product runs as six bf16 passes of term pairs
-//           (pass_a, pass_b), and dQ, dK and dV are stored in f32.
-enum Mode { kBf16 = 0, kSplit = 1, kF32 = 2 };
+// Shared memory of the kF32 forward: the Q rows of its consumers in three
+// terms (one buffer: the terms triple the tiles), then a ring of kSlots
+// slots, each a 64-key tile of K or of V in its three terms, then the
+// barriers. D = 64: two consumers, 2 x 24 + 6 x 24 KB; D = 128: one
+// consumer, which takes an item's two 64-row halves in turn (rounds), 48 +
+// 3 x 48 KB.
+template <int D>
+struct FwdF32Smem {
+  static constexpr int kNC = D == 128 ? 1 : 2;        // consumers
+  static constexpr int kT = kChunk * (D / kSeg);      // 64 rows of one term
+  static constexpr int kSlots = D == 64 ? 6 : 3;
+  static constexpr size_t kBytes =
+      (size_t)(kNC + kSlots) * 3 * kT + 8 * (2 + 2 * kSlots) + 1024;
+  static_assert(kBytes >= kOneBlockSmem, "one block per SM");
+  static_assert(kBytes <= 227 * 1024, "fits in a block's shared memory");
+};
 
-// The six term pairs (a, b) of a product of two split f32 values (term 0
-// hi, 1 mid, 2 lo), small weights first: lo.hi, hi.lo and mid.mid (about
-// 2^-16 of the product), mid.hi and hi.mid (2^-8), hi.hi. The pairs left
-// out, mid.lo, lo.mid and lo.lo, weigh under 2^-24 of the product, below
-// f32's own rounding. Every pass is exact in its products.
-constexpr int kPasses = 6;
-// the pass loops of S and dP (S^T and dP^T) read both operands from shared
-// memory, so a pass index need not be a constant: at D = 128 (kF32) they
-// stay rolled, which keeps ptxas from holding every pass's descriptors
+// Threads of a forward block: the producer and the consumers (one consumer
+// is compiled for its 256 threads, as kBwdThreads says).
 template <int D, int Mode>
-constexpr int kUnrollPasses = Mode == kF32 && D == 128 ? 1 : kPasses;
-__host__ __device__ constexpr int pass_a(int p) {
-  return p == 0 ? 2 : (p == 2 || p == 3) ? 1 : 0;
+constexpr int kFwdThreads =
+    Mode == kF32 ? (1 + FwdF32Smem<D>::kNC) * kWG : kHopperThreads;
+
+// kF32 (f32 storage, _fwd_kernel :83 for every strategy): the forward of
+// PR 6's kF32 dQ and dK/dV. Q, K and V arrive as the hi, mid and lo bf16
+// terms of flash_split_kernel (nn and nn2 split K^T into the same terms,
+// so they give kStd's results bitwise). A persistent grid walks the (head,
+// 128-row query tile) items as above; the producer loads each round's Q
+// terms into the one buffer and, per 128-key softmax block (the
+// reference's flash_block_k, so the running max moves at its boundaries),
+// the block's 64-key K tiles and then its V tiles into the ring, one tile
+// in three terms a slot. A consumer (64 rows) runs per block S = Q.K^T of
+// each tile it needs as six wgmma passes of term pairs (small weights
+// first), the online softmax in f32 with P = exp of the plain version's
+// argument in expf, then O *= alpha and, per tile and 64-column chunk of O,
+// P split in registers (acc_to_a16_split) times V's terms in six passes
+// into a fresh accumulator that is added to O in f32 (promotion: the
+// tensor cores' own rounding over L / 16 steps is past f32's check).
+// Tiles past the diagonal are skipped, the diagonal tile and the keys at
+// and past kv_len masked; the Q buffer is released after the consumer's
+// last S. O leaves in f32 by plain stores, LSE (natural log) as [B, H, L].
+// Twelve bf16 passes of 2 D flops a causal pair bound it: operations,
+// 0.104 ms at the training shape.
+template <int D>
+__device__ __forceinline__ void fwd_f32_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, float* __restrict__ lse,
+    float* __restrict__ o_f32, int BH, int H, int L, float scale,
+    int causal, int kv_len) {
+  using Smem = FwdF32Smem<D>;
+  constexpr int C = D / kSeg, T = Smem::kT, NC = Smem::kNC;
+  constexpr int NS = Smem::kSlots, NR = 2 / NC;   // slots, rounds an item
+  constexpr int UP = kUnrollPasses<D, kF32>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = align_1024(smem_raw);      // [consumer][term]
+  unsigned char* ring = q_s + NC * 3 * T;         // [slot][term]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + NS * 3 * T);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* full = q_empty + 1;
+  uint64_t* empty = full + NS;
+
+  const int num_t = (L + kBig - 1) / kBig;
+  const int n_items = BH * num_t;
+  const int BL = BH / H * L;           // rows of one term
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, NC);            // one thread of each consumer
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC * kWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    // ---- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int n = 0, u = 0;   // slots and rounds loaded so far
+      int bh, rank;
+      for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
+        const int b = bh / H, h = bh % H;
+        for (int r = 0; r < NR; ++r) {
+          const int q0 = (num_t - 1 - rank) * kBig + 64 * NC * r;
+          if (q0 >= L) break;
+          const int kmax = causal ? min(q0 / 64 + NC, L / 64) : L / 64;
+          const int nw = min(NC, (L - q0) / 64);   // consumers with rows
+          if (u >= 1) mbar_wait(q_empty, (u - 1) & 1);
+          ++u;
+          mbar_expect_tx(q_full, nw * 3 * T);
+          for (int w = 0; w < nw; ++w)
+            for (int term = 0; term < 3; ++term)
+              for (int c = 0; c < C; ++c)
+                tma_load(q_s + (w * 3 + term) * T + c * kChunk, &map_q,
+                         q_full, h * D + c * kSeg,
+                         term * BL + b * L + q0 + 64 * w);
+          for (int j0 = 0; j0 < kmax; j0 += 2) {   // a block's K, then V
+            const int nt = min(2, kmax - j0);
+            for (int op = 0; op < 2; ++op)
+              for (int j = j0; j < j0 + nt; ++j, ++n) {
+                const int s = n % NS;
+                if (n >= NS) mbar_wait(&empty[s], (n / NS - 1) & 1);
+                mbar_expect_tx(&full[s], 3 * T);
+                for (int term = 0; term < 3; ++term)
+                  for (int c = 0; c < C; ++c)
+                    tma_load(ring + (s * 3 + term) * T + c * kChunk,
+                             op ? &map_v : &map_k, &full[s],
+                             h * D + c * kSeg, term * BL + b * L + j * 64);
+              }
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    setmaxnreg_inc<NC == 1 ? kSoleConsumerRegs : kConsumerRegs>();
+    const int w = threadIdx.x / kWG - 1;
+    const bool leader = (threadIdx.x & (kWG - 1)) == 0;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = 16 * warp + g;          // rows r_lo and r_lo + 8
+    const uint32_t qa = smem_addr(q_s + w * 3 * T);
+    auto wait_full = [&](int i) { mbar_wait(&full[i % NS], (i / NS) & 1); };
+    auto release = [&](int i) { mbar_arrive(&empty[i % NS]); };
+    auto release_q = [&]() {   // every thread's last S is done with Q
+      named_sync(1 + w, kWG);
+      if (leader) mbar_arrive(q_empty);
+    };
+    int n = 0, u = 0;                        // slots, rounds consumed
+    int bh, rank;
+    for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
+      const int b = bh / H, h = bh % H;
+#pragma unroll 1
+      for (int r = 0; r < NR; ++r) {
+        const int q0 = (num_t - 1 - rank) * kBig + 64 * NC * r;
+        if (q0 >= L) break;
+        const int kmax = causal ? min(q0 / 64 + NC, L / 64) : L / 64;
+        const int r0 = q0 + 64 * w;          // this consumer's first row
+        const int n0 = n;
+        n += 2 * kmax;
+        mbar_wait(q_full, u & 1);
+        ++u;
+        if (r0 >= L) {   // rows past L: walk the ring only
+          for (int i = n0; i < n; ++i) {
+            wait_full(i);
+            release(i);
+          }
+          if (leader) mbar_arrive(q_empty);
+          continue;
+        }
+        // key tiles this consumer needs: 0 .. kend-1, the last one its
+        // diagonal tile under causal
+        const int kend = causal ? r0 / 64 + 1 : kmax;
+        float o[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+        float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+        // S = Q.K^T of the tile in slot i: pass p multiplies term
+        // pass_a(p) of Q by term pass_b(p) of K (read K-major)
+        auto issue_s = [&](float (&sc)[32], int i) {
+          const uint32_t kb = smem_addr(ring + (i % NS) * 3 * T);
+          wait_full(i);
+#pragma unroll (UP)
+          for (int p = 0; p < kPasses; ++p)
+#pragma unroll
+            for (int ks = 0; ks < D / 16; ++ks) {
+              const uint32_t step = (ks / 4) * kChunk + (ks % 4) * 32;
+              wgmma_ss<0, 0>(sc, desc(qa + pass_a(p) * T + step),
+                             desc(kb + pass_b(p) * T + step), p > 0 || ks > 0);
+            }
+        };
+        // the scaled scores of key tile j, in f32 as the plain version
+        // forms them; -inf past the causal diagonal, at and past kv_len,
+        // and in a tile this consumer does not use
+        auto scores = [&](float (&sc)[32], int j, bool used) {
+          const int k0 = j * 64;
+#pragma unroll
+          for (int e = 0; e < 32; ++e) sc[e] = used ? sc[e] * scale : -INFINITY;
+          if (used && ((causal && k0 + 64 > r0) || k0 + 64 > kv_len)) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+              const int key = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+              const int row = r0 + r_lo + 8 * ((e >> 1) & 1);
+              if ((causal && key > row) || key >= kv_len) sc[e] = -INFINITY;
+            }
+          }
+        };
+        // O += P.V for the P of one tile and the V tile in slot i, promoted
+        // per 64-column chunk of O (V's row tile read MN-major)
+        auto pv = [&](const float (&sc)[32], int i) {
+          uint32_t pa[3 * 4][4];   // [term][kk]: hi, mid, lo
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            acc_to_a16_split(pa[kk], pa[4 + kk], pa[8 + kk], sc, kk);
+          const uint32_t vb = smem_addr(ring + (i % NS) * 3 * T);
+          wait_full(i);
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            float acc[32];
+#pragma unroll
+            for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+            wgmma_fence();
+#pragma unroll
+            for (int p = 0; p < kPasses; ++p)
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                wgmma_rs<1>(acc, pa[pass_a(p) * 4 + kk],
+                            desc(vb + pass_b(p) * T + c * kChunk +
+                                     kk * 16 * kRowBytes,
+                                 kChunk));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(acc);
+#pragma unroll
+            for (int e = 0; e < 32; ++e) o[32 * c + e] += acc[e];
+          }
+          fence_regs(pa);
+          release(i);
+        };
+
+        for (int j0 = 0, i0 = n0; j0 < kmax; j0 += 2) {
+          // the block's K tiles sit in slots i0 .., its V tiles after them
+          const int nt = min(2, kmax - j0);
+          const int nu = max(0, min(nt, kend - j0));   // tiles used
+          if (nu == 0) {
+            for (int i = i0; i < i0 + 2 * nt; ++i) {
+              wait_full(i);
+              release(i);
+            }
+            i0 += 2 * nt;
+            continue;
+          }
+          float s0[32], s1[32];
+          wgmma_fence();
+          issue_s(s0, i0);
+          if (nu == 2) issue_s(s1, i0 + 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(s0);
+          fence_regs(s1);
+          if (nt == 2 && nu == 1) wait_full(i0 + 1);
+          for (int i = i0; i < i0 + nt; ++i) release(i);
+          if (j0 + 2 >= kend) release_q();   // this consumer's last S
+          scores(s0, j0, true);
+          scores(s1, j0 + 1, nu == 2);
+
+          // online softmax over the block's keys: m, l and P (f32) against
+          // the running max; alpha rescales the O of earlier blocks
+          float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], fmaxf(s0[e], s1[e]));
+          }
+          float alpha[2];
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2) {
+            const float m_new = fmaxf(m[r2], quad_max(mx[r2]));
+            alpha[r2] = expf(m[r2] - m_new);
+            m[r2] = m_new;
+          }
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int r2 = (e >> 1) & 1;
+            s0[e] = expf(s0[e] - m[r2]);
+            s1[e] = expf(s1[e] - m[r2]);
+            sum[r2] += s0[e] + s1[e];
+          }
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2)
+            l[r2] = l[r2] * alpha[r2] + quad_sum(sum[r2]);
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+          pv(s0, i0 + nt);
+          if (nu == 2) pv(s1, i0 + nt + 1);
+          else if (nt == 2) {
+            wait_full(i0 + nt + 1);
+            release(i0 + nt + 1);
+          }
+          i0 += 2 * nt;
+        }
+
+        // O = acc / l in f32, rows of [B, L, H, D]; LSE
+#pragma unroll
+        for (int j8 = 0; j8 < D / 8; ++j8)
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2) {
+            const int row = r0 + r_lo + 8 * r2, c = 8 * j8 + 2 * t;
+            *reinterpret_cast<float2*>(
+                o_f32 + ((size_t)(b * L + row) * H + h) * D + c) =
+                make_float2(o[4 * j8 + 2 * r2] / l[r2],
+                            o[4 * j8 + 2 * r2 + 1] / l[r2]);
+          }
+        if (t == 0)
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2)
+            lse[(size_t)bh * L + r0 + r_lo + 8 * r2] =
+                m[r2] + logf(l[r2]);
+      }
+    }
+  }
 }
-__host__ __device__ constexpr int pass_b(int p) {
-  return p == 1 ? 2 : (p == 2 || p == 4) ? 1 : 0;
+
+// The forward: its bf16-storage body (kBf16, kSplit) or the kF32 body.
+// o_f32 is kF32's output (map_o unused there).
+template <int D, int Form, int Mode = kBf16>
+__global__ void __launch_bounds__(kFwdThreads<D, Mode>, 1)
+flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_o,
+                     float* __restrict__ lse, float* __restrict__ o_f32,
+                     int BH, int H, int L, float scale, int causal,
+                     int kv_len) {
+  if constexpr (Mode == kF32) {
+    static_assert(Form == kStd, "kF32 reads split terms as rows");
+    fwd_f32_body<D>(map_q, map_k, map_v, lse, o_f32, BH, H, L, scale,
+                    causal, kv_len);
+  } else {
+    fwd_bf16_body<D, Form, Mode == kSplit>(map_q, map_k, map_v, map_o, lse,
+                                          BH, H, L, scale, causal, kv_len);
+  }
 }
 
 // Shared memory of the dQ and dK/dV kernels by operand mode. A block's
@@ -1043,6 +1656,42 @@ struct BwdSmem {
   static_assert(kBytes >= kOneBlockSmem, "one block per SM");
   static_assert(kBytes <= 227 * 1024, "fits in a block's shared memory");
 };
+
+// kF32 dQ: this lane's share (columns lane, lane + 32, ..) of the f64 dot
+// of row ra of a split-term tile at a and row rb of one at b (three terms
+// each, T bytes apart, rows of D columns under the swizzle), each value
+// rebuilt exactly as hi + mid + lo and each product of two f32 values exact
+// in f64; warp_sum adds the lanes' shares. kExactP: the P above which dQ
+// takes dP that way.
+constexpr float kExactP = 1.f / 4;
+template <int D, int T>
+__device__ __forceinline__ double exact_dot_share(const unsigned char* a,
+                                                  int ra,
+                                                  const unsigned char* b,
+                                                  int rb, int lane) {
+  double acc = 0.0;
+#pragma unroll
+  for (int c = lane; c < D; c += 32) {
+    const int oa = (c / kSeg) * kChunk + swz(ra, c % kSeg);
+    const int ob = (c / kSeg) * kChunk + swz(rb, c % kSeg);
+    double x = 0.0, y = 0.0;
+#pragma unroll
+    for (int term = 0; term < 3; ++term) {
+      x += (double)__bfloat162float(
+          *reinterpret_cast<const bf16*>(a + term * T + oa));
+      y += (double)__bfloat162float(
+          *reinterpret_cast<const bf16*>(b + term * T + ob));
+    }
+    acc = fma(x, y, acc);
+  }
+  return acc;
+}
+__device__ __forceinline__ double warp_sum(double x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
 
 // Threads of a dQ or dK/dV block: the producer and the consumers. A block
 // with one consumer is compiled for its 256 threads, so that ptxas may give
@@ -1535,9 +2184,13 @@ flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
 // tiles; dS is split in registers and dQ's six passes (dS term by K term)
 // land in a fresh accumulator per key tile, which is added to dQ on the
 // CUDA cores in f32 (promotion, as in dK/dV): dQ sums its L / 64 key tiles
-// as f32 additions. dQ leaves in f32 by plain stores. 18 bf16 passes of
-// 2 D flops a causal pair bound it: operations, 0.157 ms at the training
-// shape.
+// as f32 additions. Where P exceeds kExactP, dP - delta is taken in f64
+// from the terms in shared memory (the warp shares each such entry's
+// columns, exact_dot_share): in a row whose P gathers on a few keys, as a
+// causal head's first rows, dP - delta cancels and dP's own f32 rounding
+// (the tensor cores', or any f32 sum's) would reach dQ unweighted. dQ
+// leaves in f32 by plain stores. 18 bf16 passes of 2 D flops a causal pair
+// bound it: operations, 0.157 ms at the training shape.
 template <int D, int Form, int Mode = kBf16>
 __global__ void __launch_bounds__(kBwdThreads<D, Mode>, 1)
 flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -1747,14 +2400,50 @@ flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
               if ((causal && key > row) || key >= kv_len) st[e] = -INFINITY;
             }
           }
+          if constexpr (F32) {
+            // P = exp(S scale - LSE) as the plain version rounds it (see
+            // dK/dV), dP - delta, and dS. An entry whose P is large carries
+            // dP's own f32 rounding into dQ unattenuated where dP - delta
+            // cancels (a row whose P gathers on a few keys, as a causal
+            // head's first rows): there dP - delta is taken in f64 from
+            // the operands' exact f32 values (exact_dot); elsewhere the
+            // rounding is weighted by P.
+            float p_max = 0.f;
 #pragma unroll
-          for (int e = 0; e < 32; ++e) {
-            const int r2 = (e >> 1) & 1;
-            // kF32: exp(S scale - LSE) as the plain version rounds it (see
-            // dK/dV)
-            const float p = F32 ? expf(st[e] * scale - row_lse[r2])
-                                : ex2(fmaf(st[e], scale_log2, neg_lse[r2]));
-            dp[e] = p * (dp[e] - row_delta[r2]) * scale;   // dS
+            for (int e = 0; e < 32; ++e) {
+              const int r2 = (e >> 1) & 1;
+              st[e] = expf(st[e] * scale - row_lse[r2]);
+              dp[e] -= row_delta[r2];
+              p_max = fmaxf(p_max, st[e]);
+            }
+            if (__any_sync(0xffffffffu, p_max > kExactP)) {
+              // the warp takes each such entry in turn, D / 32 columns a
+              // lane, and hands the sum to the entry's lane
+              const unsigned char* do_t = do_s + slot * NT * T;
+              const unsigned char* v_t = v_s + s * NT * T;
+#pragma unroll
+              for (int e = 0; e < 32; ++e) {
+                uint32_t lanes = __ballot_sync(0xffffffffu, st[e] > kExactP);
+                while (lanes) {
+                  const int src = __ffs(lanes) - 1;
+                  lanes &= lanes - 1;
+                  const double dpx = warp_sum(exact_dot_share<D, T>(
+                      do_t, 16 * warp + (src >> 2) + 8 * ((e >> 1) & 1), v_t,
+                      8 * (e >> 2) + 2 * (src & 3) + (e & 1), lane));
+                  if (lane == src)
+                    dp[e] = (float)(dpx - (double)row_delta[(e >> 1) & 1]);
+                }
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 32; ++e) dp[e] = st[e] * dp[e] * scale;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+              const int r2 = (e >> 1) & 1;
+              const float p = ex2(fmaf(st[e], scale_log2, neg_lse[r2]));
+              dp[e] = p * (dp[e] - row_delta[r2]) * scale;   // dS
+            }
           }
           if constexpr (F32) {
             // dS as hi, mid and lo fragments ([term][kk]); dQ += dS.K
@@ -1989,9 +2678,6 @@ flash_probe_kernel(const bf16* __restrict__ a, const float* __restrict__ a32,
       o[(r0 + g + (e >> 1) * 8) * N + n * 8 + 2 * t + (e & 1)] = acc[n][e];
 }
 // ---------------------------------------------------------------- launch
-constexpr size_t tile_bytes(int d) { return sizeof(float) * kTile * (d + 1); }
-constexpr size_t score_bytes() { return sizeof(float) * kTile * kRowPad; }
-
 // Shared memory above 48 KB has to be allowed per kernel (and card) before
 // its first launch; this does it once per kernel instance and card.
 template <auto Kernel>
@@ -2017,8 +2703,6 @@ cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// One block per (head, 64-row output tile).
-dim3 grid64(int B, int H, int L) { return dim3(B * H, L / kTile); }
 // A persistent grid: one block per SM, or per (head, 128-row tile) where
 // there are fewer of those.
 dim3 persistent_grid(int B, int H, int L) {
@@ -2060,21 +2744,89 @@ bool cols_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int D) {
                     D);
 }
 
-typedef const float* cf32;   // an f32 operand of a scalar kernel
+typedef const float* cf32;   // an f32 input (split pass operands, LSE, delta)
 
-template <int D, int Form = kStd>
-cudaError_t fwd_f32dot(const void* q, const void* k, const void* v, void* o,
+// The D = 256 kernels (CUDA cores). `round`: P and dS rounded to bf16
+// (strategies bf16, nn and nn2 on bf16 storage; never on f32 storage).
+constexpr size_t kWideRow = sizeof(float) * kWidePad;
+constexpr size_t kFwdWideSmem =
+    kWideRow * 2 * kTile + sizeof(float) * kTile * (2 * kTile + 1);
+constexpr size_t kDqWideSmem = kWideRow * (2 * kTile + 2 * kWideKeys) +
+                               sizeof(float) * kTile * (kWideKeys + 1);
+constexpr size_t kDkvWideSmem =
+    kWideRow * (2 * kWideKeys + 2 * kTile) +
+    sizeof(float) * (2 * kWideKeys * (kTile + 1) + 2 * kTile);
+static_assert(kDkvWideSmem <= 227 * 1024, "fits in a block's shared memory");
+
+template <typename T>
+cudaError_t fwd_wide_t(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int L, float scale,
-                       int causal, int kv_len, cudaStream_t st) {
-  return launch<flash_fwd_f32dot_kernel<D, Form>>(
-      grid64(B, H, L), kThreads, 3 * tile_bytes(D) + score_bytes(), st,
-      (cf32)q, (cf32)k, (cf32)v, (float*)o, (float*)lse, H, L, scale, causal,
-      kv_len);
+                       int causal, int kv_len, int transposed, int round,
+                       cudaStream_t st) {
+  return launch<flash_fwd_wide_kernel<T>>(
+      dim3(B * H, L / kTile), kThreads, kFwdWideSmem, st, (const T*)q,
+      (const T*)k, (const T*)v, (T*)o, (float*)lse, H, L, scale, causal,
+      kv_len, transposed, round);
+}
+cudaError_t fwd_wide(int dtype, const void* q, const void* k, const void* v,
+                     void* o, void* lse, int B, int H, int L, float scale,
+                     int causal, int kv_len, int transposed, int round,
+                     cudaStream_t st) {
+  return dtype == 1
+      ? fwd_wide_t<bf16>(q, k, v, o, lse, B, H, L, scale, causal, kv_len,
+                         transposed, round, st)
+      : fwd_wide_t<float>(q, k, v, o, lse, B, H, L, scale, causal, kv_len,
+                          transposed, 0, st);
 }
 
-// kStd: k is K [B, L, H, D]; kNN: K^T [B, H, D, L]. Split: the f32-dot
+template <typename T>
+cudaError_t dq_wide_t(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int B, int H, int L, float scale, int causal,
+                      int kv_len, int transposed, int round,
+                      cudaStream_t st) {
+  return launch<flash_dq_wide_kernel<T>>(
+      dim3(B * H, L / kTile), kThreads, kDqWideSmem, st, (const T*)q,
+      (const T*)k, (const T*)v, (const T*)dout, (cf32)lse, (cf32)delta,
+      (T*)dq, H, L, scale, causal, kv_len, transposed, round);
+}
+cudaError_t dq_wide(int dtype, const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dq, int B, int H, int L, float scale, int causal,
+                    int kv_len, int transposed, int round, cudaStream_t st) {
+  return dtype == 1
+      ? dq_wide_t<bf16>(q, k, v, dout, lse, delta, dq, B, H, L, scale,
+                        causal, kv_len, transposed, round, st)
+      : dq_wide_t<float>(q, k, v, dout, lse, delta, dq, B, H, L, scale,
+                         causal, kv_len, transposed, 0, st);
+}
+
+template <typename T>
+cudaError_t dkv_wide_t(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int B, int H, int L, float scale,
+                       int causal, int transposed, int out_t, int round,
+                       cudaStream_t st) {
+  return launch<flash_dkv_wide_kernel<T>>(
+      dim3(B * H, L / kWideKeys), kThreads, kDkvWideSmem, st, (const T*)q,
+      (const T*)k, (const T*)v, (const T*)dout, (cf32)lse, (cf32)delta,
+      (T*)dk, (T*)dv, H, L, scale, causal, transposed, out_t, round);
+}
+cudaError_t dkv_wide(int dtype, const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dk, void* dv, int B, int H, int L, float scale,
+                     int causal, int transposed, int out_t, int round,
+                     cudaStream_t st) {
+  return dtype == 1
+      ? dkv_wide_t<bf16>(q, k, v, dout, lse, delta, dk, dv, B, H, L, scale,
+                         causal, transposed, out_t, round, st)
+      : dkv_wide_t<float>(q, k, v, dout, lse, delta, dk, dv, B, H, L, scale,
+                          causal, transposed, out_t, 0, st);
+}
+
+// kStd: k is K [B, L, H, D]; kNN: K^T [B, H, D, L]. kSplit: the f32-dot
 // forward on bf16 storage.
-template <int D, int Form, bool Split = false>
+template <int D, int Form, int Mode = kBf16>
 cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
                     void* lse, int B, int H, int L, float scale, int causal,
                     int kv_len, cudaStream_t st) {
@@ -2085,9 +2837,10 @@ cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
       (Form == kStd ? rows_map(&mk, k, B, H, L, D, kBig)
                     : cols_map(&mk, k, B, H, L, D));
   if (!ok) return cudaErrorInvalidValue;
-  return launch<flash_fwd_mma_kernel<D, Form, Split>>(
-      persistent_grid(B, H, L), kHopperThreads, FwdSmem<D>::kBytes, st, mq,
-      mk, mv, mo, (float*)lse, B * H, H, L, scale, causal, kv_len);
+  return launch<flash_fwd_mma_kernel<D, Form, Mode>>(
+      persistent_grid(B, H, L), kFwdThreads<D, Mode>, FwdSmem<D>::kBytes, st,
+      mq, mk, mv, mo, (float*)lse, (float*)nullptr, B * H, H, L, scale,
+      causal, kv_len);
 }
 
 // kStd: k, v are K, V [B, L, H, D] (kt unused). kNN: kt, v are K^T, V^T
@@ -2141,29 +2894,44 @@ cudaError_t dkv_mma(const void* q, const void* qt, const void* k,
       (float*)nullptr, 0, B * H, H, L, scale, causal);
 }
 
-// f32 storage. split_terms runs flash_split_kernel on Q, K, V and dO (bit i
-// of `transposed`: operand i given as [B, H, D, L]) into `terms`, [4, 3, B,
-// L, H, D] bf16; the kF32 instances of dQ and dK/dV read the terms, each
-// operand's three as one [3*B*L, H*D] map.
+// f32 storage at D = 64 and 128. split_terms runs flash_split_kernel on the
+// first n_ops of Q, K, V and dO (bit i of `transposed`: operand i given as
+// [B, H, D, L]) into `terms`, [n_ops, 3, B, L, H, D] bf16; the kF32
+// instances of the forward, dQ and dK/dV read the terms, each operand's
+// three as one [3*B*L, H*D] map.
 cudaError_t split_terms(const void* q, const void* k, const void* v,
-                        const void* dout, int transposed, void* terms, int B,
-                        int H, int L, int D, cudaStream_t st) {
+                        const void* dout, int transposed, int n_ops,
+                        void* terms, int B, int H, int L, int D,
+                        cudaStream_t st) {
   const size_t quads = (size_t)B * L * H * D / 4;
   const unsigned blocks = (unsigned)((quads + 255) / 256 < 4096
                                          ? (quads + 255) / 256 : 4096);
   return launch<flash_split_kernel>(
-      dim3(blocks, 4), 256, 0, st, (cf32)q, (cf32)k, (cf32)v, (cf32)dout,
-      transposed, (bf16*)terms, B, H, L, D);
+      dim3(blocks, n_ops), 256, 0, st, (cf32)q, (cf32)k, (cf32)v,
+      (cf32)dout, transposed, (bf16*)terms, B, H, L, D);
 }
 
-bool terms_maps(CUtensorMap (&m)[4], const void* terms, int B, int H, int L,
+template <int N>
+bool terms_maps(CUtensorMap (&m)[N], const void* terms, int B, int H, int L,
                 int D) {
   const size_t n = (size_t)B * L * H * D;
-  for (int op = 0; op < 4; ++op)
+  for (int op = 0; op < N; ++op)
     if (!rows_map(&m[op], (const bf16*)terms + op * 3 * n, 3 * B, H, L, D,
                   64))
       return false;
   return true;
+}
+
+template <int D>
+cudaError_t fwd_f32(const void* terms, void* o, void* lse, int B, int H,
+                    int L, float scale, int causal, int kv_len,
+                    cudaStream_t st) {
+  CUtensorMap m[3];   // Q, K, V
+  if (!terms_maps(m, terms, B, H, L, D)) return cudaErrorInvalidValue;
+  return launch<flash_fwd_mma_kernel<D, kStd, kF32>>(
+      persistent_grid(B, H, L), kFwdThreads<D, kF32>,
+      FwdF32Smem<D>::kBytes, st, m[0], m[1], m[2], m[0], (float*)lse,
+      (float*)o, B * H, H, L, scale, causal, kv_len);
 }
 
 template <int D>
@@ -2192,8 +2960,24 @@ cudaError_t dkv_f32(const void* terms, const void* lse, const void* delta,
       B * H, H, L, scale, causal);
 }
 
-// dQ on f32 storage: the split first where `split` is set (the terms are
-// then this call's; else they are an earlier call's of the same operands).
+// The forward, dQ and dK/dV on f32 storage: the split first where `split`
+// is set (the terms are then this call's; else they are an earlier call's
+// of the same operands).
+cudaError_t fwd_storage_f32(const void* q, const void* k, const void* v,
+                            int transposed, void* o, void* lse, void* terms,
+                            int split, int B, int H, int L, int D,
+                            float scale, int causal, int kv_len,
+                            cudaStream_t st) {
+  if (split) {
+    const cudaError_t err = split_terms(q, k, v, nullptr, transposed, 3,
+                                        terms, B, H, L, D, st);
+    if (err != cudaSuccess) return err;
+  }
+  return D == 64
+      ? fwd_f32<64>(terms, o, lse, B, H, L, scale, causal, kv_len, st)
+      : fwd_f32<128>(terms, o, lse, B, H, L, scale, causal, kv_len, st);
+}
+
 cudaError_t dq_storage_f32(const void* q, const void* k, const void* v,
                            const void* dout, int transposed,
                            const void* lse, const void* delta, void* dq,
@@ -2202,7 +2986,7 @@ cudaError_t dq_storage_f32(const void* q, const void* k, const void* v,
                            cudaStream_t st) {
   if (split) {
     const cudaError_t err =
-        split_terms(q, k, v, dout, transposed, terms, B, H, L, D, st);
+        split_terms(q, k, v, dout, transposed, 4, terms, B, H, L, D, st);
     if (err != cudaSuccess) return err;
   }
   return D == 64
@@ -2219,7 +3003,7 @@ cudaError_t dkv_storage_f32(const void* q, const void* k, const void* v,
                             int causal, cudaStream_t st) {
   if (split) {
     const cudaError_t err =
-        split_terms(q, k, v, dout, transposed, terms, B, H, L, D, st);
+        split_terms(q, k, v, dout, transposed, 4, terms, B, H, L, D, st);
     if (err != cudaSuccess) return err;
   }
   return D == 64
@@ -2231,42 +3015,50 @@ cudaError_t dkv_storage_f32(const void* q, const void* k, const void* v,
 
 bool shape_ok(int B, int H, int L, int D) {
   return B > 0 && H > 0 && L > 0 && L % kTile == 0 && L / kTile <= 65535 &&
-         (D == 64 || D == 128);
+         (D == 64 || D == 128 || D == kWideD);
 }
 // the true key count of zero-padded inputs: keys at and past it are masked
 bool keys_ok(int L, int kv_len) { return kv_len > 0 && kv_len <= L; }
 
 constexpr int kBad = (int)cudaErrorInvalidValue;
+constexpr int kTransposedK = 0b0010;     // K^T (the nn forward)
 constexpr int kTransposedKV = 0b0110;    // K^T, V^T (nn)
 constexpr int kTransposedAll = 0b1111;   // Q^T, K^T, V^T, dO^T (nn2)
 
 }  // namespace
 
-// C interface, bound with ctypes. dtype: 0 = float32, 1 = bfloat16: the
-// mma kernels on bf16; on f32 storage (where the storage-dtype dots are
-// f32 dots) the scalar forward and the kF32 instances of dQ and dK/dV, for
-// every strategy (nn and nn2 split their transposed operands into the same
-// terms, so they run the kStd instance and give its results bitwise; nn2's
-// dK/dV stores dK^T and dV^T). The forward and dQ take kv_len, the true
-// key count of zero-padded inputs. On f32 storage dQ and dK/dV take
-// `terms`, scratch of [4, 3, B, L, H, D] bf16, and split into it first
-// where `split` is set; on bf16 storage both are unused. Every launcher
-// returns the cudaError_t of its launch (0 on success).
+// C interface, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. At
+// D = 64 and 128 the mma kernels on bf16; on f32 storage (where the
+// storage-dtype dots are f32 dots) the kF32 instances of the forward, dQ
+// and dK/dV for every strategy (nn and nn2 split their transposed operands
+// into the same terms, so they run the kStd instance and give its results
+// bitwise; nn2's dK/dV stores dK^T and dV^T). At D = 256 the CUDA-core
+// kernels, on both storages (nn and nn2 read their transposed operands
+// into the same tiles, bitwise bf16's). The forward and dQ take kv_len,
+// the true key count of zero-padded inputs. On f32 storage at D = 64 and
+// 128 every entry point takes `terms`, scratch of [n, 3, B, L, H, D] bf16
+// (n = 3 for the forward's Q, K, V; 4 for dQ's and dK/dV's Q, K, V, dO),
+// and splits into it first where `split` is set; elsewhere both are
+// unused. Every launcher returns the cudaError_t of its launch (0 on
+// success).
 extern "C" {
 
 // Strategy bf16.
 int paddle_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                     void* lse, int B, int H, int L, int D, int dtype,
-                     int causal, float scale, int kv_len, void* stream) {
+                     void* lse, void* terms, int B, int H, int L, int D,
+                     int dtype, int causal, float scale, int kv_len,
+                     int split, void* stream) {
   if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == kWideD)
+    return fwd_wide(dtype, q, k, v, o, lse, B, H, L, scale, causal, kv_len,
+                    0, 1, st);
   if (dtype == 1)
     return D == 64
         ? fwd_mma<64, kStd>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st)
         : fwd_mma<128, kStd>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st);
-  return D == 64
-      ? fwd_f32dot<64>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st)
-      : fwd_f32dot<128>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st);
+  return fwd_storage_f32(q, k, v, 0, o, lse, terms, split, B, H, L, D, scale,
+                         causal, kv_len, st);
 }
 
 int paddle_flash_dq(const void* q, const void* k, const void* v,
@@ -2276,6 +3068,9 @@ int paddle_flash_dq(const void* q, const void* k, const void* v,
                     int split, void* stream) {
   if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == kWideD)
+    return dq_wide(dtype, q, k, v, dout, lse, delta, dq, B, H, L, scale,
+                   causal, kv_len, 0, 1, st);
   if (dtype == 1)
     return D == 64
         ? dq_mma<64, kStd>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st)
@@ -2291,6 +3086,9 @@ int paddle_flash_dkv(const void* q, const void* k, const void* v,
                      void* stream) {
   if (!shape_ok(B, H, L, D)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == kWideD)
+    return dkv_wide(dtype, q, k, v, dout, lse, delta, dk, dv, B, H, L, scale,
+                    causal, 0, 0, 1, st);
   if (dtype == 1)
     return D == 64
         ? dkv_mma<64, kStd>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
@@ -2301,18 +3099,20 @@ int paddle_flash_dkv(const void* q, const void* k, const void* v,
 
 // Strategies nn and nn2.
 int paddle_flash_fwd_nn(const void* q, const void* kt, const void* v,
-                        void* o, void* lse, int B, int H, int L, int D,
-                        int dtype, int causal, float scale, int kv_len,
-                        void* stream) {
+                        void* o, void* lse, void* terms, int B, int H, int L,
+                        int D, int dtype, int causal, float scale,
+                        int kv_len, int split, void* stream) {
   if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == kWideD)
+    return fwd_wide(dtype, q, kt, v, o, lse, B, H, L, scale, causal, kv_len,
+                    kTransposedK, 1, st);
   if (dtype == 1)
     return D == 64
         ? fwd_mma<64, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, kv_len, st)
         : fwd_mma<128, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, kv_len, st);
-  return D == 64
-      ? fwd_f32dot<64, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, kv_len, st)
-      : fwd_f32dot<128, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, kv_len, st);
+  return fwd_storage_f32(q, kt, v, kTransposedK, o, lse, terms, split, B, H,
+                         L, D, scale, causal, kv_len, st);
 }
 
 int paddle_flash_dq_nn(const void* q, const void* k, const void* kt,
@@ -2322,6 +3122,9 @@ int paddle_flash_dq_nn(const void* q, const void* k, const void* kt,
                        float scale, int kv_len, int split, void* stream) {
   if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == kWideD)
+    return dq_wide(dtype, q, kt, vt, dout, lse, delta, dq, B, H, L, scale,
+                   causal, kv_len, kTransposedKV, 1, st);
   if (dtype == 1)
     return D == 64
         ? dq_mma<64, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st)
@@ -2337,6 +3140,9 @@ int paddle_flash_dkv_nn(const void* q, const void* kt, const void* vt,
                         void* stream) {
   if (!shape_ok(B, H, L, D)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == kWideD)
+    return dkv_wide(dtype, q, kt, vt, dout, lse, delta, dk, dv, B, H, L,
+                    scale, causal, kTransposedKV, 0, 1, st);
   if (dtype == 1)
     return D == 64
         ? dkv_mma<64, kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
@@ -2353,6 +3159,9 @@ int paddle_flash_dkv_nn2(const void* q, const void* qt, const void* kt,
                          void* stream) {
   if (!shape_ok(B, H, L, D)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == kWideD)
+    return dkv_wide(dtype, qt, kt, vt, doutt, lse, delta, dkt, dvt, B, H, L,
+                    scale, causal, kTransposedAll, 1, 1, st);
   if (dtype == 1)
     return D == 64
         ? dkv_mma<64, kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt, B, H, L, scale, causal, st)
@@ -2361,21 +3170,24 @@ int paddle_flash_dkv_nn2(const void* q, const void* qt, const void* kt,
                          dvt, 1, terms, split, B, H, L, D, scale, causal, st);
 }
 
-// Strategy f32: every dot in f32. On bf16 storage the Split instances of
-// the Hopper kernels; on f32 the kernels of every strategy there.
+// Strategy f32: every dot in f32. On bf16 storage the kSplit instances of
+// the Hopper kernels (at D = 256 the CUDA-core kernels with nothing
+// rounded); on f32 the kernels of every strategy there.
 int paddle_flash_fwd_f32dot(const void* q, const void* k, const void* v,
-                            void* o, void* lse, int B, int H, int L, int D,
-                            int dtype, int causal, float scale, int kv_len,
-                            void* stream) {
+                            void* o, void* lse, void* terms, int B, int H,
+                            int L, int D, int dtype, int causal, float scale,
+                            int kv_len, int split, void* stream) {
   if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == kWideD)
+    return fwd_wide(dtype, q, k, v, o, lse, B, H, L, scale, causal, kv_len,
+                    0, 0, st);
   if (dtype == 1)
     return D == 64
-        ? fwd_mma<64, kStd, true>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st)
-        : fwd_mma<128, kStd, true>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st);
-  return D == 64
-      ? fwd_f32dot<64>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st)
-      : fwd_f32dot<128>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st);
+        ? fwd_mma<64, kStd, kSplit>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st)
+        : fwd_mma<128, kStd, kSplit>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st);
+  return fwd_storage_f32(q, k, v, 0, o, lse, terms, split, B, H, L, D, scale,
+                         causal, kv_len, st);
 }
 
 int paddle_flash_dq_f32dot(const void* q, const void* k, const void* v,
@@ -2386,6 +3198,9 @@ int paddle_flash_dq_f32dot(const void* q, const void* k, const void* v,
                            void* stream) {
   if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == kWideD)
+    return dq_wide(dtype, q, k, v, dout, lse, delta, dq, B, H, L, scale,
+                   causal, kv_len, 0, 0, st);
   if (dtype == 1)
     return D == 64
         ? dq_mma<64, kStd, kSplit>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st)
@@ -2402,6 +3217,9 @@ int paddle_flash_dkv_f32dot(const void* q, const void* k, const void* v,
                             void* stream) {
   if (!shape_ok(B, H, L, D)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == kWideD)
+    return dkv_wide(dtype, q, k, v, dout, lse, delta, dk, dv, B, H, L, scale,
+                    causal, 0, 0, 0, st);
   if (dtype == 1)
     return D == 64
         ? dkv_mma<64, kStd, kSplit>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)

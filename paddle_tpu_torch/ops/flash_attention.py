@@ -24,20 +24,22 @@ Dispatch: tensors on the CPU take the plain versions; tensors on a CUDA
 device launch the kernels (`*_cuda`), which raise on what they do not take.
 Nothing falls back from one to the other. On f32 storage every strategy's
 kernels are f32-dot kernels (the storage dtype's dots are f32 dots there):
-the scalar forward (nn and nn2 its K^T form), and dQ and dK/dV on the
-tensor cores from bf16 terms of Q, K, V and dO, which the dQ kernel's call
-splits once per backward into scratch that the dK/dV call reads (nn and
-nn2 split their transposed operands into the same terms).
+at head_dim 64 and 128 the forward, dQ and dK/dV run on the tensor cores
+from bf16 terms of their operands (split_terms): the forward's call splits
+Q, K and V into its own scratch, the dQ kernel's call splits Q, K, V and
+dO once per backward into scratch that the dK/dV call reads (nn and nn2
+split their transposed operands into the same terms). At head_dim 256
+every strategy on both storages runs CUDA-core kernels, which read the
+operands as they are.
 
-Padding: the kernels take head_dim 64 or 128 and L a multiple of 64; the
-reference's gate admits any head_dim up to 256 and L a multiple of its
+Padding: the kernels take head_dim 64, 128 or 256 and L a multiple of 64;
+the reference's gate admits any head_dim up to 256 and L a multiple of its
 blocks. `padded_fwd` and `padded_bwd` (what flash_attention runs, on every
-device) zero-pad head_dims below 128 up to 64 or 128 and L up to a
-multiple of 64, and cut the outputs back: zero columns add exact zeros to
-every score, the forward and dQ kernels mask keys at and past the true
-length (`kv_len`), and a padded query row, whose dO is 0, adds nothing to
-dK or dV. Head_dims above 128 still reach the kernels as they are, which
-refuse them.
+device) zero-pad the head_dim up to the next of 64, 128 and 256 and L up
+to a multiple of 64, and cut the outputs back: zero columns add exact
+zeros to every score, the forward and dQ kernels mask keys at and past the
+true length (`kv_len`), and a padded query row, whose dO is 0, adds
+nothing to dK or dV.
 
 Layout: q, k, v, o and their gradients are [B, L, H, D] (the public
 layout); their transposes are [B, H, D, L]; LSE and delta are [B, H, L]
@@ -60,17 +62,16 @@ STRATEGY_KERNELS = {
     "nn2": ("flash_fwd_nn", "flash_dq_nn", "flash_dkv_nn2"),
     "f32": ("flash_fwd_f32dot", "flash_dq_f32dot", "flash_dkv_f32dot"),
 }
-# pointer arguments of each flash kernel's C entry point paddle_<name> (dQ
-# and dK/dV: the operands, then the f32-storage split terms)
-_POINTERS = {"flash_fwd": 5, "flash_fwd_nn": 5, "flash_fwd_f32dot": 5,
+# pointer arguments of each flash kernel's C entry point paddle_<name>: the
+# operands and outputs, then the f32-storage split terms
+_POINTERS = {"flash_fwd": 6, "flash_fwd_nn": 6, "flash_fwd_f32dot": 6,
              "flash_dq": 8, "flash_dq_nn": 9, "flash_dq_f32dot": 8,
              "flash_dkv": 9, "flash_dkv_nn": 9, "flash_dkv_nn2": 11,
              "flash_dkv_f32dot": 9}
-# the entry points that take the true key count (forward, dQ) and the
-# split flag (dQ, dK/dV) after the common arguments
+# the entry points that take the true key count (forward, dQ) after the
+# common arguments; every entry point then takes the split flag
 _MASKED = tuple(n for n in _POINTERS if n.startswith(("flash_fwd",
                                                       "flash_dq")))
-_SPLIT = tuple(n for n in _POINTERS if not n.startswith("flash_fwd"))
 
 # Launches of each CUDA kernel since the last reset; a wrapper adds one
 # where it launches its kernel and nowhere else.
@@ -78,7 +79,10 @@ LAUNCHES = {name: 0 for name in (*_POINTERS, "flash_probe")}
 
 _NEG_INF = -1e30
 _KERNEL_TILE = 64          # L is a multiple of it (64-row tiles, half tiles)
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (64, 128, 256)
+# head_dims whose f32-storage kernels work from split terms (the tensor-core
+# kernels; 256 runs on the CUDA cores from the operands)
+_SPLIT_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PROBE_N = 128             # the probe's tiles are 128 x 128
 
@@ -91,8 +95,8 @@ def reset_launch_counts() -> None:
 def flash_attention_supported(q_shape, d_model_last: int, causal: bool,
                               block_q: int = 128, block_k: int = 128) -> bool:
     """Shape gate, the reference's: seq divisible by both blocks, head_dim
-    at most 256. flash_attention pads head_dims up to 128 and lengths to
-    what the CUDA kernels take; above 128 the kernels raise."""
+    at most 256. flash_attention pads head_dims and lengths to what the
+    CUDA kernels take (kernel_shape)."""
     L = q_shape[1]
     return (L % block_q == 0 and L % block_k == 0 and L >= block_q
             and d_model_last <= 256)
@@ -225,10 +229,9 @@ def _lib():
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for kernel_name, n in _POINTERS.items():
         fn = getattr(lib, "paddle_" + kernel_name)
-        # B, H, L, D, dtype, causal, scale[, kv_len][, split], stream
+        # B, H, L, D, dtype, causal, scale[, kv_len], split, stream
         fn.argtypes = ([P] * n + [I] * 6 + [F]
-                       + [I] * ((kernel_name in _MASKED)
-                                + (kernel_name in _SPLIT)) + [P])
+                       + [I] * (1 + (kernel_name in _MASKED)) + [P])
         fn.restype = I
     lib.paddle_flash_probe.argtypes = [P] * 5
     lib.paddle_flash_probe.restype = I
@@ -247,8 +250,8 @@ def _check(name: str, q: torch.Tensor, rows=(), cols=(), stats=(),
            kv_len=None):
     """Validate what a kernel takes: CUDA, one dtype (bf16 or f32), q and
     `rows` contiguous [B, L, H, D] of one shape, `cols`
-    contiguous [B, H, D, L] of the same sizes; head_dim 64 or 128, L a
-    multiple of 64 (the 128-row kernels run a last half tile of 64 rows);
+    contiguous [B, H, D, L] of the same sizes; head_dim 64, 128 or 256, L
+    a multiple of 64 (the 128-row kernels run a last half tile of 64 rows);
     `stats` (LSE, delta) contiguous f32 [B, H, L]; `kv_len`, the true key
     count of zero-padded inputs, in 1 .. L. Every operand 16-byte
     aligned: the kernels read them with 16-byte loads or bulk copies (LSE
@@ -263,7 +266,7 @@ def _check(name: str, q: torch.Tensor, rows=(), cols=(), stats=(),
     B, L, H, D = q.shape
     if D not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {D} not supported by the CUDA "
-                         f"kernel (64 or 128)")
+                         f"kernel (64, 128 or 256)")
     if L % _KERNEL_TILE:
         raise ValueError(f"{name}: sequence length {L} is not a multiple "
                          f"of {_KERNEL_TILE}")
@@ -287,45 +290,54 @@ def _check(name: str, q: torch.Tensor, rows=(), cols=(), stats=(),
     return B, L, H, D
 
 
-def split_terms(q: torch.Tensor) -> torch.Tensor:
-    """Scratch for the f32-storage dQ and dK/dV: Q, K, V and dO as hi, mid
-    and lo bf16 terms, [4, 3, B, L, H, D] (written by the dQ kernel's call
-    where it splits, read by both)."""
-    return torch.empty(4, 3, *q.shape, dtype=torch.bfloat16, device=q.device)
+def works_from_terms(q: torch.Tensor) -> bool:
+    """Whether the kernels for q's storage and head_dim work from split
+    terms: f32 storage at the tensor cores' head_dims."""
+    return q.dtype == torch.float32 and q.shape[-1] in _SPLIT_HEAD_DIMS
+
+
+def split_terms(q: torch.Tensor, n_ops: int = 4) -> torch.Tensor:
+    """Scratch for the f32-storage kernels: their operands as hi, mid and lo
+    bf16 terms, [n_ops, 3, B, L, H, D]: the forward's Q, K and V (n_ops 3),
+    or Q, K, V and dO of a backward (written by the dQ kernel's call where
+    it splits, read by both)."""
+    return torch.empty(n_ops, 3, *q.shape, dtype=torch.bfloat16,
+                       device=q.device)
 
 
 def _terms(name: str, q: torch.Tensor, terms, split: bool):
-    """The split terms a dQ or dK/dV kernel on f32 storage works from (None
-    on bf16 storage): `terms` as given, to be written by this call where
-    `split` is set, else fresh scratch, which this call must split into."""
-    if q.dtype != torch.float32:
+    """The split terms a kernel on f32 storage works from (None where the
+    kernel reads its operands as they are, works_from_terms): `terms` as
+    given, to be written by this call where `split` is set, else fresh
+    scratch, which this call must split into."""
+    if not works_from_terms(q):
         return None
+    n_ops = 3 if name.startswith("flash_fwd") else 4
     if terms is None:
         if not split:
             raise ValueError(f"{name}: split=False needs the terms of an "
                              f"earlier split")
-        return split_terms(q)
-    if (terms.shape != (4, 3, *q.shape) or terms.dtype != torch.bfloat16
+        return split_terms(q, n_ops)
+    if (terms.shape != (n_ops, 3, *q.shape) or terms.dtype != torch.bfloat16
             or terms.device != q.device or not terms.is_contiguous()
             or terms.data_ptr() % 16):
         raise ValueError(f"{name}: the split terms must be a contiguous, "
                          f"16-byte aligned bfloat16 tensor of shape "
-                         f"{(4, 3, *q.shape)} on {q.device}")
+                         f"{(n_ops, 3, *q.shape)} on {q.device}")
     return terms
 
 
 def _launch(name: str, ptrs, q, causal, sm_scale, kv_len=None, split=True):
     """Launch paddle_<name> on q's card and stream. `kv_len` (forward, dQ;
-    None: L) masks keys at and past it; `split` (dQ, dK/dV on f32 storage)
-    splits the operands into the terms first. A pointer of None is NULL."""
+    None: L) masks keys at and past it; `split` (f32 storage) splits the
+    operands into the terms first. A pointer of None is NULL."""
     lib = _lib()
     B, L, H, D = q.shape
     ints = [B, H, L, D, _DTYPE_CODES[q.dtype], int(bool(causal)),
             float(sm_scale)]
     if name in _MASKED:
         ints.append(L if kv_len is None else int(kv_len))
-    if name in _SPLIT:
-        ints.append(int(bool(split)))
+    ints.append(int(bool(split)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, "paddle_" + name)(
@@ -354,33 +366,39 @@ def _stats(q):
 
 
 def _fwd_cuda(name, q, k, v, causal, sm_scale, kt_layout=False,
-              kv_len=None):
+              kv_len=None, terms=None, split=True):
     _check(name, q, rows=(v,) if kt_layout else (k, v),
            cols=(k,) if kt_layout else (), kv_len=kv_len)
+    terms = _terms(name, q, terms, split)
     o, lse = torch.empty_like(q), _stats(q)
-    _launch(name, (q, k, v, o, lse), q, causal, sm_scale,
-            **_options(q, kv_len))
+    _launch(name, (q, k, v, o, lse, terms), q, causal, sm_scale,
+            **_options(q, kv_len, split))
     return o, lse
 
 
-def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, kv_len=None):
-    """Launch the forward kernel: (O, LSE). bf16 runs on the tensor cores;
-    f32 storage takes the f32-dot kernel (its storage-dtype dots are f32
-    dots). Keys at and past `kv_len` are masked."""
-    return _fwd_cuda("flash_fwd", q, k, v, causal, sm_scale, kv_len=kv_len)
+def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, kv_len=None,
+                   terms=None, split=True):
+    """Launch the forward kernel: (O, LSE). Keys at and past `kv_len` are
+    masked. On f32 storage (its storage-dtype dots are f32 dots) at
+    head_dim 64 and 128 it works from `terms` (split_terms(q, 3)), which it
+    first splits Q, K and V into unless `split` is False; fresh scratch
+    where `terms` is None."""
+    return _fwd_cuda("flash_fwd", q, k, v, causal, sm_scale, kv_len=kv_len,
+                     terms=terms, split=split)
 
 
-def flash_fwd_nn_cuda(q, kt, v, causal: bool, sm_scale: float, kv_len=None):
+def flash_fwd_nn_cuda(q, kt, v, causal: bool, sm_scale: float, kv_len=None,
+                      terms=None, split=True):
     """Launch the forward kernel that reads K^T [B, H, D, L]: (O, LSE)."""
     return _fwd_cuda("flash_fwd_nn", q, kt, v, causal, sm_scale,
-                     kt_layout=True, kv_len=kv_len)
+                     kt_layout=True, kv_len=kv_len, terms=terms, split=split)
 
 
 def flash_fwd_f32dot_cuda(q, k, v, causal: bool, sm_scale: float,
-                          kv_len=None):
+                          kv_len=None, terms=None, split=True):
     """Launch the f32-dot forward kernel: (O, LSE)."""
     return _fwd_cuda("flash_fwd_f32dot", q, k, v, causal, sm_scale,
-                     kv_len=kv_len)
+                     kv_len=kv_len, terms=terms, split=split)
 
 
 def _dq_cuda(name, q, k, v, do, lse, delta, causal, sm_scale, kv_len, terms,
@@ -551,7 +569,7 @@ def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
     dq_fn, dkv_fn = kernel(dq_name, q), kernel(dkv_name, q)
     rest = (lse, delta, causal, sm_scale)
     split = {}
-    if q.is_cuda and q.dtype == torch.float32:
+    if q.is_cuda and works_from_terms(q):
         split = {"terms": split_terms(q)}
     reuse = dict(split, split=False) if split else {}
     if impl not in ("nn", "nn2"):
@@ -568,8 +586,8 @@ def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
 # --------------------------------------------------------------- padding --
 def kernel_shape(L: int, D: int):
     """(L, head_dim) as the kernels take them: L up to a multiple of 64, a
-    head_dim up to 128 up to 64 or 128 (above 128 as it is: the kernels
-    refuse it)."""
+    head_dim up to the next of 64, 128 and 256 (above 256 as it is: the
+    kernels refuse it, and the gate admits none)."""
     Lp = -(-L // _KERNEL_TILE) * _KERNEL_TILE
     Dp = next((d for d in _KERNEL_HEAD_DIMS if D <= d), D)
     return Lp, Dp

@@ -1,27 +1,30 @@
-"""The premise of the f32-storage dQ and dK/dV kernels (the kF32 instances
-of flash_dq_mma_kernel and flash_dkv_mma_kernel in
-paddle_tpu_torch/ops/csrc/flash_attention.cu), checked on the CPU.
+"""The premise of the f32-storage forward, dQ and dK/dV kernels (the kF32
+instances of flash_fwd_mma_kernel, flash_dq_mma_kernel and
+flash_dkv_mma_kernel in paddle_tpu_torch/ops/csrc/flash_attention.cu),
+checked on the CPU.
 
 On f32 storage both operands of every product are f32. flash_split_kernel
 splits Q, K, V and dO into bf16 terms hi, mid and lo that rebuild them
 exactly; P and dS are split alike in registers; and every product runs as
 six bf16 passes of term pairs (lo.hi, hi.lo, mid.mid, mid.hi, hi.mid,
 hi.hi, small weights first), each pass exact in its products, the three
-pairs of weight under 2^-24 left out. Each tile's dQ, dV or dK passes are
-summed apart and then added to the output in f32 (promotion). Here a plain
-model of that design (64-key tiles for dQ, 64-query tiles for dK/dV, 32 at
-D = 128, every sum in f32) is held against the port's plain version,
-evaluated in f64 on the same f32 inputs, at depth L = 1024 by the metric
-and limit chip_smoke.py holds the kernels to on f32 storage: the largest
-error over the RMS of its row, 1e-5. The model is a test helper, not a
-version of the port."""
+pairs of weight under 2^-24 left out. Each tile's O, dQ, dV or dK passes
+are summed apart and then added to the output in f32 (promotion; the
+forward's after O's rescaling). Here plain models of that design (the
+forward's 128-key softmax blocks of two 64-key tiles, 64-key tiles for dQ,
+64-query tiles for dK/dV, 32 at D = 128, every sum in f32) are held
+against the port's plain versions, evaluated in f64 on the same f32
+inputs, at depth L = 1024 by the metrics and limits chip_smoke.py holds
+the kernels to on f32 storage: the largest error over the RMS of its row,
+1e-5, and LSE within 1e-4. The models are test helpers, not versions of
+the port."""
 import math
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import REL_TOL, row_err
+from chip_smoke import LSE_ATOL, REL_TOL, row_err
 from paddle_tpu_torch.ops import flash_attention as fa
 
 torch.set_num_threads(1)
@@ -60,6 +63,34 @@ def _inputs(D, L=1024, seed=0):
     o, lse = fa.flash_fwd_plain(q, k, v, True, sc)
     delta = (do * o).sum(-1).transpose(1, 2).contiguous()
     return q, k, v, do, lse, delta
+
+
+def _model_forward(q, k, v, causal, passes=PASSES):
+    """(O [1, L, 1, D], LSE [1, 1, L]) f32 of the kF32 forward's design: per
+    128-key block, S of its two 64-key tiles by the passes, scaled in f32;
+    the online softmax against the running max m, P = exp(S scale - m) in
+    f32; O rescaled, then each tile's P.V passes summed apart and added."""
+    qh, kh, vh = (x[0, :, 0] for x in (q, k, v))               # [L, D]
+    L, D = qh.shape
+    sc = 1.0 / math.sqrt(D)
+    rows = torch.arange(L)
+    m, l = torch.full((L,), -1e30), torch.zeros(L)
+    o = torch.zeros(L, D)
+    for b0 in range(0, L, 128):
+        s = torch.cat([_passes(qh, kh[t0:t0 + 64].t(), passes)
+                       for t0 in (b0, b0 + 64)], dim=1) * sc
+        if causal:
+            keys = torch.arange(b0, b0 + 128)
+            s = s.masked_fill(keys[None, :] > rows[:, None], -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[:, None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[:, None]
+        for t in (0, 64):
+            o = o + _passes(p[:, t:t + 64], vh[b0 + t:b0 + t + 64], passes)
+        m = m_new
+    return (o / l[:, None])[None, :, None], (m + torch.log(l))[None, None]
 
 
 def _model_backward(q, k, v, do, lse, delta, passes=PASSES):
@@ -120,6 +151,26 @@ def _f64(args):
     return [a.double() for a in args]
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_six_pass_forward_matches_f64_plain(D, causal):
+    """The forward model's O at L = 1024 sits within the f32-storage limit
+    of the plain version evaluated in f64 on the same inputs, its LSE
+    within LSE_ATOL; one pass of the hi terms alone (bf16's rounding of
+    every operand) reads far above both."""
+    q, k, v = _inputs(D)[:3]
+    sc = 1.0 / math.sqrt(D)
+    want_o, want_lse = fa.flash_fwd_plain(*_f64((q, k, v)), causal, sc,
+                                          f32_dots=True)
+    o, lse = _model_forward(q, k, v, causal)
+    coarse_o, coarse_lse = _model_forward(q, k, v, causal, passes=((0, 0),))
+    assert o.shape == want_o.shape and lse.shape == want_lse.shape
+    assert row_err(o, want_o) <= F32_TOL, row_err(o, want_o)
+    assert float((lse - want_lse).abs().max()) <= LSE_ATOL
+    assert row_err(coarse_o, want_o) > 10 * F32_TOL
+    assert float((coarse_lse - want_lse).abs().max()) > LSE_ATOL
+
+
 @pytest.mark.parametrize("D", [64, 128])
 def test_six_pass_backward_matches_f64_plain(D):
     """The model's dQ, dK and dV at L = 1024 sit within the f32-storage
@@ -151,3 +202,85 @@ def test_f32_plain_is_no_yardstick_in_the_first_causal_rows():
     assert row_err(plain, exact) > F32_TOL
     assert row_err(plain[:, 1:], exact[:, 1:]) < F32_TOL
     assert row_err(_model_backward(*args)[0], exact) < F32_TOL / 2
+
+
+# the P above which the kF32 dQ takes dP - delta in f64 (kExactP)
+EXACT_P = 0.25
+
+
+def test_large_p_entries_take_dp_in_f64():
+    """Why the kF32 dQ takes dP - delta in f64 where P exceeds EXACT_P: the
+    f32 plain version's dQ at D = 128 reads above the limit in a causal
+    head's first rows (test above); the same computation with those
+    entries' dP - delta taken in f64 reads under half of it, the rows where
+    P is spread untouched."""
+    args = _inputs(128)
+    q, k, v, do, lse, delta = args
+    sc = 1.0 / math.sqrt(128)
+    exact = fa.flash_bwd_plain(*_f64(args), True, sc, f32_dots=True)[0]
+    qh, kh, vh, doh = (x[0, :, 0] for x in (q, k, v, do))
+    lse, delta = lse[0, 0], delta[0, 0]
+    L = qh.shape[0]
+    keep = torch.ones(L, L, dtype=torch.bool).tril()
+    s = ((qh @ kh.t()) * sc).masked_fill(~keep, -1e30)
+    p = torch.exp(s - lse[:, None])
+    dp = doh @ vh.t() - delta[:, None]
+    dp64 = (doh.double() @ vh.double().t() - delta.double()[:, None]).float()
+    big = p > EXACT_P
+    assert bool(big[:4].any(-1).all()) and float(big[64:].float().mean()) < 1e-3
+    dq = (p * torch.where(big, dp64, dp) * sc) @ kh
+    assert row_err(dq[None, :, None], exact) < F32_TOL / 2
+
+def _model_wide(q, k, v, do, lse, delta):
+    """(O, LSE, dQ, dK, dV) f32 of the D = 256 CUDA-core kernels' design on
+    f32 storage, causal: S and dP summed in f64 and rounded to f32; the
+    forward's online softmax over 128-key blocks in f32; every other sum in
+    f32, each tile's share of O and dQ (64 and 32 keys), dK and dV (64
+    queries) summed apart and added to the output."""
+    qh, kh, vh, doh = (x[0, :, 0] for x in (q, k, v, do))      # [L, D]
+    L, D = qh.shape
+    sc = 1.0 / math.sqrt(D)
+    keep = torch.ones(L, L, dtype=torch.bool).tril()
+    s = (qh.double() @ kh.double().t()).float() * sc
+    s = s.masked_fill(~keep, -math.inf)
+    m, l = torch.full((L,), -1e30), torch.zeros(L)
+    o = torch.zeros(L, D)
+    for b0 in range(0, L, 128):
+        m_new = torch.maximum(m, s[:, b0:b0 + 128].amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s[:, b0:b0 + 128] - m_new[:, None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[:, None]
+        for t in (0, 64):
+            o = o + p[:, t:t + 64] @ vh[b0 + t:b0 + t + 64]
+        m = m_new
+    lse_b, delta_b = lse[0, 0], delta[0, 0]
+    p = torch.exp(s - lse_b[:, None])
+    dp = (doh.double() @ vh.double().t()).float()
+    ds = p * (dp - delta_b[:, None]) * sc
+    dq, dk, dv = (torch.zeros(L, D) for _ in range(3))
+    for t in range(0, L, 32):
+        dq = dq + ds[:, t:t + 32] @ kh[t:t + 32]
+    for t in range(0, L, 64):
+        dk = dk + ds[t:t + 64].t() @ qh[t:t + 64]
+        dv = dv + p[t:t + 64].t() @ doh[t:t + 64]
+    rows = lambda x: x[None, :, None]          # noqa: E731
+    return (rows(o / l[:, None]), (m + torch.log(l))[None, None],
+            rows(dq), rows(dk), rows(dv))
+
+
+def test_wide_kernels_design_matches_f64_plain():
+    """The D = 256 kernels' design on f32 storage (S and dP in f64, each
+    tile's share promoted) sits within the f32-storage limit of the plain
+    version in f64 at L = 1024, and its LSE within LSE_ATOL."""
+    args = _inputs(256)
+    sc = 1.0 / math.sqrt(256)
+    want_o, want_lse = fa.flash_fwd_plain(*_f64(args[:3]), True, sc,
+                                          f32_dots=True)
+    want = fa.flash_bwd_plain(*_f64(args), True, sc, f32_dots=True)
+    o, lse, *grads = _model_wide(*args)
+    assert float((lse - want_lse).abs().max()) <= LSE_ATOL
+    for name, g, w in zip(("O", "dQ", "dK", "dV"), (o, *grads),
+                          (want_o, *want)):
+        assert g.shape == w.shape
+        assert row_err(g, w) <= F32_TOL, (name, row_err(g, w))

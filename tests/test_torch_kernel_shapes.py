@@ -5,8 +5,8 @@ operands before it launches. Here the device test and the launch are
 replaced by stubs, so the wrappers' own validation and output allocation
 run on CPU tensors: every wrapper takes L = 192 (a multiple of 64 but not
 of 128, which the 128-row forward, dQ and dK/dV kernels run as a last
-half tile) and head_dim 64 and 128, and still refuses what it refused: L
-not a multiple of 64, another head_dim or dtype, mismatched,
+half tile) and head_dim 64, 128 and 256, and still refuses what it
+refused: L not a multiple of 64, another head_dim or dtype, mismatched,
 non-contiguous or misaligned operands, and LSE or delta of the wrong
 shape or misaligned."""
 import pytest
@@ -64,9 +64,9 @@ def test_every_cuda_wrapper_is_covered():
 
 @pytest.mark.parametrize("name", sorted(ARGS))
 @pytest.mark.parametrize("L", [64, 192, 1024])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_wrapper_accepts(launches, name, L, D):
-    """L a multiple of 64 (192 included) and head_dim 64 or 128: the
+    """L a multiple of 64 (192 included) and head_dim 64, 128 or 256: the
     wrapper launches once and returns outputs of the reference's shapes."""
     B, H = 1, 2
     out = _call(name, _operands(B, L, H, D))
@@ -106,7 +106,7 @@ REFUSALS = {
     "L 96": lambda t: _operands(1, 96, 2, 64),
     "L 160": lambda t: _operands(1, 160, 2, 64),
     "head_dim 32": lambda t: _operands(1, 192, 2, 32),
-    "head_dim 256": lambda t: _operands(1, 64, 2, 256),
+    "head_dim 192": lambda t: _operands(1, 64, 2, 192),
     "float16": lambda t: {n: (v.half() if v.dtype == torch.bfloat16 else v)
                           for n, v in t.items()},
     "other length": _other_length,
