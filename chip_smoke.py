@@ -10,7 +10,9 @@ nn2 and f32 for 3 steps each, every one through its own kernels; then the
 same model in f32 (no amp.decorate: the f32-storage kernels) and
 gpt3-large cut to 4 layers (head_dim 96, padded to 128) for 3 steps each;
 then gpt3-xl's widths with 8 heads (head_dim 256: the D = 256 kernels) cut
-to 2 layers, bf16 O2 under auto, nn, nn2 and f32 and in f32, 3 steps each.
+to 2 layers, bf16 O2 under auto, nn, nn2 and f32 and in f32, 3 steps each
+(under auto, nn and nn2 the forward and dK/dV launch their tensor-core
+D = 256 instances, which each phase checks by the instance counts).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
@@ -25,9 +27,10 @@ kernels as `name@D256` and `name@float32@D256`) and, as the last line,
 line. With --compare, it only times every flash kernel of this checkout
 and of OTHER_CHECKOUT (another tree of the repo, e.g. the parent commit
 unpacked by `git archive`) at the training shape, in bf16 and, for the
-forward, dQ, dK/dV and the whole backward (flash_bwd), in f32, by the same
-method, in turns (other, this, this, other), each in a process of its own
-that builds that tree's kernels.
+forward, dQ, dK/dV and the whole backward (flash_bwd), in f32, and at the
+head_dim-256 shape (B*H = 64, L = 1024) in bf16 and f32 (`@D256`), by the
+same method, in turns (other, this, this, other), each in a process of its
+own that builds that tree's kernels.
 """
 from __future__ import annotations
 
@@ -62,6 +65,23 @@ F32_STORAGE_SPLIT_PASSES = {"fwd": 6 * 2, "dq": 6 * 3, "dkv": 6 * 4}
 # the kernels timed on f32 storage: the nn, nn2 and f32-dot entry points run
 # the same kernels there (the nn forms bitwise, checked each run)
 F32_STORAGE_TIMED = ("flash_fwd", "flash_dq", "flash_dkv")
+# the kernel instance each wrapper launches at head_dim 256 on bf16
+# storage: the tensor-core forward and dK/dV of strategies bf16, nn and
+# nn2; dQ and the f32-dot forms stay on the CUDA cores
+D256_INSTANCES = {
+    "flash_fwd": "flash_fwd_mma_kernel<256, kStd, kBf16>",
+    "flash_fwd_nn": "flash_fwd_mma_kernel<256, kNN, kBf16>",
+    "flash_dkv": "flash_dkv_mma_kernel<256, kStd, kBf16>",
+    "flash_dkv_nn": "flash_dkv_mma_kernel<256, kNN, kBf16>",
+    "flash_dkv_nn2": "flash_dkv_mma_kernel<256, kNN2, kBf16>",
+    "flash_fwd_f32dot": "flash_fwd_wide_kernel",
+    "flash_dq": "flash_dq_wide_kernel",
+    "flash_dq_nn": "flash_dq_wide_kernel",
+    "flash_dq_f32dot": "flash_dq_wide_kernel",
+    "flash_dkv_f32dot": "flash_dkv_wide_kernel",
+}
+# the head_dim-256 training phases that run those tensor-core instances
+D256_TC_STRATEGIES = ("auto", "nn", "nn2")
 
 # Kernel vs plain version, as the largest error divided by the RMS of its
 # row (the D entries of one position and head), or by the RMS of the whole
@@ -153,6 +173,12 @@ BF16_TWIN = {"flash_fwd_nn": "flash_fwd", "flash_dq_nn": "flash_dq",
 
 class SmokeFailure(Exception):
     pass
+
+
+def is_instance(inst, want):
+    """Whether instance name `inst` is `want` (a whole instance name) or
+    an instance of kernel `want` (a kernel's name)."""
+    return inst == want or inst.startswith(want + "<")
 
 
 def check(cond, msg):
@@ -313,8 +339,14 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
     results, got_by_name = {}, {}
     for name in ARGS:
         args = [t[a] for a in ARGS[name]] + [causal, sc]
+        fa.reset_launch_counts()
         got = named_outputs(name, fa.CUDA[name](*args))
         torch.cuda.synchronize()
+        (instance,) = fa.INSTANCE_LAUNCHES
+        if D == 256 and dtype_name == "bfloat16":
+            check(is_instance(instance, D256_INSTANCES[name]),
+                  f"{name} at D = 256 launched {instance}, not "
+                  f"{D256_INSTANCES[name]}")
         ref_args = ([a.double() if torch.is_tensor(a) else a for a in args]
                     if dtype_name == "float32" else args)
         want = named_outputs(name, fa.PLAIN[name](*ref_args))
@@ -325,8 +357,8 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
                       else "f32dot-bfloat16"]
         errs = {n: row_err(got[n], want[n]) for n in got if n != "LSE"}
         fault, lse_fault = faults[fam]
-        line = (f"{name} vs plain [{tag}]: row-normalised err {fmt(errs)} "
-                f"(tol {tol}; a kernel skipping one tile reads "
+        line = (f"{name} ({instance}) vs plain [{tag}]: row-normalised err "
+                f"{fmt(errs)} (tol {tol}; a kernel skipping one tile reads "
                 f"{fmt({n: fault[n] for n in errs})})")
         for n, e in errs.items():
             check(e <= tol, f"{name} {n} disagrees with its plain version "
@@ -367,6 +399,7 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
             "max_abs_err": max(abs_err(got[n], want[n]) for n in got),
             "row_err": max(errs.values()), "diff_vs_bf16": twin_diff,
             "mismatch_share": share, "args": args, "f32dot": f32dot,
+            "instance": instance,
             "out_bytes": sum(x.numel() * x.element_size()
                              for x in got.values())}
     if not timed:
@@ -443,9 +476,9 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
                 extra["split_bound_ms"] = bound(
                     F32_STORAGE_SPLIT_PASSES[kind] * 2 * D * pairs, nbytes,
                     "bfloat16")[0]
-            else:
-                # the D = 256 kernels run on the CUDA cores: their bound
-                # there beside the tensor cores'
+            elif "_wide_kernel" in r["instance"]:
+                # dQ at D = 256 runs on the CUDA cores: its bound there
+                # beside the tensor cores'
                 extra["cuda_core_bound_ms"] = bound(flops[kind], nbytes,
                                                     "float32")[0]
         if terms is not None:
@@ -471,6 +504,7 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
             "route": "cuda",
             "source": "paddle_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": f"{REF}:{REPLACES[name]}",
+            "instance": r["instance"],
             "max_abs_err": r["max_abs_err"], "row_err": r["row_err"],
             **({"mismatch_share": r["mismatch_share"]}
                if r["mismatch_share"] is not None else {}),
@@ -621,7 +655,7 @@ def reference_layout_weights(cfg, seed):
 
 
 def training_phase(label, impl, weights, cfg, steps, o2=True,
-                   plain_tol=None, bf16_loss=None):
+                   plain_tol=None, bf16_loss=None, instances=()):
     """`cfg` at bench.py's batch 8 x seq 1024 from `weights` (the same
     batch in every phase), `steps` TrainStep steps under
     FLAGS_flash_dot_impl=impl, bf16 O2 with f32 masters (`o2`) or in f32.
@@ -629,8 +663,10 @@ def training_phase(label, impl, weights, cfg, steps, o2=True,
     three kernels launched once per layer and step and no other flash
     kernel launched (the probe once under auto), the step-1 loss against
     the einsum attention on the same model (`plain_tol`) and against the
-    bf16 phase's (`bf16_loss`: the nn, nn2 and f32 strategies). Returns
-    (launches, losses)."""
+    bf16 phase's (`bf16_loss`: the nn, nn2 and f32 strategies), and that
+    each kernel instance in `instances` launched once per layer and step,
+    as the only instance of its kernel's family (forward, dQ or dK/dV).
+    Returns (launches, losses)."""
     import numpy as np
     import torch
 
@@ -694,10 +730,12 @@ def training_phase(label, impl, weights, cfg, steps, o2=True,
         losses.append(float(loss))   # waits for the step
         times.append(time.perf_counter() - t)
     launches = dict(fa.LAUNCHES)
+    by_instance = dict(fa.INSTANCE_LAUNCHES)
     resolved = fa.resolve_dot_impl(torch.device("cuda", 0))
 
     log(f"[{label}] resolved to {resolved}; losses {losses}; launches "
-        f"{ {n: c for n, c in launches.items() if c} }")
+        f"{ {n: c for n, c in launches.items() if c} }; by kernel instance "
+        f"{by_instance}")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"[{label}] loss did not fall: {losses}")
     if plain_loss is not None:
@@ -721,6 +759,13 @@ def training_phase(label, impl, weights, cfg, steps, o2=True,
                     int(impl == "auto") if name == "flash_probe" else 0)
         check(n == expected, f"[{label}] {name} launched {n} times in "
                              f"{steps} steps, expected {expected}")
+    for inst in instances:
+        family = inst.split("_")[1]      # fwd, dq or dkv
+        mine = {i: n for i, n in by_instance.items()
+                if i.split("_")[1] == family}
+        check(mine == {inst: want}, f"[{label}] the {family} launches by "
+                                    f"instance are {mine}, expected "
+                                    f"{ {inst: want} }")
     step_s = statistics.median(times[1:])
     log(f"[{label}] step times s {times}; median of steps 2-{steps}: "
         f"{step_s:.4f} s, {batch * seq / step_s:.0f} tokens/s; peak memory "
@@ -770,9 +815,21 @@ def profile_step(step, ids, labels, step_s, vocab, top):
             f"{name[:90]}")
 
 
+def mma_instance(mangled):
+    """The mma kernel instance a mangled name names, as the kernels' own
+    instance names spell it, or None."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    m = re.search(r"(flash_(?:fwd|dq|dkv)_mma_kernel)ILi(\d+)ELi(\d+)ELi"
+                  r"(\d+)E", mangled)
+    return (None if m is None else
+            f"{m[1]}<{m[2]}, {fa._FORMS[int(m[3])]}, {fa._MODES[int(m[4])]}>")
+
+
 def build_kernels():
     """Build the kernels' source (one nvcc) and report ptxas's registers
-    and spills for each kernel instance."""
+    and spills for each kernel instance; the tensor-core D = 256 instances
+    each on a line of their own, and they must not spill."""
     from paddle_tpu_torch.ops import _build
 
     t0 = time.time()
@@ -788,9 +845,20 @@ def build_kernels():
         for fn, s in zip(fns, spills):
             if s:
                 log(f"  spills {s} bytes: {fn}")
+        for fn, r, s in zip(fns, regs, spills):
+            inst = mma_instance(fn)
+            if inst in D256_INSTANCES.values():
+                log(f"  {inst}: {r} registers at launch, {s} bytes spill "
+                    f"stores")
+                check(s == 0, f"{inst} spills {s} bytes")
         for line in rep.splitlines():
             if "warning" in line.lower():
                 log(f"  {line.strip()}")
+        # ptxas's notes of wgmma products it serialized (each one waited
+        # for before the next issues), by instance
+        for fn in sorted(set(re.findall(
+                r"Performance Loss: wgmma[^']*'(\w+)'", rep))):
+            log(f"  wgmma serialized in {mma_instance(fn) or fn}")
 
 
 def main():
@@ -800,6 +868,7 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from paddle_tpu_torch.models import PRESETS
+    from paddle_tpu_torch.ops import flash_attention as fa
 
     t_start = time.time()
     card = card_line()
@@ -840,9 +909,12 @@ def main():
     padded_phase(2, 96, 4, 64, "bfloat16", True, 32)
     padded_phase(2, 96, 4, 64, "bfloat16", False, 32)
     padded_phase(2, 96, 4, 64, "float32", False, 32)
-    # head_dim 256, the CUDA-core kernels: timed at B*H = 64, L = 1024
-    # (the D = 256 training phase's shape), causal; at L = 192 causal and
-    # not; and head_dims 160 and 192 through the padding to 256
+    # head_dim 256 (bf16 storage: the tensor-core forward and dK/dV of bf16,
+    # nn and nn2, the CUDA-core dQ and f32-dot forms; f32 storage: the
+    # CUDA-core kernels): timed at B*H = 64, L = 1024 (the D = 256 training
+    # phase's shape), causal; at L = 192 causal and not (the forward's half
+    # item, three dK/dV items a head); and head_dims 160 and 192 through the
+    # padding to 256, at L = 96 too (keys past the true length masked)
     rows256 = kernel_phase(4, 1024, 16, 256, "bfloat16", True, timed=True)
     f32_rows256 = kernel_phase(4, 1024, 16, 256, "float32", True,
                                timed=True, time_names=F32_STORAGE_TIMED)
@@ -851,6 +923,7 @@ def main():
             kernel_phase(2, 192, 8, 256, dtype_name, causal, timed=False)
     padded_phase(2, 256, 8, 160, "bfloat16", True, 64)
     padded_phase(2, 256, 8, 192, "bfloat16", True, 64)
+    padded_phase(2, 96, 4, 160, "bfloat16", True, 32)
     padded_phase(2, 256, 8, 160, "float32", False, 64)
 
     cfg = PRESETS["gpt3-medium"]
@@ -900,10 +973,15 @@ def main():
     wide_weights = reference_layout_weights(wide, SEED)
     launches256, f32_counts256, bf16_loss = {}, {}, None
     for impl in STRATEGY_STEPS:
+        # auto, nn, nn2: the tensor-core forward and dK/dV instances
+        fwd_name, _, dkv_name = fa.STRATEGY_KERNELS[
+            "bf16" if impl == "auto" else impl]
         counts, losses = training_phase(
             f"d256-{impl}", impl, wide_weights, wide, D256_STEPS,
             plain_tol=LOSS_ATOL if impl == "auto" else None,
-            bf16_loss=bf16_loss)
+            bf16_loss=bf16_loss,
+            instances=((D256_INSTANCES[fwd_name], D256_INSTANCES[dkv_name])
+                       if impl in D256_TC_STRATEGIES else ()))
         bf16_loss = losses[0] if impl == "auto" else bf16_loss
         for name, n in counts.items():
             launches256[name] = launches256.get(name, 0) + n
@@ -928,8 +1006,8 @@ def main():
 
 def time_kernels(root):
     """Time every flash kernel of the checkout at `root` at the training
-    shape (its package imported from there, its kernels built there); print
-    {"root": root, "ms": {name: ms}}."""
+    shape and at the head_dim-256 phase's (its package imported from there,
+    its kernels built there); print {"root": root, "ms": {name: ms}}."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -937,11 +1015,13 @@ def time_kernels(root):
 
     check(os.path.abspath(fa.__file__).startswith(os.path.abspath(root)),
           f"imported {fa.__file__}, not the package under {root}")
-    B, L, H, D, causal = 8, 1024, 16, 64, True
-    sc = 1.0 / math.sqrt(D)
-    ms = {}
-    for dt, names, suffix in ((torch.bfloat16, ARGS, ""),
-                              (torch.float32, F32_STORAGE_TIMED, "@float32")):
+    causal, ms = True, {}
+    for B, H, D, dt, names, suffix in (
+            (8, 16, 64, torch.bfloat16, ARGS, ""),
+            (8, 16, 64, torch.float32, F32_STORAGE_TIMED, "@float32"),
+            (4, 16, 256, torch.bfloat16, ARGS, "@D256"),
+            (4, 16, 256, torch.float32, F32_STORAGE_TIMED, "@float32@D256")):
+        L, sc = 1024, 1.0 / math.sqrt(D)
         g = torch.Generator(device="cuda").manual_seed(SEED)
         q, k, v, do = (torch.randn(B, L, H, D, device="cuda", dtype=dt,
                                    generator=g) for _ in range(4))
@@ -953,7 +1033,7 @@ def time_kernels(root):
         for name in names:
             args = [t[a] for a in ARGS[name]] + [causal, sc]
             ms[name + suffix] = median_ms(lambda: fa.CUDA[name](*args))
-        if dt == torch.float32:
+        if suffix == "@float32":
             # the whole f32-storage backward as a training step calls it
             ms["flash_bwd" + suffix] = median_ms(lambda: fa.flash_bwd(
                 q, k, v, do, lse, delta, causal, sc))

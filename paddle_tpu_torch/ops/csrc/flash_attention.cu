@@ -16,15 +16,18 @@
 //   _dkv_kernel_nn2 (:289)  nn2: flash_dkv_mma_kernel<D, kNN2> (reads K^T,
 //                           V^T, Q^T and dO^T, writes dK^T and dV^T)
 //   probe's kern (:467)     flash_probe_kernel (the dot-form probe)
-// That is on bf16 storage at D = 64 and 128. On f32 storage every strategy
-// runs the kF32 instances flash_fwd_mma_kernel<D, kStd, kF32>,
-// flash_dq_mma_kernel<D, kStd, kF32> and flash_dkv_mma_kernel<D, kStd,
-// kF32>, which read Q, K, V and dO as the bf16 terms flash_split_kernel
-// made of them (nn and nn2 split their transposed operands into the same
-// terms, and nn2's dK/dV stores dK^T and dV^T). At D = 256 every strategy
-// on both storages runs the CUDA-core kernels flash_fwd_wide_kernel,
-// flash_dq_wide_kernel and flash_dkv_wide_kernel (nn and nn2 read their
-// transposed operands into the same tiles).
+// That is on bf16 storage at D = 64 and 128; at D = 256 the forward and
+// dK/dV of bf16, nn and nn2 are the D = 256 instances of the same kernels
+// (flash_fwd_mma_kernel<256, kStd|kNN>, flash_dkv_mma_kernel<256,
+// kStd|kNN|kNN2>). On f32 storage every strategy runs the kF32 instances
+// flash_fwd_mma_kernel<D, kStd, kF32>, flash_dq_mma_kernel<D, kStd, kF32>
+// and flash_dkv_mma_kernel<D, kStd, kF32>, which read Q, K, V and dO as the
+// bf16 terms flash_split_kernel made of them (nn and nn2 split their
+// transposed operands into the same terms, and nn2's dK/dV stores dK^T and
+// dV^T). The rest of D = 256 runs on the CUDA cores: flash_dq_wide_kernel
+// under every strategy, and flash_fwd_wide_kernel and flash_dkv_wide_kernel
+// under strategy f32 and on f32 storage (nn and nn2 read their transposed
+// operands into the same tiles).
 // Each computes what its TPU counterpart computes, with the same numerics:
 // dots accumulate in f32, sm_scale is applied in f32 after the Q.K dot,
 // masked scores are -1e30 (not -inf). Under bf16, nn and nn2, P is rounded
@@ -50,10 +53,10 @@
 // block owns output tiles that no other block touches: the forward and dQ
 // per query tile, dK/dV per key tile, so no block reduces across blocks and
 // no atomics are needed. The causal loop bounds of the TPU kernels (kmax,
-// qstart) are kept. The forward's key tiles are 128 wide, the reference's
-// flash_block_k, so P is rounded against the running max at the
-// reference's own block boundaries; elsewhere the tile sizes change only
-// the order of f32 sums.
+// qstart) are kept. The forward's softmax blocks are 128 keys wide (one
+// tile, or two 64-key tiles), the reference's flash_block_k, so P is
+// rounded against the running max at the reference's own block
+// boundaries; elsewhere the tile sizes change only the order of f32 sums.
 //
 // Bound. At the GPT-350M training shape (B*H = 128, L = 1024, D = 64,
 // causal, bf16) each kernel reads and writes 67-134 MB and does 1.7e10 to
@@ -71,8 +74,11 @@
 // of these kernels, whose f32 dots are bf16 tensor-core products (exact in
 // f32) of split operands. On f32 storage the forward, dQ and dK/dV split
 // both operands of every product and run six bf16 tensor-core passes a
-// product (kF32), operations-bound on the tensor cores. The D = 256
-// kernels run plain FMAs on the CUDA cores (67 TFLOP/s), operations-bound.
+// product (kF32), operations-bound on the tensor cores. At D = 256 the
+// forward and dK/dV on bf16 storage (strategies bf16, nn, nn2) are
+// tensor-core instances too, whose O, dK and dV fill 128 registers a
+// thread (their notes say how they fit); dQ there, the f32-dot forms and f32
+// storage run plain FMAs on the CUDA cores (67 TFLOP/s), operations-bound.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -101,29 +107,31 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ------------------------------------------- CUDA-core kernels at D = 256
-// Head_dims in (128, 256] (zero-padded to 256 by the caller), every
-// strategy, both storages: flash_fwd_wide_kernel, flash_dq_wide_kernel and
-// flash_dkv_wide_kernel, plain FMAs on the CUDA cores, templated on the
-// storage type T. Every operand is loaded into the same f32 tile in shared
-// memory (rows padded to D + 1 floats, so that the column walks hit 32
-// distinct banks), whether it arrives as rows of [B, L, H, D] or as
-// columns of [B, H, D, L] (bit i of `transposed`: operand i of Q, K, V, dO
-// transposed, as nn and nn2 hand them over), so nn and nn2 give bf16's
-// results bitwise. `round` rounds P and dS to bf16 where the reference
-// rounds them (bf16, nn and nn2 on bf16 storage); f32 storage and strategy
-// f32 keep them f32. A product of two bf16 values is exact in f32, so on
-// bf16 storage the f32 FMAs give the reference's function up to the order
-// of the f32 sums. On f32 storage S and dP are summed in f64 (`Dot`), and
-// each tile's share of O, dQ, dK or dV is summed apart and then added in
-// f32 (promotion): plain f32 sums in one order over 256 columns and 1024
-// keys come to f32's check of 1e-5 against the f64 function, and this
-// design stays under it (tests/test_torch_f32_storage_split.py models it).
-// A block has 256 threads; thread (ty, tx) = (tid / 16, tid % 16), and the
-// 16 threads of a row group are one half-warp, so row maxima and sums
-// reduce with four xor-shuffles. Bound: operations; at the D = 256 kernel
-// phase's shape (B*H = 64, L = 1024, causal) the forward's 3.4e10 flops take
-// 0.51 ms at the CUDA cores' 67 TFLOP/s; these kernels are right first, and
-// the tensor-core D = 256 instances are later work (ROADMAP).
+// Head_dims in (128, 256] (zero-padded to 256 by the caller) where no
+// tensor-core instance runs them: flash_dq_wide_kernel under every
+// strategy, flash_fwd_wide_kernel and flash_dkv_wide_kernel under strategy
+// f32 on bf16 storage, and all three on f32 storage. Plain FMAs on the
+// CUDA cores, templated on the storage type T. Every operand is loaded
+// into the same f32 tile in shared memory (rows padded to D + 1 floats, so
+// that the column walks hit 32 distinct banks), whether it arrives as rows
+// of [B, L, H, D] or as columns of [B, H, D, L] (bit i of `transposed`:
+// operand i of Q, K, V, dO transposed, as nn and nn2 hand them over), so
+// nn and nn2 give bf16's results bitwise. The forward and dK/dV keep P and
+// dS in f32; dQ's `round` rounds dS to bf16 where the reference rounds it
+// (bf16, nn and nn2 on bf16 storage). A product of two bf16 values is
+// exact in f32, so on bf16 storage the f32 FMAs give the reference's
+// function up to the order of the f32 sums. On f32 storage S and dP are
+// summed in f64 (`Dot`), and each tile's share of O, dQ, dK or dV is summed
+// apart and then added in f32 (promotion): plain f32 sums in one order over
+// 256 columns and 1024 keys come to f32's check of 1e-5 against the f64
+// function, and this design stays under it
+// (tests/test_torch_f32_storage_split.py models it). A block has 256
+// threads; thread (ty, tx) = (tid / 16, tid % 16), and the 16 threads of a
+// row group are one half-warp, so row maxima and sums reduce with four
+// xor-shuffles. Bound: operations; at the D = 256 kernel phase's shape
+// (B*H = 64, L = 1024, causal) the forward's 3.4e10 flops take 0.51 ms at
+// the CUDA cores' 67 TFLOP/s; these kernels are right first, and their
+// tensor-core instances are later work (ROADMAP).
 
 constexpr int kThreads = 256;
 constexpr int kWideD = 256;                // head_dim of these kernels
@@ -182,22 +190,21 @@ __device__ __forceinline__ void load_wide(float* dst, const T* src, int tr,
   }
 }
 
-// Forward (_fwd_kernel :83 at D = 256). One block per (head, 64-row query
-// tile); thread (ty, tx) owns rows 4 ty .. 4 ty + 3 and output columns
-// tx + 16 j. The softmax runs over 128-key blocks, the reference's
-// flash_block_k, so P is rounded against the running max at the
-// reference's own block boundaries: S of a block's two 64-key tiles (K
-// through one tile buffer, K^T where bit 1 of `transposed` is set), the
-// online softmax, then P.V tile by tile through the same buffer. Keys at
-// and past kv_len (the true length of zero-padded inputs) are masked as the
-// causal mask masks. Shared memory: Q and K/V tiles, 2 x 64 x 257 floats,
-// and P of one block, 64 x 129: 164.6 KB.
+// Forward (_fwd_kernel :83 at D = 256, P unrounded: strategy f32 and f32
+// storage). One block per (head, 64-row query tile); thread (ty, tx) owns
+// rows 4 ty .. 4 ty + 3 and output columns tx + 16 j. The softmax runs over
+// 128-key blocks, the reference's flash_block_k: S of a block's two 64-key
+// tiles (K through one tile buffer, K^T where bit 1 of `transposed` is
+// set), the online softmax, then P.V tile by tile through the same buffer.
+// Keys at and past kv_len (the true length of zero-padded inputs) are
+// masked as the causal mask masks. Shared memory: Q and K/V tiles, 2 x 64
+// x 257 floats, and P of one block, 64 x 129: 164.6 KB.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
                       float* __restrict__ lse, int H, int L, float scale,
-                      int causal, int kv_len, int transposed, int round) {
+                      int causal, int kv_len, int transposed) {
   typedef typename DotOf<T>::type Dot;
   constexpr int NJ = kWideD / 16, PS = 2 * kTile + 1;   // P's row stride
   extern __shared__ float smem[];
@@ -272,8 +279,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < 8; ++c) {
         const float p = expf(s[a][c] - m_new);
         sum += p;
-        Ps[(4 * ty + a) * PS + 64 * (c / 4) + tx + 16 * (c % 4)] =
-            round_bf16(p, round);
+        Ps[(4 * ty + a) * PS + 64 * (c / 4) + tx + 16 * (c % 4)] = p;
       }
       l[a] = l[a] * alpha + group_sum(sum);
       m[a] = m_new;
@@ -427,13 +433,14 @@ flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       store_as(out + (q0 + 4 * ty + a) * rs + tx + 16 * j, acc[a][j]);
 }
 
-// dK, dV (_dkv_kernel :233, _dkv_kernel_nn2 :289 at D = 256). One block per
-// (head, 32-key block): dK and dV of 32 keys x 256 columns are 64 f32
-// registers a thread (thread (ty, tx) owns keys 2 ty, 2 ty + 1 and columns
-// tx + 16 j). K and V resident, 64-query Q and dO tiles streamed from the
-// causal start, with their LSE and delta; per tile S^T and dP^T (queries
-// tx + 16 c), P^T and dS^T (rounded where `round`) into shared memory, then
-// dV += P^T.dO and dK += dS^T.Q. `transposed` marks Q^T, K^T, V^T, dO^T
+// dK, dV (_dkv_kernel :233 at D = 256, P^T and dS^T unrounded: strategy f32
+// and f32 storage, where nn2's _dkv_kernel_nn2 :289 runs it too). One
+// block per (head, 32-key block): dK and dV of 32 keys x 256 columns are 64
+// f32 registers a thread (thread (ty, tx) owns keys 2 ty, 2 ty + 1 and
+// columns tx + 16 j). K and V resident, 64-query Q and dO tiles streamed
+// from the causal start, with their LSE and delta; per tile S^T and dP^T
+// (queries tx + 16 c), P^T and dS^T into shared memory, then dV += P^T.dO
+// and dK += dS^T.Q. `transposed` marks Q^T, K^T, V^T, dO^T
 // (bits 0 to 3); `out_t` writes dK^T and dV^T ([B, H, D, L], nn2). Keys at
 // and past kv_len need no mask: the caller cuts their rows off, and a
 // padded query, whose dO and delta are 0, adds nothing. Shared memory:
@@ -446,7 +453,7 @@ flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, int H, int L, float scale,
-                      int causal, int transposed, int out_t, int round) {
+                      int causal, int transposed, int out_t) {
   typedef typename DotOf<T>::type Dot;
   constexpr int NJ = kWideD / 16, NK = kWideKeys, PS = kTile + 1;
   extern __shared__ float smem[];
@@ -509,8 +516,8 @@ flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             : expf((float)sd[a][c] * scale - stats[col]);
         const float ds =
             p * ((float)dpd[a][c] - stats[kTile + col]) * scale;
-        Pt[(2 * ty + a) * PS + col] = round_bf16(p, round);
-        dSt[(2 * ty + a) * PS + col] = round_bf16(ds, round);
+        Pt[(2 * ty + a) * PS + col] = p;
+        dSt[(2 * ty + a) * PS + col] = ds;
       }
     }
     __syncthreads();
@@ -783,6 +790,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #define WG_F16 WG_F8(0), WG_F8(8)
 #define WG_F32 WG_F16, WG_F8(16), WG_F8(24)
 #define WG_F64 WG_F32, WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+#define WG_F128 WG_F64, WG_F8(64), WG_F8(72), WG_F8(80), WG_F8(88),      \
+    WG_F8(96), WG_F8(104), WG_F8(112), WG_F8(120)
 
 // d (64 x 32, f32) = A.B, + d if scale_d; A and B from shared memory,
 // transposed (MN-major) where TA / TB is 1
@@ -881,6 +890,40 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "n"(TB));
 }
 
+// d (64 x 256, f32) += A.B: A (64 x 16, bf16) from registers, B from
+// shared memory, transposed where TB is 1. The D = 256 kernels' output
+// products: one instruction a depth step, A's fragment read once (two
+// m64n128 products would hold the same 128 accumulator registers and
+// issue twice)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, "
+      "%134;\n}\n"
+      : WG_F128
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
 
 template <int TA, int TB, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N], uint64_t da,
@@ -894,7 +937,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (N == 32) wgmma_rs_n64<TB>(d, a, db);
-  else wgmma_rs_n128<TB>(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n128<TB>(d, a, db);
+  else wgmma_rs_n256<TB>(d, a, db);
 }
 
 // A wgmma accumulator (64 rows, N/2 floats a thread) holds, in thread
@@ -1320,8 +1364,12 @@ struct FwdF32Smem {
 // Threads of a forward block: the producer and the consumers (one consumer
 // is compiled for its 256 threads, as kBwdThreads says).
 template <int D, int Mode>
-constexpr int kFwdThreads =
-    Mode == kF32 ? (1 + FwdF32Smem<D>::kNC) * kWG : kHopperThreads;
+constexpr int fwd_threads() {
+  if constexpr (Mode == kF32) return (1 + FwdF32Smem<D>::kNC) * kWG;
+  else return kHopperThreads;
+}
+template <int D, int Mode>
+constexpr int kFwdThreads = fwd_threads<D, Mode>();
 
 // kF32 (f32 storage, _fwd_kernel :83 for every strategy): the forward of
 // PR 6's kF32 dQ and dK/dV. Q, K and V arrive as the hi, mid and lo bf16
@@ -1606,21 +1654,348 @@ __device__ __forceinline__ void fwd_f32_body(
   }
 }
 
-// The forward: its bf16-storage body (kBf16, kSplit) or the kF32 body.
-// o_f32 is kF32's output (map_o unused there).
+// Shared memory of the forward at D = 256: the 64 Q rows of each consumer
+// (one buffer, 2 x 32 KB), a ring of kSlots one-tile slots (a 64-key tile
+// of K, K^T or V, 32 KB), each consumer's stash of one tile's f32 scores
+// (2 x 16 KB), then the barriers: 64 + 128 + 32 KB. FwdSmem's two Q
+// buffers and 128-key stages would take 384 KB at this width.
+struct FwdD256Smem {
+  static constexpr int kT = kChunk * (kWideD / kSeg);   // 64 rows, 32 KB
+  static constexpr int kSlots = 4;
+  static constexpr int kStash = 64 * 64 * sizeof(float);
+  static constexpr size_t kBytes = (size_t)(2 + kSlots) * kT + 2 * kStash +
+                                   8 * (2 + 2 * kSlots) + 1024;
+  static_assert(kBytes >= kOneBlockSmem, "one block per SM");
+  static_assert(kBytes <= 227 * 1024, "fits in a block's shared memory");
+};
+
+// Forward at D = 256 (_fwd_kernel :83; kNN reads K^T), bf16 storage,
+// strategies bf16, nn and nn2. Bound: bytes, 0.040 ms at the head_dim-256
+// phase's shape (B*H = 64, L = 1024, causal), with the operations' 0.035
+// ms close behind. The design of the kF32 forward with one bf16 term: a
+// persistent grid walks the (head, 128-row query tile) items heaviest
+// causal tile first (work_item); the producer loads each item's Q rows
+// into the one Q buffer and, per 128-key softmax block (the reference's
+// flash_block_k), the block's 64-key K tiles and then its V tiles into the
+// ring, one tile a slot, so the next block's K loads as soon as both
+// consumers' S have released its slots. A consumer (64 query rows) runs
+// per block S = Q.K^T of each of the two tiles (m64n64k16, 16 depth
+// steps, both from shared memory; kNN reads K^T's [D][64] slab through the
+// transpose bit), the online softmax over the block's 128 keys (the causal
+// mask only on the diagonal tile, the keys at and past kv_len masked), P
+// rounded to bf16 against the block's max as the reference rounds it, then
+// O += P.V as m64n256k16 products with P's fragments as A and V's row
+// tile read MN-major (one instruction a depth step; two m64n128 products
+// would hold the same accumulator). O is 64 x 256 f32, 128 registers a
+// thread, so a consumer holds one tile's scores at a time and parks the
+// first tile's in shared memory (the stash) while it forms the second's:
+// S, softmax and P.V run in series in a consumer, and the two consumers
+// overlap each other (at this width the products are four times the
+// softmax's work a score; turns at the tensor cores gained nothing). Key
+// tiles past an item's diagonal are not loaded. A consumer gives its Q rows
+// back after the item's last S, so the next item's Q loads under its last
+// P.V, and O leaves in bf16 through its stash by TMA stores, LSE (natural
+// log) as [B, H, L] f32. Rows past L (L = 64 mod 128) are skipped by their
+// consumer, which still walks the ring. Maps: map_q, map_o, map_v and
+// kStd's map_k [B*L, H*D] with boxes of 64 rows; kNN's map_k K^T as
+// [B*H*D, L] with boxes of D rows.
+template <int Form>
+__device__ __forceinline__ void fwd_d256_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, const CUtensorMap& map_o,
+    float* __restrict__ lse, int BH, int H, int L, float scale, int causal,
+    int kv_len) {
+  using Smem = FwdD256Smem;
+  constexpr int D = kWideD, C = D / kSeg, T = Smem::kT, NS = Smem::kSlots;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = align_1024(smem_raw);      // [consumer]
+  unsigned char* ring = q_s + 2 * T;              // [slot]
+  unsigned char* stash_s = ring + NS * T;         // [consumer][8][kWG]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(stash_s + 2 * Smem::kStash);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* full = q_empty + 1;
+  uint64_t* empty = full + NS;
+
+  const int num_t = (L + kBig - 1) / kBig;
+  const int n_items = BH * num_t;
+  // the 64-key tiles of query tile qt's causal range
+  auto key_tiles = [&](int qt) {
+    return causal ? min(2 * qt + 2, L / 64) : L / 64;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 2);             // one thread of each consumer
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * kWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    // ---- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int n = 0;   // slots loaded so far
+      int bh, rank;
+      for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
+        const int b = bh / H, h = bh % H, qt = num_t - 1 - rank;
+        const int q0 = qt * kBig, nk = key_tiles(qt);
+        const int nw = min(2, (L - q0) / 64);   // consumers with rows
+        if (it >= 1) mbar_wait(q_empty, (it - 1) & 1);
+        mbar_expect_tx(q_full, nw * T);
+        for (int w = 0; w < nw; ++w)
+          for (int c = 0; c < C; ++c)
+            tma_load(q_s + w * T + c * kChunk, &map_q, q_full,
+                     h * D + c * kSeg, b * L + q0 + 64 * w);
+        for (int j0 = 0; j0 < nk; j0 += 2) {   // a block's K, then its V
+          const int nt = min(2, nk - j0);
+          for (int op = 0; op < 2; ++op)
+            for (int j = j0; j < j0 + nt; ++j, ++n) {
+              const int s = n % NS;
+              unsigned char* dst = ring + s * T;
+              if (n >= NS) mbar_wait(&empty[s], (n / NS - 1) & 1);
+              mbar_expect_tx(&full[s], T);
+              if (Form == kNN && op == 0) {
+                tma_load(dst, &map_k, &full[s], j * 64, bh * D);
+              } else {
+                for (int c = 0; c < C; ++c)
+                  tma_load(dst + c * kChunk, op ? &map_v : &map_k, &full[s],
+                           h * D + c * kSeg, b * L + j * 64);
+              }
+            }
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = threadIdx.x / kWG - 1;
+    const int t = threadIdx.x & 3;
+    const int r_lo = 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
+    const uint32_t qa = smem_addr(q_s + w * T);
+    const int tid = threadIdx.x & (kWG - 1);
+    float4* stash = reinterpret_cast<float4*>(stash_s) + w * 8 * kWG;
+    const float scale_log2 = scale * kLog2e;
+    auto wait_full = [&](int i) { mbar_wait(&full[i % NS], (i / NS) & 1); };
+    auto release = [&](int i) { mbar_arrive(&empty[i % NS]); };
+    int n = 0;                               // slots consumed so far
+    for (int it = 0;; ++it) {
+      int bh, rank;
+      if (!work_item(it, BH, n_items, bh, rank)) break;
+      const int qt = num_t - 1 - rank;
+      const int r0 = qt * kBig + 64 * w;     // this consumer's first row
+      const int nk = key_tiles(qt);
+      mbar_wait(q_full, it & 1);
+      if (r0 >= L) {   // rows past L: walk the ring only
+        for (int i = 0; i < 2 * nk; ++i, ++n) {
+          wait_full(n);
+          release(n);
+        }
+        if (tid == 0) mbar_arrive(q_empty);
+        continue;
+      }
+      float o[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+      // S = Q.K^T of the K tile in slot i (loaded: the caller waits before
+      // the wgmma fence, since a wait between fence and products made
+      // ptxas serialize every wgmma)
+      auto issue_s = [&](float (&sc)[32], int i) {
+        const uint32_t kb = smem_addr(ring + (i % NS) * T);
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
+          if constexpr (Form == kStd)
+            wgmma_ss<0, 0>(sc, desc(qa + row_step), desc(kb + row_step), ks);
+          else
+            wgmma_ss<0, 1>(sc, desc(qa + row_step),
+                           desc(kb + ks * 16 * kRowBytes), ks);
+        }
+      };
+      // -inf at keys at and past this thread's rows' limits (past the
+      // causal diagonal, at and past kv_len) in key tile j's scores; a
+      // branch around the loop, taken where the tile passes the
+      // consumer's first limit, so only edge tiles pay
+      const int lim0 = causal ? min(r0 + r_lo + 1, kv_len) : kv_len;
+      const int lim1 = causal ? min(r0 + r_lo + 9, kv_len) : kv_len;
+      const int edge = causal ? min(r0 + 1, kv_len) : kv_len;
+      auto mask = [&](float (&sc)[32], int j) {
+        const int k0 = j * 64;
+        if (k0 + 64 > edge) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int key = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+            if (key >= ((e >> 1) & 1 ? lim1 : lim0)) sc[e] = -INFINITY;
+          }
+        }
+      };
+
+      for (int j0 = 0; j0 < nk; j0 += 2) {
+        const int i0 = n;
+        // The block's nt K tiles sit in slots i0 .., its V tiles after
+        // them. Both tiles' products are always issued, so that no
+        // accumulator is defined on one path only: a second tile that this
+        // consumer does not need (past its diagonal) or that the block
+        // lacks (L = 64 mod 128: tile j0's slots are read again) is wholly
+        // masked below, its P 0, and its P.V adds zeros. The two tiles' S
+        // run one after the other in the same 32 registers, tile j0's
+        // scores parked in this thread's stash meanwhile: O and both
+        // tiles' scores at once (192 registers) spilled 40-60 bytes even
+        // with 240 registers a consumer.
+        const int nt = min(2, nk - j0);
+        const int i_k1 = i0 + nt - 1, i_v1 = i0 + 2 * nt - 1;
+        float sc[32], mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int i = u ? i_k1 : i0;
+          wait_full(i);
+          wgmma_fence();
+          issue_s(sc, i);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sc);
+          mask(sc, j0 + u);   // keys past the row or at and past kv_len
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+          if (u == 0)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              stash[j * kWG + tid] = make_float4(sc[4 * j], sc[4 * j + 1],
+                                                 sc[4 * j + 2], sc[4 * j + 3]);
+        }
+        for (int i = i0; i < i0 + nt; ++i) release(i);
+        if (j0 + 2 >= nk) {   // the item's last S: this consumer's Q rows
+          named_sync(1 + w, kWG);   // are free for the next item's
+          if (tid == 0) mbar_arrive(q_empty);
+        }
+
+        // The online softmax over the block's 128 keys: P (f32) against
+        // the running max m of the scores scaled by scale log2(e), the
+        // scale folded into the exponent's FMA; alpha rescales the O of
+        // earlier blocks. Tile j0 + 1's P is packed first, then tile j0's
+        // scores come back from the stash.
+        float alpha[2], neg_m[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
+          alpha[r] = ex2(m[r] - m_new);
+          m[r] = m_new;
+          neg_m[r] = -m_new;
+        }
+        uint32_t pa[8][4];   // P in bf16, [tile][kk]: A of P.V
+#pragma unroll
+        for (int u = 1; u >= 0; --u) {
+          if (u == 0)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float4 v4 = stash[j * kWG + tid];
+              sc[4 * j] = v4.x;
+              sc[4 * j + 1] = v4.y;
+              sc[4 * j + 2] = v4.z;
+              sc[4 * j + 3] = v4.w;
+            }
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int r = (e >> 1) & 1;
+            sc[e] = ex2(fmaf(sc[e], scale_log2, neg_m[r]));
+            sum[r] += sc[e];
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) acc_to_a16(pa[4 * u + kk], sc, kk);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+        // O += P.V of both tiles, V's row tile read MN-major (its 64-column
+        // chunks kChunk apart)
+        wait_full(i0 + nt);
+        wait_full(i_v1);
+        wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const uint32_t vb =
+              smem_addr(ring + ((u ? i_v1 : i0 + nt) % NS) * T);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs<1>(o, pa[4 * u + kk],
+                        desc(vb + kk * 16 * kRowBytes, kChunk));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        for (int i = i0 + nt; i < i0 + 2 * nt; ++i) release(i);
+        n += 2 * nt;
+      }
+
+      // O = acc / l in bf16 (one reciprocal a row, not 128 IEEE divisions a
+      // thread with their slow-path branches), leaving by TMA stores of two
+      // 128-column halves staged in this consumer's stash (as the store
+      // map's swizzled boxes), since its Q rows already take the next
+      // item's (plain 4-byte stores of the quads' column pairs were one of
+      // the kernel's largest costs)
+      const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
+      const int b = bh / H, h = bh % H;
+      unsigned char* out_s = stash_s + w * Smem::kStash;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int j8 = 0; j8 < D / 16; ++j8)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int c = 8 * j8 + 2 * t, i = 4 * (j8 + D / 16 * half) + 2 * r;
+            *reinterpret_cast<uint32_t*>(
+                out_s + (c / kSeg) * kChunk + swz(r_lo + 8 * r, c % kSeg)) =
+                pack_bf16(o[i] * inv_l[r], o[i + 1] * inv_l[r]);
+          }
+        fence_async_smem();
+        named_sync(1 + w, kWG);
+        if (tid == 0) {
+          for (int c = 0; c < 2; ++c)
+            tma_store(&map_o, out_s + c * kChunk,
+                      h * D + (2 * half + c) * kSeg, b * L + r0);
+          tma_store_wait();          // the stash may take the other half
+        }
+        named_sync(1 + w, kWG);
+      }
+      if (t == 0)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          lse[(size_t)bh * L + r0 + r_lo + 8 * r] =
+              m[r] * (1.f / kLog2e) + logf(l[r]);
+    }
+  }
+}
+
+// The forward: its bf16-storage body (kBf16, kSplit; at D = 256 kBf16's
+// fwd_d256_body) or the kF32 body. o_out is kF32's output, O in f32 by
+// plain stores (map_o unused there); the others store O through map_o.
 template <int D, int Form, int Mode = kBf16>
 __global__ void __launch_bounds__(kFwdThreads<D, Mode>, 1)
 flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      const __grid_constant__ CUtensorMap map_o,
-                     float* __restrict__ lse, float* __restrict__ o_f32,
+                     float* __restrict__ lse, void* __restrict__ o_out,
                      int BH, int H, int L, float scale, int causal,
                      int kv_len) {
   if constexpr (Mode == kF32) {
     static_assert(Form == kStd, "kF32 reads split terms as rows");
-    fwd_f32_body<D>(map_q, map_k, map_v, lse, o_f32, BH, H, L, scale,
-                    causal, kv_len);
+    fwd_f32_body<D>(map_q, map_k, map_v, lse, static_cast<float*>(o_out),
+                    BH, H, L, scale, causal, kv_len);
+  } else if constexpr (D == kWideD) {
+    static_assert(Mode == kBf16, "D = 256 on the tensor cores: kBf16 only");
+    fwd_d256_body<Form>(map_q, map_k, map_v, map_o, lse, BH, H, L, scale,
+                        causal, kv_len);
   } else {
     fwd_bf16_body<D, Form, Mode == kSplit>(map_q, map_k, map_v, map_o, lse,
                                           BH, H, L, scale, causal, kv_len);
@@ -1698,7 +2073,12 @@ __device__ __forceinline__ double warp_sum(double x) {
 // the consumer's code up to 255 registers (the sole consumer's 256 of
 // setmaxnreg), where 384 threads would hold it to 168.
 template <int D, int Mode>
-constexpr int kBwdThreads = (1 + BwdSmem<D, Mode>::kNC) * kWG;
+constexpr int bwd_threads() {
+  if constexpr (D == kWideD) return kHopperThreads;   // dkv_d256_body
+  else return (1 + BwdSmem<D, Mode>::kNC) * kWG;
+}
+template <int D, int Mode>
+constexpr int kBwdThreads = bwd_threads<D, Mode>();
 
 // dK, dV (_dkv_kernel :233; kNN2: _dkv_kernel_nn2 :289). Bound:
 // operations, 0.035 ms at the training shape (8 D flops per causal pair,
@@ -1753,20 +2133,15 @@ constexpr int kBwdThreads = (1 + BwdSmem<D, Mode>::kNC) * kWG;
 // the tensor cores' accumulator. dK and dV leave in f32 by plain stores
 // (dK^T and dV^T where `out_t` is set, for nn2). 24 bf16 passes of 2 D
 // flops a causal pair bound it: operations, 0.209 ms at the training
-// shape.
-template <int D, int Form, int Mode = kBf16>
-__global__ void __launch_bounds__(kBwdThreads<D, Mode>, 1)
-flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
-                     const __grid_constant__ CUtensorMap map_k,
-                     const __grid_constant__ CUtensorMap map_v,
-                     const __grid_constant__ CUtensorMap map_do,
-                     const __grid_constant__ CUtensorMap map_dk,
-                     const __grid_constant__ CUtensorMap map_dv,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     float* __restrict__ dk_f32, float* __restrict__ dv_f32,
-                     int out_t, int BH, int H, int L, float scale,
-                     int causal) {
+// shape. (The kernel's body at D = 64 and 128; D = 256 is dkv_d256_body.)
+template <int D, int Form, int Mode>
+__device__ __forceinline__ void dkv_mma_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, const CUtensorMap& map_do,
+    const CUtensorMap& map_dk, const CUtensorMap& map_dv,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk_f32, float* __restrict__ dv_f32, int out_t,
+    int BH, int H, int L, float scale, int causal) {
   using Smem = BwdSmem<D, Mode>;
   constexpr bool Split = Mode != kBf16, F32 = Mode == kF32;
   constexpr int C = D / kSeg, S = Smem::kStages, T = Smem::kT;
@@ -2139,6 +2514,296 @@ flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
         }
       }
     }
+  }
+}
+
+// Shared memory of dK/dV at D = 256: the item's K and V rows (one buffer,
+// 2 x 32 KB), kStages ring stages of a 64-query Q tile and dO tile with
+// their LSE and delta runs (2 x 64.5 KB), the P^T exchange (64 x 64 f32,
+// 16 KB), then the barriers.
+struct DkvD256Smem {
+  static constexpr int kT = kChunk * (kWideD / kSeg);   // 64 rows, 32 KB
+  static constexpr int kStages = 2;
+  static constexpr int kStats = 2 * 64 * sizeof(float);   // LSE, delta
+  static constexpr int kExchange = 64 * 64 * sizeof(float);
+  static constexpr size_t kBytes = 2 * kT + kStages * (2 * kT + kStats) +
+                                   kExchange + 8 * (2 + 2 * kStages) + 1024;
+  static_assert(kBytes >= kOneBlockSmem, "one block per SM");
+  static_assert(kBytes <= 227 * 1024, "fits in a block's shared memory");
+};
+
+// dK, dV at D = 256 (_dkv_kernel :233, kNN reads K^T and V^T; kNN2:
+// _dkv_kernel_nn2 :289), bf16 storage, strategies bf16, nn and nn2. Bound:
+// operations, 0.070 ms at the head_dim-256 phase's shape (B*H = 64,
+// L = 1024, causal). dK and dV of 64 keys are 64 x 256 f32 each, 128
+// registers a thread: one warpgroup cannot hold both, so the two consumers
+// split the outputs, not the keys. A persistent grid walks the (head,
+// 64-key tile) items heaviest causal tile (key tile 0) first (work_item);
+// the producer loads each item's K and V rows into the one resident buffer
+// and, per 64-query tile from the causal start, Q, dO and their 256-byte
+// LSE and delta runs into the ring, across item boundaries. Per query
+// tile the dV consumer (warpgroup 1) forms S^T = K.Q^T (m64n64k16 from
+// shared memory, 16 depth steps) and P^T = exp(S^T scale - LSE) (the
+// causal mask only on the diagonal tile), writes P^T in f32 to the
+// exchange in its own fragment order (so that thread i of the other
+// consumer reads the 32 values it needs as 8 conflict-free 16-byte loads),
+// signals named barrier 3 and runs dV += bf16(P^T).dO (m64n256k16, P^T's
+// fragments as A, dO's row tile read MN-major). The dK consumer
+// (warpgroup 2) forms dP^T = V.dO^T beside it, waits for P^T, forms dS^T =
+// P^T (dP^T - delta) scale in f32, frees the exchange (named barrier 4)
+// and runs dK += bf16(dS^T).Q. Each consumer issues two of the four
+// products (4 D flops a pair), so the tensor work stays the bound's 8 D a
+// pair (forming S^T in both would cost 10 D). Both read each Q and dO
+// stage, whose empty barrier counts both. kNN reads K^T and V^T as
+// MN-major A; kNN2 also takes Q^T and dO^T, whose transpose bits are the
+// other way round, and writes dK^T and dV^T: the tensor cores see bf16's
+// products in bf16's order, so nn and nn2 give bf16's results bitwise. dV
+// leaves through the K buffer, which only the dV consumer reads, dK
+// through the V buffer, each by TMA stores; the producer loads the next
+// item's K and V once both are out. Keys past the true length of
+// zero-padded inputs need no mask (see dkv_mma_body). Maps as for
+// dkv_mma_body.
+template <int Form>
+__device__ __forceinline__ void dkv_d256_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, const CUtensorMap& map_do,
+    const CUtensorMap& map_dk, const CUtensorMap& map_dv,
+    const float* __restrict__ lse, const float* __restrict__ delta, int BH,
+    int H, int L, float scale, int causal) {
+  using Smem = DkvD256Smem;
+  constexpr int D = kWideD, C = D / kSeg, T = Smem::kT, S = Smem::kStages;
+  constexpr int kKt = Form != kStd;    // K, V arrive as K^T, V^T
+  constexpr int kQt = Form == kNN2;    // Q, dO as Q^T, dO^T; dK^T, dV^T out
+  constexpr int kFull = 3, kFree = 4;  // named barriers of the exchange
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* k_s = align_1024(smem_raw);
+  unsigned char* v_s = k_s + T;
+  unsigned char* q_s = v_s + T;                      // [stage]
+  unsigned char* do_s = q_s + S * T;                 // [stage]
+  float* stats = reinterpret_cast<float*>(do_s + S * T);   // [stage][128]
+  float4* exch = reinterpret_cast<float4*>(stats + S * 128);   // [8][kWG]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(exch + 8 * kWG);
+  uint64_t* kv_empty = kv_full + 1;
+  uint64_t* full = kv_empty + 1;
+  uint64_t* empty = full + S;
+
+  const int n_items = BH * (L / 64);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 2);            // one thread of each consumer
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * kWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    // ---- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int n = 0;   // query tiles loaded so far
+      int bh, rank;
+      for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
+        const int b = bh / H, h = bh % H, k0 = rank * 64;
+        const int qstart = causal ? rank : 0, n_tiles = L / 64 - qstart;
+        if (it >= 1) mbar_wait(kv_empty, (it - 1) & 1);
+        mbar_expect_tx(kv_full, 2 * T);
+        if constexpr (kKt) {
+          tma_load(k_s, &map_k, kv_full, k0, bh * D);
+          tma_load(v_s, &map_v, kv_full, k0, bh * D);
+        } else {
+          for (int c = 0; c < C; ++c) {
+            tma_load(k_s + c * kChunk, &map_k, kv_full, h * D + c * kSeg,
+                     b * L + k0);
+            tma_load(v_s + c * kChunk, &map_v, kv_full, h * D + c * kSeg,
+                     b * L + k0);
+          }
+        }
+        for (int i = 0; i < n_tiles; ++i, ++n) {
+          const int s = n % S, q0 = (qstart + i) * 64;
+          if (n >= S) mbar_wait(&empty[s], (n / S - 1) & 1);
+          mbar_expect_tx(&full[s], 2 * T + Smem::kStats);
+          if constexpr (kQt) {
+            tma_load(q_s + s * T, &map_q, &full[s], q0, bh * D);
+            tma_load(do_s + s * T, &map_do, &full[s], q0, bh * D);
+          } else {
+            for (int c = 0; c < C; ++c) {
+              tma_load(q_s + s * T + c * kChunk, &map_q, &full[s],
+                       h * D + c * kSeg, b * L + q0);
+              tma_load(do_s + s * T + c * kChunk, &map_do, &full[s],
+                       h * D + c * kSeg, b * L + q0);
+            }
+          }
+          bulk_load(stats + s * 128, lse + (size_t)bh * L + q0, 256,
+                    &full[s]);
+          bulk_load(stats + s * 128 + 64, delta + (size_t)bh * L + q0, 256,
+                    &full[s]);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: w = 0 holds dV (reads K), w = 1 holds dK (reads V)
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = threadIdx.x / kWG - 1;
+    const int tid = threadIdx.x & (kWG - 1);
+    const bool leader = tid == 0;
+    const int warp = tid >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = 16 * warp + g;        // key rows r_lo and r_lo + 8
+    unsigned char* mine = w == 0 ? k_s : v_s;   // resident operand, output
+    const uint32_t ra = smem_addr(mine);
+    int n = 0, ex = 0;                     // query tiles, exchanges so far
+    int bh, rank;
+    for (int it = 0; work_item(it, BH, n_items, bh, rank); ++it) {
+      const int b = bh / H, h = bh % H, k0 = rank * 64;
+      const int qstart = causal ? rank : 0, n_tiles = L / 64 - qstart;
+      const int n0 = n;
+      n += n_tiles;
+      mbar_wait(kv_full, it & 1);
+      float acc[D / 2];                    // dV or dK of the item's keys
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = (n0 + i) % S, q0 = (qstart + i) * 64;
+        mbar_wait(&full[s], ((n0 + i) / S) & 1);
+        const uint32_t qb = smem_addr(q_s + s * T);
+        const uint32_t dob = smem_addr(do_s + s * T);
+        const float* lse_s = stats + s * 128;
+        const float* delta_s = lse_s + 64;
+        const bool diag = causal && q0 == k0;
+        // S^T = K.Q^T (dV consumer) or dP^T = V.dO^T (dK consumer): depth
+        // d = 16 ks .., a column step in a row tile, a 16-row step in a
+        // transposed one
+        float x[32];
+        const uint32_t bt = w == 0 ? qb : dob;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
+          const uint32_t col_step = ks * 16 * kRowBytes;
+          wgmma_ss<kKt, kQt>(x, desc(ra + (kKt ? col_step : row_step)),
+                             desc(bt + (kQt ? col_step : row_step)), ks);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(x);
+        uint32_t fa[4][4];   // P^T or dS^T in bf16: A of the output product
+        if (w == 0) {
+          // P^T (0 past the causal diagonal: a masked score is -1e30)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int col = 8 * (e >> 2) + 2 * t + (e & 1);   // query
+            const int row = r_lo + 8 * ((e >> 1) & 1);        // key
+            const float p = ex2((x[e] * scale - lse_s[col]) * kLog2e);
+            x[e] = diag && col < row ? 0.f : p;
+          }
+          if (ex > 0) named_sync(kFree, 2 * kWG);   // the last P^T is read
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            exch[j * kWG + tid] =
+                make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2],
+                            x[4 * j + 3]);
+          named_arrive(kFull, 2 * kWG);
+        } else {
+          named_sync(kFull, 2 * kWG);    // this tile's P^T is in
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float4 p4 = exch[j * kWG + tid];
+            const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int e = 4 * j + u;
+              const int col = 8 * (e >> 2) + 2 * t + (e & 1);
+              x[e] = p[u] * (x[e] - delta_s[col]) * scale;   // dS^T
+            }
+          }
+          named_arrive(kFree, 2 * kWG);
+        }
+        ++ex;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc_to_a16(fa[kk], x, kk);
+        // dV += P^T.dO or dK += dS^T.Q. Depth: queries 16 kk .. 16 kk + 15,
+        // a 16-row step in a row tile (read MN-major), a column step in a
+        // transposed one
+        const uint32_t ot = w == 0 ? dob : qb;
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1 - kQt>(acc, fa[kk],
+                            desc(ot + (kQt ? kk * 32 : kk * 16 * kRowBytes),
+                                 kChunk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(fa);
+        mbar_arrive(&empty[s]);
+      }
+
+      // dV or dK in bf16, staged in this consumer's resident buffer (free
+      // since its last product) as the store map's swizzled boxes:
+      // [D/64][64][64] for rows, [D][64] for kNN2's transposed stores
+#pragma unroll
+      for (int j8 = 0; j8 < D / 8; ++j8)
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2) {
+          const int key = r_lo + 8 * r2, c = 8 * j8 + 2 * t;
+          const int i0 = 4 * j8 + 2 * r2;
+          if constexpr (kQt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              *reinterpret_cast<bf16*>(mine + swz(c + e, key)) =
+                  __float2bfloat16_rn(acc[i0 + e]);
+          } else {
+            *reinterpret_cast<uint32_t*>(
+                mine + (c / kSeg) * kChunk + swz(key, c % kSeg)) =
+                pack_bf16(acc[i0], acc[i0 + 1]);
+          }
+        }
+      fence_async_smem();
+      named_sync(1 + w, kWG);
+      if (leader) {
+        const CUtensorMap* map_out = w == 0 ? &map_dv : &map_dk;
+        if constexpr (kQt) {
+          tma_store(map_out, mine, k0, bh * D);
+        } else {
+          for (int c = 0; c < C; ++c)
+            tma_store(map_out, mine + c * kChunk, h * D + c * kSeg,
+                      b * L + k0);
+        }
+        tma_store_wait();              // the buffer may take the next K, V
+        mbar_arrive(kv_empty);
+      }
+    }
+  }
+}
+
+// dK/dV: dkv_mma_body at D = 64 and 128, dkv_d256_body (kBf16) at 256.
+template <int D, int Form, int Mode = kBf16>
+__global__ void __launch_bounds__(kBwdThreads<D, Mode>, 1)
+flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do,
+                     const __grid_constant__ CUtensorMap map_dk,
+                     const __grid_constant__ CUtensorMap map_dv,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     float* __restrict__ dk_f32, float* __restrict__ dv_f32,
+                     int out_t, int BH, int H, int L, float scale,
+                     int causal) {
+  if constexpr (D == kWideD) {
+    static_assert(Mode == kBf16, "D = 256 on the tensor cores: kBf16 only");
+    dkv_d256_body<Form>(map_q, map_k, map_v, map_do, map_dk, map_dv, lse,
+                        delta, BH, H, L, scale, causal);
+  } else {
+    dkv_mma_body<D, Form, Mode>(map_q, map_k, map_v, map_do, map_dk, map_dv,
+                                lse, delta, dk_f32, dv_f32, out_t, BH, H, L,
+                                scale, causal);
   }
 }
 
@@ -2694,24 +3359,36 @@ cudaError_t allow_smem(size_t smem) {
   return err;
 }
 
+// The kernel instance that this thread launched last: its name and
+// template arguments as the host compiler spells them (the function's
+// name, e.g. "... [with auto Kernel = flash_fwd_mma_kernel<256, 0>]",
+// default arguments left out), so that a caller can count the launches of
+// each instance.
+thread_local const char* g_last_instance = "";
+template <auto Kernel>
+const char* instance_name() {
+  return __PRETTY_FUNCTION__;
+}
+
 template <auto Kernel, typename... Args>
 cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
                    Args... args) {
   cudaError_t err = allow_smem<Kernel>(smem);
   if (err != cudaSuccess) return err;
   Kernel<<<grid, threads, smem, stream>>>(args...);
+  g_last_instance = instance_name<Kernel>();
   return cudaGetLastError();
 }
 
-// A persistent grid: one block per SM, or per (head, 128-row tile) where
-// there are fewer of those.
-dim3 persistent_grid(int B, int H, int L) {
+// A persistent grid: one block per SM, or per (head, `rows`-row tile)
+// where there are fewer of those.
+dim3 persistent_grid(int B, int H, int L, int rows = kBig) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
     sms = 0;
-  const long items = (long)B * H * ((L + kBig - 1) / kBig);
+  const long items = (long)B * H * ((L + rows - 1) / rows);
   return dim3((unsigned)(sms > 0 && sms < items ? sms : items));
 }
 
@@ -2746,8 +3423,9 @@ bool cols_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int D) {
 
 typedef const float* cf32;   // an f32 input (split pass operands, LSE, delta)
 
-// The D = 256 kernels (CUDA cores). `round`: P and dS rounded to bf16
-// (strategies bf16, nn and nn2 on bf16 storage; never on f32 storage).
+// The D = 256 kernels on the CUDA cores: the f32-dot forms on bf16 storage
+// and every form on f32 storage. dQ's `round` rounds dS to bf16 (its
+// strategies bf16, nn and nn2 on bf16 storage; never on f32 storage).
 constexpr size_t kWideRow = sizeof(float) * kWidePad;
 constexpr size_t kFwdWideSmem =
     kWideRow * 2 * kTile + sizeof(float) * kTile * (2 * kTile + 1);
@@ -2761,22 +3439,22 @@ static_assert(kDkvWideSmem <= 227 * 1024, "fits in a block's shared memory");
 template <typename T>
 cudaError_t fwd_wide_t(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int L, float scale,
-                       int causal, int kv_len, int transposed, int round,
+                       int causal, int kv_len, int transposed,
                        cudaStream_t st) {
   return launch<flash_fwd_wide_kernel<T>>(
       dim3(B * H, L / kTile), kThreads, kFwdWideSmem, st, (const T*)q,
       (const T*)k, (const T*)v, (T*)o, (float*)lse, H, L, scale, causal,
-      kv_len, transposed, round);
+      kv_len, transposed);
 }
 cudaError_t fwd_wide(int dtype, const void* q, const void* k, const void* v,
                      void* o, void* lse, int B, int H, int L, float scale,
-                     int causal, int kv_len, int transposed, int round,
+                     int causal, int kv_len, int transposed,
                      cudaStream_t st) {
   return dtype == 1
       ? fwd_wide_t<bf16>(q, k, v, o, lse, B, H, L, scale, causal, kv_len,
-                         transposed, round, st)
+                         transposed, st)
       : fwd_wide_t<float>(q, k, v, o, lse, B, H, L, scale, causal, kv_len,
-                          transposed, 0, st);
+                          transposed, st);
 }
 
 template <typename T>
@@ -2805,42 +3483,47 @@ template <typename T>
 cudaError_t dkv_wide_t(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int H, int L, float scale,
-                       int causal, int transposed, int out_t, int round,
+                       int causal, int transposed, int out_t,
                        cudaStream_t st) {
   return launch<flash_dkv_wide_kernel<T>>(
       dim3(B * H, L / kWideKeys), kThreads, kDkvWideSmem, st, (const T*)q,
       (const T*)k, (const T*)v, (const T*)dout, (cf32)lse, (cf32)delta,
-      (T*)dk, (T*)dv, H, L, scale, causal, transposed, out_t, round);
+      (T*)dk, (T*)dv, H, L, scale, causal, transposed, out_t);
 }
 cudaError_t dkv_wide(int dtype, const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dk, void* dv, int B, int H, int L, float scale,
-                     int causal, int transposed, int out_t, int round,
+                     int causal, int transposed, int out_t,
                      cudaStream_t st) {
   return dtype == 1
       ? dkv_wide_t<bf16>(q, k, v, dout, lse, delta, dk, dv, B, H, L, scale,
-                         causal, transposed, out_t, round, st)
+                         causal, transposed, out_t, st)
       : dkv_wide_t<float>(q, k, v, dout, lse, delta, dk, dv, B, H, L, scale,
-                          causal, transposed, out_t, 0, st);
+                          causal, transposed, out_t, st);
 }
 
 // kStd: k is K [B, L, H, D]; kNN: K^T [B, H, D, L]. kSplit: the f32-dot
-// forward on bf16 storage.
+// forward on bf16 storage. At D = 256 (kBf16) K and V move in 64-row
+// tiles.
 template <int D, int Form, int Mode = kBf16>
 cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
                     void* lse, int B, int H, int L, float scale, int causal,
                     int kv_len, cudaStream_t st) {
+  constexpr bool wide = D == kWideD;
+  constexpr int kv_rows = wide ? 64 : kBig;
+  size_t smem = 0;
+  if constexpr (wide) smem = FwdD256Smem::kBytes;
+  else smem = FwdSmem<D>::kBytes;
   CUtensorMap mq, mk, mv, mo;
   const bool ok =
       rows_map(&mq, q, B, H, L, D, 64) && rows_map(&mo, o, B, H, L, D, 64) &&
-      rows_map(&mv, v, B, H, L, D, kBig) &&
-      (Form == kStd ? rows_map(&mk, k, B, H, L, D, kBig)
+      rows_map(&mv, v, B, H, L, D, kv_rows) &&
+      (Form == kStd ? rows_map(&mk, k, B, H, L, D, kv_rows)
                     : cols_map(&mk, k, B, H, L, D));
   if (!ok) return cudaErrorInvalidValue;
   return launch<flash_fwd_mma_kernel<D, Form, Mode>>(
-      persistent_grid(B, H, L), kFwdThreads<D, Mode>, FwdSmem<D>::kBytes, st,
-      mq, mk, mv, mo, (float*)lse, (float*)nullptr, B * H, H, L, scale,
-      causal, kv_len);
+      persistent_grid(B, H, L), kFwdThreads<D, Mode>, smem, st, mq, mk, mv,
+      mo, (float*)lse, nullptr, B * H, H, L, scale, causal, kv_len);
 }
 
 // kStd: k, v are K, V [B, L, H, D] (kt unused). kNN: kt, v are K^T, V^T
@@ -2870,7 +3553,8 @@ cudaError_t dq_mma(const void* q, const void* k, const void* kt,
 // kStd: q, k, v, dout, dk, dv all [B, L, H, D] (qt, doutt unused). kNN: k,
 // v are K^T, V^T [B, H, D, L]. kNN2: also qt, doutt = Q^T, dO^T (q, dout
 // unused), and dk, dv are dK^T, dV^T, all [B, H, D, L]. kSplit: the
-// f32-dot dK/dV on bf16 storage.
+// f32-dot dK/dV on bf16 storage. At D = 256 (kBf16) a work item is a
+// 64-key tile.
 template <int D, int Form, int Mode = kBf16>
 cudaError_t dkv_mma(const void* q, const void* qt, const void* k,
                     const void* v, const void* dout, const void* doutt,
@@ -2887,11 +3571,14 @@ cudaError_t dkv_mma(const void* q, const void* qt, const void* k,
                   map(&mv, v, kt) && map(&mdo, qtr ? doutt : dout, qtr) &&
                   map(&mdk, dk, qtr) && map(&mdv, dv, qtr);
   if (!ok) return cudaErrorInvalidValue;
+  constexpr bool wide = D == kWideD;
+  size_t smem = 0;
+  if constexpr (wide) smem = DkvD256Smem::kBytes;
+  else smem = BwdSmem<D, Mode>::kBytes;
   return launch<flash_dkv_mma_kernel<D, Form, Mode>>(
-      persistent_grid(B, H, L), kBwdThreads<D, Mode>,
-      BwdSmem<D, Mode>::kBytes, st, mq, mk, mv, mdo, mdk, mdv,
-      (const float*)lse, (const float*)delta, (float*)nullptr,
-      (float*)nullptr, 0, B * H, H, L, scale, causal);
+      persistent_grid(B, H, L, wide ? 64 : kBig), kBwdThreads<D, Mode>, smem,
+      st, mq, mk, mv, mdo, mdk, mdv, (const float*)lse, (const float*)delta,
+      (float*)nullptr, (float*)nullptr, 0, B * H, H, L, scale, causal);
 }
 
 // f32 storage at D = 64 and 128. split_terms runs flash_split_kernel on the
@@ -3025,22 +3712,56 @@ constexpr int kTransposedK = 0b0010;     // K^T (the nn forward)
 constexpr int kTransposedKV = 0b0110;    // K^T, V^T (nn)
 constexpr int kTransposedAll = 0b1111;   // Q^T, K^T, V^T, dO^T (nn2)
 
+// The forward and dK/dV of strategies bf16, nn and nn2 on bf16 storage:
+// the Hopper kernels at every head_dim the kernels take.
+template <int Form>
+cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                     void* lse, int B, int H, int L, int D, float scale,
+                     int causal, int kv_len, cudaStream_t st) {
+  if (D == 64)
+    return fwd_mma<64, Form>(q, k, v, o, lse, B, H, L, scale, causal,
+                             kv_len, st);
+  if (D == 128)
+    return fwd_mma<128, Form>(q, k, v, o, lse, B, H, L, scale, causal,
+                              kv_len, st);
+  return fwd_mma<kWideD, Form>(q, k, v, o, lse, B, H, L, scale, causal,
+                               kv_len, st);
+}
+template <int Form>
+cudaError_t dkv_bf16(const void* q, const void* qt, const void* k,
+                     const void* v, const void* dout, const void* doutt,
+                     const void* lse, const void* delta, void* dk, void* dv,
+                     int B, int H, int L, int D, float scale, int causal,
+                     cudaStream_t st) {
+  if (D == 64)
+    return dkv_mma<64, Form>(q, qt, k, v, dout, doutt, lse, delta, dk, dv,
+                             B, H, L, scale, causal, st);
+  if (D == 128)
+    return dkv_mma<128, Form>(q, qt, k, v, dout, doutt, lse, delta, dk, dv,
+                              B, H, L, scale, causal, st);
+  return dkv_mma<kWideD, Form>(q, qt, k, v, dout, doutt, lse, delta, dk, dv,
+                               B, H, L, scale, causal, st);
+}
+
 }  // namespace
 
-// C interface, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. At
-// D = 64 and 128 the mma kernels on bf16; on f32 storage (where the
-// storage-dtype dots are f32 dots) the kF32 instances of the forward, dQ
-// and dK/dV for every strategy (nn and nn2 split their transposed operands
-// into the same terms, so they run the kStd instance and give its results
-// bitwise; nn2's dK/dV stores dK^T and dV^T). At D = 256 the CUDA-core
-// kernels, on both storages (nn and nn2 read their transposed operands
-// into the same tiles, bitwise bf16's). The forward and dQ take kv_len,
-// the true key count of zero-padded inputs. On f32 storage at D = 64 and
-// 128 every entry point takes `terms`, scratch of [n, 3, B, L, H, D] bf16
-// (n = 3 for the forward's Q, K, V; 4 for dQ's and dK/dV's Q, K, V, dO),
-// and splits into it first where `split` is set; elsewhere both are
-// unused. Every launcher returns the cudaError_t of its launch (0 on
-// success).
+// C interface, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. On
+// bf16 storage the mma kernels at D = 64 and 128, and at D = 256 the
+// forward's and dK/dV's kBf16 instances of strategies bf16, nn and nn2
+// (dQ and every f32-dot form there: the CUDA-core kernels). On f32 storage
+// (where the storage-dtype dots are f32 dots) the kF32 instances of the
+// forward, dQ and dK/dV for every strategy at D = 64 and 128 (nn and nn2
+// split their transposed operands into the same terms, so they run the
+// kStd instance and give its results bitwise; nn2's dK/dV stores dK^T and
+// dV^T), the CUDA-core kernels at D = 256 (nn and nn2 read their
+// transposed operands into the same tiles, bitwise bf16's). The forward
+// and dQ take kv_len, the true key count of zero-padded inputs. On f32
+// storage at D = 64 and 128 every entry point takes `terms`, scratch of
+// [n, 3, B, L, H, D] bf16 (n = 3 for the forward's Q, K, V; 4 for dQ's and
+// dK/dV's Q, K, V, dO), and splits into it first where `split` is set;
+// elsewhere both are unused. Every launcher returns the cudaError_t of its
+// launch (0 on success); paddle_flash_last_instance names the kernel
+// instance that the calling thread launched last.
 extern "C" {
 
 // Strategy bf16.
@@ -3050,13 +3771,12 @@ int paddle_flash_fwd(const void* q, const void* k, const void* v, void* o,
                      int split, void* stream) {
   if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    return fwd_bf16<kStd>(q, k, v, o, lse, B, H, L, D, scale, causal, kv_len,
+                          st);
   if (D == kWideD)
     return fwd_wide(dtype, q, k, v, o, lse, B, H, L, scale, causal, kv_len,
-                    0, 1, st);
-  if (dtype == 1)
-    return D == 64
-        ? fwd_mma<64, kStd>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st)
-        : fwd_mma<128, kStd>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st);
+                    0, st);
   return fwd_storage_f32(q, k, v, 0, o, lse, terms, split, B, H, L, D, scale,
                          causal, kv_len, st);
 }
@@ -3086,13 +3806,12 @@ int paddle_flash_dkv(const void* q, const void* k, const void* v,
                      void* stream) {
   if (!shape_ok(B, H, L, D)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    return dkv_bf16<kStd>(q, nullptr, k, v, dout, nullptr, lse, delta, dk,
+                          dv, B, H, L, D, scale, causal, st);
   if (D == kWideD)
     return dkv_wide(dtype, q, k, v, dout, lse, delta, dk, dv, B, H, L, scale,
-                    causal, 0, 0, 1, st);
-  if (dtype == 1)
-    return D == 64
-        ? dkv_mma<64, kStd>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
-        : dkv_mma<128, kStd>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
+                    causal, 0, 0, st);
   return dkv_storage_f32(q, k, v, dout, 0, lse, delta, dk, dv, 0, terms,
                          split, B, H, L, D, scale, causal, st);
 }
@@ -3104,13 +3823,12 @@ int paddle_flash_fwd_nn(const void* q, const void* kt, const void* v,
                         int kv_len, int split, void* stream) {
   if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    return fwd_bf16<kNN>(q, kt, v, o, lse, B, H, L, D, scale, causal, kv_len,
+                         st);
   if (D == kWideD)
     return fwd_wide(dtype, q, kt, v, o, lse, B, H, L, scale, causal, kv_len,
-                    kTransposedK, 1, st);
-  if (dtype == 1)
-    return D == 64
-        ? fwd_mma<64, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, kv_len, st)
-        : fwd_mma<128, kNN>(q, kt, v, o, lse, B, H, L, scale, causal, kv_len, st);
+                    kTransposedK, st);
   return fwd_storage_f32(q, kt, v, kTransposedK, o, lse, terms, split, B, H,
                          L, D, scale, causal, kv_len, st);
 }
@@ -3140,13 +3858,12 @@ int paddle_flash_dkv_nn(const void* q, const void* kt, const void* vt,
                         void* stream) {
   if (!shape_ok(B, H, L, D)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    return dkv_bf16<kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk,
+                         dv, B, H, L, D, scale, causal, st);
   if (D == kWideD)
     return dkv_wide(dtype, q, kt, vt, dout, lse, delta, dk, dv, B, H, L,
-                    scale, causal, kTransposedKV, 0, 1, st);
-  if (dtype == 1)
-    return D == 64
-        ? dkv_mma<64, kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
-        : dkv_mma<128, kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
+                    scale, causal, kTransposedKV, 0, st);
   return dkv_storage_f32(q, kt, vt, dout, kTransposedKV, lse, delta, dk, dv,
                          0, terms, split, B, H, L, D, scale, causal, st);
 }
@@ -3159,13 +3876,12 @@ int paddle_flash_dkv_nn2(const void* q, const void* qt, const void* kt,
                          void* stream) {
   if (!shape_ok(B, H, L, D)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    return dkv_bf16<kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt,
+                          B, H, L, D, scale, causal, st);
   if (D == kWideD)
     return dkv_wide(dtype, qt, kt, vt, doutt, lse, delta, dkt, dvt, B, H, L,
-                    scale, causal, kTransposedAll, 1, 1, st);
-  if (dtype == 1)
-    return D == 64
-        ? dkv_mma<64, kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt, B, H, L, scale, causal, st)
-        : dkv_mma<128, kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt, B, H, L, scale, causal, st);
+                    scale, causal, kTransposedAll, 1, st);
   return dkv_storage_f32(qt, kt, vt, doutt, kTransposedAll, lse, delta, dkt,
                          dvt, 1, terms, split, B, H, L, D, scale, causal, st);
 }
@@ -3181,7 +3897,7 @@ int paddle_flash_fwd_f32dot(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (D == kWideD)
     return fwd_wide(dtype, q, k, v, o, lse, B, H, L, scale, causal, kv_len,
-                    0, 0, st);
+                    0, st);
   if (dtype == 1)
     return D == 64
         ? fwd_mma<64, kStd, kSplit>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st)
@@ -3219,7 +3935,7 @@ int paddle_flash_dkv_f32dot(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (D == kWideD)
     return dkv_wide(dtype, q, k, v, dout, lse, delta, dk, dv, B, H, L, scale,
-                    causal, 0, 0, 0, st);
+                    causal, 0, 0, st);
   if (dtype == 1)
     return D == 64
         ? dkv_mma<64, kStd, kSplit>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
@@ -3243,5 +3959,7 @@ int paddle_flash_probe(const void* a, const void* a32, const void* b,
 const char* paddle_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+
+const char* paddle_flash_last_instance() { return g_last_instance; }
 
 }  // extern "C"

@@ -28,9 +28,13 @@ at head_dim 64 and 128 the forward, dQ and dK/dV run on the tensor cores
 from bf16 terms of their operands (split_terms): the forward's call splits
 Q, K and V into its own scratch, the dQ kernel's call splits Q, K, V and
 dO once per backward into scratch that the dK/dV call reads (nn and nn2
-split their transposed operands into the same terms). At head_dim 256
-every strategy on both storages runs CUDA-core kernels, which read the
-operands as they are.
+split their transposed operands into the same terms). At head_dim 256 the
+forward and dK/dV of bf16, nn and nn2 on bf16 storage run on the tensor
+cores too; dQ under every strategy, the f32-dot forms and f32 storage run
+CUDA-core kernels, which read the operands as they are. LAUNCHES counts
+each wrapper's launches, INSTANCE_LAUNCHES each kernel instance's (the
+library names the instance it launched), so a run can show which kernel a
+head_dim took.
 
 Padding: the kernels take head_dim 64, 128 or 256 and L a multiple of 64;
 the reference's gate admits any head_dim up to 256 and L a multiple of its
@@ -50,6 +54,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import re
 
 import torch
 
@@ -76,6 +81,12 @@ _MASKED = tuple(n for n in _POINTERS if n.startswith(("flash_fwd",
 # Launches of each CUDA kernel since the last reset; a wrapper adds one
 # where it launches its kernel and nowhere else.
 LAUNCHES = {name: 0 for name in (*_POINTERS, "flash_probe")}
+# Launches of each kernel instance of the flash entry points since the last
+# reset, by instance_name(): e.g. "flash_fwd_mma_kernel<256, kStd, kBf16>"
+INSTANCE_LAUNCHES: dict = {}
+# the names of the kernels' Form and Mode template arguments, in order
+_FORMS = ("kStd", "kNN", "kNN2")
+_MODES = ("kBf16", "kSplit", "kF32")
 
 _NEG_INF = -1e30
 _KERNEL_TILE = 64          # L is a multiple of it (64-row tiles, half tiles)
@@ -90,6 +101,23 @@ _PROBE_N = 128             # the probe's tiles are 128 x 128
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    INSTANCE_LAUNCHES.clear()
+
+
+def instance_name(pretty: str) -> str:
+    """The kernel instance in the library's name of its last launch (the
+    host compiler's spelling of the launching function, e.g. "... [with
+    auto Kernel = flash_fwd_mma_kernel<256, 0>]"), as "kernel<args>" with
+    the mma kernels' Form and Mode named and their default Mode filled
+    in; the whole string where no kernel is named in it."""
+    found = re.search(r"(flash_\w+_kernel)\s*<([^<>]*)>", pretty)
+    if found is None:
+        return pretty
+    kernel, args = found[1], [a.strip() for a in found[2].split(",")]
+    if kernel.endswith("_mma_kernel") and all(a.isdigit() for a in args):
+        args += ["0"] * (3 - len(args))
+        args = [args[0], _FORMS[int(args[1])], _MODES[int(args[2])]]
+    return f"{kernel}<{', '.join(args)}>"
 
 
 def flash_attention_supported(q_shape, d_model_last: int, causal: bool,
@@ -237,6 +265,8 @@ def _lib():
     lib.paddle_flash_probe.restype = I
     lib.paddle_cuda_error_string.argtypes = [I]
     lib.paddle_cuda_error_string.restype = ctypes.c_char_p
+    lib.paddle_flash_last_instance.argtypes = []
+    lib.paddle_flash_last_instance.restype = ctypes.c_char_p
     return lib
 
 
@@ -347,6 +377,8 @@ def _launch(name: str, ptrs, q, causal, sm_scale, kv_len=None, split=True):
         msg = lib.paddle_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
     LAUNCHES[name] += 1
+    inst = instance_name(lib.paddle_flash_last_instance().decode())
+    INSTANCE_LAUNCHES[inst] = INSTANCE_LAUNCHES.get(inst, 0) + 1
 
 
 def _options(q, kv_len=None, split=True):
