@@ -11,8 +11,9 @@ same model in f32 (no amp.decorate: the f32-storage kernels) and
 gpt3-large cut to 4 layers (head_dim 96, padded to 128) for 3 steps each;
 then gpt3-xl's widths with 8 heads (head_dim 256: the D = 256 kernels) cut
 to 2 layers, bf16 O2 under auto, nn, nn2 and f32 and in f32, 3 steps each
-(under auto, nn and nn2 the forward and dK/dV launch their tensor-core
-D = 256 instances, which each phase checks by the instance counts).
+(under auto, nn and nn2 the forward, dQ and dK/dV launch their
+tensor-core D = 256 instances, which each phase checks by the instance
+counts).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
@@ -28,8 +29,9 @@ line. With --compare, it only times every flash kernel of this checkout
 and of OTHER_CHECKOUT (another tree of the repo, e.g. the parent commit
 unpacked by `git archive`) at the training shape, in bf16 and, for the
 forward, dQ, dK/dV and the whole backward (flash_bwd), in f32, and at the
-head_dim-256 shape (B*H = 64, L = 1024) in bf16 and f32 (`@D256`), by the
-same method, in turns (other, this, this, other), each in a process of its
+head_dim-256 shape (B*H = 64, L = 1024) in bf16 and f32 (`@D256`), and the
+bf16 dQ at D = 256 at B*H = 16 and 32, L = 2048 (`@D256@16x2048`,
+`@D256@32x2048`), by the same method, in turns (other, this, this, other), each in a process of its
 own that builds that tree's kernels.
 """
 from __future__ import annotations
@@ -66,17 +68,17 @@ F32_STORAGE_SPLIT_PASSES = {"fwd": 6 * 2, "dq": 6 * 3, "dkv": 6 * 4}
 # the same kernels there (the nn forms bitwise, checked each run)
 F32_STORAGE_TIMED = ("flash_fwd", "flash_dq", "flash_dkv")
 # the kernel instance each wrapper launches at head_dim 256 on bf16
-# storage: the tensor-core forward and dK/dV of strategies bf16, nn and
-# nn2; dQ and the f32-dot forms stay on the CUDA cores
+# storage: the tensor-core forward, dQ and dK/dV of strategies bf16, nn
+# and nn2; the f32-dot forms stay on the CUDA cores
 D256_INSTANCES = {
     "flash_fwd": "flash_fwd_mma_kernel<256, kStd, kBf16>",
     "flash_fwd_nn": "flash_fwd_mma_kernel<256, kNN, kBf16>",
+    "flash_dq": "flash_dq_mma_kernel<256, kStd, kBf16>",
+    "flash_dq_nn": "flash_dq_mma_kernel<256, kNN, kBf16>",
     "flash_dkv": "flash_dkv_mma_kernel<256, kStd, kBf16>",
     "flash_dkv_nn": "flash_dkv_mma_kernel<256, kNN, kBf16>",
     "flash_dkv_nn2": "flash_dkv_mma_kernel<256, kNN2, kBf16>",
     "flash_fwd_f32dot": "flash_fwd_wide_kernel",
-    "flash_dq": "flash_dq_wide_kernel",
-    "flash_dq_nn": "flash_dq_wide_kernel",
     "flash_dq_f32dot": "flash_dq_wide_kernel",
     "flash_dkv_f32dot": "flash_dkv_wide_kernel",
 }
@@ -477,7 +479,7 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
                     F32_STORAGE_SPLIT_PASSES[kind] * 2 * D * pairs, nbytes,
                     "bfloat16")[0]
             elif "_wide_kernel" in r["instance"]:
-                # dQ at D = 256 runs on the CUDA cores: its bound there
+                # a CUDA-core kernel on bf16 storage: its bound there
                 # beside the tensor cores'
                 extra["cuda_core_bound_ms"] = bound(flops[kind], nbytes,
                                                     "float32")[0]
@@ -909,8 +911,8 @@ def main():
     padded_phase(2, 96, 4, 64, "bfloat16", True, 32)
     padded_phase(2, 96, 4, 64, "bfloat16", False, 32)
     padded_phase(2, 96, 4, 64, "float32", False, 32)
-    # head_dim 256 (bf16 storage: the tensor-core forward and dK/dV of bf16,
-    # nn and nn2, the CUDA-core dQ and f32-dot forms; f32 storage: the
+    # head_dim 256 (bf16 storage: the tensor-core forward, dQ and dK/dV of
+    # bf16, nn and nn2, the CUDA-core f32-dot forms; f32 storage: the
     # CUDA-core kernels): timed at B*H = 64, L = 1024 (the D = 256 training
     # phase's shape), causal; at L = 192 causal and not (the forward's half
     # item, three dK/dV items a head); and head_dims 160 and 192 through the
@@ -925,6 +927,16 @@ def main():
     padded_phase(2, 256, 8, 192, "bfloat16", True, 64)
     padded_phase(2, 96, 4, 160, "bfloat16", True, 32)
     padded_phase(2, 256, 8, 160, "float32", False, 64)
+    # the D = 256 dQ on each side of its item order's switch (all heads'
+    # K and V against L2's 50 MB): rank by rank at B*H = 16, L = 2048
+    # (32 MB), head by head at B*H = 32 (64 MB); timed and logged, their
+    # rows out of the kernels line (no model of this run trains at them)
+    for B in (1, 2):
+        for r in kernel_phase(B, 2048, 16, 256, "bfloat16", True, timed=True,
+                              time_names=("flash_dq", "flash_dq_nn")):
+            log(f"{r['name']} at B*H = {16 * B}, L = 2048: {r['ms']:.4f} "
+                f"ms, bound {r['bound_ms']:.4f} ms, SDPA's backward "
+                f"{r['library_ms']:.4f} ms, row err {r['row_err']:.3e}")
 
     cfg = PRESETS["gpt3-medium"]
     weights = reference_layout_weights(cfg, SEED)
@@ -973,14 +985,13 @@ def main():
     wide_weights = reference_layout_weights(wide, SEED)
     launches256, f32_counts256, bf16_loss = {}, {}, None
     for impl in STRATEGY_STEPS:
-        # auto, nn, nn2: the tensor-core forward and dK/dV instances
-        fwd_name, _, dkv_name = fa.STRATEGY_KERNELS[
-            "bf16" if impl == "auto" else impl]
+        # auto, nn, nn2: the tensor-core forward, dQ and dK/dV instances
+        names = fa.STRATEGY_KERNELS["bf16" if impl == "auto" else impl]
         counts, losses = training_phase(
             f"d256-{impl}", impl, wide_weights, wide, D256_STEPS,
             plain_tol=LOSS_ATOL if impl == "auto" else None,
             bf16_loss=bf16_loss,
-            instances=((D256_INSTANCES[fwd_name], D256_INSTANCES[dkv_name])
+            instances=(tuple(D256_INSTANCES[n] for n in names)
                        if impl in D256_TC_STRATEGIES else ()))
         bf16_loss = losses[0] if impl == "auto" else bf16_loss
         for name, n in counts.items():
@@ -1006,8 +1017,9 @@ def main():
 
 def time_kernels(root):
     """Time every flash kernel of the checkout at `root` at the training
-    shape and at the head_dim-256 phase's (its package imported from there,
-    its kernels built there); print {"root": root, "ms": {name: ms}}."""
+    shape and at the head_dim-256 phase's, and the D = 256 dQ at B*H = 16
+    and 32, L = 2048 (its package imported from there, its kernels built
+    there); print {"root": root, "ms": {name: ms}}."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -1016,12 +1028,19 @@ def time_kernels(root):
     check(os.path.abspath(fa.__file__).startswith(os.path.abspath(root)),
           f"imported {fa.__file__}, not the package under {root}")
     causal, ms = True, {}
-    for B, H, D, dt, names, suffix in (
-            (8, 16, 64, torch.bfloat16, ARGS, ""),
-            (8, 16, 64, torch.float32, F32_STORAGE_TIMED, "@float32"),
-            (4, 16, 256, torch.bfloat16, ARGS, "@D256"),
-            (4, 16, 256, torch.float32, F32_STORAGE_TIMED, "@float32@D256")):
-        L, sc = 1024, 1.0 / math.sqrt(D)
+    for B, H, D, L, dt, names, suffix in (
+            (8, 16, 64, 1024, torch.bfloat16, ARGS, ""),
+            (8, 16, 64, 1024, torch.float32, F32_STORAGE_TIMED, "@float32"),
+            (4, 16, 256, 1024, torch.bfloat16, ARGS, "@D256"),
+            (4, 16, 256, 1024, torch.float32, F32_STORAGE_TIMED,
+             "@float32@D256"),
+            # D = 256 dQ on each side of its item order's switch (B*H =
+            # 16 and 32 at L = 2048; see main)
+            (1, 16, 256, 2048, torch.bfloat16, ("flash_dq",),
+             "@D256@16x2048"),
+            (2, 16, 256, 2048, torch.bfloat16, ("flash_dq",),
+             "@D256@32x2048")):
+        sc = 1.0 / math.sqrt(D)
         g = torch.Generator(device="cuda").manual_seed(SEED)
         q, k, v, do = (torch.randn(B, L, H, D, device="cuda", dtype=dt,
                                    generator=g) for _ in range(4))

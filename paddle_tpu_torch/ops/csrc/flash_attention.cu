@@ -16,18 +16,19 @@
 //   _dkv_kernel_nn2 (:289)  nn2: flash_dkv_mma_kernel<D, kNN2> (reads K^T,
 //                           V^T, Q^T and dO^T, writes dK^T and dV^T)
 //   probe's kern (:467)     flash_probe_kernel (the dot-form probe)
-// That is on bf16 storage at D = 64 and 128; at D = 256 the forward and
-// dK/dV of bf16, nn and nn2 are the D = 256 instances of the same kernels
-// (flash_fwd_mma_kernel<256, kStd|kNN>, flash_dkv_mma_kernel<256,
-// kStd|kNN|kNN2>). On f32 storage every strategy runs the kF32 instances
+// That is on bf16 storage at D = 64 and 128; at D = 256 the forward, dQ
+// and dK/dV of bf16, nn and nn2 are the D = 256 instances of the same
+// kernels (flash_fwd_mma_kernel<256, kStd|kNN>, flash_dq_mma_kernel<256,
+// kStd|kNN>, flash_dkv_mma_kernel<256, kStd|kNN|kNN2>). On f32 storage
+// every strategy runs the kF32 instances
 // flash_fwd_mma_kernel<D, kStd, kF32>, flash_dq_mma_kernel<D, kStd, kF32>
 // and flash_dkv_mma_kernel<D, kStd, kF32>, which read Q, K, V and dO as the
 // bf16 terms flash_split_kernel made of them (nn and nn2 split their
 // transposed operands into the same terms, and nn2's dK/dV stores dK^T and
-// dV^T). The rest of D = 256 runs on the CUDA cores: flash_dq_wide_kernel
-// under every strategy, and flash_fwd_wide_kernel and flash_dkv_wide_kernel
-// under strategy f32 and on f32 storage (nn and nn2 read their transposed
-// operands into the same tiles).
+// dV^T). The rest of D = 256 runs on the CUDA cores: flash_fwd_wide_kernel,
+// flash_dq_wide_kernel and flash_dkv_wide_kernel under strategy f32 and on
+// f32 storage (nn and nn2 read their transposed operands into the same
+// tiles).
 // Each computes what its TPU counterpart computes, with the same numerics:
 // dots accumulate in f32, sm_scale is applied in f32 after the Q.K dot,
 // masked scores are -1e30 (not -inf). Under bf16, nn and nn2, P is rounded
@@ -75,10 +76,10 @@
 // f32) of split operands. On f32 storage the forward, dQ and dK/dV split
 // both operands of every product and run six bf16 tensor-core passes a
 // product (kF32), operations-bound on the tensor cores. At D = 256 the
-// forward and dK/dV on bf16 storage (strategies bf16, nn, nn2) are
-// tensor-core instances too, whose O, dK and dV fill 128 registers a
-// thread (their notes say how they fit); dQ there, the f32-dot forms and f32
-// storage run plain FMAs on the CUDA cores (67 TFLOP/s), operations-bound.
+// forward, dQ and dK/dV on bf16 storage (strategies bf16, nn, nn2) are
+// tensor-core instances too, whose O, dQ, dK and dV fill 128 registers a
+// thread (their notes say how they fit); the f32-dot forms and f32 storage
+// there run plain FMAs on the CUDA cores (67 TFLOP/s), operations-bound.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -108,18 +109,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ------------------------------------------- CUDA-core kernels at D = 256
 // Head_dims in (128, 256] (zero-padded to 256 by the caller) where no
-// tensor-core instance runs them: flash_dq_wide_kernel under every
-// strategy, flash_fwd_wide_kernel and flash_dkv_wide_kernel under strategy
-// f32 on bf16 storage, and all three on f32 storage. Plain FMAs on the
-// CUDA cores, templated on the storage type T. Every operand is loaded
-// into the same f32 tile in shared memory (rows padded to D + 1 floats, so
-// that the column walks hit 32 distinct banks), whether it arrives as rows
-// of [B, L, H, D] or as columns of [B, H, D, L] (bit i of `transposed`:
+// tensor-core instance runs them: flash_fwd_wide_kernel,
+// flash_dq_wide_kernel and flash_dkv_wide_kernel under strategy f32 on
+// bf16 storage and on f32 storage. Plain FMAs on the CUDA cores,
+// templated on the storage type T. Every operand is loaded into the same
+// f32 tile in shared memory (rows padded to D + 1 floats, so that the
+// column walks hit 32 distinct banks), whether it arrives as rows of
+// [B, L, H, D] or as columns of [B, H, D, L] (bit i of `transposed`:
 // operand i of Q, K, V, dO transposed, as nn and nn2 hand them over), so
-// nn and nn2 give bf16's results bitwise. The forward and dK/dV keep P and
-// dS in f32; dQ's `round` rounds dS to bf16 where the reference rounds it
-// (bf16, nn and nn2 on bf16 storage). A product of two bf16 values is
-// exact in f32, so on bf16 storage the f32 FMAs give the reference's
+// nn and nn2 give bf16's results bitwise. P and dS stay f32: these forms
+// round nothing before a product. A product of two bf16 values is exact
+// in f32, so on bf16 storage the f32 FMAs give the reference's
 // function up to the order of the f32 sums. On f32 storage S and dP are
 // summed in f64 (`Dot`), and each tile's share of O, dQ, dK or dV is summed
 // apart and then added in f32 (promotion): plain f32 sums in one order over
@@ -147,10 +147,6 @@ __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(bf16* p, float x) {
   *p = __float2bfloat16_rn(x);
-}
-// x as the storage dtype would round it where `round` is set
-__device__ __forceinline__ float round_bf16(float x, int round) {
-  return round ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
 
 // max / sum over the 16 lanes of a half-warp (one row group)
@@ -328,9 +324,9 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dQ (_dq_kernel :174, _dq_kernel_nn :203 at D = 256). One block per
 // (head, 64-row query tile), Q and dO resident, 32-key K and V tiles
 // streamed (K^T and V^T where bits 1 and 2 of `transposed` are set); per
-// tile S and dP, P = exp(S scale - LSE) and dS = P (dP - delta) scale
-// (rounded where `round`), then dQ += dS.K from the same K tile. Keys past
-// the causal diagonal and at and past kv_len are masked. Shared memory:
+// tile S and dP, P = exp(S scale - LSE) and dS = P (dP - delta) scale in
+// f32, then dQ += dS.K from the same K tile. Keys past the causal diagonal
+// and at and past kv_len are masked. Shared memory:
 // (64 + 64 + 32 + 32) x 257 floats and dS, 64 x 33: 205.8 KB.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -339,7 +335,7 @@ flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dq,
                      int H, int L, float scale, int causal, int kv_len,
-                     int transposed, int round) {
+                     int transposed) {
   typedef typename DotOf<T>::type Dot;
   constexpr int NJ = kWideD / 16, NK = kWideKeys, DS = NK + 1;
   extern __shared__ float smem[];
@@ -400,7 +396,7 @@ flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             ? 0.f
                             : expf((float)sd[a][c] * scale - row_lse[a]);
         dSs[(4 * ty + a) * DS + tx + 16 * c] =
-            round_bf16(p * ((float)dpd[a][c] - row_delta[a]) * scale, round);
+            p * ((float)dpd[a][c] - row_delta[a]) * scale;
       }
     }
     __syncthreads();
@@ -2855,18 +2851,15 @@ flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
 // causal head's first rows, dP - delta cancels and dP's own f32 rounding
 // (the tensor cores', or any f32 sum's) would reach dQ unweighted. dQ
 // leaves in f32 by plain stores. 18 bf16 passes of 2 D flops a causal pair
-// bound it: operations, 0.157 ms at the training shape.
-template <int D, int Form, int Mode = kBf16>
-__global__ void __launch_bounds__(kBwdThreads<D, Mode>, 1)
-flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
-                    const __grid_constant__ CUtensorMap map_k,
-                    const __grid_constant__ CUtensorMap map_v,
-                    const __grid_constant__ CUtensorMap map_do,
-                    const __grid_constant__ CUtensorMap map_dq,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    float* __restrict__ dq_f32, int BH, int H, int L,
-                    float scale, int causal, int kv_len) {
+// bound it: operations, 0.157 ms at the training shape. (The kernel's body
+// at D = 64 and 128; D = 256 is dq_d256_body.)
+template <int D, int Form, int Mode>
+__device__ __forceinline__ void dq_mma_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, const CUtensorMap& map_do,
+    const CUtensorMap& map_dq, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq_f32, int BH,
+    int H, int L, float scale, int causal, int kv_len) {
   using Smem = BwdSmem<D, Mode>;
   constexpr bool Split = Mode != kBf16, F32 = Mode == kF32;
   constexpr int C = D / kSeg, S = Smem::kStages, T = Smem::kT;
@@ -3211,6 +3204,321 @@ flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// Shared memory of dQ at D = 256: the item's Q and dO rows (one buffer,
+// 2 x 32 KB) and their LSE and delta runs, kStages ring stages of a 64-key
+// K tile and V tile (2 x 64 KB), the bf16 dS tile (64 x 64, 8 KB), the P
+// exchange (64 x 64 f32, 16 KB), then the barriers.
+struct DqD256Smem {
+  static constexpr int kT = kChunk * (kWideD / kSeg);   // 64 rows, 32 KB
+  static constexpr int kStages = 2;
+  static constexpr int kStats = 2 * 64 * sizeof(float);   // LSE, delta
+  static constexpr int kDS = 64 * kRowBytes;
+  static constexpr int kExchange = 64 * 64 * sizeof(float);
+  static constexpr size_t kBytes = 2 * kT + kStats + kStages * 2 * kT + kDS +
+                                   kExchange + 8 * (2 + 2 * kStages) + 1024;
+  static_assert(kBytes >= kOneBlockSmem, "one block per SM");
+  static_assert(kBytes <= 227 * 1024, "fits in a block's shared memory");
+};
+
+// dQ at D = 256 (_dq_kernel :174; kNN: _dq_kernel_nn :203), bf16 storage,
+// strategies bf16, nn and nn2. Bound: operations, 0.052 ms at the
+// head_dim-256 phase's shape (B*H = 64, L = 1024, causal; 6 D flops a
+// pair), with the bytes' 0.050 ms close behind. dQ of 64 rows is 64 x 256
+// f32, 128 registers a thread, and S and dP of a 64-key tile 32 more each:
+// one warpgroup holding all of it spilled in the forward's like case, so
+// the two consumers split the outputs, as dK/dV at D = 256 does. A
+// persistent grid walks the (head, 64-row query tile) items, head by head
+// where all heads' K and V overflow L2, else rank by rank (see `item`),
+// heaviest causal tile first; the producer loads each item's Q and dO rows
+// and their 256-byte LSE and delta runs into the one resident buffer and
+// each 64-key K and V tile of the item's causal range into the ring,
+// across item boundaries (kNN: K^T and V^T as [D][64] boxes). Per key tile
+// the P consumer (warpgroup 1) forms S = Q.K^T (m64n64k16 from shared
+// memory, 16 depth steps), masks the causal diagonal tile and the keys at
+// and past kv_len, forms P = exp(S scale - LSE) in f32, writes it to the
+// exchange in the fragment order both consumers share (8 conflict-free
+// 16-byte stores a thread) and signals named barrier 3. The dS consumer
+// (warpgroup 2) forms dP = dO.V^T beside it, waits for P, forms dS = P (dP
+// - delta) scale in f32, rounds it to bf16 as the reference does, and
+// writes it as a swizzled 64 x 64 tile; after named barrier 4 each
+// consumer runs its half of dQ += dS.K, dQ[:, 128 w ..] as m64n128k16
+// products with the dS tile as A (both read it from shared memory) and the
+// K tile's columns 128 w .. read MN-major through the transpose bit (K^T's
+// rows read K-major under kNN): 64 accumulator registers a consumer. Each
+// consumer issues 3 D flops a pair, the bound's 6 D with no product formed
+// twice (PERF.md: issuing the next tile's S and dP right behind the dQ
+// products, or Q and dO as register fragments, gained nothing or lost).
+// dQ has no softmax block, so 64-key tiles keep the reference's rounding
+// points; only the order of the f32 sums differs. The barriers
+// also order the buffers: the P consumer writes the next P only after
+// barrier 4 (this P was read), the dS consumer the next dS only after the
+// next barrier 3, which the P consumer reaches after its dQ product. kNN
+// issues the same products in the same order, so dQ is bitwise kStd's.
+// dQ leaves in bf16 through each consumer's own resident operand (Q's
+// chunks 0-1 for the P consumer, dO's chunks 2-3 for the dS consumer, each
+// read by that consumer alone) by TMA stores; the producer loads the next
+// item's Q and dO once both halves are out. Maps as for dq_mma_body.
+template <int Form>
+__device__ __forceinline__ void dq_d256_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, const CUtensorMap& map_do,
+    const CUtensorMap& map_dq, const float* __restrict__ lse,
+    const float* __restrict__ delta, int BH, int H, int L, float scale,
+    int causal, int kv_len) {
+  using Smem = DqD256Smem;
+  constexpr int D = kWideD, C = D / kSeg, T = Smem::kT, S = Smem::kStages;
+  constexpr int kKt = Form != kStd;    // K, V arrive as K^T, V^T
+  constexpr int kPIn = 3, kDSIn = 4;   // named barriers: P, then dS, are in
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = align_1024(smem_raw);
+  unsigned char* do_s = q_s + T;
+  unsigned char* k_s = do_s + T;                     // [stage]
+  unsigned char* v_s = k_s + S * T;                  // [stage]
+  unsigned char* ds_s = v_s + S * T;                 // [64][64] bf16
+  float4* exch = reinterpret_cast<float4*>(ds_s + Smem::kDS);   // [8][kWG]
+  float* stats = reinterpret_cast<float*>(exch + 8 * kWG);   // LSE, delta
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(stats + 128);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* full = q_empty + 1;
+  uint64_t* empty = full + S;
+
+  const int num_t = L / 64, n_items = BH * num_t;
+  // the key tiles of query tile qt: through its diagonal tile under causal
+  auto key_tiles = [&](int qt) { return causal ? qt + 1 : num_t; };
+  // Item `it` of this block in work_item's snake order. Each item streams
+  // the K and V of its head's causal range from L2. Numbered rank by rank
+  // (every head's heaviest tile first), the blocks at work at once read
+  // every head's K and V, 64 KB an item; where that overflows L2's 50 MB
+  // the items go head by head (each head's tiles heaviest first), so that
+  // they read about G / num_t heads' (at B*H = 64, L = 1024: 8 MB against
+  // 64 MB). Where it fits, rank order costs no L2 and deals the blocks
+  // more equal work. Measured (PERF.md): at 32 MB (B*H = 16, L =
+  // 2048) rank order 1.47-1.51x faster; at 64 MB head order as fast (B*H
+  // = 32, L = 2048) or 12-15% faster (B*H = 64, L = 1024).
+  constexpr long long kL2Bytes = 50ll << 20;
+  const bool by_head = (long long)n_items * 64 * D * 2 * 2 > kL2Bytes;
+  auto item = [&](int it, int& bh, int& qt) {
+    int a, c;
+    if (!work_item(it, by_head ? num_t : BH, n_items, a, c)) return false;
+    bh = by_head ? c : a;
+    qt = num_t - 1 - (by_head ? a : c);
+    return true;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 2);             // one thread of each consumer
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * kWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    // ---- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int n = 0;   // K/V tiles loaded so far
+      int bh, qt;
+      for (int it = 0; item(it, bh, qt); ++it) {
+        const int b = bh / H, h = bh % H;
+        const int q0 = qt * 64, nk = key_tiles(qt);
+        if (it >= 1) mbar_wait(q_empty, (it - 1) & 1);
+        mbar_expect_tx(q_full, 2 * T + Smem::kStats);
+        for (int c = 0; c < C; ++c) {
+          tma_load(q_s + c * kChunk, &map_q, q_full, h * D + c * kSeg,
+                   b * L + q0);
+          tma_load(do_s + c * kChunk, &map_do, q_full, h * D + c * kSeg,
+                   b * L + q0);
+        }
+        bulk_load(stats, lse + (size_t)bh * L + q0, 256, q_full);
+        bulk_load(stats + 64, delta + (size_t)bh * L + q0, 256, q_full);
+        for (int j = 0; j < nk; ++j, ++n) {
+          const int s = n % S, k0 = j * 64;
+          if (n >= S) mbar_wait(&empty[s], (n / S - 1) & 1);
+          mbar_expect_tx(&full[s], 2 * T);
+          if constexpr (kKt) {
+            tma_load(k_s + s * T, &map_k, &full[s], k0, bh * D);
+            tma_load(v_s + s * T, &map_v, &full[s], k0, bh * D);
+          } else {
+            for (int c = 0; c < C; ++c) {
+              tma_load(k_s + s * T + c * kChunk, &map_k, &full[s],
+                       h * D + c * kSeg, b * L + k0);
+              tma_load(v_s + s * T + c * kChunk, &map_v, &full[s],
+                       h * D + c * kSeg, b * L + k0);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: w = 0 forms P (reads Q), w = 1 forms dS (reads dO);
+    // each holds dQ's columns 128 w .. 128 w + 127
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = threadIdx.x / kWG - 1;
+    const int tid = threadIdx.x & (kWG - 1);
+    const bool leader = tid == 0;
+    const int warp = tid >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = 16 * warp + g;        // rows r_lo and r_lo + 8
+    unsigned char* mine = w == 0 ? q_s : do_s;   // resident operand, dQ out
+    const uint32_t ra = smem_addr(mine);
+    const uint32_t dsa = smem_addr(ds_s);
+    const float scale_log2 = scale * kLog2e;
+    int n = 0;                             // K/V tiles consumed so far
+    int bh, qt;
+    for (int it = 0; item(it, bh, qt); ++it) {
+      const int b = bh / H, h = bh % H;
+      const int q0 = qt * 64, nk = key_tiles(qt);
+      mbar_wait(q_full, it & 1);
+      // -LSE log2(e) of this thread's rows (P consumer) or their delta
+      float row_stat[2];
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2)
+        row_stat[r2] = w == 0 ? -stats[r_lo + 8 * r2] * kLog2e
+                              : stats[64 + r_lo + 8 * r2];
+      // keys at and past these limits are masked in this thread's rows:
+      // past the causal diagonal, at and past kv_len; only a tile that
+      // passes the item's first limit (`edge`) takes the mask loop
+      const int lim0 = causal ? min(q0 + r_lo + 1, kv_len) : kv_len;
+      const int lim1 = causal ? min(q0 + r_lo + 9, kv_len) : kv_len;
+      const int edge = causal ? min(q0 + 1, kv_len) : kv_len;
+      float dq[D / 4];
+#pragma unroll
+      for (int i = 0; i < D / 4; ++i) dq[i] = 0.f;
+
+      for (int j = 0; j < nk; ++j, ++n) {
+        const int s = n % S, k0 = j * 64;
+        mbar_wait(&full[s], (n / S) & 1);
+        const uint32_t kb = smem_addr(k_s + s * T);
+        const uint32_t bt = w == 0 ? kb : smem_addr(v_s + s * T);
+        // S = Q.K^T (P consumer) or dP = dO.V^T (dS consumer). Depth d =
+        // 16 ks ..: a column step in a row tile, a 16-row step in a
+        // transposed one
+        float x[32];
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t row_step = (ks / 4) * kChunk + (ks % 4) * 32;
+          wgmma_ss<0, kKt>(x, desc(ra + row_step),
+                           desc(bt + (kKt ? ks * 16 * kRowBytes : row_step)),
+                           ks);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(x);
+        if (w == 0) {
+          if (k0 + 64 > edge) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+              const int key = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+              if (key >= ((e >> 1) & 1 ? lim1 : lim0)) x[e] = -INFINITY;
+            }
+          }
+          // P, the scale folded into the exponent's FMA; a masked score
+          // gives 0
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            x[e] = ex2(fmaf(x[e], scale_log2, row_stat[(e >> 1) & 1]));
+#pragma unroll
+          for (int j4 = 0; j4 < 8; ++j4)
+            exch[j4 * kWG + tid] = make_float4(x[4 * j4], x[4 * j4 + 1],
+                                               x[4 * j4 + 2], x[4 * j4 + 3]);
+          named_arrive(kPIn, 2 * kWG);
+        } else {
+          named_sync(kPIn, 2 * kWG);     // this tile's P is in
+#pragma unroll
+          for (int j4 = 0; j4 < 8; ++j4) {
+            const float4 p4 = exch[j4 * kWG + tid];
+            const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int e = 4 * j4 + u;
+              x[e] = p[u] * (x[e] - row_stat[(e >> 1) & 1]) * scale;   // dS
+            }
+          }
+          // dS in bf16 as the A tile of dQ += dS.K: rows r_lo, r_lo + 8,
+          // key pairs 8 j8 + 2 t
+#pragma unroll
+          for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+            for (int r2 = 0; r2 < 2; ++r2) {
+              const int e = 4 * j8 + 2 * r2;
+              *reinterpret_cast<uint32_t*>(
+                  ds_s + swz(r_lo + 8 * r2, 8 * j8 + 2 * t)) =
+                  pack_bf16(x[e], x[e + 1]);
+            }
+          fence_async_smem();
+        }
+        named_sync(kDSIn, 2 * kWG);      // this tile's dS is in
+        // dQ[:, 128 w ..] += dS.K[:, 128 w ..]. Depth: keys 16 kk .., a
+        // column step in the dS tile; a 16-row step in K's row tile (its
+        // chunks 2 w, 2 w + 1, read MN-major, kChunk apart), a column step
+        // in K^T's rows 128 w .. (read K-major)
+        fence_regs(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0, 1 - kKt>(
+              dq, desc(dsa + kk * 32),
+              desc(kb + (kKt ? 128 * w * kRowBytes + kk * 32
+                             : 2 * w * kChunk + kk * 16 * kRowBytes),
+                   kChunk),
+              1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        mbar_arrive(&empty[s]);
+      }
+
+      // dQ[:, 128 w ..] in bf16, staged in this consumer's resident operand
+      // (its last product on it is done) as the store map's swizzled boxes
+#pragma unroll
+      for (int j8 = 0; j8 < D / 16; ++j8)
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2) {
+          const int c = 128 * w + 8 * j8 + 2 * t, i0 = 4 * j8 + 2 * r2;
+          *reinterpret_cast<uint32_t*>(
+              mine + (c / kSeg) * kChunk + swz(r_lo + 8 * r2, c % kSeg)) =
+              pack_bf16(dq[i0], dq[i0 + 1]);
+        }
+      fence_async_smem();
+      named_sync(1 + w, kWG);
+      if (leader) {
+        for (int c = 2 * w; c < 2 * w + 2; ++c)
+          tma_store(&map_dq, mine + c * kChunk, h * D + c * kSeg, b * L + q0);
+        tma_store_wait();              // the buffer may take the next Q, dO
+        mbar_arrive(q_empty);
+      }
+    }
+  }
+}
+
+// dQ: dq_mma_body at D = 64 and 128, dq_d256_body (kBf16) at 256.
+template <int D, int Form, int Mode = kBf16>
+__global__ void __launch_bounds__(kBwdThreads<D, Mode>, 1)
+flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const __grid_constant__ CUtensorMap map_dq,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    float* __restrict__ dq_f32, int BH, int H, int L,
+                    float scale, int causal, int kv_len) {
+  if constexpr (D == kWideD) {
+    static_assert(Mode == kBf16, "D = 256 on the tensor cores: kBf16 only");
+    dq_d256_body<Form>(map_q, map_k, map_v, map_do, map_dq, lse, delta, BH,
+                       H, L, scale, causal, kv_len);
+  } else {
+    dq_mma_body<D, Form, Mode>(map_q, map_k, map_v, map_do, map_dq, lse,
+                               delta, dq_f32, BH, H, L, scale, causal,
+                               kv_len);
+  }
+}
+
 // --------------------------------------------------------------- split
 // f32 storage: Q, K, V and dO (operands 0 .. 3) each as three bf16 terms,
 // hi, mid and lo (split_pair), written as terms[operand][term] of
@@ -3424,8 +3732,7 @@ bool cols_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int D) {
 typedef const float* cf32;   // an f32 input (split pass operands, LSE, delta)
 
 // The D = 256 kernels on the CUDA cores: the f32-dot forms on bf16 storage
-// and every form on f32 storage. dQ's `round` rounds dS to bf16 (its
-// strategies bf16, nn and nn2 on bf16 storage; never on f32 storage).
+// and every form on f32 storage.
 constexpr size_t kWideRow = sizeof(float) * kWidePad;
 constexpr size_t kFwdWideSmem =
     kWideRow * 2 * kTile + sizeof(float) * kTile * (2 * kTile + 1);
@@ -3461,22 +3768,21 @@ template <typename T>
 cudaError_t dq_wide_t(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int B, int H, int L, float scale, int causal,
-                      int kv_len, int transposed, int round,
-                      cudaStream_t st) {
+                      int kv_len, int transposed, cudaStream_t st) {
   return launch<flash_dq_wide_kernel<T>>(
       dim3(B * H, L / kTile), kThreads, kDqWideSmem, st, (const T*)q,
       (const T*)k, (const T*)v, (const T*)dout, (cf32)lse, (cf32)delta,
-      (T*)dq, H, L, scale, causal, kv_len, transposed, round);
+      (T*)dq, H, L, scale, causal, kv_len, transposed);
 }
 cudaError_t dq_wide(int dtype, const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dq, int B, int H, int L, float scale, int causal,
-                    int kv_len, int transposed, int round, cudaStream_t st) {
+                    int kv_len, int transposed, cudaStream_t st) {
   return dtype == 1
       ? dq_wide_t<bf16>(q, k, v, dout, lse, delta, dq, B, H, L, scale,
-                        causal, kv_len, transposed, round, st)
+                        causal, kv_len, transposed, st)
       : dq_wide_t<float>(q, k, v, dout, lse, delta, dq, B, H, L, scale,
-                         causal, kv_len, transposed, 0, st);
+                         causal, kv_len, transposed, st);
 }
 
 template <typename T>
@@ -3527,7 +3833,8 @@ cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
 }
 
 // kStd: k, v are K, V [B, L, H, D] (kt unused). kNN: kt, v are K^T, V^T
-// [B, H, D, L] (k unused). kSplit: the f32-dot dQ on bf16 storage.
+// [B, H, D, L] (k unused). kSplit: the f32-dot dQ on bf16 storage. At
+// D = 256 (kBf16) a work item is a 64-row query tile.
 template <int D, int Form, int Mode = kBf16>
 cudaError_t dq_mma(const void* q, const void* k, const void* kt,
                    const void* v, const void* dout, const void* lse,
@@ -3543,11 +3850,14 @@ cudaError_t dq_mma(const void* q, const void* k, const void* kt,
                     : cols_map(&mk, kt, B, H, L, D) &&
                           cols_map(&mv, v, B, H, L, D));
   if (!ok) return cudaErrorInvalidValue;
+  constexpr bool wide = D == kWideD;
+  size_t smem = 0;
+  if constexpr (wide) smem = DqD256Smem::kBytes;
+  else smem = BwdSmem<D, Mode>::kBytes;
   return launch<flash_dq_mma_kernel<D, Form, Mode>>(
-      persistent_grid(B, H, L), kBwdThreads<D, Mode>,
-      BwdSmem<D, Mode>::kBytes, st, mq, mk, mv, mdo, mdq, (const float*)lse,
-      (const float*)delta, (float*)nullptr, B * H, H, L, scale, causal,
-      kv_len);
+      persistent_grid(B, H, L, wide ? 64 : kBig), kBwdThreads<D, Mode>, smem,
+      st, mq, mk, mv, mdo, mdq, (const float*)lse, (const float*)delta,
+      (float*)nullptr, B * H, H, L, scale, causal, kv_len);
 }
 
 // kStd: q, k, v, dout, dk, dv all [B, L, H, D] (qt, doutt unused). kNN: k,
@@ -3712,8 +4022,8 @@ constexpr int kTransposedK = 0b0010;     // K^T (the nn forward)
 constexpr int kTransposedKV = 0b0110;    // K^T, V^T (nn)
 constexpr int kTransposedAll = 0b1111;   // Q^T, K^T, V^T, dO^T (nn2)
 
-// The forward and dK/dV of strategies bf16, nn and nn2 on bf16 storage:
-// the Hopper kernels at every head_dim the kernels take.
+// The forward, dQ and dK/dV of strategies bf16, nn and nn2 on bf16
+// storage: the Hopper kernels at every head_dim the kernels take.
 template <int Form>
 cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o,
                      void* lse, int B, int H, int L, int D, float scale,
@@ -3726,6 +4036,20 @@ cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o,
                               kv_len, st);
   return fwd_mma<kWideD, Form>(q, k, v, o, lse, B, H, L, scale, causal,
                                kv_len, st);
+}
+template <int Form>
+cudaError_t dq_bf16(const void* q, const void* k, const void* kt,
+                    const void* v, const void* dout, const void* lse,
+                    const void* delta, void* dq, int B, int H, int L, int D,
+                    float scale, int causal, int kv_len, cudaStream_t st) {
+  if (D == 64)
+    return dq_mma<64, Form>(q, k, kt, v, dout, lse, delta, dq, B, H, L, scale,
+                            causal, kv_len, st);
+  if (D == 128)
+    return dq_mma<128, Form>(q, k, kt, v, dout, lse, delta, dq, B, H, L,
+                             scale, causal, kv_len, st);
+  return dq_mma<kWideD, Form>(q, k, kt, v, dout, lse, delta, dq, B, H, L,
+                              scale, causal, kv_len, st);
 }
 template <int Form>
 cudaError_t dkv_bf16(const void* q, const void* qt, const void* k,
@@ -3747,8 +4071,8 @@ cudaError_t dkv_bf16(const void* q, const void* qt, const void* k,
 
 // C interface, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. On
 // bf16 storage the mma kernels at D = 64 and 128, and at D = 256 the
-// forward's and dK/dV's kBf16 instances of strategies bf16, nn and nn2
-// (dQ and every f32-dot form there: the CUDA-core kernels). On f32 storage
+// forward's, dQ's and dK/dV's kBf16 instances of strategies bf16, nn and
+// nn2 (every f32-dot form there: the CUDA-core kernels). On f32 storage
 // (where the storage-dtype dots are f32 dots) the kF32 instances of the
 // forward, dQ and dK/dV for every strategy at D = 64 and 128 (nn and nn2
 // split their transposed operands into the same terms, so they run the
@@ -3788,13 +4112,12 @@ int paddle_flash_dq(const void* q, const void* k, const void* v,
                     int split, void* stream) {
   if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    return dq_bf16<kStd>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, D,
+                         scale, causal, kv_len, st);
   if (D == kWideD)
     return dq_wide(dtype, q, k, v, dout, lse, delta, dq, B, H, L, scale,
-                   causal, kv_len, 0, 1, st);
-  if (dtype == 1)
-    return D == 64
-        ? dq_mma<64, kStd>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st)
-        : dq_mma<128, kStd>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st);
+                   causal, kv_len, 0, st);
   return dq_storage_f32(q, k, v, dout, 0, lse, delta, dq, terms, split, B, H,
                         L, D, scale, causal, kv_len, st);
 }
@@ -3840,13 +4163,12 @@ int paddle_flash_dq_nn(const void* q, const void* k, const void* kt,
                        float scale, int kv_len, int split, void* stream) {
   if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    return dq_bf16<kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, D, scale,
+                        causal, kv_len, st);
   if (D == kWideD)
     return dq_wide(dtype, q, kt, vt, dout, lse, delta, dq, B, H, L, scale,
-                   causal, kv_len, kTransposedKV, 1, st);
-  if (dtype == 1)
-    return D == 64
-        ? dq_mma<64, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st)
-        : dq_mma<128, kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st);
+                   causal, kv_len, kTransposedKV, st);
   return dq_storage_f32(q, kt, vt, dout, kTransposedKV, lse, delta, dq, terms,
                         split, B, H, L, D, scale, causal, kv_len, st);
 }
@@ -3916,7 +4238,7 @@ int paddle_flash_dq_f32dot(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (D == kWideD)
     return dq_wide(dtype, q, k, v, dout, lse, delta, dq, B, H, L, scale,
-                   causal, kv_len, 0, 0, st);
+                   causal, kv_len, 0, st);
   if (dtype == 1)
     return D == 64
         ? dq_mma<64, kStd, kSplit>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st)

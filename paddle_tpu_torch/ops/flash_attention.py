@@ -29,9 +29,9 @@ from bf16 terms of their operands (split_terms): the forward's call splits
 Q, K and V into its own scratch, the dQ kernel's call splits Q, K, V and
 dO once per backward into scratch that the dK/dV call reads (nn and nn2
 split their transposed operands into the same terms). At head_dim 256 the
-forward and dK/dV of bf16, nn and nn2 on bf16 storage run on the tensor
-cores too; dQ under every strategy, the f32-dot forms and f32 storage run
-CUDA-core kernels, which read the operands as they are. LAUNCHES counts
+forward, dQ and dK/dV of bf16, nn and nn2 on bf16 storage run on the
+tensor cores too; the f32-dot forms and f32 storage run CUDA-core kernels,
+which read the operands as they are. LAUNCHES counts
 each wrapper's launches, INSTANCE_LAUNCHES each kernel instance's (the
 library names the instance it launched), so a run can show which kernel a
 head_dim took.

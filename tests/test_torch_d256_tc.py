@@ -1,15 +1,18 @@
 """The arithmetic of the tensor-core flash kernels at head_dim 256 on bf16
-storage (flash_fwd_mma_kernel<256, kStd|kNN> and flash_dkv_mma_kernel<256,
-kStd|kNN|kNN2> in paddle_tpu_torch/ops/csrc/flash_attention.cu, strategies
-bf16, nn and nn2), checked on the CPU.
+storage (flash_fwd_mma_kernel<256, kStd|kNN>, flash_dq_mma_kernel<256,
+kStd|kNN> and flash_dkv_mma_kernel<256, kStd|kNN|kNN2> in
+paddle_tpu_torch/ops/csrc/flash_attention.cu, strategies bf16, nn and
+nn2), checked on the CPU.
 
 The forward scores a whole 128-key softmax block (the reference's
 flash_block_k) as two 64-key tiles, rounds P to bf16 against the block's
 running max and multiplies P.V in 64-key halves. dK/dV splits its outputs
 between two consumers: one forms S^T and P^T per 64-query tile and runs
 dV += bf16(P^T).dO, the other takes P^T in f32 from it, forms dS^T =
-P^T (dP^T - delta) scale and runs dK += bf16(dS^T).Q. Plain models of that
-arithmetic (every sum in f32) are held against the port's plain versions by
+P^T (dP^T - delta) scale and runs dK += bf16(dS^T).Q. dQ splits its output
+the same way: per 64-key tile one consumer forms S and P in f32, the other
+dP and dS = P (dP - delta) scale, rounded to bf16, and each adds its half
+of dQ's columns, bf16(dS).K, in f32. Plain models of that arithmetic (every sum in f32) are held against the port's plain versions by
 chip_smoke.py's bf16 row error, and against the reference's Pallas kernels
 in interpret mode within one bf16 step, at D = 256 and L = 256, causal and
 not; the nn and nn2 layouts go through to_t and from_t as the wrappers
@@ -116,6 +119,34 @@ def model_dkv(q, k, v, do, lse, delta, causal, sc):
     return _rows(dk), _rows(dv)
 
 
+def model_dq(q, k, v, do, lse, delta, causal, sc, skip=None):
+    """dQ of the D = 256 dQ kernel's arithmetic: per 64-row query tile and
+    64-key tile through its diagonal, S = Q.K^T and dP = dO.V^T in f32, P =
+    exp(S scale - LSE) (0 past the diagonal), dS = P (dP - delta) scale
+    rounded to bf16, and each of dQ's two 128-column halves (one consumer
+    each) adds bf16(dS).K[:, half] in f32, tile by tile. `skip` (query
+    tile, key tile) leaves out that pair."""
+    qh, kh, vh, doh = _heads(q), _heads(k), _heads(v), _heads(do)
+    dq = torch.zeros(B, H, L, D)
+    for q0 in range(0, L, 64):
+        qs = slice(q0, q0 + 64)
+        queries = torch.arange(q0, q0 + 64)
+        for k0 in range(0, q0 + 64 if causal else L, 64):
+            if skip == (q0 // 64, k0 // 64):
+                continue
+            ks = slice(k0, k0 + 64)
+            keys = torch.arange(k0, k0 + 64)
+            s = qh[:, :, qs] @ kh[:, :, ks].transpose(-1, -2)
+            p = torch.exp(s * sc - lse[:, :, qs, None])
+            if causal:
+                p = p.masked_fill(keys[None, :] > queries[:, None], 0.0)
+            dp = doh[:, :, qs] @ vh[:, :, ks].transpose(-1, -2)
+            ds = _bf16(p * (dp - delta[:, :, qs, None]) * sc)
+            for half in (slice(0, D // 2), slice(D // 2, D)):
+                dq[:, :, qs, half] += ds @ kh[:, :, ks, half]
+    return _rows(dq)
+
+
 def _stats(q, k, v, do, causal, sc):
     """LSE and delta = rowsum(dO * O) from the port's plain forward."""
     o, lse = fa.flash_fwd_plain(q, k, v, causal, sc)
@@ -152,6 +183,27 @@ def test_dkv_model_matches_plain(causal):
     for name, g, w in zip(("dK", "dV"), got, want):
         assert g.shape == w.shape
         assert row_err(g, w) <= BF16_TOL, (name, row_err(g, w))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_model_matches_plain(causal):
+    """The dQ model is within chip_smoke.py's bf16 row error of the plain
+    versions of bf16 (flash_dq_plain) and of nn (flash_dq_nn_plain, fed K^T
+    and V^T through to_t) on the same LSE and delta; a model that skips one
+    tile pair reads above the limit, so the check would catch a kernel that
+    did."""
+    q, k, v, do = _inputs()
+    sc = 1.0 / math.sqrt(D)
+    lse, delta = _stats(q, k, v, do, causal, sc)
+    dq = model_dq(q, k, v, do, lse, delta, causal, sc)
+    want = fa.flash_dq_plain(q, k, v, do, lse, delta, causal, sc)
+    want_nn = fa.flash_dq_nn_plain(q, k, fa.to_t(k), fa.to_t(v), do, lse,
+                                   delta, causal, sc)
+    assert dq.shape == want.shape == want_nn.shape
+    assert row_err(dq, want) <= BF16_TOL, row_err(dq, want)
+    assert row_err(dq, want_nn) <= BF16_TOL, row_err(dq, want_nn)
+    skipped = model_dq(q, k, v, do, lse, delta, causal, sc, skip=(3, 1))
+    assert row_err(skipped, want) > BF16_TOL
 
 
 def _bf16_step(x):
@@ -200,6 +252,27 @@ def test_models_match_reference(causal):
         assert ok, (name, diff)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_model_matches_reference(causal):
+    """The dQ model against the reference's Pallas dQ kernel in interpret
+    mode (strategy bf16, blocks of 128), on the reference's own LSE and O,
+    within one bf16 step of dQ's largest magnitude and no larger a share of
+    entries apart than BF16_SHARE (the rounding points are the reference's;
+    only the order of the f32 sums differs)."""
+    q, k, v, do = _inputs()
+    sc = 1.0 / math.sqrt(D)
+    _, res = _flash_fwd(_bh(q), _bh(k), _bh(v), sc, causal, 128, 128, True,
+                        "bf16")
+    ref_dq, _, _ = _flash_bwd(sc, causal, 128, 128, True, "bf16", res,
+                              _bh(do))
+    ref_lse = torch.from_numpy(np.array(res[4]).reshape(B, H, L))
+    ref_o = torch.from_numpy(_from_bh(res[3])).to(torch.bfloat16)
+    delta = (do.float() * ref_o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = model_dq(q, k, v, do, ref_lse, delta, causal, sc)
+    ok, diff = _near_reference(dq, _from_bh(ref_dq))
+    assert ok, ("dQ", diff)
+
+
 def test_nn_layouts_give_the_same_results():
     """The nn forms take K^T (forward) and K^T, V^T (dK/dV); nn2's dK/dV
     also Q^T and dO^T and gives dK^T and dV^T, all [B, H, D, L] through
@@ -239,6 +312,8 @@ PRETTY = {
         "flash_dkv_mma_kernel<256, kNN2, kBf16>",
     "[with auto Kernel = flash_dq_mma_kernel<64, 0, 2>]":
         "flash_dq_mma_kernel<64, kStd, kF32>",
+    "const char* {anonymous}::instance_name() [with auto Kernel = "
+    "flash_dq_mma_kernel<256, 1>]": "flash_dq_mma_kernel<256, kNN, kBf16>",
     "[with auto Kernel = flash_dq_wide_kernel<__nv_bfloat16>]":
         "flash_dq_wide_kernel<__nv_bfloat16>",
     "no kernel here": "no kernel here",
@@ -253,15 +328,17 @@ def test_instance_names(pretty):
 
 
 def test_d256_instances_of_the_tensor_core_strategies():
-    """chip_smoke.py requires the tensor-core instances of the forward and
-    dK/dV of strategies bf16, nn and nn2 at head_dim 256, and the CUDA-core
-    kernels for dQ and the f32-dot forms; reset_launch_counts clears the
+    """chip_smoke.py requires the tensor-core instances of the forward, dQ
+    and dK/dV of strategies bf16, nn and nn2 at head_dim 256, and the
+    CUDA-core kernels for the f32-dot forms; reset_launch_counts clears the
     instance counts."""
     for impl in ("bf16", "nn", "nn2"):
         fwd, dq, dkv = fa.STRATEGY_KERNELS[impl]
         assert D256_INSTANCES[fwd].startswith("flash_fwd_mma_kernel<256, ")
+        assert D256_INSTANCES[dq].startswith("flash_dq_mma_kernel<256, ")
         assert D256_INSTANCES[dkv].startswith("flash_dkv_mma_kernel<256, ")
-        assert D256_INSTANCES[dq] == "flash_dq_wide_kernel"
+    assert D256_INSTANCES["flash_dq"].endswith("kStd, kBf16>")
+    assert D256_INSTANCES["flash_dq_nn"].endswith("kNN, kBf16>")
     assert D256_INSTANCES["flash_dkv_nn2"].endswith("kNN2, kBf16>")
     for name in fa.STRATEGY_KERNELS["f32"]:
         assert D256_INSTANCES[name].endswith("_wide_kernel")
