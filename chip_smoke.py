@@ -12,8 +12,8 @@ gpt3-large cut to 4 layers (head_dim 96, padded to 128) for 3 steps each;
 then gpt3-xl's widths with 8 heads (head_dim 256: the D = 256 kernels) cut
 to 2 layers, bf16 O2 under auto, nn, nn2 and f32 and in f32, 3 steps each
 (under auto, nn and nn2 the forward, dQ and dK/dV launch their
-tensor-core D = 256 instances, which each phase checks by the instance
-counts).
+tensor-core D = 256 instances, under f32 and in f32 the forward too, which
+each phase checks by the instance counts).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
@@ -29,10 +29,12 @@ line. With --compare, it only times every flash kernel of this checkout
 and of OTHER_CHECKOUT (another tree of the repo, e.g. the parent commit
 unpacked by `git archive`) at the training shape, in bf16 and, for the
 forward, dQ, dK/dV and the whole backward (flash_bwd), in f32, and at the
-head_dim-256 shape (B*H = 64, L = 1024) in bf16 and f32 (`@D256`), and the
+head_dim-256 shape (B*H = 64, L = 1024) in bf16 and f32 (`@D256`), the
 bf16 dQ at D = 256 at B*H = 16 and 32, L = 2048 (`@D256@16x2048`,
-`@D256@32x2048`), by the same method, in turns (other, this, this, other), each in a process of its
-own that builds that tree's kernels.
+`@D256@32x2048`) and the f32-storage forward at D = 256 at the same two
+shapes (`@float32@D256@16x2048`, `@32x2048`), by the same method, in
+turns (other, this, this, other), each in a process of its own that builds
+that tree's kernels.
 """
 from __future__ import annotations
 
@@ -60,16 +62,18 @@ F32DOT_BF16_PASSES = {"fwd": 1 + 3, "dq": 1 + 1 + 3, "dkv": 1 + 1 + 3 + 3}
 # On f32 storage both operands of every product are f32. Split into three
 # bf16 terms each, a product keeps f32's 24 bits with six bf16 passes (the
 # term pairs of weight 2^-16 and above: hi.hi, hi.mid, mid.hi, hi.lo,
-# mid.mid, lo.hi): the f32-storage forward, dQ and dK/dV run so at head_dim
-# 64 and 128 (bound by six passes a product: forward 2 products, dQ 3,
-# dK/dV 4). At head_dim 256 every kernel runs on the CUDA cores.
+# mid.mid, lo.hi): the f32-storage forward runs so at every head_dim, dQ
+# and dK/dV at head_dim 64 and 128 (bound by six passes a product: forward
+# 2 products, dQ 3, dK/dV 4). At head_dim 256 dQ and dK/dV run on the CUDA
+# cores (bound by f32 flops at 67 TFLOP/s, the six-pass bound beside it).
 F32_STORAGE_SPLIT_PASSES = {"fwd": 6 * 2, "dq": 6 * 3, "dkv": 6 * 4}
 # the kernels timed on f32 storage: the nn, nn2 and f32-dot entry points run
 # the same kernels there (the nn forms bitwise, checked each run)
 F32_STORAGE_TIMED = ("flash_fwd", "flash_dq", "flash_dkv")
 # the kernel instance each wrapper launches at head_dim 256 on bf16
 # storage: the tensor-core forward, dQ and dK/dV of strategies bf16, nn
-# and nn2; the f32-dot forms stay on the CUDA cores
+# and nn2, and the forward of f32; the f32-dot dQ and dK/dV stay on the
+# CUDA cores
 D256_INSTANCES = {
     "flash_fwd": "flash_fwd_mma_kernel<256, kStd, kBf16>",
     "flash_fwd_nn": "flash_fwd_mma_kernel<256, kNN, kBf16>",
@@ -78,12 +82,23 @@ D256_INSTANCES = {
     "flash_dkv": "flash_dkv_mma_kernel<256, kStd, kBf16>",
     "flash_dkv_nn": "flash_dkv_mma_kernel<256, kNN, kBf16>",
     "flash_dkv_nn2": "flash_dkv_mma_kernel<256, kNN2, kBf16>",
-    "flash_fwd_f32dot": "flash_fwd_wide_kernel",
+    "flash_fwd_f32dot": "flash_fwd_mma_kernel<256, kStd, kSplit>",
     "flash_dq_f32dot": "flash_dq_wide_kernel",
     "flash_dkv_f32dot": "flash_dkv_wide_kernel",
 }
-# the head_dim-256 training phases that run those tensor-core instances
-D256_TC_STRATEGIES = ("auto", "nn", "nn2")
+# ... and on f32 storage: every strategy's forward on the tensor cores (nn
+# and nn2 split K^T into the same terms and run kStd's instance), dQ and
+# dK/dV on the CUDA cores
+D256_F32_INSTANCES = {
+    name: ("flash_fwd_mma_kernel<256, kStd, kF32>"
+           if name.startswith("flash_fwd")
+           else f"flash_{name.split('_')[1]}_wide_kernel")
+    for name in D256_INSTANCES}
+# the instances of the tensor-core kernels at head_dim 256, which must not
+# spill
+D256_TC_INSTANCES = frozenset(
+    i for i in (*D256_INSTANCES.values(), *D256_F32_INSTANCES.values())
+    if "_mma_kernel<" in i)
 
 # Kernel vs plain version, as the largest error divided by the RMS of its
 # row (the D entries of one position and head), or by the RMS of the whole
@@ -345,10 +360,12 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
         got = named_outputs(name, fa.CUDA[name](*args))
         torch.cuda.synchronize()
         (instance,) = fa.INSTANCE_LAUNCHES
-        if D == 256 and dtype_name == "bfloat16":
-            check(is_instance(instance, D256_INSTANCES[name]),
-                  f"{name} at D = 256 launched {instance}, not "
-                  f"{D256_INSTANCES[name]}")
+        if D == 256:
+            want_inst = (D256_INSTANCES if dtype_name == "bfloat16"
+                         else D256_F32_INSTANCES)[name]
+            check(is_instance(instance, want_inst),
+                  f"{name} at D = 256 {dtype_name} launched {instance}, not "
+                  f"{want_inst}")
         ref_args = ([a.double() if torch.is_tensor(a) else a for a in args]
                     if dtype_name == "float32" else args)
         want = named_outputs(name, fa.PLAIN[name](*ref_args))
@@ -431,18 +448,19 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
         lib[key] = {"fwd": lib_fwd, "bwd": lib_bwd}
         del qh, kh, vh, doh, out
 
-    # f32 storage at head_dim 64 and 128: each kernel timed as the training
+    # f32 storage: each kernel that works from split terms (the forward at
+    # every head_dim, dQ and dK/dV at 64 and 128) timed as the training
     # path calls it, from the terms one split made (the forward's call
     # splits Q, K and V; the dQ call of a backward splits Q, K, V and dO,
     # the dK/dV call reads them), and the split pass by itself as the
     # difference of the forward's and the dQ call with and without it
-    terms = None
-    if fa.works_from_terms(q):
-        terms = {"fwd": fa.split_terms(q, 3), "dq": fa.split_terms(q)}
+    terms = {}
+    for kind, name, n_ops in (("fwd", "flash_fwd", 3), ("dq", "flash_dq", 4)):
+        if fa.works_from_terms(name, q):
+            terms[kind] = fa.split_terms(q, n_ops)
+            fa.CUDA[name](*results[name]["args"], terms=terms[kind])
+    if "dq" in terms:
         terms["dkv"] = terms["dq"]
-        fa.CUDA["flash_fwd"](*results["flash_fwd"]["args"],
-                             terms=terms["fwd"])
-        fa.CUDA["flash_dq"](*results["flash_dq"]["args"], terms=terms["dq"])
     rows = []
     for name, r in results.items():
         if time_names is not None and name not in time_names:
@@ -456,7 +474,7 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
                        for a in ARGS[BF16_TWIN.get(name, name)])
         nbytes = in_bytes + r["out_bytes"]
         extra = {}
-        if terms is not None:
+        if kind in terms:
             # six bf16 passes of split operands a product, on the tensor
             # cores; the same f32 flops on the CUDA cores beside it
             b = bound(F32_STORAGE_SPLIT_PASSES[kind] * 2 * D * pairs, nbytes,
@@ -483,7 +501,7 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
                 # beside the tensor cores'
                 extra["cuda_core_bound_ms"] = bound(flops[kind], nbytes,
                                                     "float32")[0]
-        if terms is not None:
+        if kind in terms:
             mine = terms[kind]
             ms = median_ms(lambda: fa.CUDA[name](*args, terms=mine,
                                                  split=False))
@@ -516,16 +534,17 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
                 "fwd" if kind == "fwd" else "bwd"],
             **({"diff_vs_bf16": r["diff_vs_bf16"]} if name in BF16_TWIN
                else {})})
-    if terms is not None:
-        # the forward with its split, and the backward pair as a training
-        # step runs it (the split, dQ and dK/dV), beside SDPA's f32 calls
-        by = {r["name"].split("@")[0]: r for r in rows}
-        fwd_row, dq_row, dkv_row = by["flash_fwd"], by["flash_dq"], \
-            by["flash_dkv"]
+    # the forward with its split, and the backward pair as a training step
+    # runs it (the split, dQ and dK/dV), beside SDPA's f32 calls
+    by = {r["name"].split("@")[0]: r for r in rows}
+    if "split_ms" in by.get("flash_fwd", {}):
+        fwd_row = by["flash_fwd"]
         log(f"f32-storage forward [{tag}]: split {fwd_row['split_ms']:.4f} "
             f"+ kernel {fwd_row['ms']:.4f} = "
             f"{fwd_row['split_ms'] + fwd_row['ms']:.4f} ms; SDPA's f32 "
             f"forward {fwd_row['library_ms']:.4f} ms")
+    if "split_ms" in by.get("flash_dq", {}) and "flash_dkv" in by:
+        dq_row, dkv_row = by["flash_dq"], by["flash_dkv"]
         pair = dq_row["split_ms"] + dq_row["ms"] + dkv_row["ms"]
         for r in (dq_row, dkv_row):
             r["pair_ms"] = pair
@@ -536,12 +555,14 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
     return rows
 
 
-def padded_phase(B, L, H, D, dtype_name, causal, block):
+def padded_phase(B, L, H, D, dtype_name, causal, block, impl="bf16"):
     """flash attention at a head_dim or length the kernels do not take,
     through the padding on the card (ops.flash_attention.padded_fwd and
-    padded_bwd, strategy bf16: the storage dtype's kernels), against the
+    padded_bwd under dot strategy `impl`: bf16, the storage dtype's
+    kernels, or f32, the f32-dot kernels on bf16 storage), against the
     plain versions at the true shape: O, LSE, dQ, dK and dV, under the
-    kernel phase's limits, and what a kernel skipping one `block`-row tile
+    kernel phase's limits (f32-dot on bf16 storage also the share of
+    entries that differ), and what a kernel skipping one `block`-row tile
     would read there."""
     import torch
 
@@ -552,35 +573,57 @@ def padded_phase(B, L, H, D, dtype_name, causal, block):
     q, k, v, do = (torch.randn(B, L, H, D, device="cuda", dtype=dt,
                                generator=g) for _ in range(4))
     sc = 1.0 / math.sqrt(D)
-    o, lse, saved = fa.padded_fwd(q, k, v, causal, sc)
-    grads = fa.padded_bwd(saved, do, causal, sc)
+    fa.reset_launch_counts()
+    o, lse, saved = fa.padded_fwd(q, k, v, causal, sc, impl)
+    grads = fa.padded_bwd(saved, do, causal, sc, impl)
     torch.cuda.synchronize()
+    instances = sorted(fa.INSTANCE_LAUNCHES)
+    f32_dots = impl == "f32"
 
     def plain(*x):
-        o_p, lse_p = fa.flash_fwd_plain(*x[:3], causal, sc)
+        o_p, lse_p = fa.flash_fwd_plain(*x[:3], causal, sc, f32_dots)
         acc = torch.promote_types(o_p.dtype, torch.float32)
         delta = (x[3].to(acc) * o_p.to(acc)).sum(-1).transpose(1, 2)
         delta = delta.contiguous()
         return (o_p, lse_p, delta,
-                *fa.flash_bwd_plain(*x, lse_p, delta, causal, sc))
+                *fa.flash_bwd_plain(*x, lse_p, delta, causal, sc, f32_dots))
 
     ref = plain(q, k, v, do)
     # f32 storage: against the plain version in f64 (see REL_TOL)
     want = (plain(*(x.double() for x in (q, k, v, do)))
             if dtype_name == "float32" else ref)
-    tol = REL_TOL[dtype_name]
-    errs = {n: row_err(x, y) for n, x, y in
-            zip(("O", "dQ", "dK", "dV"), (o, *grads), (want[0], *want[3:]))}
+    share_checked = f32_dots and dtype_name == "bfloat16"
+    tol = REL_TOL["f32dot-bfloat16" if share_checked else dtype_name]
+    outs = dict(zip(("O", "dQ", "dK", "dV"), (o, *grads)))
+    wants = dict(zip(("O", "dQ", "dK", "dV"), (want[0], *want[3:])))
+    errs = {n: row_err(outs[n], wants[n]) for n in outs}
     fault, lse_fault = fault_readings(q, k, v, do, sc, ref, T=block)
     lse_err = abs_err(lse, want[1])
     Lp, Dp = fa.kernel_shape(L, D)
-    tag = (f"B={B} L={L} H={H} D={D} {dtype_name} causal={causal}, padded "
-           f"to L={Lp} D={Dp}")
-    log(f"padded flash vs plain [{tag}]: row-normalised err "
+    tag = (f"B={B} L={L} H={H} D={D} {dtype_name} causal={causal} impl "
+           f"{impl}, padded to L={Lp} D={Dp}")
+    log(f"padded flash vs plain [{tag}] ({', '.join(instances)}): "
+        f"row-normalised err "
         f"{ {n: f'{e:.3e}' for n, e in errs.items()} } (tol {tol}; a kernel "
         f"skipping one {block}-row tile reads "
         f"{ {n: f'{fault[n]:.3e}' for n in errs} }), LSE abs err "
         f"{lse_err:.3e} (tol {LSE_ATOL}; skipping: {lse_fault:.3e})")
+    if share_checked:
+        shares = {n: mismatch_share(outs[n], wants[n]) for n in outs}
+        log(f"  share of entries that differ "
+            f"{ {n: f'{x:.3e}' for n, x in shares.items()} } (limit "
+            f"{SHARE_TOL})")
+        for n, x in shares.items():
+            check(x <= SHARE_TOL, f"padded {n}: {x:.3e} of its entries "
+                                  f"differ from the f32-dot plain version "
+                                  f"[{tag}], limit {SHARE_TOL}")
+    if Dp == 256:
+        fwd = fa.STRATEGY_KERNELS[impl][0]
+        want_fwd = (D256_INSTANCES if dtype_name == "bfloat16"
+                    else D256_F32_INSTANCES)[fwd]
+        check(want_fwd in instances, f"the padded forward at D = 256 "
+                                     f"[{tag}] did not launch {want_fwd}: "
+                                     f"{instances}")
     for n, e in errs.items():
         check(e <= tol, f"padded {n} disagrees with the plain version "
                         f"[{tag}]: {e:.3e} > {tol}")
@@ -666,7 +709,8 @@ def training_phase(label, impl, weights, cfg, steps, o2=True,
     kernel launched (the probe once under auto), the step-1 loss against
     the einsum attention on the same model (`plain_tol`) and against the
     bf16 phase's (`bf16_loss`: the nn, nn2 and f32 strategies), and that
-    each kernel instance in `instances` launched once per layer and step,
+    each kernel instance in `instances` (a whole instance name, or a
+    kernel's name for any instance of it) launched once per layer and step,
     as the only instance of its kernel's family (forward, dQ or dK/dV).
     Returns (launches, losses)."""
     import numpy as np
@@ -765,9 +809,10 @@ def training_phase(label, impl, weights, cfg, steps, o2=True,
         family = inst.split("_")[1]      # fwd, dq or dkv
         mine = {i: n for i, n in by_instance.items()
                 if i.split("_")[1] == family}
-        check(mine == {inst: want}, f"[{label}] the {family} launches by "
-                                    f"instance are {mine}, expected "
-                                    f"{ {inst: want} }")
+        check(len(mine) == 1 and all(is_instance(i, inst) and n == want
+                                     for i, n in mine.items()),
+              f"[{label}] the {family} launches by instance are {mine}, "
+              f"expected {want} of {inst}")
     step_s = statistics.median(times[1:])
     log(f"[{label}] step times s {times}; median of steps 2-{steps}: "
         f"{step_s:.4f} s, {batch * seq / step_s:.0f} tokens/s; peak memory "
@@ -849,7 +894,7 @@ def build_kernels():
                 log(f"  spills {s} bytes: {fn}")
         for fn, r, s in zip(fns, regs, spills):
             inst = mma_instance(fn)
-            if inst in D256_INSTANCES.values():
+            if inst in D256_TC_INSTANCES:
                 log(f"  {inst}: {r} registers at launch, {s} bytes spill "
                     f"stores")
                 check(s == 0, f"{inst} spills {s} bytes")
@@ -857,10 +902,14 @@ def build_kernels():
             if "warning" in line.lower():
                 log(f"  {line.strip()}")
         # ptxas's notes of wgmma products it serialized (each one waited
-        # for before the next issues), by instance
+        # for before the next issues), by instance; none in the tensor-core
+        # D = 256 instances
         for fn in sorted(set(re.findall(
                 r"Performance Loss: wgmma[^']*'(\w+)'", rep))):
-            log(f"  wgmma serialized in {mma_instance(fn) or fn}")
+            inst = mma_instance(fn)
+            log(f"  wgmma serialized in {inst or fn}")
+            check(inst not in D256_TC_INSTANCES,
+                  f"ptxas serialized the wgmma products of {inst}")
 
 
 def main():
@@ -912,31 +961,48 @@ def main():
     padded_phase(2, 96, 4, 64, "bfloat16", False, 32)
     padded_phase(2, 96, 4, 64, "float32", False, 32)
     # head_dim 256 (bf16 storage: the tensor-core forward, dQ and dK/dV of
-    # bf16, nn and nn2, the CUDA-core f32-dot forms; f32 storage: the
-    # CUDA-core kernels): timed at B*H = 64, L = 1024 (the D = 256 training
-    # phase's shape), causal; at L = 192 causal and not (the forward's half
-    # item, three dK/dV items a head); and head_dims 160 and 192 through the
-    # padding to 256, at L = 96 too (keys past the true length masked)
+    # bf16, nn and nn2, the tensor-core f32-dot forward and CUDA-core
+    # f32-dot dQ and dK/dV; f32 storage: the tensor-core kF32 forward, the
+    # CUDA-core dQ and dK/dV): timed at B*H = 64, L = 1024 (the D = 256
+    # training phase's shape), causal; at L = 192 causal and not (the
+    # forward's half item, three dK/dV items a head); and head_dims 160 and
+    # 192 through the padding to 256, at L = 96 too (keys past the true
+    # length masked)
     rows256 = kernel_phase(4, 1024, 16, 256, "bfloat16", True, timed=True)
     f32_rows256 = kernel_phase(4, 1024, 16, 256, "float32", True,
                                timed=True, time_names=F32_STORAGE_TIMED)
     for dtype_name in ("bfloat16", "float32"):
         for causal in (True, False):
             kernel_phase(2, 192, 8, 256, dtype_name, causal, timed=False)
-    padded_phase(2, 256, 8, 160, "bfloat16", True, 64)
-    padded_phase(2, 256, 8, 192, "bfloat16", True, 64)
-    padded_phase(2, 96, 4, 160, "bfloat16", True, 32)
-    padded_phase(2, 256, 8, 160, "float32", False, 64)
+    # (each under bf16 and f32 on bf16 storage, and on f32 storage: the
+    # tensor-core forward's kBf16, kSplit and kF32 instances)
+    for D, L, block, causal in ((160, 256, 64, True), (192, 256, 64, True),
+                                (160, 96, 32, True), (160, 256, 64, False)):
+        B, H = (2, 8) if L == 256 else (2, 4)
+        if causal:
+            padded_phase(B, L, H, D, "bfloat16", True, block)
+            padded_phase(B, L, H, D, "bfloat16", True, block, impl="f32")
+        padded_phase(B, L, H, D, "float32", causal, block)
     # the D = 256 dQ on each side of its item order's switch (all heads'
     # K and V against L2's 50 MB): rank by rank at B*H = 16, L = 2048
-    # (32 MB), head by head at B*H = 32 (64 MB); timed and logged, their
-    # rows out of the kernels line (no model of this run trains at them)
+    # (32 MB), head by head at B*H = 32 (64 MB); and so the f32-storage
+    # forward about its own switch at three L2s (all heads' K and V terms:
+    # 96 MB at B*H = 16, L = 2048, rank by rank; 192 MB at 32, head by
+    # head); timed and logged, their rows out of the kernels line (no
+    # model of this run trains at them)
     for B in (1, 2):
-        for r in kernel_phase(B, 2048, 16, 256, "bfloat16", True, timed=True,
-                              time_names=("flash_dq", "flash_dq_nn")):
-            log(f"{r['name']} at B*H = {16 * B}, L = 2048: {r['ms']:.4f} "
-                f"ms, bound {r['bound_ms']:.4f} ms, SDPA's backward "
-                f"{r['library_ms']:.4f} ms, row err {r['row_err']:.3e}")
+        for dtype_name, names in (("bfloat16", ("flash_dq", "flash_dq_nn")),
+                                  ("float32", ("flash_fwd",))):
+            rows_l2 = kernel_phase(B, 2048, 16, 256, dtype_name, True,
+                                   timed=True, time_names=names)
+            for r in rows_l2:
+                split = (f" (+ split {r['split_ms']:.4f})"
+                         if "split_ms" in r else "")
+                log(f"{r['name']} at B*H = {16 * B}, L = 2048: "
+                    f"{r['ms']:.4f} ms{split}, bound {r['bound_ms']:.4f} "
+                    f"ms, SDPA's "
+                    f"{'forward' if 'fwd' in r['name'] else 'backward'} "
+                    f"{r['library_ms']:.4f} ms, row err {r['row_err']:.3e}")
 
     cfg = PRESETS["gpt3-medium"]
     weights = reference_layout_weights(cfg, SEED)
@@ -985,20 +1051,24 @@ def main():
     wide_weights = reference_layout_weights(wide, SEED)
     launches256, f32_counts256, bf16_loss = {}, {}, None
     for impl in STRATEGY_STEPS:
-        # auto, nn, nn2: the tensor-core forward, dQ and dK/dV instances
+        # each strategy's forward, dQ and dK/dV instances (auto, nn, nn2:
+        # all three on the tensor cores; f32: the forward)
         names = fa.STRATEGY_KERNELS["bf16" if impl == "auto" else impl]
         counts, losses = training_phase(
             f"d256-{impl}", impl, wide_weights, wide, D256_STEPS,
             plain_tol=LOSS_ATOL if impl == "auto" else None,
             bf16_loss=bf16_loss,
-            instances=(tuple(D256_INSTANCES[n] for n in names)
-                       if impl in D256_TC_STRATEGIES else ()))
+            instances=tuple(D256_INSTANCES[n] for n in names))
         bf16_loss = losses[0] if impl == "auto" else bf16_loss
         for name, n in counts.items():
             launches256[name] = launches256.get(name, 0) + n
-    f32_counts256, _ = training_phase("d256-f32-model", "auto", wide_weights,
-                                      wide, D256_STEPS, o2=False,
-                                      plain_tol=LOSS_F32_MODEL_ATOL)
+    # the f32 model: auto resolves to bf16, whose kernels on f32 storage
+    # are the tensor-core kF32 forward and the CUDA-core dQ and dK/dV
+    f32_counts256, _ = training_phase(
+        "d256-f32-model", "auto", wide_weights, wide, D256_STEPS, o2=False,
+        plain_tol=LOSS_F32_MODEL_ATOL,
+        instances=tuple(D256_F32_INSTANCES[n]
+                        for n in fa.STRATEGY_KERNELS["bf16"]))
     for r in rows256 + f32_rows256:
         name = r["name"].split("@")[0]
         counts = f32_counts256 if "@float32" in r["name"] else launches256
@@ -1017,9 +1087,10 @@ def main():
 
 def time_kernels(root):
     """Time every flash kernel of the checkout at `root` at the training
-    shape and at the head_dim-256 phase's, and the D = 256 dQ at B*H = 16
-    and 32, L = 2048 (its package imported from there, its kernels built
-    there); print {"root": root, "ms": {name: ms}}."""
+    shape and at the head_dim-256 phase's, and the D = 256 dQ and the
+    f32-storage forward at D = 256 at B*H = 16 and 32, L = 2048 (its
+    package imported from there, its kernels built there);
+    print {"root": root, "ms": {name: ms}}."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -1039,7 +1110,13 @@ def time_kernels(root):
             (1, 16, 256, 2048, torch.bfloat16, ("flash_dq",),
              "@D256@16x2048"),
             (2, 16, 256, 2048, torch.bfloat16, ("flash_dq",),
-             "@D256@32x2048")):
+             "@D256@32x2048"),
+            # the f32-storage forward at D = 256 on each side of its own
+            # switch (B*H = 16 and 32 at L = 2048), with its split
+            (1, 16, 256, 2048, torch.float32, ("flash_fwd",),
+             "@float32@D256@16x2048"),
+            (2, 16, 256, 2048, torch.float32, ("flash_fwd",),
+             "@float32@D256@32x2048")):
         sc = 1.0 / math.sqrt(D)
         g = torch.Generator(device="cuda").manual_seed(SEED)
         q, k, v, do = (torch.randn(B, L, H, D, device="cuda", dtype=dt,

@@ -19,16 +19,17 @@
 // That is on bf16 storage at D = 64 and 128; at D = 256 the forward, dQ
 // and dK/dV of bf16, nn and nn2 are the D = 256 instances of the same
 // kernels (flash_fwd_mma_kernel<256, kStd|kNN>, flash_dq_mma_kernel<256,
-// kStd|kNN>, flash_dkv_mma_kernel<256, kStd|kNN|kNN2>). On f32 storage
+// kStd|kNN>, flash_dkv_mma_kernel<256, kStd|kNN|kNN2>), and so is the
+// forward of f32 (flash_fwd_mma_kernel<256, kStd, kSplit>). On f32 storage
 // every strategy runs the kF32 instances
 // flash_fwd_mma_kernel<D, kStd, kF32>, flash_dq_mma_kernel<D, kStd, kF32>
 // and flash_dkv_mma_kernel<D, kStd, kF32>, which read Q, K, V and dO as the
 // bf16 terms flash_split_kernel made of them (nn and nn2 split their
 // transposed operands into the same terms, and nn2's dK/dV stores dK^T and
-// dV^T). The rest of D = 256 runs on the CUDA cores: flash_fwd_wide_kernel,
-// flash_dq_wide_kernel and flash_dkv_wide_kernel under strategy f32 and on
-// f32 storage (nn and nn2 read their transposed operands into the same
-// tiles).
+// dV^T); the forward's at every head_dim. The rest of D = 256 runs on the
+// CUDA cores: flash_dq_wide_kernel and flash_dkv_wide_kernel under
+// strategy f32 and on f32 storage (nn and nn2 read their transposed
+// operands into the same tiles).
 // Each computes what its TPU counterpart computes, with the same numerics:
 // dots accumulate in f32, sm_scale is applied in f32 after the Q.K dot,
 // masked scores are -1e30 (not -inf). Under bf16, nn and nn2, P is rounded
@@ -76,10 +77,11 @@
 // f32) of split operands. On f32 storage the forward, dQ and dK/dV split
 // both operands of every product and run six bf16 tensor-core passes a
 // product (kF32), operations-bound on the tensor cores. At D = 256 the
-// forward, dQ and dK/dV on bf16 storage (strategies bf16, nn, nn2) are
-// tensor-core instances too, whose O, dQ, dK and dV fill 128 registers a
-// thread (their notes say how they fit); the f32-dot forms and f32 storage
-// there run plain FMAs on the CUDA cores (67 TFLOP/s), operations-bound.
+// forward of every strategy on both storages, and dQ and dK/dV on bf16
+// storage (strategies bf16, nn, nn2), are tensor-core instances too, whose
+// O, dQ, dK and dV fill 128 registers a thread (their notes say how they
+// fit); the f32-dot dQ and dK/dV and f32 storage's there run plain FMAs on
+// the CUDA cores (67 TFLOP/s), operations-bound.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -108,10 +110,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ------------------------------------------- CUDA-core kernels at D = 256
-// Head_dims in (128, 256] (zero-padded to 256 by the caller) where no
-// tensor-core instance runs them: flash_fwd_wide_kernel,
-// flash_dq_wide_kernel and flash_dkv_wide_kernel under strategy f32 on
-// bf16 storage and on f32 storage. Plain FMAs on the CUDA cores,
+// dQ and dK/dV at head_dims in (128, 256] (zero-padded to 256 by the
+// caller) where no tensor-core instance runs them: flash_dq_wide_kernel
+// and flash_dkv_wide_kernel under strategy f32 on bf16 storage and on f32
+// storage. Plain FMAs on the CUDA cores,
 // templated on the storage type T. Every operand is loaded into the same
 // f32 tile in shared memory (rows padded to D + 1 floats, so that the
 // column walks hit 32 distinct banks), whether it arrives as rows of
@@ -121,17 +123,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // round nothing before a product. A product of two bf16 values is exact
 // in f32, so on bf16 storage the f32 FMAs give the reference's
 // function up to the order of the f32 sums. On f32 storage S and dP are
-// summed in f64 (`Dot`), and each tile's share of O, dQ, dK or dV is summed
+// summed in f64 (`Dot`), and each tile's share of dQ, dK or dV is summed
 // apart and then added in f32 (promotion): plain f32 sums in one order over
 // 256 columns and 1024 keys come to f32's check of 1e-5 against the f64
 // function, and this design stays under it
 // (tests/test_torch_f32_storage_split.py models it). A block has 256
-// threads; thread (ty, tx) = (tid / 16, tid % 16), and the 16 threads of a
-// row group are one half-warp, so row maxima and sums reduce with four
-// xor-shuffles. Bound: operations; at the D = 256 kernel phase's shape
-// (B*H = 64, L = 1024, causal) the forward's 3.4e10 flops take 0.51 ms at
-// the CUDA cores' 67 TFLOP/s; these kernels are right first, and their
-// tensor-core instances are later work (ROADMAP).
+// threads; thread (ty, tx) = (tid / 16, tid % 16). Bound: operations; at
+// the D = 256 kernel phase's shape (B*H = 64, L = 1024, causal) dQ's
+// 5.2e10 flops take 0.77 ms at the CUDA cores' 67 TFLOP/s; these kernels
+// are right first, and their tensor-core instances are later work
+// (ROADMAP).
 
 constexpr int kThreads = 256;
 constexpr int kWideD = 256;                // head_dim of these kernels
@@ -147,20 +148,6 @@ __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(bf16* p, float x) {
   *p = __float2bfloat16_rn(x);
-}
-
-// max / sum over the 16 lanes of a half-warp (one row group)
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 // Positions row0 .. row0+R-1 of head bh of one operand into an [R][D + 1]
@@ -183,141 +170,6 @@ __device__ __forceinline__ void load_wide(float* dst, const T* src, int tr,
       const int r = i / D, c = i % D;
       dst[r * kWidePad + c] = to_f32(s[(size_t)r * H * D + c]);
     }
-  }
-}
-
-// Forward (_fwd_kernel :83 at D = 256, P unrounded: strategy f32 and f32
-// storage). One block per (head, 64-row query tile); thread (ty, tx) owns
-// rows 4 ty .. 4 ty + 3 and output columns tx + 16 j. The softmax runs over
-// 128-key blocks, the reference's flash_block_k: S of a block's two 64-key
-// tiles (K through one tile buffer, K^T where bit 1 of `transposed` is
-// set), the online softmax, then P.V tile by tile through the same buffer.
-// Keys at and past kv_len (the true length of zero-padded inputs) are
-// masked as the causal mask masks. Shared memory: Q and K/V tiles, 2 x 64
-// x 257 floats, and P of one block, 64 x 129: 164.6 KB.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o,
-                      float* __restrict__ lse, int H, int L, float scale,
-                      int causal, int kv_len, int transposed) {
-  typedef typename DotOf<T>::type Dot;
-  constexpr int NJ = kWideD / 16, PS = 2 * kTile + 1;   // P's row stride
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* KVs = Qs + kTile * kWidePad;
-  float* Ps = KVs + kTile * kWidePad;     // [64][129]
-  const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_wide<kTile>(Qs, q, 0, bh, H, L, q0);
-  float acc[4][NJ], m[4], l[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = kNegInf;
-    l[a] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[a][j] = 0.f;
-  }
-  const int n_tiles = causal ? min(q0 / kTile + 1, L / kTile) : L / kTile;
-
-  for (int t0 = 0; t0 < n_tiles; t0 += 2) {   // 128-key softmax blocks
-    const int nt = min(2, n_tiles - t0);
-    float s[4][8];                             // columns tx + 16 c
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int k0 = (t0 + u) * kTile;
-      if (u < nt) {
-        __syncthreads();   // the last readers of KVs and Ps are done
-        load_wide<kTile>(KVs, k, (transposed >> 1) & 1, bh, H, L, k0);
-        __syncthreads();
-        Dot sd[4][4] = {};
-#pragma unroll 4
-        for (int d = 0; d < kWideD; ++d) {
-          Dot av[4], bv[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) av[a] = Qs[(4 * ty + a) * kWidePad + d];
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            bv[c] = KVs[(tx + 16 * c) * kWidePad + d];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) sd[a][c] += av[a] * bv[c];
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          // keys at and past `end` are masked: past the row (causal) or at
-          // and past kv_len
-          const int row = q0 + 4 * ty + a;
-          const int end = causal ? min(row + 1, kv_len) : kv_len;
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            s[a][4 * u + c] = k0 + tx + 16 * c >= end
-                                  ? kNegInf : (float)sd[a][c] * scale;
-        }
-      } else {
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) s[a][4 * u + c] = kNegInf;
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) mx = fmaxf(mx, s[a][c]);
-      const float m_new = fmaxf(m[a], group_max(mx));
-      const float alpha = expf(m[a] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float p = expf(s[a][c] - m_new);
-        sum += p;
-        Ps[(4 * ty + a) * PS + 64 * (c / 4) + tx + 16 * (c % 4)] = p;
-      }
-      l[a] = l[a] * alpha + group_sum(sum);
-      m[a] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[a][j] *= alpha;
-    }
-    for (int u = 0; u < nt; ++u) {
-      __syncthreads();   // P written; the last readers of KVs are done
-      load_wide<kTile>(KVs, v, (transposed >> 2) & 1, bh, H, L,
-                       (t0 + u) * kTile);
-      __syncthreads();
-      float part[4][NJ] = {};
-#pragma unroll 4
-      for (int kk = 0; kk < kTile; ++kk) {
-        float pv[4], vv[NJ];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-          pv[a] = Ps[(4 * ty + a) * PS + 64 * u + kk];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) vv[j] = KVs[kk * kWidePad + tx + 16 * j];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            part[a][j] = fmaf(pv[a], vv[j], part[a][j]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[a][j] += part[a][j];
-    }
-  }
-
-  const size_t rs = (size_t)H * kWideD;
-  T* ob = o + ((size_t)(bh / H) * L * H + bh % H) * kWideD;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + 4 * ty + a;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      store_as(ob + row * rs + tx + 16 * j, acc[a][j] / l[a]);
-    if (tx == 0) lse[(size_t)bh * L + row] = m[a] + logf(l[a]);
   }
 }
 
@@ -1358,10 +1210,12 @@ struct FwdF32Smem {
 };
 
 // Threads of a forward block: the producer and the consumers (one consumer
-// is compiled for its 256 threads, as kBwdThreads says).
+// is compiled for its 256 threads, as kBwdThreads says; kF32 at D = 256 has
+// one, see fwd_f32_d256_body).
 template <int D, int Mode>
 constexpr int fwd_threads() {
-  if constexpr (Mode == kF32) return (1 + FwdF32Smem<D>::kNC) * kWG;
+  if constexpr (Mode == kF32 && D == kWideD) return 2 * kWG;
+  else if constexpr (Mode == kF32) return (1 + FwdF32Smem<D>::kNC) * kWG;
   else return kHopperThreads;
 }
 template <int D, int Mode>
@@ -1666,7 +1520,8 @@ struct FwdD256Smem {
 };
 
 // Forward at D = 256 (_fwd_kernel :83; kNN reads K^T), bf16 storage,
-// strategies bf16, nn and nn2. Bound: bytes, 0.040 ms at the head_dim-256
+// strategies bf16, nn and nn2 (and, as Split, f32: see the end of this
+// note). Bound: bytes, 0.040 ms at the head_dim-256
 // phase's shape (B*H = 64, L = 1024, causal), with the operations' 0.035
 // ms close behind. The design of the kF32 forward with one bf16 term: a
 // persistent grid walks the (head, 128-row query tile) items heaviest
@@ -1695,7 +1550,22 @@ struct FwdD256Smem {
 // consumer, which still walks the ring. Maps: map_q, map_o, map_v and
 // kStd's map_k [B*L, H*D] with boxes of 64 rows; kNN's map_k K^T as
 // [B*H*D, L] with boxes of D rows.
-template <int Form>
+//
+// Split (strategy f32 on bf16 storage, _fwd_kernel's f32 form :120): S is
+// already exact in its products, P stays f32 and enters O += P.V as its
+// hi, mid and lo bf16 terms (acc_to_a16_split), each multiplied by the
+// same V tile, the small terms first. P is not rounded, so a softmax block
+// wider than one tile would change only the order of f32 sums: the
+// softmax steps one 64-key tile at a time (the producer loads each tile's
+// K, then its V), no scores wait in the stash, and per tile a consumer
+// runs S, the online softmax, O *= alpha, the split (48 registers of
+// fragments; S's 32 die as they are split) and twelve m64n256k16
+// products. Every tile of the item's causal range is taken by both
+// consumers, so that the products stay on one path; one past a consumer's
+// diagonal is wholly masked (its P 0). Four bf16 passes of 2 D flops a
+// causal pair bound it: operations, 0.070 ms at the head_dim-256 phase's
+// shape.
+template <int Form, bool Split>
 __device__ __forceinline__ void fwd_d256_body(
     const CUtensorMap& map_q, const CUtensorMap& map_k,
     const CUtensorMap& map_v, const CUtensorMap& map_o,
@@ -1746,8 +1616,10 @@ __device__ __forceinline__ void fwd_d256_body(
           for (int c = 0; c < C; ++c)
             tma_load(q_s + w * T + c * kChunk, &map_q, q_full,
                      h * D + c * kSeg, b * L + q0 + 64 * w);
-        for (int j0 = 0; j0 < nk; j0 += 2) {   // a block's K, then its V
-          const int nt = min(2, nk - j0);
+        // a block's K tiles, then its V tiles (Split: blocks of one tile)
+        constexpr int BT = Split ? 1 : 2;
+        for (int j0 = 0; j0 < nk; j0 += BT) {
+          const int nt = min(BT, nk - j0);
           for (int op = 0; op < 2; ++op)
             for (int j = j0; j < j0 + nt; ++j, ++n) {
               const int s = n % NS;
@@ -1831,71 +1703,38 @@ __device__ __forceinline__ void fwd_d256_body(
         }
       };
 
-      for (int j0 = 0; j0 < nk; j0 += 2) {
-        const int i0 = n;
-        // The block's nt K tiles sit in slots i0 .., its V tiles after
-        // them. Both tiles' products are always issued, so that no
-        // accumulator is defined on one path only: a second tile that this
-        // consumer does not need (past its diagonal) or that the block
-        // lacks (L = 64 mod 128: tile j0's slots are read again) is wholly
-        // masked below, its P 0, and its P.V adds zeros. The two tiles' S
-        // run one after the other in the same 32 registers, tile j0's
-        // scores parked in this thread's stash meanwhile: O and both
-        // tiles' scores at once (192 registers) spilled 40-60 bytes even
-        // with 240 registers a consumer.
-        const int nt = min(2, nk - j0);
-        const int i_k1 = i0 + nt - 1, i_v1 = i0 + 2 * nt - 1;
-        float sc[32], mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int i = u ? i_k1 : i0;
-          wait_full(i);
+      if constexpr (Split) {
+        // One 64-key tile a step, its K in slot n and its V in slot n + 1.
+        for (int j = 0; j < nk; ++j, n += 2) {
+          float sc[32];
+          wait_full(n);
           wgmma_fence();
-          issue_s(sc, i);
+          issue_s(sc, n);
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(sc);
-          mask(sc, j0 + u);   // keys past the row or at and past kv_len
+          release(n);
+          if (j == nk - 1) {   // the item's last S: this consumer's Q rows
+            named_sync(1 + w, kWG);   // are free for the next item's
+            if (tid == 0) mbar_arrive(q_empty);
+          }
+          mask(sc, j);   // keys past the row or at and past kv_len
+
+          // The online softmax over the tile's keys, as below: P (f32)
+          // against the running max m of the scores scaled by scale
+          // log2(e); alpha rescales the O of earlier tiles.
+          float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
 #pragma unroll
           for (int e = 0; e < 32; ++e)
             mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
-          if (u == 0)
+          float alpha[2], neg_m[2];
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
-              stash[j * kWG + tid] = make_float4(sc[4 * j], sc[4 * j + 1],
-                                                 sc[4 * j + 2], sc[4 * j + 3]);
-        }
-        for (int i = i0; i < i0 + nt; ++i) release(i);
-        if (j0 + 2 >= nk) {   // the item's last S: this consumer's Q rows
-          named_sync(1 + w, kWG);   // are free for the next item's
-          if (tid == 0) mbar_arrive(q_empty);
-        }
-
-        // The online softmax over the block's 128 keys: P (f32) against
-        // the running max m of the scores scaled by scale log2(e), the
-        // scale folded into the exponent's FMA; alpha rescales the O of
-        // earlier blocks. Tile j0 + 1's P is packed first, then tile j0's
-        // scores come back from the stash.
-        float alpha[2], neg_m[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
-          alpha[r] = ex2(m[r] - m_new);
-          m[r] = m_new;
-          neg_m[r] = -m_new;
-        }
-        uint32_t pa[8][4];   // P in bf16, [tile][kk]: A of P.V
-#pragma unroll
-        for (int u = 1; u >= 0; --u) {
-          if (u == 0)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const float4 v4 = stash[j * kWG + tid];
-              sc[4 * j] = v4.x;
-              sc[4 * j + 1] = v4.y;
-              sc[4 * j + 2] = v4.z;
-              sc[4 * j + 3] = v4.w;
-            }
+          for (int r = 0; r < 2; ++r) {
+            const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
+            alpha[r] = ex2(m[r] - m_new);
+            m[r] = m_new;
+            neg_m[r] = -m_new;
+          }
 #pragma unroll
           for (int e = 0; e < 32; ++e) {
             const int r = (e >> 1) & 1;
@@ -1903,34 +1742,134 @@ __device__ __forceinline__ void fwd_d256_body(
             sum[r] += sc[e];
           }
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) acc_to_a16(pa[4 * u + kk], sc, kk);
-        }
+          for (int r = 0; r < 2; ++r)
+            l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
-#pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-
-        // O += P.V of both tiles, V's row tile read MN-major (its 64-column
-        // chunks kChunk apart)
-        wait_full(i0 + nt);
-        wait_full(i_v1);
-        wgmma_fence();
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const uint32_t vb =
-              smem_addr(ring + ((u ? i_v1 : i0 + nt) % NS) * T);
+          for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+          uint32_t pa[3 * 4][4];   // P's terms, [term][kk]: lo, mid, hi
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma_rs<1>(o, pa[4 * u + kk],
-                        desc(vb + kk * 16 * kRowBytes, kChunk));
+            acc_to_a16_split(pa[8 + kk], pa[4 + kk], pa[kk], sc, kk);
+
+          // O += P.V, V's row tile read MN-major, the small terms first
+          const uint32_t vb = smem_addr(ring + ((n + 1) % NS) * T);
+          wait_full(n + 1);
+          wgmma_fence();
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_rs<1>(o, pa[4 * p + kk],
+                          desc(vb + kk * 16 * kRowBytes, kChunk));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(o);
+          fence_regs(pa);
+          release(n + 1);
         }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(o);
-        fence_regs(pa);
-        for (int i = i0 + nt; i < i0 + 2 * nt; ++i) release(i);
-        n += 2 * nt;
+      } else {
+        for (int j0 = 0; j0 < nk; j0 += 2) {
+          const int i0 = n;
+          // The block's nt K tiles sit in slots i0 .., its V tiles after
+          // them. Both tiles' products are always issued, so that no
+          // accumulator is defined on one path only: a second tile that this
+          // consumer does not need (past its diagonal) or that the block
+          // lacks (L = 64 mod 128: tile j0's slots are read again) is wholly
+          // masked below, its P 0, and its P.V adds zeros. The two tiles' S
+          // run one after the other in the same 32 registers, tile j0's
+          // scores parked in this thread's stash meanwhile: O and both
+          // tiles' scores at once (192 registers) spilled 40-60 bytes even
+          // with 240 registers a consumer.
+          const int nt = min(2, nk - j0);
+          const int i_k1 = i0 + nt - 1, i_v1 = i0 + 2 * nt - 1;
+          float sc[32], mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int i = u ? i_k1 : i0;
+            wait_full(i);
+            wgmma_fence();
+            issue_s(sc, i);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(sc);
+            mask(sc, j0 + u);   // keys past the row or at and past kv_len
+#pragma unroll
+            for (int e = 0; e < 32; ++e)
+              mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+            if (u == 0)
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                stash[j * kWG + tid] =
+                    make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2],
+                                sc[4 * j + 3]);
+          }
+          for (int i = i0; i < i0 + nt; ++i) release(i);
+          if (j0 + 2 >= nk) {   // the item's last S: this consumer's Q rows
+            named_sync(1 + w, kWG);   // are free for the next item's
+            if (tid == 0) mbar_arrive(q_empty);
+          }
+
+          // The online softmax over the block's 128 keys: P (f32) against
+          // the running max m of the scores scaled by scale log2(e), the
+          // scale folded into the exponent's FMA; alpha rescales the O of
+          // earlier blocks. Tile j0 + 1's P is packed first, then tile j0's
+          // scores come back from the stash.
+          float alpha[2], neg_m[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
+            alpha[r] = ex2(m[r] - m_new);
+            m[r] = m_new;
+            neg_m[r] = -m_new;
+          }
+          uint32_t pa[8][4];   // P in bf16, [tile][kk]: A of P.V
+#pragma unroll
+          for (int u = 1; u >= 0; --u) {
+            if (u == 0)
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const float4 v4 = stash[j * kWG + tid];
+                sc[4 * j] = v4.x;
+                sc[4 * j + 1] = v4.y;
+                sc[4 * j + 2] = v4.z;
+                sc[4 * j + 3] = v4.w;
+              }
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+              const int r = (e >> 1) & 1;
+              sc[e] = ex2(fmaf(sc[e], scale_log2, neg_m[r]));
+              sum[r] += sc[e];
+            }
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) acc_to_a16(pa[4 * u + kk], sc, kk);
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+          // O += P.V of both tiles, V's row tile read MN-major (its 64-column
+          // chunks kChunk apart)
+          wait_full(i0 + nt);
+          wait_full(i_v1);
+          wgmma_fence();
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const uint32_t vb =
+                smem_addr(ring + ((u ? i_v1 : i0 + nt) % NS) * T);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_rs<1>(o, pa[4 * u + kk],
+                          desc(vb + kk * 16 * kRowBytes, kChunk));
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(o);
+          fence_regs(pa);
+          for (int i = i0 + nt; i < i0 + 2 * nt; ++i) release(i);
+          n += 2 * nt;
+        }
       }
 
       // O = acc / l in bf16 (one reciprocal a row, not 128 IEEE divisions a
@@ -1972,9 +1911,305 @@ __device__ __forceinline__ void fwd_d256_body(
   }
 }
 
-// The forward: its bf16-storage body (kBf16, kSplit; at D = 256 kBf16's
-// fwd_d256_body) or the kF32 body. o_out is kF32's output, O in f32 by
-// plain stores (map_o unused there); the others store O through map_o.
+// Shared memory of the kF32 forward at D = 256: its consumer's 64 Q rows in
+// three terms (one buffer, 96 KB), a ring of kSlots slots, each one term of
+// a 64-key K or V tile (32 KB), P's three bf16 terms (3 x 8 KB), then the
+// barriers: 96 + 96 + 24 KB. FwdF32Smem's slots of a tile's three terms
+// would take 96 KB each here.
+struct FwdF32D256Smem {
+  static constexpr int kT = kChunk * (kWideD / kSeg);   // 64 rows, 32 KB
+  static constexpr int kSlots = 3;
+  static constexpr int kP = 64 * kRowBytes;             // one term of P
+  static constexpr size_t kBytes =
+      (size_t)(3 + kSlots) * kT + 3 * kP + 8 * (2 + 2 * kSlots) + 1024;
+  static_assert(kBytes >= kOneBlockSmem, "one block per SM");
+  static_assert(kBytes <= 227 * 1024, "fits in a block's shared memory");
+};
+
+// kF32 at D = 256 (f32 storage, _fwd_kernel :83 for every strategy): the
+// kF32 forward's arithmetic with one consumer of 64 rows, whose three Q
+// terms alone take 96 KB. Q, K and V arrive as the hi, mid and lo bf16
+// terms of flash_split_kernel (nn and nn2 split K^T into the same terms,
+// so they give kStd's results bitwise). A persistent grid walks the (head,
+// 64-row query tile) items heaviest causal tile first, numbered head by
+// head where all heads' K and V terms pass three times L2's 50 MB, else
+// rank by rank (as dq_d256_body, with its own switch: each item streams
+// its causal range's K and V from L2, 192 KB a tile; see `item`); the
+// producer loads each item's Q terms into the one
+// buffer and each key tile's K terms, then its V terms, into the ring,
+// one term a slot, lo first. Per 64-key tile the consumer runs S = Q.K^T
+// as six wgmma passes of term pairs (m64n64k16 from shared memory, 16
+// depth steps each) in pass_a/pass_b's order taken slot by slot (K's lo
+// term: hi.lo; mid: mid.mid, hi.mid; hi: lo.hi, mid.hi, hi.hi), small
+// weights first, each slot's passes a commit group so that the slot goes
+// back to the producer as soon as they are done; then the scores in f32
+// as the plain version forms them (the causal mask and the keys at and
+// past kv_len at -inf), the online softmax with P = expf of the plain
+// version's argument (P is not rounded, so the softmax steps one tile at
+// a time: a wider block would change only the order of f32 sums), O *=
+// alpha, P split (split_pair) into three swizzled bf16 tiles in shared
+// memory, and per V term slot and 64-column chunk of O that slot's passes
+// (both operands from shared memory) into a fresh accumulator that is
+// added to O in f32 (promotion: the tensor cores' own rounding over L / 16
+// steps is past f32's check). O is 128 registers a thread and the
+// promotion accumulator 32; P's fragments in registers beside them (48
+// more) spilled 628 bytes at 255 registers, so P goes through shared
+// memory, and the ring keeps three slots (each reloads while the other two
+// are read). The Q buffer is released after the item's last S; O leaves
+// in f32 by plain stores, LSE (natural log) as [B, H, L]. Twelve bf16
+// passes of 2 D flops a causal pair bound it:
+// operations, 0.209 ms at the head_dim-256 phase's shape (B*H = 64, L =
+// 1024, causal).
+__device__ __forceinline__ void fwd_f32_d256_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, float* __restrict__ lse,
+    float* __restrict__ o_f32, int BH, int H, int L, float scale,
+    int causal, int kv_len) {
+  using Smem = FwdF32D256Smem;
+  constexpr int D = kWideD, C = D / kSeg, T = Smem::kT, NS = Smem::kSlots;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = align_1024(smem_raw);      // [term]
+  unsigned char* ring = q_s + 3 * T;              // [slot]
+  unsigned char* p_s = ring + NS * T;             // [term]: hi, mid, lo
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(p_s + 3 * Smem::kP);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* full = q_empty + 1;
+  uint64_t* empty = full + NS;
+
+  const int num_t = L / 64, n_items = BH * num_t;
+  const int BL = BH / H * L;           // rows of one term
+  // the key tiles of query tile qt: through its diagonal tile under causal
+  auto key_tiles = [&](int qt) { return causal ? qt + 1 : num_t; };
+  // Item `it` of this block: head by head where all heads' K and V terms
+  // (six 64 x 256 bf16 tiles a 64-key tile) pass three times L2's 50 MB,
+  // else rank by rank. Measured (PERF.md, PR 10): rank order 1.3-1.7x
+  // faster at 48 MB (B*H = 16, L = 1024; 8 x 2048) and 1.4x at 96 MB (16
+  // x 2048), where dQ's switch at 50 MB would go head by head; head order
+  // 4-9% faster at 192 MB (64 x 1024, 32 x 2048).
+  constexpr long long kL2Bytes = 50ll << 20;
+  const bool by_head =
+      (long long)n_items * 64 * D * 2 * 6 > 3 * kL2Bytes;
+  auto item = [&](int it, int& bh, int& qt) {
+    int a, c;
+    if (!work_item(it, by_head ? num_t : BH, n_items, a, c)) return false;
+    bh = by_head ? c : a;
+    qt = num_t - 1 - (by_head ? a : c);
+    return true;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 1);             // the consumer's first thread
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    // ---- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int n = 0;   // slots loaded so far
+      int bh, qt;
+      for (int it = 0; item(it, bh, qt); ++it) {
+        const int b = bh / H, h = bh % H;
+        if (it >= 1) mbar_wait(q_empty, (it - 1) & 1);
+        mbar_expect_tx(q_full, 3 * T);
+        for (int term = 0; term < 3; ++term)
+          for (int c = 0; c < C; ++c)
+            tma_load(q_s + term * T + c * kChunk, &map_q, q_full,
+                     h * D + c * kSeg, term * BL + b * L + qt * 64);
+        for (int j = 0; j < key_tiles(qt); ++j)
+          for (int op = 0; op < 2; ++op)             // K's terms, then V's
+            for (int term = 2; term >= 0; --term, ++n) {   // lo first
+              const int s = n % NS;
+              if (n >= NS) mbar_wait(&empty[s], (n / NS - 1) & 1);
+              mbar_expect_tx(&full[s], T);
+              for (int c = 0; c < C; ++c)
+                tma_load(ring + s * T + c * kChunk, op ? &map_v : &map_k,
+                         &full[s], h * D + c * kSeg,
+                         term * BL + b * L + j * 64);
+            }
+      }
+    }
+  } else {
+    // ---- consumer
+    setmaxnreg_inc<kSoleConsumerRegs>();
+    const bool leader = threadIdx.x == kWG;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = 16 * warp + g;          // rows r_lo and r_lo + 8
+    const uint32_t qa = smem_addr(q_s), p_addr = smem_addr(p_s);
+    auto wait_full = [&](int i) { mbar_wait(&full[i % NS], (i / NS) & 1); };
+    auto release = [&](int i) { mbar_arrive(&empty[i % NS]); };
+    int n = 0;                               // slots consumed so far
+    int bh, qt;
+    for (int it = 0; item(it, bh, qt); ++it) {
+      const int b = bh / H, h = bh % H, r0 = qt * 64, nk = key_tiles(qt);
+      mbar_wait(q_full, it & 1);
+      float o[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+      // Tile j: K's terms lo, mid, hi in slots n .. n + 2, V's in n + 3 ..
+      for (int j = 0; j < nk; ++j, n += 6) {
+        // S = Q.K^T: pass p multiplies term pass_a(p) of Q by term
+        // pass_b(p) of K (read K-major), the passes grouped by K's slot
+        float sc[32];
+#pragma unroll
+        for (int u = 0; u < 3; ++u) {
+          const int term = 2 - u;
+          const uint32_t kb = smem_addr(ring + ((n + u) % NS) * T);
+          wait_full(n + u);
+          wgmma_fence();
+#pragma unroll
+          for (int p = 0; p < kPasses; ++p) {
+            if (pass_b(p) != term) continue;
+            // (unrolled by 4, not 16: ptxas, holding the descriptors of
+            // all of a tile's S products, spilled 20 bytes at 255
+            // registers; a second accumulator for the depth's second
+            // half spilled 128 at any unrolling)
+#pragma unroll 4
+            for (int ks = 0; ks < D / 16; ++ks) {
+              const uint32_t step = (ks / 4) * kChunk + (ks % 4) * 32;
+              // (the lo slot has one pass: the first product zeroes S)
+              wgmma_ss<0, 0>(sc, desc(qa + pass_a(p) * T + step),
+                             desc(kb + step), u > 0 || ks > 0);
+            }
+          }
+          wgmma_commit();
+        }
+        wgmma_wait<2>();
+        release(n);
+        wgmma_wait<1>();
+        release(n + 1);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        release(n + 2);
+        if (j == nk - 1) {   // the item's last S: Q is free for the next
+          named_sync(1, kWG);
+          if (leader) mbar_arrive(q_empty);
+        }
+
+        // the scaled scores in f32 as the plain version forms them; -inf
+        // past the causal diagonal and at and past kv_len
+        const int k0 = j * 64;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) sc[e] *= scale;
+        if ((causal && k0 + 64 > r0) || k0 + 64 > kv_len) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int key = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+            const int row = r0 + r_lo + 8 * ((e >> 1) & 1);
+            if ((causal && key > row) || key >= kv_len) sc[e] = -INFINITY;
+          }
+        }
+        // online softmax over the tile's keys: m, l and P (f32) against
+        // the running max; alpha rescales the O of earlier tiles
+        float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+        float alpha[2];
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2) {
+          const float m_new = fmaxf(m[r2], quad_max(mx[r2]));
+          alpha[r2] = expf(m[r2] - m_new);
+          m[r2] = m_new;
+        }
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int r2 = (e >> 1) & 1;
+          sc[e] = expf(sc[e] - m[r2]);
+          sum[r2] += sc[e];
+        }
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2)
+          l[r2] = l[r2] * alpha[r2] + quad_sum(sum[r2]);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        // P's hi, mid and lo terms as swizzled 64 x 64 bf16 tiles: rows
+        // r_lo, r_lo + 8, key pairs 8 j8 + 2 t (the previous tile's
+        // products on them are done)
+#pragma unroll
+        for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2) {
+            const int e = 4 * j8 + 2 * r2;
+            uint32_t hi, mid, lo;
+            split_pair(sc[e], sc[e + 1], hi, mid, lo);
+            unsigned char* at = p_s + swz(r_lo + 8 * r2, 8 * j8 + 2 * t);
+            *reinterpret_cast<uint32_t*>(at) = hi;
+            *reinterpret_cast<uint32_t*>(at + Smem::kP) = mid;
+            *reinterpret_cast<uint32_t*>(at + 2 * Smem::kP) = lo;
+          }
+        fence_async_smem();
+        named_sync(1, kWG);              // every thread's P is in
+
+        // O += P.V: per V term slot (lo first) and 64-column chunk of O,
+        // the slot's passes (P's term tile read K-major, V's row tile
+        // MN-major) into a fresh accumulator, added to O in f32
+#pragma unroll
+        for (int u = 0; u < 3; ++u) {
+          const int term = 2 - u;
+          const uint32_t vb = smem_addr(ring + ((n + 3 + u) % NS) * T);
+          wait_full(n + 3 + u);
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            float acc[32];
+            int scale_d = 0;             // the first product zeroes acc
+            wgmma_fence();
+#pragma unroll
+            for (int p = 0; p < kPasses; ++p) {
+              if (pass_b(p) != term) continue;
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                wgmma_ss<0, 1>(acc,
+                               desc(p_addr + pass_a(p) * Smem::kP + kk * 32),
+                               desc(vb + c * kChunk + kk * 16 * kRowBytes,
+                                    kChunk),
+                               scale_d);
+                scale_d = 1;
+              }
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(acc);
+#pragma unroll
+            for (int e = 0; e < 32; ++e) o[32 * c + e] += acc[e];
+          }
+          release(n + 3 + u);
+        }
+      }
+
+      // O = acc / l in f32, rows of [B, L, H, D]; LSE
+      const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+      for (int j8 = 0; j8 < D / 8; ++j8)
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2) {
+          const int row = r0 + r_lo + 8 * r2, c = 8 * j8 + 2 * t;
+          *reinterpret_cast<float2*>(
+              o_f32 + ((size_t)(b * L + row) * H + h) * D + c) =
+              make_float2(o[4 * j8 + 2 * r2] * inv_l[r2],
+                          o[4 * j8 + 2 * r2 + 1] * inv_l[r2]);
+        }
+      if (t == 0)
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2)
+          lse[(size_t)bh * L + r0 + r_lo + 8 * r2] = m[r2] + logf(l[r2]);
+    }
+  }
+}
+
+// The forward: its bf16-storage body (kBf16, kSplit; at D = 256
+// fwd_d256_body) or the kF32 body (at D = 256 fwd_f32_d256_body). o_out is
+// kF32's output, O in f32 by plain stores (map_o unused there); the others
+// store O through map_o.
 template <int D, int Form, int Mode = kBf16>
 __global__ void __launch_bounds__(kFwdThreads<D, Mode>, 1)
 flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -1986,12 +2221,15 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap map_q,
                      int kv_len) {
   if constexpr (Mode == kF32) {
     static_assert(Form == kStd, "kF32 reads split terms as rows");
-    fwd_f32_body<D>(map_q, map_k, map_v, lse, static_cast<float*>(o_out),
-                    BH, H, L, scale, causal, kv_len);
+    if constexpr (D == kWideD)
+      fwd_f32_d256_body(map_q, map_k, map_v, lse, static_cast<float*>(o_out),
+                        BH, H, L, scale, causal, kv_len);
+    else
+      fwd_f32_body<D>(map_q, map_k, map_v, lse, static_cast<float*>(o_out),
+                      BH, H, L, scale, causal, kv_len);
   } else if constexpr (D == kWideD) {
-    static_assert(Mode == kBf16, "D = 256 on the tensor cores: kBf16 only");
-    fwd_d256_body<Form>(map_q, map_k, map_v, map_o, lse, BH, H, L, scale,
-                        causal, kv_len);
+    fwd_d256_body<Form, Mode == kSplit>(map_q, map_k, map_v, map_o, lse, BH,
+                                        H, L, scale, causal, kv_len);
   } else {
     fwd_bf16_body<D, Form, Mode == kSplit>(map_q, map_k, map_v, map_o, lse,
                                           BH, H, L, scale, causal, kv_len);
@@ -3731,38 +3969,15 @@ bool cols_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int D) {
 
 typedef const float* cf32;   // an f32 input (split pass operands, LSE, delta)
 
-// The D = 256 kernels on the CUDA cores: the f32-dot forms on bf16 storage
-// and every form on f32 storage.
+// The D = 256 dQ and dK/dV on the CUDA cores: the f32-dot forms on bf16
+// storage and every form on f32 storage.
 constexpr size_t kWideRow = sizeof(float) * kWidePad;
-constexpr size_t kFwdWideSmem =
-    kWideRow * 2 * kTile + sizeof(float) * kTile * (2 * kTile + 1);
 constexpr size_t kDqWideSmem = kWideRow * (2 * kTile + 2 * kWideKeys) +
                                sizeof(float) * kTile * (kWideKeys + 1);
 constexpr size_t kDkvWideSmem =
     kWideRow * (2 * kWideKeys + 2 * kTile) +
     sizeof(float) * (2 * kWideKeys * (kTile + 1) + 2 * kTile);
 static_assert(kDkvWideSmem <= 227 * 1024, "fits in a block's shared memory");
-
-template <typename T>
-cudaError_t fwd_wide_t(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int B, int H, int L, float scale,
-                       int causal, int kv_len, int transposed,
-                       cudaStream_t st) {
-  return launch<flash_fwd_wide_kernel<T>>(
-      dim3(B * H, L / kTile), kThreads, kFwdWideSmem, st, (const T*)q,
-      (const T*)k, (const T*)v, (T*)o, (float*)lse, H, L, scale, causal,
-      kv_len, transposed);
-}
-cudaError_t fwd_wide(int dtype, const void* q, const void* k, const void* v,
-                     void* o, void* lse, int B, int H, int L, float scale,
-                     int causal, int kv_len, int transposed,
-                     cudaStream_t st) {
-  return dtype == 1
-      ? fwd_wide_t<bf16>(q, k, v, o, lse, B, H, L, scale, causal, kv_len,
-                         transposed, st)
-      : fwd_wide_t<float>(q, k, v, o, lse, B, H, L, scale, causal, kv_len,
-                          transposed, st);
-}
 
 template <typename T>
 cudaError_t dq_wide_t(const void* q, const void* k, const void* v,
@@ -3809,8 +4024,7 @@ cudaError_t dkv_wide(int dtype, const void* q, const void* k, const void* v,
 }
 
 // kStd: k is K [B, L, H, D]; kNN: K^T [B, H, D, L]. kSplit: the f32-dot
-// forward on bf16 storage. At D = 256 (kBf16) K and V move in 64-row
-// tiles.
+// forward on bf16 storage. At D = 256 K and V move in 64-row tiles.
 template <int D, int Form, int Mode = kBf16>
 cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
                     void* lse, int B, int H, int L, float scale, int causal,
@@ -3891,7 +4105,8 @@ cudaError_t dkv_mma(const void* q, const void* qt, const void* k,
       (float*)nullptr, (float*)nullptr, 0, B * H, H, L, scale, causal);
 }
 
-// f32 storage at D = 64 and 128. split_terms runs flash_split_kernel on the
+// f32 storage (the forward at every head_dim, dQ and dK/dV at D = 64 and
+// 128). split_terms runs flash_split_kernel on the
 // first n_ops of Q, K, V and dO (bit i of `transposed`: operand i given as
 // [B, H, D, L]) into `terms`, [n_ops, 3, B, L, H, D] bf16; the kF32
 // instances of the forward, dQ and dK/dV read the terms, each operand's
@@ -3919,16 +4134,21 @@ bool terms_maps(CUtensorMap (&m)[N], const void* terms, int B, int H, int L,
   return true;
 }
 
+// At D = 256 (fwd_f32_d256_body) a work item is a 64-row query tile.
 template <int D>
 cudaError_t fwd_f32(const void* terms, void* o, void* lse, int B, int H,
                     int L, float scale, int causal, int kv_len,
                     cudaStream_t st) {
   CUtensorMap m[3];   // Q, K, V
   if (!terms_maps(m, terms, B, H, L, D)) return cudaErrorInvalidValue;
+  constexpr bool wide = D == kWideD;
+  size_t smem = 0;
+  if constexpr (wide) smem = FwdF32D256Smem::kBytes;
+  else smem = FwdF32Smem<D>::kBytes;
   return launch<flash_fwd_mma_kernel<D, kStd, kF32>>(
-      persistent_grid(B, H, L), kFwdThreads<D, kF32>,
-      FwdF32Smem<D>::kBytes, st, m[0], m[1], m[2], m[0], (float*)lse,
-      (float*)o, B * H, H, L, scale, causal, kv_len);
+      persistent_grid(B, H, L, wide ? 64 : kBig), kFwdThreads<D, kF32>, smem,
+      st, m[0], m[1], m[2], m[0], (float*)lse, (float*)o, B * H, H, L, scale,
+      causal, kv_len);
 }
 
 template <int D>
@@ -3970,9 +4190,11 @@ cudaError_t fwd_storage_f32(const void* q, const void* k, const void* v,
                                         terms, B, H, L, D, st);
     if (err != cudaSuccess) return err;
   }
-  return D == 64
-      ? fwd_f32<64>(terms, o, lse, B, H, L, scale, causal, kv_len, st)
-      : fwd_f32<128>(terms, o, lse, B, H, L, scale, causal, kv_len, st);
+  if (D == 64)
+    return fwd_f32<64>(terms, o, lse, B, H, L, scale, causal, kv_len, st);
+  if (D == 128)
+    return fwd_f32<128>(terms, o, lse, B, H, L, scale, causal, kv_len, st);
+  return fwd_f32<kWideD>(terms, o, lse, B, H, L, scale, causal, kv_len, st);
 }
 
 cudaError_t dq_storage_f32(const void* q, const void* k, const void* v,
@@ -4072,20 +4294,21 @@ cudaError_t dkv_bf16(const void* q, const void* qt, const void* k,
 // C interface, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. On
 // bf16 storage the mma kernels at D = 64 and 128, and at D = 256 the
 // forward's, dQ's and dK/dV's kBf16 instances of strategies bf16, nn and
-// nn2 (every f32-dot form there: the CUDA-core kernels). On f32 storage
-// (where the storage-dtype dots are f32 dots) the kF32 instances of the
-// forward, dQ and dK/dV for every strategy at D = 64 and 128 (nn and nn2
+// nn2 and the forward's kSplit instance of f32 (the f32-dot dQ and dK/dV
+// there: the CUDA-core kernels). On f32 storage (where the storage-dtype
+// dots are f32 dots) the kF32 instances of the forward at every head_dim
+// and of dQ and dK/dV at D = 64 and 128, for every strategy (nn and nn2
 // split their transposed operands into the same terms, so they run the
 // kStd instance and give its results bitwise; nn2's dK/dV stores dK^T and
-// dV^T), the CUDA-core kernels at D = 256 (nn and nn2 read their
+// dV^T), the CUDA-core dQ and dK/dV at D = 256 (nn and nn2 read their
 // transposed operands into the same tiles, bitwise bf16's). The forward
 // and dQ take kv_len, the true key count of zero-padded inputs. On f32
-// storage at D = 64 and 128 every entry point takes `terms`, scratch of
-// [n, 3, B, L, H, D] bf16 (n = 3 for the forward's Q, K, V; 4 for dQ's and
-// dK/dV's Q, K, V, dO), and splits into it first where `split` is set;
-// elsewhere both are unused. Every launcher returns the cudaError_t of its
-// launch (0 on success); paddle_flash_last_instance names the kernel
-// instance that the calling thread launched last.
+// storage, where a kF32 instance runs, every entry point takes `terms`,
+// scratch of [n, 3, B, L, H, D] bf16 (n = 3 for the forward's Q, K, V; 4
+// for dQ's and dK/dV's Q, K, V, dO), and splits into it first where
+// `split` is set; elsewhere both are unused. Every launcher returns the
+// cudaError_t of its launch (0 on success); paddle_flash_last_instance
+// names the kernel instance that the calling thread launched last.
 extern "C" {
 
 // Strategy bf16.
@@ -4098,9 +4321,6 @@ int paddle_flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == 1)
     return fwd_bf16<kStd>(q, k, v, o, lse, B, H, L, D, scale, causal, kv_len,
                           st);
-  if (D == kWideD)
-    return fwd_wide(dtype, q, k, v, o, lse, B, H, L, scale, causal, kv_len,
-                    0, st);
   return fwd_storage_f32(q, k, v, 0, o, lse, terms, split, B, H, L, D, scale,
                          causal, kv_len, st);
 }
@@ -4149,9 +4369,6 @@ int paddle_flash_fwd_nn(const void* q, const void* kt, const void* v,
   if (dtype == 1)
     return fwd_bf16<kNN>(q, kt, v, o, lse, B, H, L, D, scale, causal, kv_len,
                          st);
-  if (D == kWideD)
-    return fwd_wide(dtype, q, kt, v, o, lse, B, H, L, scale, causal, kv_len,
-                    kTransposedK, st);
   return fwd_storage_f32(q, kt, v, kTransposedK, o, lse, terms, split, B, H,
                          L, D, scale, causal, kv_len, st);
 }
@@ -4209,21 +4426,24 @@ int paddle_flash_dkv_nn2(const void* q, const void* qt, const void* kt,
 }
 
 // Strategy f32: every dot in f32. On bf16 storage the kSplit instances of
-// the Hopper kernels (at D = 256 the CUDA-core kernels with nothing
-// rounded); on f32 the kernels of every strategy there.
+// the Hopper kernels (at D = 256 the forward's, and the CUDA-core dQ and
+// dK/dV with nothing rounded); on f32 the kernels of every strategy there.
 int paddle_flash_fwd_f32dot(const void* q, const void* k, const void* v,
                             void* o, void* lse, void* terms, int B, int H,
                             int L, int D, int dtype, int causal, float scale,
                             int kv_len, int split, void* stream) {
   if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == kWideD)
-    return fwd_wide(dtype, q, k, v, o, lse, B, H, L, scale, causal, kv_len,
-                    0, st);
-  if (dtype == 1)
-    return D == 64
-        ? fwd_mma<64, kStd, kSplit>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st)
-        : fwd_mma<128, kStd, kSplit>(q, k, v, o, lse, B, H, L, scale, causal, kv_len, st);
+  if (dtype == 1) {
+    if (D == 64)
+      return fwd_mma<64, kStd, kSplit>(q, k, v, o, lse, B, H, L, scale,
+                                       causal, kv_len, st);
+    if (D == 128)
+      return fwd_mma<128, kStd, kSplit>(q, k, v, o, lse, B, H, L, scale,
+                                        causal, kv_len, st);
+    return fwd_mma<kWideD, kStd, kSplit>(q, k, v, o, lse, B, H, L, scale,
+                                         causal, kv_len, st);
+  }
   return fwd_storage_f32(q, k, v, 0, o, lse, terms, split, B, H, L, D, scale,
                          causal, kv_len, st);
 }

@@ -24,14 +24,15 @@ Dispatch: tensors on the CPU take the plain versions; tensors on a CUDA
 device launch the kernels (`*_cuda`), which raise on what they do not take.
 Nothing falls back from one to the other. On f32 storage every strategy's
 kernels are f32-dot kernels (the storage dtype's dots are f32 dots there):
-at head_dim 64 and 128 the forward, dQ and dK/dV run on the tensor cores
-from bf16 terms of their operands (split_terms): the forward's call splits
-Q, K and V into its own scratch, the dQ kernel's call splits Q, K, V and
-dO once per backward into scratch that the dK/dV call reads (nn and nn2
-split their transposed operands into the same terms). At head_dim 256 the
-forward, dQ and dK/dV of bf16, nn and nn2 on bf16 storage run on the
-tensor cores too; the f32-dot forms and f32 storage run CUDA-core kernels,
-which read the operands as they are. LAUNCHES counts
+the forward at every head_dim, and dQ and dK/dV at head_dim 64 and 128,
+run on the tensor cores from bf16 terms of their operands (split_terms):
+the forward's call splits Q, K and V into its own scratch, the dQ
+kernel's call splits Q, K, V and dO once per backward into scratch that
+the dK/dV call reads (nn and nn2 split their transposed operands into the
+same terms). At head_dim 256 the forward of every strategy, and dQ and
+dK/dV of bf16, nn and nn2 on bf16 storage, run on the tensor cores too;
+the f32-dot dQ and dK/dV and f32 storage's run CUDA-core kernels, which
+read the operands as they are (works_from_terms says which). LAUNCHES counts
 each wrapper's launches, INSTANCE_LAUNCHES each kernel instance's (the
 library names the instance it launched), so a run can show which kernel a
 head_dim took.
@@ -92,8 +93,9 @@ _NEG_INF = -1e30
 _KERNEL_TILE = 64          # L is a multiple of it (64-row tiles, half tiles)
 _KERNEL_HEAD_DIMS = (64, 128, 256)
 # head_dims whose f32-storage kernels work from split terms (the tensor-core
-# kernels; 256 runs on the CUDA cores from the operands)
-_SPLIT_HEAD_DIMS = (64, 128)
+# kernels), by direction: the forward at every head_dim; dQ and dK/dV at
+# 256 run on the CUDA cores from the operands
+_SPLIT_HEAD_DIMS = {"fwd": (64, 128, 256), "bwd": (64, 128)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PROBE_N = 128             # the probe's tiles are 128 x 128
 
@@ -320,10 +322,13 @@ def _check(name: str, q: torch.Tensor, rows=(), cols=(), stats=(),
     return B, L, H, D
 
 
-def works_from_terms(q: torch.Tensor) -> bool:
-    """Whether the kernels for q's storage and head_dim work from split
-    terms: f32 storage at the tensor cores' head_dims."""
-    return q.dtype == torch.float32 and q.shape[-1] in _SPLIT_HEAD_DIMS
+def works_from_terms(name: str, q: torch.Tensor) -> bool:
+    """Whether flash kernel `name` (a forward or a dQ or dK/dV kernel) works
+    from split terms for q's storage and head_dim: f32 storage at the
+    head_dims where that direction's kF32 tensor-core instances run."""
+    direction = "fwd" if name.startswith("flash_fwd") else "bwd"
+    return (q.dtype == torch.float32
+            and q.shape[-1] in _SPLIT_HEAD_DIMS[direction])
 
 
 def split_terms(q: torch.Tensor, n_ops: int = 4) -> torch.Tensor:
@@ -340,7 +345,7 @@ def _terms(name: str, q: torch.Tensor, terms, split: bool):
     kernel reads its operands as they are, works_from_terms): `terms` as
     given, to be written by this call where `split` is set, else fresh
     scratch, which this call must split into."""
-    if not works_from_terms(q):
+    if not works_from_terms(name, q):
         return None
     n_ops = 3 if name.startswith("flash_fwd") else 4
     if terms is None:
@@ -411,10 +416,9 @@ def _fwd_cuda(name, q, k, v, causal, sm_scale, kt_layout=False,
 def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, kv_len=None,
                    terms=None, split=True):
     """Launch the forward kernel: (O, LSE). Keys at and past `kv_len` are
-    masked. On f32 storage (its storage-dtype dots are f32 dots) at
-    head_dim 64 and 128 it works from `terms` (split_terms(q, 3)), which it
-    first splits Q, K and V into unless `split` is False; fresh scratch
-    where `terms` is None."""
+    masked. On f32 storage (its storage-dtype dots are f32 dots) it works
+    from `terms` (split_terms(q, 3)), which it first splits Q, K and V into
+    unless `split` is False; fresh scratch where `terms` is None."""
     return _fwd_cuda("flash_fwd", q, k, v, causal, sm_scale, kv_len=kv_len,
                      terms=terms, split=split)
 
@@ -445,10 +449,10 @@ def _dq_cuda(name, q, k, v, do, lse, delta, causal, sm_scale, kv_len, terms,
 
 def flash_dq_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
                   kv_len=None, terms=None, split=True):
-    """Launch the dQ kernel. On f32 storage it works from `terms`
-    (split_terms), which it first splits Q, K, V and dO into unless
-    `split` is False (the terms of an earlier call); fresh scratch where
-    `terms` is None."""
+    """Launch the dQ kernel. On f32 storage at head_dim 64 and 128 it works
+    from `terms` (split_terms), which it first splits Q, K, V and dO into
+    unless `split` is False (the terms of an earlier call); fresh scratch
+    where `terms` is None."""
     return _dq_cuda("flash_dq", q, k, v, do, lse, delta, causal, sm_scale,
                     kv_len, terms, split)
 
@@ -595,13 +599,14 @@ def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
               impl: str = "bf16", kv_len=None):
     """(dQ, dK, dV) under dot strategy `impl` (the reference's `_bwd`, whose
     transposes for nn and nn2, :337-404, are done here). dQ masks keys at
-    and past `kv_len`. On a card and f32 storage the dQ kernel's call
-    splits Q, K, V and dO into terms that the dK/dV kernel's call reads."""
+    and past `kv_len`. On a card and f32 storage, where dQ and dK/dV work
+    from terms, the dQ kernel's call splits Q, K, V and dO into terms that
+    the dK/dV kernel's call reads."""
     _, dq_name, dkv_name = STRATEGY_KERNELS[impl]
     dq_fn, dkv_fn = kernel(dq_name, q), kernel(dkv_name, q)
     rest = (lse, delta, causal, sm_scale)
     split = {}
-    if q.is_cuda and works_from_terms(q):
+    if q.is_cuda and works_from_terms(dq_name, q):
         split = {"terms": split_terms(q)}
     reuse = dict(split, split=False) if split else {}
     if impl not in ("nn", "nn2"):

@@ -17,8 +17,10 @@ chip_smoke.py's bf16 row error, and against the reference's Pallas kernels
 in interpret mode within one bf16 step, at D = 256 and L = 256, causal and
 not; the nn and nn2 layouts go through to_t and from_t as the wrappers
 take them. Beside them: the instance names the wrappers count launches by,
-and which instances chip_smoke.py requires at head_dim 256. The models are
-test helpers, not versions of the port."""
+which instances chip_smoke.py requires at head_dim 256, and which kernels
+work from split terms there (the forward on f32 storage: its kF32
+tensor-core instance; dQ and dK/dV read their operands on the CUDA cores).
+The models are test helpers, not versions of the port."""
 import math
 
 import numpy as np
@@ -27,7 +29,9 @@ import torch
 
 import jax.numpy as jnp
 
-from chip_smoke import D256_INSTANCES, REL_TOL, is_instance, row_err
+from chip_smoke import (D256_F32_INSTANCES, D256_INSTANCES,
+                        D256_TC_INSTANCES, REL_TOL, is_instance, mma_instance,
+                        row_err)
 from paddle_tpu.ops.pallas.flash_attention import _flash_bwd, _flash_fwd
 from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -316,7 +320,25 @@ PRETTY = {
     "flash_dq_mma_kernel<256, 1>]": "flash_dq_mma_kernel<256, kNN, kBf16>",
     "[with auto Kernel = flash_dq_wide_kernel<__nv_bfloat16>]":
         "flash_dq_wide_kernel<__nv_bfloat16>",
+    "const char* {anonymous}::instance_name() [with auto Kernel = "
+    "flash_fwd_mma_kernel<256, 0, 1>]":
+        "flash_fwd_mma_kernel<256, kStd, kSplit>",
+    "const char* {anonymous}::instance_name() [with auto Kernel = "
+    "flash_fwd_mma_kernel<256, 0, 2>]":
+        "flash_fwd_mma_kernel<256, kStd, kF32>",
     "no kernel here": "no kernel here",
+}
+# ptxas's mangled names of the D = 256 forward's kSplit and kF32 instances,
+# as build_kernels reads them from its register and spill report
+MANGLED = {
+    "_ZN51_GLOBAL__N__5121eace_18_flash_attention_cu_837abbf520flash_fwd_"
+    "mma_kernelILi256ELi0ELi1EEEv14CUtensorMap_stS1_S1_S1_PfPviiifii":
+        "flash_fwd_mma_kernel<256, kStd, kSplit>",
+    "_ZN51_GLOBAL__N__5121eace_18_flash_attention_cu_837abbf520flash_fwd_"
+    "mma_kernelILi256ELi0ELi2EEEv14CUtensorMap_stS1_S1_S1_PfPviiifii":
+        "flash_fwd_mma_kernel<256, kStd, kF32>",
+    "_ZN51_GLOBAL__N__5121eace_18_flash_attention_cu_837abbf519flash_dq_"
+    "wide_kernelIfEEvPKT_S3_S3_S3_PKfS5_PS1_iifiii": None,
 }
 
 
@@ -327,10 +349,22 @@ def test_instance_names(pretty):
     assert fa.instance_name(pretty) == PRETTY[pretty]
 
 
+@pytest.mark.parametrize("mangled", sorted(MANGLED))
+def test_mangled_instance_names(mangled):
+    """ptxas's name of an mma kernel instance spelled as the launch counts
+    spell it (None for another kernel), so that chip_smoke.py can hold the
+    D = 256 tensor-core instances to no spill and no serialized wgmma."""
+    assert mma_instance(mangled) == MANGLED[mangled]
+    assert (mma_instance(mangled) in D256_TC_INSTANCES) == (
+        MANGLED[mangled] is not None)
+
+
 def test_d256_instances_of_the_tensor_core_strategies():
     """chip_smoke.py requires the tensor-core instances of the forward, dQ
-    and dK/dV of strategies bf16, nn and nn2 at head_dim 256, and the
-    CUDA-core kernels for the f32-dot forms; reset_launch_counts clears the
+    and dK/dV of strategies bf16, nn and nn2 at head_dim 256, the
+    tensor-core kSplit forward and the CUDA-core dQ and dK/dV for the
+    f32-dot forms, and on f32 storage the kF32 forward of every strategy
+    with the CUDA-core dQ and dK/dV; reset_launch_counts clears the
     instance counts."""
     for impl in ("bf16", "nn", "nn2"):
         fwd, dq, dkv = fa.STRATEGY_KERNELS[impl]
@@ -340,8 +374,19 @@ def test_d256_instances_of_the_tensor_core_strategies():
     assert D256_INSTANCES["flash_dq"].endswith("kStd, kBf16>")
     assert D256_INSTANCES["flash_dq_nn"].endswith("kNN, kBf16>")
     assert D256_INSTANCES["flash_dkv_nn2"].endswith("kNN2, kBf16>")
-    for name in fa.STRATEGY_KERNELS["f32"]:
-        assert D256_INSTANCES[name].endswith("_wide_kernel")
+    fwd, dq, dkv = fa.STRATEGY_KERNELS["f32"]
+    assert D256_INSTANCES[fwd] == "flash_fwd_mma_kernel<256, kStd, kSplit>"
+    assert D256_INSTANCES[dq] == "flash_dq_wide_kernel"
+    assert D256_INSTANCES[dkv] == "flash_dkv_wide_kernel"
+    assert set(D256_F32_INSTANCES) == set(D256_INSTANCES) == set(fa.CUDA)
+    for name, inst in D256_F32_INSTANCES.items():
+        if name.startswith("flash_fwd"):
+            assert inst == "flash_fwd_mma_kernel<256, kStd, kF32>"
+        else:
+            assert inst.endswith("_wide_kernel")
+    assert D256_TC_INSTANCES == {
+        i for i in D256_INSTANCES.values() if "_mma_kernel<" in i} | {
+        "flash_fwd_mma_kernel<256, kStd, kF32>"}
     assert is_instance("flash_dq_wide_kernel<__nv_bfloat16>",
                        "flash_dq_wide_kernel")
     assert not is_instance("flash_dq_wide_kernel<float>",

@@ -9,11 +9,12 @@ dP = dO.V^T) as one, since a product of two bf16 values is exact in f32,
 and a dot with an f32 operand (P.V, dS.K, P^T.dO, dS^T.Q) as three, the
 f32 operand split into bf16 terms hi, mid and lo that rebuild it exactly.
 Here plain models of that design (the forward's 64-key steps and online
-softmax in base 2, dQ's 64-key tiles, dK/dV's 64-query tiles, every sum in
-f32) are held against the port's f32-dot plain versions and against the
-reference's f32 strategy in interpret mode, by the share of bf16 outputs
-that differ: the limit chip_smoke.py holds the kernels to on the card. The
-models are test helpers, not versions of the port."""
+softmax in base 2, at D = 64 and, as the D = 256 forward steps, at 256;
+dQ's 64-key tiles, dK/dV's 64-query tiles, every sum in f32) are held
+against the port's f32-dot plain versions and against the reference's f32
+strategy in interpret mode, by the share of bf16 outputs that differ: the
+limit chip_smoke.py holds the kernels to on the card. The models are test
+helpers, not versions of the port."""
 import importlib
 import math
 
@@ -37,11 +38,11 @@ LOG2E = 1.4426950408889634
 STEP = 64                # keys of one softmax step, rows of a tile
 
 
-def _inputs(seed=0, n=3):
+def _inputs(seed=0, n=3, shape=(B, L, H, D)):
     """q, k, v (and with n = 4, dO) [B, L, H, D] as bf16 values (numpy f32
     from a seed)."""
     rng = np.random.RandomState(seed)
-    return [torch.from_numpy(rng.randn(B, L, H, D).astype(np.float32))
+    return [torch.from_numpy(rng.randn(*shape).astype(np.float32))
             .to(torch.bfloat16) for _ in range(n)]
 
 
@@ -54,23 +55,26 @@ def _split(p):
 
 
 def _split_forward(q, k, v, causal):
-    """(O in bf16, LSE) as the split kernel computes them: per 64-key step
-    S = Q.K^T from bf16 values with f32 sums, the online softmax against
-    the running max in base 2 (scale * log2 e folded in), P kept f32 for
-    the row sums, and O += lo.V + mid.V + hi.V, the small terms first."""
+    """(O in bf16, LSE) as the split kernel computes them (at any shape;
+    the scale from the head_dim): per 64-key step S = Q.K^T from bf16
+    values with f32 sums, the online softmax against the running max in
+    base 2 (scale * log2 e folded in), P kept f32 for the row sums, and O
+    += lo.V + mid.V + hi.V, the small terms first."""
     qh, kh, vh = (x.transpose(1, 2).float() for x in (q, k, v))
-    rows = torch.arange(L)[:, None]
-    m = torch.full((B, H, L, 1), -1e30)
-    l = torch.zeros(B, H, L, 1)
-    o = torch.zeros(B, H, L, D)
-    for k0 in range(0, L, STEP):
+    nb, nh, n, d = qh.shape
+    sc = 1.0 / math.sqrt(d)
+    rows = torch.arange(n)[:, None]
+    m = torch.full((nb, nh, n, 1), -1e30)
+    l = torch.zeros(nb, nh, n, 1)
+    o = torch.zeros(nb, nh, n, d)
+    for k0 in range(0, n, STEP):
         s = qh @ kh[:, :, k0:k0 + STEP].transpose(-1, -2)
         if causal:
             keys = torch.arange(k0, k0 + STEP)[None, :]
             s = s.masked_fill(keys > rows, -math.inf)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * SC)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * sc)
         alpha = torch.exp2((m - m_new) * LOG2E)
-        p = torch.exp2(s * (SC * LOG2E) - m_new * LOG2E)
+        p = torch.exp2(s * (sc * LOG2E) - m_new * LOG2E)
         l = l * alpha + p.sum(-1, keepdim=True)
         vs = vh[:, :, k0:k0 + STEP]
         o = o * alpha
@@ -204,11 +208,49 @@ def test_split_model_matches_reference_f32(causal):
     of differing bf16 entries of O below the kernel's limit."""
     q, k, v = _inputs()
     o, _ = _split_forward(q, k, v, causal)
+    assert _share(o, _reference_f32(q, k, v, causal, SC)) < SHARE_TOL
+
+
+def _reference_f32(q, k, v, causal, sc):
+    """O of the reference's f32 strategy in interpret mode, as f32."""
     jq, jk, jv = (jnp.asarray(x.float().numpy(), jnp.bfloat16)
                   for x in (q, k, v))
-    ref = jfa.flash_attention(jq, jk, jv, causal=causal, sm_scale=SC,
+    ref = jfa.flash_attention(jq, jk, jv, causal=causal, sm_scale=sc,
                               interpret=True, impl="f32")
-    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    return torch.from_numpy(np.array(ref.astype(jnp.float32)))
+
+
+# the D = 256 forward's shape here: two heads of 256 columns, four 64-key
+# steps (L = 256)
+D256_SHAPE = (1, 256, 2, 256)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_d256_split_model_matches_f32dot_plain(causal):
+    """The split forward as the D = 256 kernel steps it (64-key tiles, P's
+    three terms each times the V tile, small first) against the port's
+    f32-dot plain version: O's share of differing bf16 entries below the
+    kernel's limit, LSE within 1e-5; bf16's rounding of P reads above that
+    share."""
+    q, k, v = _inputs(5, shape=D256_SHAPE)
+    sc = 1.0 / math.sqrt(D256_SHAPE[-1])
+    o, lse = _split_forward(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, sc, f32_dots=True)
+    assert o.shape == o_ref.shape and o.dtype == o_ref.dtype
+    assert _share(o, o_ref) < SHARE_TOL
+    assert float((lse - lse_ref).abs().max()) <= 1e-5
+    o_bf16, _ = fa.flash_fwd_plain(q, k, v, causal, sc)
+    assert _share(o_bf16, o_ref) > SHARE_TOL
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_d256_split_model_matches_reference_f32(causal):
+    """The D = 256 split forward model against the reference's `_fwd` with
+    impl="f32" in interpret mode at L = 256: the share of differing bf16
+    entries of O below the kernel's limit."""
+    q, k, v = _inputs(5, shape=D256_SHAPE)
+    o, _ = _split_forward(q, k, v, causal)
+    ref = _reference_f32(q, k, v, causal, 1.0 / math.sqrt(D256_SHAPE[-1]))
     assert _share(o, ref) < SHARE_TOL
 
 

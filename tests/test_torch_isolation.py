@@ -1,6 +1,7 @@
-"""The port stands alone: no module of paddle_tpu_torch, and not
-chip_smoke.py, imports jax or the reference package paddle_tpu; and its
-entry points refuse to run quietly on the CPU when no card is present."""
+"""The port stands alone: no module of paddle_tpu_torch, and neither
+chip_smoke.py nor chip_order_checks.py, imports jax or the reference
+package paddle_tpu; and its entry points refuse to run quietly on the CPU
+when no card is present."""
 import ast
 import os
 import subprocess
@@ -15,7 +16,7 @@ from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "chip_order_checks.py"]
 MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.core.flags", "paddle_tpu_torch.framework_io",
            "paddle_tpu_torch.jit", "paddle_tpu_torch.models",

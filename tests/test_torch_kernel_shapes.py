@@ -146,3 +146,84 @@ def test_cuda_wrapper_still_needs_a_card():
     t = _operands(1, 192, 2, 64)
     with pytest.raises(ValueError, match="CUDA tensors"):
         _call("flash_fwd", t)
+
+
+# ------------------------------------------------ f32-storage split terms --
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_terms_predicate_by_direction(D, dtype):
+    """On f32 storage the forward works from split terms at every head_dim
+    (its kF32 tensor-core instances), dQ and dK/dV only at 64 and 128 (at
+    256 the CUDA-core kernels read the operands); bf16 storage never."""
+    q = torch.zeros(1, 64, 1, D, dtype=dtype)
+    f32 = dtype == torch.float32
+    for name in fa.CUDA:
+        want = f32 and (name.startswith("flash_fwd") or D != 256)
+        assert fa.works_from_terms(name, q) == want, name
+
+
+@pytest.fixture
+def launched_terms(monkeypatch):
+    """Stub out the device test and the launch; record each launch's split
+    terms (the last pointer) and split flag."""
+    calls = []
+    monkeypatch.setattr(fa, "_check_device", lambda name, q: None)
+    monkeypatch.setattr(
+        fa, "_launch", lambda name, ptrs, q, causal, sc, kv_len=None,
+        split=True: calls.append((name, ptrs[-1], split)))
+    return calls
+
+
+@pytest.mark.parametrize("name", sorted(ARGS))
+@pytest.mark.parametrize("D", [128, 256])
+def test_f32_storage_terms_reach_the_launch(launched_terms, name, D):
+    """On f32 storage a wrapper that works from terms hands its launch
+    fresh [n, 3, B, L, H, D] bf16 scratch to split into (n = 3 for the
+    forward, 4 for dQ and dK/dV); at D = 256 dQ and dK/dV hand none."""
+    t = _operands(1, 192, 2, D, torch.float32)
+    _call(name, t)
+    ((launched, terms, split),) = launched_terms
+    assert launched == name and split
+    if fa.works_from_terms(name, t["q"]):
+        n_ops = 3 if name.startswith("flash_fwd") else 4
+        assert terms.shape == (n_ops, 3, 1, 192, 2, D)
+        assert terms.dtype == torch.bfloat16
+    else:
+        assert D == 256 and not name.startswith("flash_fwd")
+        assert terms is None
+
+
+@pytest.mark.parametrize("name", sorted(ARGS))
+def test_split_false_needs_terms_where_the_kernel_reads_them(
+        launched_terms, name):
+    """split=False without terms raises where the kernel works from terms
+    (every forward at D = 256 on f32 storage) and launches where it reads
+    the operands (dQ and dK/dV there)."""
+    t = _operands(1, 192, 2, 256, torch.float32)
+    args = [t[a] for a in ARGS[name]]
+    if name.startswith("flash_fwd"):
+        with pytest.raises(ValueError, match="split=False"):
+            fa.CUDA[name](*args, True, 0.125, split=False)
+        assert launched_terms == []
+    else:
+        fa.CUDA[name](*args, True, 0.125, split=False)
+        assert launched_terms == [(name, None, False)]
+
+
+@pytest.mark.parametrize("impl", ["bf16", "nn", "nn2", "f32"])
+def test_flash_bwd_makes_no_terms_at_d256(monkeypatch, impl):
+    """flash_bwd on f32 storage at D = 256 splits nothing: on CPU tensors
+    the plain versions run, and on a card its dQ and dK/dV read the
+    operands."""
+    def no_split(*a, **k):
+        raise AssertionError("flash_bwd made split terms")
+
+    monkeypatch.setattr(fa, "split_terms", no_split)
+    t = _operands(1, 128, 2, 256, torch.float32)
+    dq, dk, dv = fa.flash_bwd(t["q"], t["k"], t["v"], t["do"], t["lse"],
+                              t["delta"], True, 0.0625, impl)
+    for g in (dq, dk, dv):
+        assert g.shape == (1, 128, 2, 256) and g.dtype == torch.float32
+    q = t["q"]
+    assert not fa.works_from_terms(fa.STRATEGY_KERNELS[impl][1], q)
+    assert not fa.works_from_terms(fa.STRATEGY_KERNELS[impl][2], q)
