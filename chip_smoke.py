@@ -11,9 +11,9 @@ same model in f32 (no amp.decorate: the f32-storage kernels) and
 gpt3-large cut to 4 layers (head_dim 96, padded to 128) for 3 steps each;
 then gpt3-xl's widths with 8 heads (head_dim 256: the D = 256 kernels) cut
 to 2 layers, bf16 O2 under auto, nn, nn2 and f32 and in f32, 3 steps each
-(under auto, nn and nn2 the forward, dQ and dK/dV launch their
-tensor-core D = 256 instances, under f32 and in f32 the forward too, which
-each phase checks by the instance counts).
+(under auto, nn and nn2 and in f32 the forward, dQ and dK/dV launch their
+tensor-core D = 256 instances, under f32 the forward too, which each phase
+checks by the instance counts).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
@@ -29,12 +29,13 @@ line. With --compare, it only times every flash kernel of this checkout
 and of OTHER_CHECKOUT (another tree of the repo, e.g. the parent commit
 unpacked by `git archive`) at the training shape, in bf16 and, for the
 forward, dQ, dK/dV and the whole backward (flash_bwd), in f32, and at the
-head_dim-256 shape (B*H = 64, L = 1024) in bf16 and f32 (`@D256`), the
-bf16 dQ at D = 256 at B*H = 16 and 32, L = 2048 (`@D256@16x2048`,
-`@D256@32x2048`) and the f32-storage forward at D = 256 at the same two
-shapes (`@float32@D256@16x2048`, `@32x2048`), by the same method, in
-turns (other, this, this, other), each in a process of its own that builds
-that tree's kernels.
+head_dim-256 shape (B*H = 64, L = 1024) in bf16 and f32 (`@D256`, the
+whole f32 backward too), the bf16 dQ at D = 256 at B*H = 16 and 32,
+L = 2048 (`@D256@16x2048`, `@D256@32x2048`) and the f32-storage forward at
+D = 256 at the same two shapes (`@float32@D256@16x2048`, `@32x2048`), by
+the same method, in turns (other, this, this, other), each in a process of
+its own that builds that tree's kernels, with the SM clock read after each
+row.
 """
 from __future__ import annotations
 
@@ -62,10 +63,9 @@ F32DOT_BF16_PASSES = {"fwd": 1 + 3, "dq": 1 + 1 + 3, "dkv": 1 + 1 + 3 + 3}
 # On f32 storage both operands of every product are f32. Split into three
 # bf16 terms each, a product keeps f32's 24 bits with six bf16 passes (the
 # term pairs of weight 2^-16 and above: hi.hi, hi.mid, mid.hi, hi.lo,
-# mid.mid, lo.hi): the f32-storage forward runs so at every head_dim, dQ
-# and dK/dV at head_dim 64 and 128 (bound by six passes a product: forward
-# 2 products, dQ 3, dK/dV 4). At head_dim 256 dQ and dK/dV run on the CUDA
-# cores (bound by f32 flops at 67 TFLOP/s, the six-pass bound beside it).
+# mid.mid, lo.hi): the f32-storage forward, dQ and dK/dV run so at every
+# head_dim, 256 included (bound by six passes a product: forward 2
+# products, dQ 3, dK/dV 4).
 F32_STORAGE_SPLIT_PASSES = {"fwd": 6 * 2, "dq": 6 * 3, "dkv": 6 * 4}
 # the kernels timed on f32 storage: the nn, nn2 and f32-dot entry points run
 # the same kernels there (the nn forms bitwise, checked each run)
@@ -86,13 +86,11 @@ D256_INSTANCES = {
     "flash_dq_f32dot": "flash_dq_wide_kernel",
     "flash_dkv_f32dot": "flash_dkv_wide_kernel",
 }
-# ... and on f32 storage: every strategy's forward on the tensor cores (nn
-# and nn2 split K^T into the same terms and run kStd's instance), dQ and
-# dK/dV on the CUDA cores
+# ... and on f32 storage: every strategy's forward, dQ and dK/dV on the
+# tensor cores (nn and nn2 split their transposed operands into the same
+# terms and run kStd's instances)
 D256_F32_INSTANCES = {
-    name: ("flash_fwd_mma_kernel<256, kStd, kF32>"
-           if name.startswith("flash_fwd")
-           else f"flash_{name.split('_')[1]}_wide_kernel")
+    name: f"flash_{name.split('_')[1]}_mma_kernel<256, kStd, kF32>"
     for name in D256_INSTANCES}
 # the instances of the tensor-core kernels at head_dim 256, which must not
 # spill
@@ -448,18 +446,17 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
         lib[key] = {"fwd": lib_fwd, "bwd": lib_bwd}
         del qh, kh, vh, doh, out
 
-    # f32 storage: each kernel that works from split terms (the forward at
-    # every head_dim, dQ and dK/dV at 64 and 128) timed as the training
+    # f32 storage: each kernel works from split terms, timed as the training
     # path calls it, from the terms one split made (the forward's call
     # splits Q, K and V; the dQ call of a backward splits Q, K, V and dO,
     # the dK/dV call reads them), and the split pass by itself as the
     # difference of the forward's and the dQ call with and without it
     terms = {}
-    for kind, name, n_ops in (("fwd", "flash_fwd", 3), ("dq", "flash_dq", 4)):
-        if fa.works_from_terms(name, q):
+    if fa.works_from_terms(q):
+        for kind, name, n_ops in (("fwd", "flash_fwd", 3),
+                                  ("dq", "flash_dq", 4)):
             terms[kind] = fa.split_terms(q, n_ops)
             fa.CUDA[name](*results[name]["args"], terms=terms[kind])
-    if "dq" in terms:
         terms["dkv"] = terms["dq"]
     rows = []
     for name, r in results.items():
@@ -491,12 +488,7 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
         else:
             b = bound(flops[kind], nbytes,
                       "float32" if r["f32dot"] else "bfloat16")
-            if dtype_name == "float32":
-                # the same work as bf16 passes of split f32 operands
-                extra["split_bound_ms"] = bound(
-                    F32_STORAGE_SPLIT_PASSES[kind] * 2 * D * pairs, nbytes,
-                    "bfloat16")[0]
-            elif "_wide_kernel" in r["instance"]:
+            if "_wide_kernel" in r["instance"]:
                 # a CUDA-core kernel on bf16 storage: its bound there
                 # beside the tensor cores'
                 extra["cuda_core_bound_ms"] = bound(flops[kind], nbytes,
@@ -962,8 +954,8 @@ def main():
     padded_phase(2, 96, 4, 64, "float32", False, 32)
     # head_dim 256 (bf16 storage: the tensor-core forward, dQ and dK/dV of
     # bf16, nn and nn2, the tensor-core f32-dot forward and CUDA-core
-    # f32-dot dQ and dK/dV; f32 storage: the tensor-core kF32 forward, the
-    # CUDA-core dQ and dK/dV): timed at B*H = 64, L = 1024 (the D = 256
+    # f32-dot dQ and dK/dV; f32 storage: the tensor-core kF32 forward, dQ
+    # and dK/dV): timed at B*H = 64, L = 1024 (the D = 256
     # training phase's shape), causal; at L = 192 causal and not (the
     # forward's half item, three dK/dV items a head); and head_dims 160 and
     # 192 through the padding to 256, at L = 96 too (keys past the true
@@ -1063,7 +1055,7 @@ def main():
         for name, n in counts.items():
             launches256[name] = launches256.get(name, 0) + n
     # the f32 model: auto resolves to bf16, whose kernels on f32 storage
-    # are the tensor-core kF32 forward and the CUDA-core dQ and dK/dV
+    # are the tensor-core kF32 forward, dQ and dK/dV
     f32_counts256, _ = training_phase(
         "d256-f32-model", "auto", wide_weights, wide, D256_STEPS, o2=False,
         plain_tol=LOSS_F32_MODEL_ATOL,
@@ -1085,12 +1077,23 @@ def main():
     return 0
 
 
+def sm_clock_mhz():
+    """The card's SM clock now, in MHz (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return int(out.stdout.strip().splitlines()[0])
+
+
 def time_kernels(root):
     """Time every flash kernel of the checkout at `root` at the training
     shape and at the head_dim-256 phase's, and the D = 256 dQ and the
     f32-storage forward at D = 256 at B*H = 16 and 32, L = 2048 (its
-    package imported from there, its kernels built there);
-    print {"root": root, "ms": {name: ms}}."""
+    package imported from there, its kernels built there), each row with
+    the SM clock read right after its timing (a tensor-core kernel can
+    leave the card clocked down for the next row); print {"root": root,
+    "ms": {name: ms}, "clock_mhz": {name: MHz}}."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -1098,7 +1101,7 @@ def time_kernels(root):
 
     check(os.path.abspath(fa.__file__).startswith(os.path.abspath(root)),
           f"imported {fa.__file__}, not the package under {root}")
-    causal, ms = True, {}
+    causal, ms, clock = True, {}, {}
     for B, H, D, L, dt, names, suffix in (
             (8, 16, 64, 1024, torch.bfloat16, ARGS, ""),
             (8, 16, 64, 1024, torch.float32, F32_STORAGE_TIMED, "@float32"),
@@ -1129,11 +1132,14 @@ def time_kernels(root):
         for name in names:
             args = [t[a] for a in ARGS[name]] + [causal, sc]
             ms[name + suffix] = median_ms(lambda: fa.CUDA[name](*args))
-        if suffix == "@float32":
+            clock[name + suffix] = sm_clock_mhz()
+        if suffix in ("@float32", "@float32@D256"):
             # the whole f32-storage backward as a training step calls it
             ms["flash_bwd" + suffix] = median_ms(lambda: fa.flash_bwd(
                 q, k, v, do, lse, delta, causal, sc))
-    print(json.dumps({"root": root, "ms": ms}), flush=True)
+            clock["flash_bwd" + suffix] = sm_clock_mhz()
+    print(json.dumps({"root": root, "ms": ms, "clock_mhz": clock}),
+          flush=True)
     return 0
 
 
@@ -1147,24 +1153,29 @@ def compare(other):
         return 1
     card = card_line()
     log(f"card: {card}")
-    runs = []
+    runs, clocks = [], []
     for root in (other, ".", ".", other):
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--time-kernels",
              root], capture_output=True, text=True, timeout=900)
         check(out.returncode == 0, f"timing {root} failed:\n{out.stderr}")
-        runs.append(json.loads(out.stdout.strip().splitlines()[-1])["ms"])
+        run = json.loads(out.stdout.strip().splitlines()[-1])
+        runs.append(run["ms"])
+        clocks.append(run.get("clock_mhz", {}))
         log(f"{root}: {runs[-1]}")
     result = {}
     for name in runs[0]:
         mine, theirs = (runs[1][name], runs[2][name]), (runs[0][name],
                                                          runs[3][name])
+        mhz = [c.get(name) for c in clocks]
         result[name] = {"ms": mine, "other_ms": theirs,
                         "ratio": (min(mine) / max(theirs),
-                                  max(mine) / min(theirs))}
-        log(f"{name:26s} {mine[0]:.4f} {mine[1]:.4f} ms against "
-            f"{theirs[0]:.4f} {theirs[1]:.4f}: "
-            f"x{result[name]['ratio'][0]:.3f}-{result[name]['ratio'][1]:.3f}")
+                                  max(mine) / min(theirs)),
+                        "clock_mhz": mhz[1:3], "other_clock_mhz": mhz[::3]}
+        log(f"{name:26s} {mine[0]:.4f} {mine[1]:.4f} ms at {mhz[1]} {mhz[2]} "
+            f"MHz against {theirs[0]:.4f} {theirs[1]:.4f} at {mhz[0]} "
+            f"{mhz[3]}: x{result[name]['ratio'][0]:.3f}-"
+            f"{result[name]['ratio'][1]:.3f}")
     print(card)
     print(json.dumps({"compare": result, "other": other}), flush=True)
     return 0

@@ -26,10 +26,9 @@
 // and flash_dkv_mma_kernel<D, kStd, kF32>, which read Q, K, V and dO as the
 // bf16 terms flash_split_kernel made of them (nn and nn2 split their
 // transposed operands into the same terms, and nn2's dK/dV stores dK^T and
-// dV^T); the forward's at every head_dim. The rest of D = 256 runs on the
-// CUDA cores: flash_dq_wide_kernel and flash_dkv_wide_kernel under
-// strategy f32 and on f32 storage (nn and nn2 read their transposed
-// operands into the same tiles).
+// dV^T), at every head_dim. The f32-dot dQ and dK/dV at D = 256 on bf16
+// storage run on the CUDA cores: flash_dq_wide_kernel and
+// flash_dkv_wide_kernel.
 // Each computes what its TPU counterpart computes, with the same numerics:
 // dots accumulate in f32, sm_scale is applied in f32 after the Q.K dot,
 // masked scores are -1e30 (not -inf). Under bf16, nn and nn2, P is rounded
@@ -78,10 +77,10 @@
 // both operands of every product and run six bf16 tensor-core passes a
 // product (kF32), operations-bound on the tensor cores. At D = 256 the
 // forward of every strategy on both storages, and dQ and dK/dV on bf16
-// storage (strategies bf16, nn, nn2), are tensor-core instances too, whose
-// O, dQ, dK and dV fill 128 registers a thread (their notes say how they
-// fit); the f32-dot dQ and dK/dV and f32 storage's there run plain FMAs on
-// the CUDA cores (67 TFLOP/s), operations-bound.
+// storage (strategies bf16, nn, nn2) and on f32 storage, are tensor-core
+// instances too, whose O, dQ, dK and dV fill 128 registers a thread (their
+// notes say how they fit); the f32-dot dQ and dK/dV on bf16 storage there
+// run plain FMAs on the CUDA cores (67 TFLOP/s), operations-bound.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -110,28 +109,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ------------------------------------------- CUDA-core kernels at D = 256
-// dQ and dK/dV at head_dims in (128, 256] (zero-padded to 256 by the
-// caller) where no tensor-core instance runs them: flash_dq_wide_kernel
-// and flash_dkv_wide_kernel under strategy f32 on bf16 storage and on f32
-// storage. Plain FMAs on the CUDA cores,
-// templated on the storage type T. Every operand is loaded into the same
-// f32 tile in shared memory (rows padded to D + 1 floats, so that the
-// column walks hit 32 distinct banks), whether it arrives as rows of
-// [B, L, H, D] or as columns of [B, H, D, L] (bit i of `transposed`:
-// operand i of Q, K, V, dO transposed, as nn and nn2 hand them over), so
-// nn and nn2 give bf16's results bitwise. P and dS stay f32: these forms
-// round nothing before a product. A product of two bf16 values is exact
-// in f32, so on bf16 storage the f32 FMAs give the reference's
-// function up to the order of the f32 sums. On f32 storage S and dP are
-// summed in f64 (`Dot`), and each tile's share of dQ, dK or dV is summed
-// apart and then added in f32 (promotion): plain f32 sums in one order over
-// 256 columns and 1024 keys come to f32's check of 1e-5 against the f64
-// function, and this design stays under it
-// (tests/test_torch_f32_storage_split.py models it). A block has 256
-// threads; thread (ty, tx) = (tid / 16, tid % 16). Bound: operations; at
-// the D = 256 kernel phase's shape (B*H = 64, L = 1024, causal) dQ's
-// 5.2e10 flops take 0.77 ms at the CUDA cores' 67 TFLOP/s; these kernels
-// are right first, and their tensor-core instances are later work
+// dQ and dK/dV of strategy f32 on bf16 storage at head_dims in (128, 256]
+// (zero-padded to 256 by the caller), the one form at D = 256 that no
+// tensor-core instance runs yet: flash_dq_wide_kernel and
+// flash_dkv_wide_kernel. Plain FMAs on the CUDA cores; every operand is
+// loaded into an f32 tile in shared memory (rows padded to D + 1 floats, so
+// that the column walks hit 32 distinct banks). P and dS stay f32: this form
+// rounds nothing before a product, and a product of two bf16 values is
+// exact in f32, so the f32 FMAs give the reference's function up to the
+// order of the f32 sums. A block has 256 threads; thread (ty, tx) =
+// (tid / 16, tid % 16). Bound: operations; at the D = 256 kernel phase's
+// shape (B*H = 64, L = 1024, causal) dQ's 5.2e10 flops take 0.77 ms at the
+// CUDA cores' 67 TFLOP/s; their tensor-core instances are later work
 // (ROADMAP).
 
 constexpr int kThreads = 256;
@@ -139,56 +128,33 @@ constexpr int kWideD = 256;                // head_dim of these kernels
 constexpr int kWidePad = kWideD + 1;       // an f32 row of a tile
 constexpr int kWideKeys = 32;              // dQ's key tile, dK/dV's key block
 
-// The type S and dP are summed in: f64 on f32 storage (see above)
-template <typename T> struct DotOf { typedef float type; };
-template <> struct DotOf<float> { typedef double type; };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(bf16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// Positions row0 .. row0+R-1 of head bh of one operand into an [R][D + 1]
-// f32 tile: rows of [B, L, H, D], or, where `tr`, columns of [B, H, D, L]
-// read along L.
-template <int R, typename T>
-__device__ __forceinline__ void load_wide(float* dst, const T* src, int tr,
+// Positions row0 .. row0+R-1 of head bh of one operand (rows of
+// [B, L, H, D]) into an [R][D + 1] f32 tile.
+template <int R>
+__device__ __forceinline__ void load_wide(float* dst, const bf16* src,
                                           int bh, int H, int L, int row0) {
   constexpr int D = kWideD;
-  if (tr) {
-    const T* s = src + (size_t)bh * D * L + row0;
-    for (int i = threadIdx.x; i < R * D; i += kThreads) {
-      const int r = i % R, c = i / R;
-      dst[r * kWidePad + c] = to_f32(s[(size_t)c * L + r]);
-    }
-  } else {
-    const T* s = src + ((size_t)(bh / H) * L * H + bh % H) * D +
-                 (size_t)row0 * H * D;
-    for (int i = threadIdx.x; i < R * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      dst[r * kWidePad + c] = to_f32(s[(size_t)r * H * D + c]);
-    }
+  const bf16* s =
+      src + ((size_t)(bh / H) * L * H + bh % H) * D + (size_t)row0 * H * D;
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    dst[r * kWidePad + c] = __bfloat162float(s[(size_t)r * H * D + c]);
   }
 }
 
-// dQ (_dq_kernel :174, _dq_kernel_nn :203 at D = 256). One block per
-// (head, 64-row query tile), Q and dO resident, 32-key K and V tiles
-// streamed (K^T and V^T where bits 1 and 2 of `transposed` are set); per
-// tile S and dP, P = exp(S scale - LSE) and dS = P (dP - delta) scale in
+// dQ (_dq_kernel's f32 form :194 at D = 256). One block per (head, 64-row
+// query tile), Q and dO resident, 32-key K and V tiles streamed; per tile
+// S and dP, P = exp(S scale - LSE) and dS = P (dP - delta) scale in
 // f32, then dQ += dS.K from the same K tile. Keys past the causal diagonal
 // and at and past kv_len are masked. Shared memory:
 // (64 + 64 + 32 + 32) x 257 floats and dS, 64 x 33: 205.8 KB.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dq,
-                     int H, int L, float scale, int causal, int kv_len,
-                     int transposed) {
-  typedef typename DotOf<T>::type Dot;
+                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     int H, int L, float scale, int causal, int kv_len) {
   constexpr int NJ = kWideD / 16, NK = kWideKeys, DS = NK + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -199,8 +165,8 @@ flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
-  load_wide<kTile>(Qs, q, 0, bh, H, L, q0);
-  load_wide<kTile>(dOs, dout, 0, bh, H, L, q0);
+  load_wide<kTile>(Qs, q, bh, H, L, q0);
+  load_wide<kTile>(dOs, dout, bh, H, L, q0);
   float row_lse[4], row_delta[4], acc[4][NJ];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -213,13 +179,13 @@ flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < n_keys; k0 += NK) {
     __syncthreads();   // the last readers of Ks, Vs, dSs are done
-    load_wide<NK>(Ks, k, (transposed >> 1) & 1, bh, H, L, k0);
-    load_wide<NK>(Vs, v, (transposed >> 2) & 1, bh, H, L, k0);
+    load_wide<NK>(Ks, k, bh, H, L, k0);
+    load_wide<NK>(Vs, v, bh, H, L, k0);
     __syncthreads();
-    Dot sd[4][2] = {}, dpd[4][2] = {};
+    float sd[4][2] = {}, dpd[4][2] = {};
 #pragma unroll 4
     for (int d = 0; d < kWideD; ++d) {
-      Dot qv[4], ov[4], kv[2], vv[2];
+      float qv[4], ov[4], kv[2], vv[2];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         qv[a] = Qs[(4 * ty + a) * kWidePad + d];
@@ -246,9 +212,9 @@ flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int key = k0 + tx + 16 * c;
         const float p = (causal && key > row) || key >= kv_len
                             ? 0.f
-                            : expf((float)sd[a][c] * scale - row_lse[a]);
+                            : expf(sd[a][c] * scale - row_lse[a]);
         dSs[(4 * ty + a) * DS + tx + 16 * c] =
-            p * ((float)dpd[a][c] - row_delta[a]) * scale;
+            p * (dpd[a][c] - row_delta[a]) * scale;
       }
     }
     __syncthreads();
@@ -273,36 +239,33 @@ flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const size_t rs = (size_t)H * kWideD;
-  T* out = dq + ((size_t)(bh / H) * L * H + bh % H) * kWideD;
+  bf16* out = dq + ((size_t)(bh / H) * L * H + bh % H) * kWideD;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      store_as(out + (q0 + 4 * ty + a) * rs + tx + 16 * j, acc[a][j]);
+      out[(q0 + 4 * ty + a) * rs + tx + 16 * j] =
+          __float2bfloat16_rn(acc[a][j]);
 }
 
-// dK, dV (_dkv_kernel :233 at D = 256, P^T and dS^T unrounded: strategy f32
-// and f32 storage, where nn2's _dkv_kernel_nn2 :289 runs it too). One
-// block per (head, 32-key block): dK and dV of 32 keys x 256 columns are 64
+// dK, dV (_dkv_kernel's f32 form :275-278 at D = 256, P^T and dS^T
+// unrounded). One block per (head, 32-key block): dK and dV of 32 keys x 256 columns are 64
 // f32 registers a thread (thread (ty, tx) owns keys 2 ty, 2 ty + 1 and
 // columns tx + 16 j). K and V resident, 64-query Q and dO tiles streamed
 // from the causal start, with their LSE and delta; per tile S^T and dP^T
 // (queries tx + 16 c), P^T and dS^T into shared memory, then dV += P^T.dO
-// and dK += dS^T.Q. `transposed` marks Q^T, K^T, V^T, dO^T
-// (bits 0 to 3); `out_t` writes dK^T and dV^T ([B, H, D, L], nn2). Keys at
-// and past kv_len need no mask: the caller cuts their rows off, and a
+// and dK += dS^T.Q. Keys at and past kv_len need no mask: the caller cuts their rows off, and a
 // padded query, whose dO and delta are 0, adds nothing. Shared memory:
 // (32 + 32 + 64 + 64) x 257 floats, P^T and dS^T 2 x 32 x 65, LSE and
 // delta 2 x 64: 214.5 KB.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int H, int L, float scale,
-                      int causal, int transposed, int out_t) {
-  typedef typename DotOf<T>::type Dot;
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int H, int L, float scale,
+                      int causal) {
   constexpr int NJ = kWideD / 16, NK = kWideKeys, PS = kTile + 1;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -315,8 +278,8 @@ flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x, k0 = blockIdx.y * NK;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
-  load_wide<NK>(Ks, k, (transposed >> 1) & 1, bh, H, L, k0);
-  load_wide<NK>(Vs, v, (transposed >> 2) & 1, bh, H, L, k0);
+  load_wide<NK>(Ks, k, bh, H, L, k0);
+  load_wide<NK>(Vs, v, bh, H, L, k0);
   float gk[2][NJ], gv[2][NJ];
 #pragma unroll
   for (int a = 0; a < 2; ++a)
@@ -325,16 +288,16 @@ flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int q0 = causal ? k0 / kTile * kTile : 0; q0 < L; q0 += kTile) {
     __syncthreads();   // the last readers of Qs, dOs, Pt, dSt are done
-    load_wide<kTile>(Qs, q, transposed & 1, bh, H, L, q0);
-    load_wide<kTile>(dOs, dout, (transposed >> 3) & 1, bh, H, L, q0);
+    load_wide<kTile>(Qs, q, bh, H, L, q0);
+    load_wide<kTile>(dOs, dout, bh, H, L, q0);
     if (threadIdx.x < 2 * kTile)
       stats[threadIdx.x] = (threadIdx.x < kTile ? lse : delta)
           [(size_t)bh * L + q0 + threadIdx.x % kTile];
     __syncthreads();
-    Dot sd[2][4] = {}, dpd[2][4] = {};
+    float sd[2][4] = {}, dpd[2][4] = {};
 #pragma unroll 4
     for (int d = 0; d < kWideD; ++d) {
-      Dot kv[2], vv[2], qv[4], ov[4];
+      float kv[2], vv[2], qv[4], ov[4];
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
         kv[a] = Ks[(2 * ty + a) * kWidePad + d];
@@ -361,9 +324,8 @@ flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int col = tx + 16 * c, query = q0 + col;
         const float p = causal && query < key
                             ? 0.f
-                            : expf((float)sd[a][c] * scale - stats[col]);
-        const float ds =
-            p * ((float)dpd[a][c] - stats[kTile + col]) * scale;
+                            : expf(sd[a][c] * scale - stats[col]);
+        const float ds = p * (dpd[a][c] - stats[kTile + col]) * scale;
         Pt[(2 * ty + a) * PS + col] = p;
         dSt[(2 * ty + a) * PS + col] = ds;
       }
@@ -406,12 +368,9 @@ flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int key = k0 + 2 * ty + a;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      const size_t off = out_t
-          ? ((size_t)bh * kWideD + c) * L + key
-          : ((size_t)(b * L + key) * H + h) * kWideD + c;
-      store_as(dk + off, gk[a][j]);
-      store_as(dv + off, gv[a][j]);
+      const size_t off = ((size_t)(b * L + key) * H + h) * kWideD + tx + 16 * j;
+      dk[off] = __float2bfloat16_rn(gk[a][j]);
+      dv[off] = __float2bfloat16_rn(gv[a][j]);
     }
   }
 }
@@ -520,15 +479,17 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+__device__ __forceinline__ void mbar_arrive_at(uint32_t a) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_addr(bar)) : "memory");
+               :: "r"(a) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  mbar_arrive_at(smem_addr(bar));
 }
 // Wait for the completion of the barrier's phase of this parity. A wait
 // that lasts 2^34 clocks (about 10 s) traps: the launch then fails with an
 // error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_addr(bar);
+__device__ __forceinline__ void mbar_wait_at(uint32_t a, int parity) {
   long long start = 0;
   for (int n = 0;; ++n) {
     uint32_t done;
@@ -541,6 +502,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
     if (n == 0) start = clock64();
     else if (clock64() - start > (1ll << 34)) __trap();
   }
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  mbar_wait_at(smem_addr(bar), parity);
 }
 
 // The box of `map` at (c0 = column, c1 = row) into shared memory at dst.
@@ -2367,7 +2331,8 @@ constexpr int kBwdThreads = bwd_threads<D, Mode>();
 // the tensor cores' accumulator. dK and dV leave in f32 by plain stores
 // (dK^T and dV^T where `out_t` is set, for nn2). 24 bf16 passes of 2 D
 // flops a causal pair bound it: operations, 0.209 ms at the training
-// shape. (The kernel's body at D = 64 and 128; D = 256 is dkv_d256_body.)
+// shape. (The kernel's body at D = 64 and 128; at D = 256 dkv_d256_body
+// and dkv_f32_d256_body.)
 template <int D, int Form, int Mode>
 __device__ __forceinline__ void dkv_mma_body(
     const CUtensorMap& map_q, const CUtensorMap& map_k,
@@ -3016,7 +2981,488 @@ __device__ __forceinline__ void dkv_d256_body(
   }
 }
 
-// dK/dV: dkv_mma_body at D = 64 and 128, dkv_d256_body (kBf16) at 256.
+// ------------------------------ kF32 dQ and dK/dV at D = 256 (f32 storage)
+// Terms triple a tile: 64 rows of one operand at D = 256 are 64 KB in f32
+// and 96 KB as three bf16 terms, so the D = 128 layout (every operand as
+// resident terms) does not fit: the item's two resident operands alone
+// would take 192 KB of a block's 227. These kernels keep the item's own
+// operands (Q and dO for dQ, K and V for dK/dV) in f32, 128 KB, and stream
+// the other two as terms in pieces: 64 rows x 128 columns (two 64-column
+// chunks) of one term, 16 KB. Each product is still six bf16 passes of
+// term pairs, with promotion:
+// - the resident rows are the A operand of S and dP (S^T and dP^T): per
+//   k-step each thread reads its fragment's eight f32 values and splits
+//   them in registers (split_pair, flash_split_kernel's terms), then issues
+//   the passes as register-A wgmma against the streamed piece (K-major);
+// - the output products read the streamed piece MN-major, and per piece
+//   and 64-column chunk the piece's passes land in a fresh accumulator that
+//   is added to the output in f32.
+// The resident rows arrive as terms too (the kernels read only the split
+// terms, so nn and nn2, which split their transposed operands into the same
+// terms, run the same instance and give kStd's results bitwise): each
+// thread rebuilds its own share in f32 as (hi + mid) + lo, exactly the value
+// that was split, in the order of a 64 x 256 wgmma accumulator, which is
+// also the order of the A fragments it feeds (float4 j of thread tid's
+// share holds its elements 4 j .. 4 j + 3), so a thread reads back only
+// what it wrote, as conflict-free 16-byte loads. Two consumers run the same
+// products on different operands (a wgmma on a branch on the consumer
+// serializes every wgmma of the kernel, PR 9); the producer deals the
+// pieces to them in turn, two slots each, so that a consumer's next piece
+// loads while it works on one. Beside dK/dV's 128-register output the
+// consumers have no register to spare: the ring, its barriers and stats go
+// by 32-bit shared addresses, and each promotion's accumulator is chained
+// to the last one's adds (piece_out_products).
+
+constexpr int kPiece = 2 * kChunk;   // 64 rows x 128 columns of one term
+
+__device__ __forceinline__ float2 lds2(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(a));
+  return v;
+}
+// two bf16 at a, as f32
+__device__ __forceinline__ float2 lds_bf16x2(uint32_t a) {
+  uint32_t u;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(u) : "r"(a));
+  const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&u);
+  return make_float2(__low2float(p), __high2float(p));
+}
+
+// A consumer's share of the piece ring (shared addresses): its i-th piece
+// sits in slot 2 (i % 2) + w (the producer deals the pieces to consumers 0
+// and 1 in turn), with that slot's run of 64 floats of LSE or delta where
+// the producer loaded one.
+struct PieceRing {
+  uint32_t ring, stats, full, empty;
+  int w;
+  __device__ __forceinline__ int slot(int i) const { return 2 * (i & 1) + w; }
+  __device__ __forceinline__ uint32_t wait(int i) const {
+    mbar_wait_at(full + 8 * slot(i), (i >> 1) & 1);
+    return ring + slot(i) * kPiece;
+  }
+  __device__ __forceinline__ uint32_t stats_of(int i) const {
+    return stats + slot(i) * 64 * sizeof(float);
+  }
+  __device__ __forceinline__ void release(int i) const {
+    mbar_arrive_at(empty + 8 * slot(i));
+  }
+};
+
+// Float4 j of thread tid's share of a 64-row f32 tile kept in accumulator
+// order at base: [j][kWG] float4s. (Plain loads and stores of these let
+// ptxas fold j's offset into the instruction; an address register a j
+// would be hoisted out of the loops, one register each.)
+__device__ __forceinline__ float4* share_at(float4* base, int j, int tid) {
+  return base + j * kWG + tid;
+}
+
+// One piece of a resident operand's term (`term`: 0 hi, 1 mid, 2 lo;
+// columns 128 half ..) added into this thread's f32 share of the operand
+// (rows r_lo, r_lo + 8): the terms come hi, mid, lo, so each value is
+// (hi + mid) + lo.
+__device__ __forceinline__ void rebuild_piece(float4* res, uint32_t piece,
+                                              int half, int term, int tid,
+                                              int r_lo, int t) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = 8 * j + 2 * t;   // column in the piece
+    const uint32_t at = piece + (c / kSeg) * kChunk + swz(r_lo, c % kSeg);
+    const float2 u0 = lds_bf16x2(at), u1 = lds_bf16x2(at + 8 * kRowBytes);
+    float4 x = make_float4(u0.x, u0.y, u1.x, u1.y);
+    float4* r = share_at(res, 16 * half + j, tid);
+    if (term > 0) {
+      const float4 y = *r;
+      x = make_float4(y.x + x.x, y.y + x.y, y.z + x.z, y.w + x.w);
+    }
+    *r = x;
+  }
+}
+
+// Fragment k-step ks of an f32 share in accumulator order (res, or an
+// exchange tile), split into its hi, mid and lo bf16 fragments.
+__device__ __forceinline__ void split_fragment(uint32_t (&f)[3][4],
+                                               float4* a, int ks, int tid) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 v = *share_at(a, 2 * ks + h, tid);
+    split_pair(v.x, v.y, f[0][2 * h], f[1][2 * h], f[2][2 * h]);
+    split_pair(v.z, v.w, f[0][2 * h + 1], f[1][2 * h + 1], f[2][2 * h + 1]);
+  }
+}
+
+// The passes of one piece by its term (0 hi, 1 mid, 2 lo), as bits p of a
+// mask: those whose B term is the piece's (pass_b), and of the hi term the
+// small ones apart from hi.hi.
+__host__ __device__ constexpr int piece_passes(int term) {
+  return term == 2 ? 0b000010 : term == 1 ? 0b010100 : 0b101001;
+}
+constexpr int kHiHi = 0b100000, kHiSmall = 0b001001;   // of the hi term
+
+// acc += the passes in `mask` of one piece (its slot at b; depth columns
+// 128 half ..), A this consumer's f32 share (res) split per k-step into
+// hi, mid and lo fragments (m64n64k16, the piece read K-major). The
+// fragments go to NB register sets in turn, each k-step its own commit
+// group, so that a set is rewritten only once the products that read it
+// are done (NB = 1: each k-step waits for the last); returns with every
+// product done.
+template <int NB>
+__device__ __forceinline__ void piece_products(float (&acc)[32], int mask,
+                                               float4* res, int tid, int half,
+                                               uint32_t b) {
+  uint32_t a[NB][3][4];
+#pragma unroll
+  for (int k8 = 0; k8 < 8; ++k8) {
+    split_fragment(a[k8 % NB], res, 8 * half + k8, tid);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p)
+      if ((mask >> p) & 1)
+        wgmma_rs<0>(acc, a[k8 % NB][pass_a(p)],
+                    desc(b + (k8 / 4) * kChunk + (k8 % 4) * 32));
+    wgmma_commit();
+    wgmma_wait<NB - 1>();
+    fence_regs(a[(k8 + 1) % NB]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int k = 0; k < NB; ++k) fence_regs(a[k]);
+}
+
+// x = A.B^T over D = 256 (S, dP, S^T or dP^T of a 64 x 64 tile): A this
+// consumer's resident rows (res), B the 64 rows whose terms stream as its
+// pieces i0 .. i0 + 5 (lo, mid, hi; each term's two halves), six passes by
+// piece (piece_products); each piece goes back once its products are done.
+// The tensor cores' f32 sums truncate: 96 products into one accumulator
+// put dQ and dK at 1.5e-5 to 1.8e-5 against f64 (the limit 1e-5) on the
+// card. So a hi piece's hi.hi pass runs after its small passes, and the
+// sum is promoted once: the lo and mid pieces and the first hi piece (its
+// hi.hi last) into one accumulator, stored to xs, this consumer's f32 tile
+// in shared memory (in accumulator order, so each thread reads back only
+// its own entries), the second hi piece into a fresh one, added to xs's in
+// f32. Every hi.hi step then adds to a sum of at most 8 depth steps, the
+// small passes to a small sum. Before the store, a consumer whose xs
+// another one reads waits for it at named barrier `free_bar` (0: none).
+// Returns with piece i0 + 5 still held, for the stats that came with it.
+template <int NB>
+__device__ __forceinline__ void scores_by_piece(float (&x)[32], float4* xs,
+                                                float4* res, int tid, int i0,
+                                                const PieceRing& rg,
+                                                int free_bar) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) x[e] = 0.f;
+  fence_regs(x);
+#pragma unroll
+  for (int q = 0; q < 6; ++q) {
+    const int term = 2 - q / 2, half = q % 2;
+    const uint32_t b = rg.wait(i0 + q);
+    if (q == 5) {   // the second hi piece: a fresh accumulator
+      if (free_bar) named_sync(free_bar, 2 * kWG);
+#pragma unroll
+      for (int j4 = 0; j4 < 8; ++j4)
+        *share_at(xs, j4, tid) = make_float4(x[4 * j4], x[4 * j4 + 1],
+                                             x[4 * j4 + 2], x[4 * j4 + 3]);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) x[e] *= 0.f;   // fresh, after the stores
+    }
+    if (term > 0) {
+      piece_products<NB>(x, piece_passes(term), res, tid, half, b);
+    } else {
+      piece_products<NB>(x, kHiSmall, res, tid, half, b);
+      piece_products<NB>(x, kHiHi, res, tid, half, b);
+    }
+    if (q < 5) rg.release(i0 + q);
+  }
+#pragma unroll
+  for (int j4 = 0; j4 < 8; ++j4) {
+    const float4 v = *share_at(xs, j4, tid);
+    x[4 * j4] = v.x + x[4 * j4];
+    x[4 * j4 + 1] = v.y + x[4 * j4 + 1];
+    x[4 * j4 + 2] = v.z + x[4 * j4 + 2];
+    x[4 * j4 + 3] = v.w + x[4 * j4 + 3];
+  }
+}
+
+// out[:, 64 c0 ..] += A.B for one streamed piece (term `term`, its slot at
+// b): A this consumer's 64 x 64 f32 tile in accumulator order (xa: dS, P^T
+// or dS^T), its fragments split per k-step as in piece_products (NB
+// register sets); B the piece's two chunks, read MN-major (depth: the
+// streamed rows). Per chunk the piece's passes land in a fresh
+// accumulator, added to out in f32. The accumulator starts as 0 times the
+// entries of out that the last chunk's adds wrote: ptxas, which moves the
+// adds past the next chunk's products and then holds two accumulators
+// beside out (and spills), has to finish them first.
+template <int NB, int N>
+__device__ __forceinline__ void piece_out_products(float (&out)[N], int c0,
+                                                   int term, float4* xa,
+                                                   int tid, uint32_t b) {
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc) {
+    const int last = (c0 + cc - 1 + N / 32) % (N / 32);
+    float acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = out[32 * last + e] * 0.f;
+    uint32_t a[NB][3][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      split_fragment(a[kk % NB], xa, kk, tid);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < kPasses; ++p)
+        if (pass_b(p) == term)
+          wgmma_rs<1>(acc, a[kk % NB][pass_a(p)],
+                      desc(b + cc * kChunk + kk * 16 * kRowBytes, kChunk));
+      wgmma_commit();
+      wgmma_wait<NB - 1>();
+      fence_regs(a[(kk + 1) % NB]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int k = 0; k < NB; ++k) fence_regs(a[k]);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) out[32 * (c0 + cc) + e] += acc[e];
+  }
+}
+
+// Whether the kF32 dQ and dK/dV at D = 256 walk their n_items (head,
+// 64-row tile) items head by head: where all heads' streamed terms (six
+// 64 x 256 bf16 tiles a 64-row tile) pass three times L2's 50 MB (the kF32
+// forward's switch); else rank by rank.
+__device__ __forceinline__ bool f32_by_head(int n_items) {
+  constexpr long long kL2Bytes = 50ll << 20;
+  return (long long)n_items * 64 * kWideD * 2 * 6 > 3 * kL2Bytes;
+}
+// Item `it` of this block in that order: (head, 64-row tile `rank`, 0 the
+// heaviest causal tile).
+__device__ __forceinline__ bool f32_item(int it, int BH, int num_t,
+                                         bool by_head, int& bh, int& rank) {
+  int a, c;
+  if (!work_item(it, by_head ? num_t : BH, BH * num_t, a, c)) return false;
+  bh = by_head ? c : a;
+  rank = by_head ? a : c;
+  return true;
+}
+
+// Shared memory of the kF32 dK/dV at D = 256: the piece ring (four 16 KB
+// slots) with a 256-byte stats run a slot, K and V in f32 (2 x 64 KB), P^T
+// and dS^T in f32 (2 x 16 KB), then the barriers.
+struct DkvF32D256Smem {
+  static constexpr int kSlots = 4;
+  static constexpr int kRes = 64 * kWideD * sizeof(float);
+  static constexpr int kX = 64 * 64 * sizeof(float);
+  static constexpr size_t kBytes = kSlots * (kPiece + 64 * sizeof(float)) +
+                                   2 * kRes + 2 * kX + 8 * 2 * kSlots + 1024;
+  static_assert(kBytes >= kOneBlockSmem, "one block per SM");
+  static_assert(kBytes <= 227 * 1024, "fits in a block's shared memory");
+};
+
+// dK, dV at D = 256 on f32 storage (_dkv_kernel :233 for every strategy;
+// nn2's _dkv_kernel_nn2 :289 stores dK^T and dV^T): the kF32 arithmetic of
+// dkv_mma_body with dkv_d256_body's split of the outputs (dV and dK of 64
+// keys are 128 registers a thread each). A persistent grid walks the (head,
+// 64-key tile) items (f32_item); per item the producer deals K's and V's
+// terms (hi, mid, lo) to the dV consumer (warpgroup 1) and the dK consumer
+// (warpgroup 2), which rebuild them in f32, then per 64-query tile from the
+// causal start Q's and dO's terms, twice:
+// - S^T = K.Q^T (dV consumer) beside dP^T = V.dO^T (dK consumer), by piece
+//   (scores_by_piece), LSE and delta coming with the last pieces. The dV
+//   consumer forms P^T = exp(S^T scale - LSE) (0 past the causal diagonal)
+//   and hands it over in f32 (exchange x_p, named barrier 3); the dK
+//   consumer forms dS^T = P^T (dP^T - delta) scale in f32 into its own tile
+//   x_ds and frees x_p (barrier 4);
+// - dV += P^T.dO beside dK += dS^T.Q (piece_out_products), each from its
+//   own f32 tile.
+// That loads Q's and dO's terms twice a tile (384 KB from L2 a 64 x 64 tile
+// pair): the pieces that fit beside 128 KB of f32 rows are too few to hold
+// a tile's terms. dK and dV leave in f32 by plain stores (dK^T and dV^T
+// where `out_t`). Keys past the true length of zero-padded inputs need no
+// mask (see dkv_mma_body). 24 bf16 passes of 2 D flops a causal pair bound
+// it: operations, 0.417 ms at the head_dim-256 phase's shape (B*H = 64,
+// L = 1024, causal).
+__device__ __forceinline__ void dkv_f32_d256_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, const CUtensorMap& map_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk_f32, float* __restrict__ dv_f32, int out_t,
+    int BH, int H, int L, float scale, int causal) {
+  using Smem = DkvF32D256Smem;
+  constexpr int D = kWideD, NS = Smem::kSlots;
+  constexpr int kPIn = 3, kPFree = 4;  // named barriers of x_p
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_1024(smem_raw);                    // [slot]
+  float* stats = reinterpret_cast<float*>(ring + NS * kPiece);   // [slot][64]
+  float4* k_res = reinterpret_cast<float4*>(stats + NS * 64);    // [32][kWG]
+  float4* v_res = k_res + 32 * kWG;
+  // P^T and dS^T (their running sums S^T, dP^T before): [8][kWG]
+  float4* x_p = v_res + 32 * kWG;
+  float4* x_ds = x_p + 8 * kWG;
+  uint64_t* full = reinterpret_cast<uint64_t*>(x_ds + 8 * kWG);
+  uint64_t* empty = full + NS;
+
+  const int num_t = L / 64, BL = BH / H * L;   // BL: rows of one term
+  const bool by_head = f32_by_head(BH * num_t);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWG);       // a slot has one consumer
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    // ---- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int n = 0;   // pieces loaded so far
+      // columns 128 half .. of term `term` of an operand's 64 rows from r0,
+      // with the 256-byte run of `run` (LSE or delta) where it is given
+      auto put = [&](const CUtensorMap* map, int bh, int term, int r0,
+                     int half, const float* run) {
+        const int s = n % NS, b = bh / H, h = bh % H;
+        if (n >= NS) mbar_wait(&empty[s], (n / NS - 1) & 1);
+        mbar_expect_tx(&full[s], kPiece + (run ? 256 : 0));
+        for (int c = 0; c < 2; ++c)
+          tma_load(ring + s * kPiece + c * kChunk, map, &full[s],
+                   h * D + (2 * half + c) * kSeg, term * BL + b * L + r0);
+        if (run)
+          bulk_load(stats + s * 64, run + (size_t)bh * L + r0, 256,
+                    &full[s]);
+        ++n;
+      };
+      int bh, kt;
+      for (int it = 0; f32_item(it, BH, num_t, by_head, bh, kt); ++it) {
+        const int k0 = kt * 64;
+        for (int term = 0; term < 3; ++term)     // K, V: hi, mid, lo
+          for (int half = 0; half < 2; ++half) {
+            put(&map_k, bh, term, k0, half, nullptr);
+            put(&map_v, bh, term, k0, half, nullptr);
+          }
+        for (int qt = causal ? kt : 0; qt < num_t; ++qt) {
+          const int q0 = qt * 64;
+          for (int term = 2; term >= 0; --term)  // S^T, dP^T: Q, dO
+            for (int half = 0; half < 2; ++half) {
+              const bool last = term == 0 && half == 1;
+              put(&map_q, bh, term, q0, half, last ? lse : nullptr);
+              put(&map_do, bh, term, q0, half, last ? delta : nullptr);
+            }
+          for (int term = 2; term >= 0; --term)  // dV, dK: dO, Q
+            for (int half = 0; half < 2; ++half) {
+              put(&map_do, bh, term, q0, half, nullptr);
+              put(&map_q, bh, term, q0, half, nullptr);
+            }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: w = 0 holds dV (reads K), w = 1 holds dK (reads V)
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = threadIdx.x / kWG - 1;
+    const int tid = threadIdx.x & (kWG - 1);
+    const int warp = tid >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = 16 * warp + g;        // key rows r_lo and r_lo + 8
+    float4* res = w == 0 ? k_res : v_res;
+    float4* mine = w == 0 ? x_p : x_ds;    // P^T or dS^T
+    const PieceRing rg{smem_addr(ring), smem_addr(stats), smem_addr(full),
+                       smem_addr(empty), w};
+    int i = 0, ex = 0;                     // pieces, exchanges so far
+    int bh, kt;
+    for (int it = 0; f32_item(it, BH, num_t, by_head, bh, kt); ++it) {
+      const int b = bh / H, h = bh % H, k0 = kt * 64;
+      for (int q = 0; q < 6; ++q, ++i) {
+        rebuild_piece(res, rg.wait(i), q % 2, q / 2, tid, r_lo, t);
+        rg.release(i);
+      }
+      float out[D / 2];                    // dV or dK of the item's keys
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) out[e] = 0.f;
+
+      for (int qt = causal ? kt : 0; qt < num_t; ++qt, ++ex) {
+        const bool diag = causal && qt == kt;
+        float x[32];                       // S^T or dP^T
+        scores_by_piece<1>(x, mine, res, tid, i, rg,
+                           w == 0 && ex > 0 ? kPFree : 0);
+        const uint32_t run = rg.stats_of(i + 5);   // LSE or delta
+        // entries 4 j4 .. 4 j4 + 3 of x: key rows r_lo, r_lo + 8, queries
+        // 8 j4 + 2 t and + 1, whose LSE or delta is at run + 4 col
+        if (w == 0) {
+          // P^T (0 past the causal diagonal: a masked score is -1e30),
+          // handed over in f32
+#pragma unroll
+          for (int j4 = 0; j4 < 8; ++j4) {
+            const int col = 8 * j4 + 2 * t;
+            const float2 l2 = lds2(run + 4 * col);
+            float p[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int row = r_lo + 8 * (u >> 1);
+              p[u] = expf(x[4 * j4 + u] * scale - ((u & 1) ? l2.y : l2.x));
+              if (diag && col + (u & 1) < row) p[u] = 0.f;
+            }
+            *share_at(x_p, j4, tid) = make_float4(p[0], p[1], p[2], p[3]);
+          }
+          rg.release(i + 5);
+          named_arrive(kPIn, 2 * kWG);
+        } else {
+          // dS^T = P^T (dP^T - delta) scale into this consumer's tile
+#pragma unroll
+          for (int j4 = 0; j4 < 8; ++j4) {
+            const float2 d2 = lds2(run + 4 * (8 * j4 + 2 * t));
+#pragma unroll
+            for (int u = 0; u < 4; ++u) x[4 * j4 + u] -= (u & 1) ? d2.y : d2.x;
+          }
+          rg.release(i + 5);
+          named_sync(kPIn, 2 * kWG);       // this tile's P^T is in
+#pragma unroll
+          for (int j4 = 0; j4 < 8; ++j4) {
+            const float4 p4 = *share_at(x_p, j4, tid);
+            *share_at(mine, j4, tid) = make_float4(p4.x * x[4 * j4] * scale,
+                                                   p4.y * x[4 * j4 + 1] * scale,
+                                                   p4.z * x[4 * j4 + 2] * scale,
+                                                   p4.w * x[4 * j4 + 3] * scale);
+          }
+          named_arrive(kPFree, 2 * kWG);
+        }
+        i += 6;
+        // dV += P^T.dO or dK += dS^T.Q: dO's or Q's pieces, out's columns
+        // 128 half ..
+#pragma unroll
+        for (int q = 0; q < 6; ++q, ++i) {
+          piece_out_products<1>(out, 2 * (q % 2), 2 - q / 2, mine, tid,
+                                rg.wait(i));
+          rg.release(i);
+        }
+      }
+
+      // dV or dK in f32: rows (keys) of [B, L, H, D], or columns of
+      // [B, H, D, L] where out_t is set
+#pragma unroll
+      for (int j8 = 0; j8 < D / 8; ++j8)
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2) {
+          const int key = k0 + r_lo + 8 * r2, c = 8 * j8 + 2 * t;
+          const int i0 = 4 * j8 + 2 * r2;
+          float* dst = w == 0 ? dv_f32 : dk_f32;
+          if (out_t) {
+            const size_t o = ((size_t)bh * D + c) * L + key;
+            dst[o] = out[i0];
+            dst[o + L] = out[i0 + 1];
+          } else {
+            *reinterpret_cast<float2*>(
+                dst + ((size_t)(b * L + key) * H + h) * D + c) =
+                make_float2(out[i0], out[i0 + 1]);
+          }
+        }
+    }
+  }
+}
+
+// dK/dV: dkv_mma_body at D = 64 and 128; at 256 dkv_d256_body (kBf16) and
+// dkv_f32_d256_body (kF32).
 template <int D, int Form, int Mode = kBf16>
 __global__ void __launch_bounds__(kBwdThreads<D, Mode>, 1)
 flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -3030,8 +3476,13 @@ flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
                      float* __restrict__ dk_f32, float* __restrict__ dv_f32,
                      int out_t, int BH, int H, int L, float scale,
                      int causal) {
-  if constexpr (D == kWideD) {
-    static_assert(Mode == kBf16, "D = 256 on the tensor cores: kBf16 only");
+  if constexpr (D == kWideD && Mode == kF32) {
+    static_assert(Form == kStd, "kF32 reads split terms as rows");
+    dkv_f32_d256_body(map_q, map_k, map_v, map_do, lse, delta, dk_f32,
+                      dv_f32, out_t, BH, H, L, scale, causal);
+  } else if constexpr (D == kWideD) {
+    static_assert(Mode == kBf16, "the f32-dot dK/dV at D = 256 runs on the "
+                                 "CUDA cores");
     dkv_d256_body<Form>(map_q, map_k, map_v, map_do, map_dk, map_dv, lse,
                         delta, BH, H, L, scale, causal);
   } else {
@@ -3090,7 +3541,7 @@ flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
 // (the tensor cores', or any f32 sum's) would reach dQ unweighted. dQ
 // leaves in f32 by plain stores. 18 bf16 passes of 2 D flops a causal pair
 // bound it: operations, 0.157 ms at the training shape. (The kernel's body
-// at D = 64 and 128; D = 256 is dq_d256_body.)
+// at D = 64 and 128; at D = 256 dq_d256_body and dq_f32_d256_body.)
 template <int D, int Form, int Mode>
 __device__ __forceinline__ void dq_mma_body(
     const CUtensorMap& map_q, const CUtensorMap& map_k,
@@ -3734,7 +4185,299 @@ __device__ __forceinline__ void dq_d256_body(
   }
 }
 
-// dQ: dq_mma_body at D = 64 and 128, dq_d256_body (kBf16) at 256.
+// Shared memory of the kF32 dQ at D = 256: the piece ring (four 16 KB
+// slots), Q and dO in f32 (2 x 64 KB), the exchange and the dS consumer's
+// running sum of dP (64 x 64 f32 each, 2 x 16 KB), the item's LSE and
+// delta runs, then the barriers.
+struct DqF32D256Smem {
+  static constexpr int kSlots = 4;
+  static constexpr int kRes = 64 * kWideD * sizeof(float);
+  static constexpr int kX = 64 * 64 * sizeof(float);
+  static constexpr int kStats = 2 * 64 * sizeof(float);
+  static constexpr size_t kBytes =
+      kSlots * kPiece + 2 * kRes + 2 * kX + kStats + 8 * (2 * kSlots + 2) +
+      1024;
+  static_assert(kBytes >= kOneBlockSmem, "one block per SM");
+  static_assert(kBytes <= 227 * 1024, "fits in a block's shared memory");
+};
+
+// kF32 dQ at D = 256: this lane's share (columns 8 lane .. 8 lane + 7) of
+// the f64 dot of row `row` of the dS consumer's dO (its f32 share in
+// accumulator order, res; the row is this warp's) and the key row of V at
+// v_row, rebuilt from its three terms in global memory (n elements apart):
+// each product of two f32 values is exact in f64.
+__device__ __forceinline__ double exact_dp_share(const float4* res, int row,
+                                                 const bf16* __restrict__ v_row,
+                                                 size_t n, int lane) {
+  // element (row, d): float4 d / 8, thread 4 (row % 16 % 8) + (d % 8) / 2
+  // of the row's warp, component 2 (row / 8 % 2) + d % 2
+  const int base = lane * kWG + 32 * (row >> 4) + 4 * (row & 7);
+  const bool upper = (row >> 3) & 1;
+  uint4 vt[3];
+#pragma unroll
+  for (int term = 0; term < 3; ++term)
+    vt[term] = *reinterpret_cast<const uint4*>(v_row + term * n + 8 * lane);
+  double acc = 0.0;
+#pragma unroll
+  for (int i2 = 0; i2 < 4; ++i2) {
+    const float4 f = res[base + i2];
+    double v0 = 0.0, v1 = 0.0;
+#pragma unroll
+    for (int term = 0; term < 3; ++term) {
+      const uint32_t u = (&vt[term].x)[i2];
+      const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&u);
+      v0 += (double)__low2float(p);
+      v1 += (double)__high2float(p);
+    }
+    acc = fma((double)(upper ? f.z : f.x), v0, acc);
+    acc = fma((double)(upper ? f.w : f.y), v1, acc);
+  }
+  return acc;
+}
+
+// dQ at D = 256 on f32 storage (_dq_kernel :174 for every strategy, the
+// nn forms' _dq_kernel_nn :203 too): the kF32 arithmetic of dq_mma_body
+// with dq_d256_body's split of the output (each consumer holds dQ's columns
+// 128 w ..). A persistent grid walks the (head, 64-row query tile) items
+// (f32_item); per item the producer loads the rows' LSE and delta and deals
+// Q's and dO's terms (hi, mid, lo) to the P consumer (warpgroup 1) and the
+// dS consumer (warpgroup 2), which rebuild them in f32; then per 64-key
+// tile of the causal range:
+// - S = Q.K^T (P consumer) beside dP = dO.V^T (dS consumer), by piece
+//   (scores_by_piece). The P consumer masks the causal diagonal tile and
+//   the keys at and past kv_len, forms P = exp(S scale - LSE) in f32 (expf,
+//   as the plain version rounds it) and hands it over through the exchange
+//   (named barrier 3); the dS consumer takes dP - delta in f32 or, where P
+//   exceeds kExactP, in f64 (exact_dp_share: in a row whose P gathers on a
+//   few keys, as a causal head's first rows, dP - delta cancels and dP's
+//   own rounding would reach dQ unweighted), forms dS = P (dP - delta)
+//   scale and hands it back in the exchange's place (barrier 4), keeping
+//   a copy in its own tile;
+// - each consumer runs its half of dQ += dS.K (piece_out_products: dS's
+//   fragments split per k-step from the f32 tile; held in registers, 48 of
+//   them, they pushed dQ's accumulator into spills) from K's terms dealt
+//   again, its half of each (K is needed before and after dS, so it is
+//   loaded twice: 288 KB from L2 a 64 x 64 tile pair), per K term and
+//   64-column chunk promoted.
+// dQ leaves in f32 by plain stores. 18 bf16 passes of 2 D flops a causal
+// pair bound it: operations, 0.313 ms at the head_dim-256 phase's shape
+// (B*H = 64, L = 1024, causal).
+__device__ __forceinline__ void dq_f32_d256_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, const CUtensorMap& map_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq_f32, const bf16* __restrict__ terms, int BH,
+    int H, int L, float scale, int causal, int kv_len) {
+  using Smem = DqF32D256Smem;
+  constexpr int D = kWideD, NS = Smem::kSlots;
+  constexpr int kPIn = 3, kDSIn = 4;   // named barriers: P, then dS, are in
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_1024(smem_raw);                     // [slot]
+  float4* q_res = reinterpret_cast<float4*>(ring + NS * kPiece);  // [32][kWG]
+  float4* do_res = q_res + 32 * kWG;
+  // [8][kWG]: the exchange (S's running sum, then P, then dS) and the dS
+  // consumer's own tile (dP's running sum, then dS)
+  float4* exch = do_res + 32 * kWG;
+  float4* dp_sum = exch + 8 * kWG;
+  float* stats = reinterpret_cast<float*>(dp_sum + 8 * kWG);   // LSE, delta
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + 128);
+  uint64_t* empty = full + NS;
+  uint64_t* st_full = empty + NS;
+  uint64_t* st_empty = st_full + 1;
+
+  const int num_t = L / 64, BL = BH / H * L;   // BL: rows of one term
+  const size_t n_term = (size_t)BL * H * D;    // elements of one term
+  const bool by_head = f32_by_head(BH * num_t);
+  // the key tiles of query tile qt: through its diagonal tile under causal
+  auto key_tiles = [&](int qt) { return causal ? qt + 1 : num_t; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWG);       // a slot has one consumer
+    }
+    mbar_init(st_full, 1);
+    mbar_init(st_empty, 2 * kWG);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    // ---- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int n = 0;   // pieces loaded so far
+      // columns 128 half .. of term `term` of an operand's 64 rows from r0
+      auto put = [&](const CUtensorMap* map, int bh, int term, int r0,
+                     int half) {
+        const int s = n % NS, b = bh / H, h = bh % H;
+        if (n >= NS) mbar_wait(&empty[s], (n / NS - 1) & 1);
+        mbar_expect_tx(&full[s], kPiece);
+        for (int c = 0; c < 2; ++c)
+          tma_load(ring + s * kPiece + c * kChunk, map, &full[s],
+                   h * D + (2 * half + c) * kSeg, term * BL + b * L + r0);
+        ++n;
+      };
+      int bh, rank;
+      for (int it = 0; f32_item(it, BH, num_t, by_head, bh, rank); ++it) {
+        const int qt = num_t - 1 - rank, q0 = qt * 64;
+        if (it >= 1) mbar_wait(st_empty, (it - 1) & 1);
+        mbar_expect_tx(st_full, Smem::kStats);
+        bulk_load(stats, lse + (size_t)bh * L + q0, 256, st_full);
+        bulk_load(stats + 64, delta + (size_t)bh * L + q0, 256, st_full);
+        for (int term = 0; term < 3; ++term)     // Q, dO: hi, mid, lo
+          for (int half = 0; half < 2; ++half) {
+            put(&map_q, bh, term, q0, half);
+            put(&map_do, bh, term, q0, half);
+          }
+        for (int j = 0; j < key_tiles(qt); ++j) {
+          for (int term = 2; term >= 0; --term)  // S, dP: K, V
+            for (int half = 0; half < 2; ++half) {
+              put(&map_k, bh, term, j * 64, half);
+              put(&map_v, bh, term, j * 64, half);
+            }
+          for (int term = 2; term >= 0; --term)  // dQ: K's two halves
+            for (int half = 0; half < 2; ++half)
+              put(&map_k, bh, term, j * 64, half);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: w = 0 forms P (reads Q), w = 1 forms dS (reads dO);
+    // each holds dQ's columns 128 w .. 128 w + 127
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = threadIdx.x / kWG - 1;
+    const int tid = threadIdx.x & (kWG - 1);
+    const int warp = tid >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = 16 * warp + g;        // rows r_lo and r_lo + 8
+    float4* res = w == 0 ? q_res : do_res;
+    float4* xe = exch;
+    float4* ds_own = dp_sum;               // the dS consumer's own tile
+    const PieceRing rg{smem_addr(ring), 0, smem_addr(full), smem_addr(empty),
+                       w};
+    const bf16* v_terms = terms + 2 * 3 * n_term;   // operand 2: V
+    int i = 0;                             // pieces so far
+    int bh, rank;
+    for (int it = 0; f32_item(it, BH, num_t, by_head, bh, rank); ++it) {
+      const int b = bh / H, h = bh % H;
+      const int qt = num_t - 1 - rank, q0 = qt * 64, nk = key_tiles(qt);
+      mbar_wait(st_full, it & 1);
+      // LSE of this thread's rows (P consumer) or their delta
+      float row_stat[2];
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2)
+        row_stat[r2] = stats[64 * w + r_lo + 8 * r2];
+      mbar_arrive(st_empty);
+      for (int q = 0; q < 6; ++q, ++i) {
+        rebuild_piece(res, rg.wait(i), q % 2, q / 2, tid, r_lo, t);
+        rg.release(i);
+      }
+      __syncwarp();   // the f64 dots read the warp's other lanes' dO
+      float dq[D / 4];
+#pragma unroll
+      for (int e = 0; e < D / 4; ++e) dq[e] = 0.f;
+
+      for (int j = 0; j < nk; ++j) {
+        const int k0 = j * 64;
+        float x[32];                       // S, then P (P consumer); dP
+        scores_by_piece<2>(x, w == 0 ? xe : ds_own, res, tid, i, rg, 0);
+        rg.release(i + 5);
+        i += 6;
+        if (w == 0) {
+          // -inf past the causal diagonal and at and past kv_len
+          if ((causal && j == nk - 1) || k0 + 64 > kv_len) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+              const int key = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+              const int row = q0 + r_lo + 8 * ((e >> 1) & 1);
+              if ((causal && key > row) || key >= kv_len) x[e] = -INFINITY;
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            x[e] = expf(x[e] * scale - row_stat[(e >> 1) & 1]);
+#pragma unroll
+          for (int j4 = 0; j4 < 8; ++j4)
+            *share_at(xe, j4, tid) = make_float4(x[4 * j4], x[4 * j4 + 1],
+                                                 x[4 * j4 + 2], x[4 * j4 + 3]);
+          named_arrive(kPIn, 2 * kWG);
+          named_sync(kDSIn, 2 * kWG);      // this tile's dS is in
+        } else {
+          named_sync(kPIn, 2 * kWG);       // this tile's P is in
+          float p_max = 0.f;
+#pragma unroll
+          for (int j4 = 0; j4 < 8; ++j4) {
+            const float4 p4 = *share_at(xe, j4, tid);
+            p_max = fmaxf(fmaxf(p_max, fmaxf(p4.x, p4.y)),
+                          fmaxf(p4.z, p4.w));
+          }
+#pragma unroll
+          for (int e = 0; e < 32; ++e) x[e] -= row_stat[(e >> 1) & 1];
+          if (__any_sync(0xffffffffu, p_max > kExactP)) {
+            // the warp takes each such entry in turn, eight columns a
+            // lane, and hands the f64 sum to the entry's lane
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+              const float pe =
+                  reinterpret_cast<const float*>(share_at(xe, e >> 2, tid))[e & 3];
+              uint32_t lanes = __ballot_sync(0xffffffffu, pe > kExactP);
+              while (lanes) {
+                const int src = __ffs(lanes) - 1;
+                lanes &= lanes - 1;
+                const int row = 16 * warp + (src >> 2) + 8 * ((e >> 1) & 1);
+                const int key = k0 + 8 * (e >> 2) + 2 * (src & 3) + (e & 1);
+                const double dpx = warp_sum(exact_dp_share(
+                    res, row, v_terms + ((size_t)(b * L + key) * H + h) * D,
+                    n_term, lane));
+                if (lane == src)
+                  x[e] = (float)(dpx - (double)row_stat[(e >> 1) & 1]);
+              }
+            }
+          }
+          // dS = P (dP - delta) scale, into the exchange and into this
+          // consumer's own tile
+#pragma unroll
+          for (int j4 = 0; j4 < 8; ++j4) {
+            const float4 p4 = *share_at(xe, j4, tid);
+            const float4 d4 = make_float4(p4.x * x[4 * j4] * scale,
+                                          p4.y * x[4 * j4 + 1] * scale,
+                                          p4.z * x[4 * j4 + 2] * scale,
+                                          p4.w * x[4 * j4 + 3] * scale);
+            *share_at(xe, j4, tid) = d4;
+            *share_at(ds_own, j4, tid) = d4;
+          }
+          named_arrive(kDSIn, 2 * kWG);
+        }
+        // dQ[:, 128 w ..] += dS.K[:, 128 w ..]: per K term (this
+        // consumer's half of it, read MN-major, depth keys 16 kk ..) and
+        // 64-column chunk, dS from the f32 tile (the exchange, or the dS
+        // consumer's own copy)
+#pragma unroll
+        for (int u = 0; u < 3; ++u, ++i) {
+          piece_out_products<2>(dq, 0, 2 - u, w == 0 ? xe : ds_own, tid,
+                                rg.wait(i));
+          rg.release(i);
+        }
+      }
+
+      // dQ[:, 128 w ..] in f32, rows of [B, L, H, D]
+#pragma unroll
+      for (int j8 = 0; j8 < D / 16; ++j8)
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2) {
+          const int row = q0 + r_lo + 8 * r2, c = 128 * w + 8 * j8 + 2 * t;
+          *reinterpret_cast<float2*>(
+              dq_f32 + ((size_t)(b * L + row) * H + h) * D + c) =
+              make_float2(dq[4 * j8 + 2 * r2], dq[4 * j8 + 2 * r2 + 1]);
+        }
+    }
+  }
+}
+
+// dQ: dq_mma_body at D = 64 and 128; at 256 dq_d256_body (kBf16) and
+// dq_f32_d256_body (kF32, which also reads V's terms in global memory,
+// `terms`).
 template <int D, int Form, int Mode = kBf16>
 __global__ void __launch_bounds__(kBwdThreads<D, Mode>, 1)
 flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -3744,10 +4487,16 @@ flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_dq,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    float* __restrict__ dq_f32, int BH, int H, int L,
+                    float* __restrict__ dq_f32,
+                    const bf16* __restrict__ terms, int BH, int H, int L,
                     float scale, int causal, int kv_len) {
-  if constexpr (D == kWideD) {
-    static_assert(Mode == kBf16, "D = 256 on the tensor cores: kBf16 only");
+  if constexpr (D == kWideD && Mode == kF32) {
+    static_assert(Form == kStd, "kF32 reads split terms as rows");
+    dq_f32_d256_body(map_q, map_k, map_v, map_do, lse, delta, dq_f32, terms,
+                     BH, H, L, scale, causal, kv_len);
+  } else if constexpr (D == kWideD) {
+    static_assert(Mode == kBf16, "the f32-dot dQ at D = 256 runs on the "
+                                 "CUDA cores");
     dq_d256_body<Form>(map_q, map_k, map_v, map_do, map_dq, lse, delta, BH,
                        H, L, scale, causal, kv_len);
   } else {
@@ -3969,8 +4718,7 @@ bool cols_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int D) {
 
 typedef const float* cf32;   // an f32 input (split pass operands, LSE, delta)
 
-// The D = 256 dQ and dK/dV on the CUDA cores: the f32-dot forms on bf16
-// storage and every form on f32 storage.
+// The f32-dot dQ and dK/dV at D = 256 on bf16 storage, on the CUDA cores.
 constexpr size_t kWideRow = sizeof(float) * kWidePad;
 constexpr size_t kDqWideSmem = kWideRow * (2 * kTile + 2 * kWideKeys) +
                                sizeof(float) * kTile * (kWideKeys + 1);
@@ -3979,48 +4727,24 @@ constexpr size_t kDkvWideSmem =
     sizeof(float) * (2 * kWideKeys * (kTile + 1) + 2 * kTile);
 static_assert(kDkvWideSmem <= 227 * 1024, "fits in a block's shared memory");
 
-template <typename T>
-cudaError_t dq_wide_t(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, int B, int H, int L, float scale, int causal,
-                      int kv_len, int transposed, cudaStream_t st) {
-  return launch<flash_dq_wide_kernel<T>>(
-      dim3(B * H, L / kTile), kThreads, kDqWideSmem, st, (const T*)q,
-      (const T*)k, (const T*)v, (const T*)dout, (cf32)lse, (cf32)delta,
-      (T*)dq, H, L, scale, causal, kv_len, transposed);
-}
-cudaError_t dq_wide(int dtype, const void* q, const void* k, const void* v,
+cudaError_t dq_wide(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dq, int B, int H, int L, float scale, int causal,
-                    int kv_len, int transposed, cudaStream_t st) {
-  return dtype == 1
-      ? dq_wide_t<bf16>(q, k, v, dout, lse, delta, dq, B, H, L, scale,
-                        causal, kv_len, transposed, st)
-      : dq_wide_t<float>(q, k, v, dout, lse, delta, dq, B, H, L, scale,
-                         causal, kv_len, transposed, st);
+                    int kv_len, cudaStream_t st) {
+  return launch<flash_dq_wide_kernel>(
+      dim3(B * H, L / kTile), kThreads, kDqWideSmem, st, (const bf16*)q,
+      (const bf16*)k, (const bf16*)v, (const bf16*)dout, (cf32)lse,
+      (cf32)delta, (bf16*)dq, H, L, scale, causal, kv_len);
 }
 
-template <typename T>
-cudaError_t dkv_wide_t(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int B, int H, int L, float scale,
-                       int causal, int transposed, int out_t,
-                       cudaStream_t st) {
-  return launch<flash_dkv_wide_kernel<T>>(
-      dim3(B * H, L / kWideKeys), kThreads, kDkvWideSmem, st, (const T*)q,
-      (const T*)k, (const T*)v, (const T*)dout, (cf32)lse, (cf32)delta,
-      (T*)dk, (T*)dv, H, L, scale, causal, transposed, out_t);
-}
-cudaError_t dkv_wide(int dtype, const void* q, const void* k, const void* v,
+cudaError_t dkv_wide(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dk, void* dv, int B, int H, int L, float scale,
-                     int causal, int transposed, int out_t,
-                     cudaStream_t st) {
-  return dtype == 1
-      ? dkv_wide_t<bf16>(q, k, v, dout, lse, delta, dk, dv, B, H, L, scale,
-                         causal, transposed, out_t, st)
-      : dkv_wide_t<float>(q, k, v, dout, lse, delta, dk, dv, B, H, L, scale,
-                          causal, transposed, out_t, st);
+                     int causal, cudaStream_t st) {
+  return launch<flash_dkv_wide_kernel>(
+      dim3(B * H, L / kWideKeys), kThreads, kDkvWideSmem, st,
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (cf32)lse, (cf32)delta, (bf16*)dk, (bf16*)dv, H, L, scale, causal);
 }
 
 // kStd: k is K [B, L, H, D]; kNN: K^T [B, H, D, L]. kSplit: the f32-dot
@@ -4071,7 +4795,8 @@ cudaError_t dq_mma(const void* q, const void* k, const void* kt,
   return launch<flash_dq_mma_kernel<D, Form, Mode>>(
       persistent_grid(B, H, L, wide ? 64 : kBig), kBwdThreads<D, Mode>, smem,
       st, mq, mk, mv, mdo, mdq, (const float*)lse, (const float*)delta,
-      (float*)nullptr, B * H, H, L, scale, causal, kv_len);
+      (float*)nullptr, (const bf16*)nullptr, B * H, H, L, scale, causal,
+      kv_len);
 }
 
 // kStd: q, k, v, dout, dk, dv all [B, L, H, D] (qt, doutt unused). kNN: k,
@@ -4105,8 +4830,8 @@ cudaError_t dkv_mma(const void* q, const void* qt, const void* k,
       (float*)nullptr, (float*)nullptr, 0, B * H, H, L, scale, causal);
 }
 
-// f32 storage (the forward at every head_dim, dQ and dK/dV at D = 64 and
-// 128). split_terms runs flash_split_kernel on the
+// f32 storage (the forward, dQ and dK/dV at every head_dim). split_terms
+// runs flash_split_kernel on the
 // first n_ops of Q, K, V and dO (bit i of `transposed`: operand i given as
 // [B, H, D, L]) into `terms`, [n_ops, 3, B, L, H, D] bf16; the kF32
 // instances of the forward, dQ and dK/dV read the terms, each operand's
@@ -4134,7 +4859,8 @@ bool terms_maps(CUtensorMap (&m)[N], const void* terms, int B, int H, int L,
   return true;
 }
 
-// At D = 256 (fwd_f32_d256_body) a work item is a 64-row query tile.
+// At D = 256 (fwd_f32_d256_body, dq_f32_d256_body, dkv_f32_d256_body) a
+// work item is a 64-row tile.
 template <int D>
 cudaError_t fwd_f32(const void* terms, void* o, void* lse, int B, int H,
                     int L, float scale, int causal, int kv_len,
@@ -4157,11 +4883,15 @@ cudaError_t dq_f32(const void* terms, const void* lse, const void* delta,
                    int kv_len, cudaStream_t st) {
   CUtensorMap m[4];   // Q, K, V, dO
   if (!terms_maps(m, terms, B, H, L, D)) return cudaErrorInvalidValue;
+  constexpr bool wide = D == kWideD;
+  size_t smem = 0;
+  if constexpr (wide) smem = DqF32D256Smem::kBytes;
+  else smem = BwdSmem<D, kF32>::kBytes;
   return launch<flash_dq_mma_kernel<D, kStd, kF32>>(
-      persistent_grid(B, H, L), kBwdThreads<D, kF32>,
-      BwdSmem<D, kF32>::kBytes, st, m[0], m[1], m[2], m[3], m[0],
-      (const float*)lse, (const float*)delta, (float*)dq, B * H, H, L, scale,
-      causal, kv_len);
+      persistent_grid(B, H, L, wide ? 64 : kBig), kBwdThreads<D, kF32>, smem,
+      st, m[0], m[1], m[2], m[3], m[0], (const float*)lse,
+      (const float*)delta, (float*)dq, (const bf16*)terms, B * H, H, L,
+      scale, causal, kv_len);
 }
 
 template <int D>
@@ -4170,9 +4900,13 @@ cudaError_t dkv_f32(const void* terms, const void* lse, const void* delta,
                     float scale, int causal, cudaStream_t st) {
   CUtensorMap m[4];
   if (!terms_maps(m, terms, B, H, L, D)) return cudaErrorInvalidValue;
+  constexpr bool wide = D == kWideD;
+  size_t smem = 0;
+  if constexpr (wide) smem = DkvF32D256Smem::kBytes;
+  else smem = BwdSmem<D, kF32>::kBytes;
   return launch<flash_dkv_mma_kernel<D, kStd, kF32>>(
-      persistent_grid(B, H, L), kBwdThreads<D, kF32>,
-      BwdSmem<D, kF32>::kBytes, st, m[0], m[1], m[2], m[3], m[0], m[0],
+      persistent_grid(B, H, L, wide ? 64 : kBig), kBwdThreads<D, kF32>, smem,
+      st, m[0], m[1], m[2], m[3], m[0], m[0],
       (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, out_t,
       B * H, H, L, scale, causal);
 }
@@ -4208,10 +4942,14 @@ cudaError_t dq_storage_f32(const void* q, const void* k, const void* v,
         split_terms(q, k, v, dout, transposed, 4, terms, B, H, L, D, st);
     if (err != cudaSuccess) return err;
   }
-  return D == 64
-      ? dq_f32<64>(terms, lse, delta, dq, B, H, L, scale, causal, kv_len, st)
-      : dq_f32<128>(terms, lse, delta, dq, B, H, L, scale, causal, kv_len,
-                    st);
+  if (D == 64)
+    return dq_f32<64>(terms, lse, delta, dq, B, H, L, scale, causal, kv_len,
+                      st);
+  if (D == 128)
+    return dq_f32<128>(terms, lse, delta, dq, B, H, L, scale, causal, kv_len,
+                       st);
+  return dq_f32<kWideD>(terms, lse, delta, dq, B, H, L, scale, causal,
+                        kv_len, st);
 }
 
 cudaError_t dkv_storage_f32(const void* q, const void* k, const void* v,
@@ -4225,11 +4963,14 @@ cudaError_t dkv_storage_f32(const void* q, const void* k, const void* v,
         split_terms(q, k, v, dout, transposed, 4, terms, B, H, L, D, st);
     if (err != cudaSuccess) return err;
   }
-  return D == 64
-      ? dkv_f32<64>(terms, lse, delta, dk, dv, out_t, B, H, L, scale, causal,
-                    st)
-      : dkv_f32<128>(terms, lse, delta, dk, dv, out_t, B, H, L, scale,
-                     causal, st);
+  if (D == 64)
+    return dkv_f32<64>(terms, lse, delta, dk, dv, out_t, B, H, L, scale,
+                       causal, st);
+  if (D == 128)
+    return dkv_f32<128>(terms, lse, delta, dk, dv, out_t, B, H, L, scale,
+                        causal, st);
+  return dkv_f32<kWideD>(terms, lse, delta, dk, dv, out_t, B, H, L, scale,
+                         causal, st);
 }
 
 bool shape_ok(int B, int H, int L, int D) {
@@ -4296,17 +5037,15 @@ cudaError_t dkv_bf16(const void* q, const void* qt, const void* k,
 // forward's, dQ's and dK/dV's kBf16 instances of strategies bf16, nn and
 // nn2 and the forward's kSplit instance of f32 (the f32-dot dQ and dK/dV
 // there: the CUDA-core kernels). On f32 storage (where the storage-dtype
-// dots are f32 dots) the kF32 instances of the forward at every head_dim
-// and of dQ and dK/dV at D = 64 and 128, for every strategy (nn and nn2
-// split their transposed operands into the same terms, so they run the
-// kStd instance and give its results bitwise; nn2's dK/dV stores dK^T and
-// dV^T), the CUDA-core dQ and dK/dV at D = 256 (nn and nn2 read their
-// transposed operands into the same tiles, bitwise bf16's). The forward
-// and dQ take kv_len, the true key count of zero-padded inputs. On f32
-// storage, where a kF32 instance runs, every entry point takes `terms`,
-// scratch of [n, 3, B, L, H, D] bf16 (n = 3 for the forward's Q, K, V; 4
-// for dQ's and dK/dV's Q, K, V, dO), and splits into it first where
-// `split` is set; elsewhere both are unused. Every launcher returns the
+// dots are f32 dots) the kF32 instances of the forward, dQ and dK/dV at
+// every head_dim, for every strategy (nn and nn2 split their transposed
+// operands into the same terms, so they run the kStd instance and give its
+// results bitwise; nn2's dK/dV stores dK^T and dV^T). The forward and dQ
+// take kv_len, the true key count of zero-padded inputs. On f32 storage
+// every entry point takes `terms`, scratch of [n, 3, B, L, H, D] bf16
+// (n = 3 for the forward's Q, K, V; 4 for dQ's and dK/dV's Q, K, V, dO),
+// and splits into it first where `split` is set; on bf16 storage both are
+// unused. Every launcher returns the
 // cudaError_t of its launch (0 on success); paddle_flash_last_instance
 // names the kernel instance that the calling thread launched last.
 extern "C" {
@@ -4335,9 +5074,6 @@ int paddle_flash_dq(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return dq_bf16<kStd>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, D,
                          scale, causal, kv_len, st);
-  if (D == kWideD)
-    return dq_wide(dtype, q, k, v, dout, lse, delta, dq, B, H, L, scale,
-                   causal, kv_len, 0, st);
   return dq_storage_f32(q, k, v, dout, 0, lse, delta, dq, terms, split, B, H,
                         L, D, scale, causal, kv_len, st);
 }
@@ -4352,9 +5088,6 @@ int paddle_flash_dkv(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return dkv_bf16<kStd>(q, nullptr, k, v, dout, nullptr, lse, delta, dk,
                           dv, B, H, L, D, scale, causal, st);
-  if (D == kWideD)
-    return dkv_wide(dtype, q, k, v, dout, lse, delta, dk, dv, B, H, L, scale,
-                    causal, 0, 0, st);
   return dkv_storage_f32(q, k, v, dout, 0, lse, delta, dk, dv, 0, terms,
                          split, B, H, L, D, scale, causal, st);
 }
@@ -4383,9 +5116,6 @@ int paddle_flash_dq_nn(const void* q, const void* k, const void* kt,
   if (dtype == 1)
     return dq_bf16<kNN>(q, k, kt, vt, dout, lse, delta, dq, B, H, L, D, scale,
                         causal, kv_len, st);
-  if (D == kWideD)
-    return dq_wide(dtype, q, kt, vt, dout, lse, delta, dq, B, H, L, scale,
-                   causal, kv_len, kTransposedKV, st);
   return dq_storage_f32(q, kt, vt, dout, kTransposedKV, lse, delta, dq, terms,
                         split, B, H, L, D, scale, causal, kv_len, st);
 }
@@ -4400,9 +5130,6 @@ int paddle_flash_dkv_nn(const void* q, const void* kt, const void* vt,
   if (dtype == 1)
     return dkv_bf16<kNN>(q, nullptr, kt, vt, dout, nullptr, lse, delta, dk,
                          dv, B, H, L, D, scale, causal, st);
-  if (D == kWideD)
-    return dkv_wide(dtype, q, kt, vt, dout, lse, delta, dk, dv, B, H, L,
-                    scale, causal, kTransposedKV, 0, st);
   return dkv_storage_f32(q, kt, vt, dout, kTransposedKV, lse, delta, dk, dv,
                          0, terms, split, B, H, L, D, scale, causal, st);
 }
@@ -4418,16 +5145,13 @@ int paddle_flash_dkv_nn2(const void* q, const void* qt, const void* kt,
   if (dtype == 1)
     return dkv_bf16<kNN2>(q, qt, kt, vt, dout, doutt, lse, delta, dkt, dvt,
                           B, H, L, D, scale, causal, st);
-  if (D == kWideD)
-    return dkv_wide(dtype, qt, kt, vt, doutt, lse, delta, dkt, dvt, B, H, L,
-                    scale, causal, kTransposedAll, 1, st);
   return dkv_storage_f32(qt, kt, vt, doutt, kTransposedAll, lse, delta, dkt,
                          dvt, 1, terms, split, B, H, L, D, scale, causal, st);
 }
 
 // Strategy f32: every dot in f32. On bf16 storage the kSplit instances of
 // the Hopper kernels (at D = 256 the forward's, and the CUDA-core dQ and
-// dK/dV with nothing rounded); on f32 the kernels of every strategy there.
+// dK/dV with nothing rounded); on f32 the kF32 instances of every strategy.
 int paddle_flash_fwd_f32dot(const void* q, const void* k, const void* v,
                             void* o, void* lse, void* terms, int B, int H,
                             int L, int D, int dtype, int causal, float scale,
@@ -4456,9 +5180,9 @@ int paddle_flash_dq_f32dot(const void* q, const void* k, const void* v,
                            void* stream) {
   if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == kWideD)
-    return dq_wide(dtype, q, k, v, dout, lse, delta, dq, B, H, L, scale,
-                   causal, kv_len, 0, st);
+  if (dtype == 1 && D == kWideD)
+    return dq_wide(q, k, v, dout, lse, delta, dq, B, H, L, scale, causal,
+                   kv_len, st);
   if (dtype == 1)
     return D == 64
         ? dq_mma<64, kStd, kSplit>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st)
@@ -4475,9 +5199,9 @@ int paddle_flash_dkv_f32dot(const void* q, const void* k, const void* v,
                             void* stream) {
   if (!shape_ok(B, H, L, D)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == kWideD)
-    return dkv_wide(dtype, q, k, v, dout, lse, delta, dk, dv, B, H, L, scale,
-                    causal, 0, 0, st);
+  if (dtype == 1 && D == kWideD)
+    return dkv_wide(q, k, v, dout, lse, delta, dk, dv, B, H, L, scale,
+                    causal, st);
   if (dtype == 1)
     return D == 64
         ? dkv_mma<64, kStd, kSplit>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)

@@ -23,16 +23,15 @@ versions are bf16's, taking and giving the transposed layouts.
 Dispatch: tensors on the CPU take the plain versions; tensors on a CUDA
 device launch the kernels (`*_cuda`), which raise on what they do not take.
 Nothing falls back from one to the other. On f32 storage every strategy's
-kernels are f32-dot kernels (the storage dtype's dots are f32 dots there):
-the forward at every head_dim, and dQ and dK/dV at head_dim 64 and 128,
-run on the tensor cores from bf16 terms of their operands (split_terms):
-the forward's call splits Q, K and V into its own scratch, the dQ
-kernel's call splits Q, K, V and dO once per backward into scratch that
-the dK/dV call reads (nn and nn2 split their transposed operands into the
-same terms). At head_dim 256 the forward of every strategy, and dQ and
-dK/dV of bf16, nn and nn2 on bf16 storage, run on the tensor cores too;
-the f32-dot dQ and dK/dV and f32 storage's run CUDA-core kernels, which
-read the operands as they are (works_from_terms says which). LAUNCHES counts
+kernels are f32-dot kernels (the storage dtype's dots are f32 dots there),
+which run on the tensor cores at every head_dim from bf16 terms of their
+operands (split_terms, works_from_terms): the forward's call splits Q, K
+and V into its own scratch, the dQ kernel's call splits Q, K, V and dO
+once per backward into scratch that the dK/dV call reads (nn and nn2 split
+their transposed operands into the same terms). At head_dim 256 the
+forward of every strategy, and dQ and dK/dV of bf16, nn and nn2 on bf16
+storage, run on the tensor cores too; the f32-dot dQ and dK/dV on bf16
+storage there run CUDA-core kernels. LAUNCHES counts
 each wrapper's launches, INSTANCE_LAUNCHES each kernel instance's (the
 library names the instance it launched), so a run can show which kernel a
 head_dim took.
@@ -92,10 +91,6 @@ _MODES = ("kBf16", "kSplit", "kF32")
 _NEG_INF = -1e30
 _KERNEL_TILE = 64          # L is a multiple of it (64-row tiles, half tiles)
 _KERNEL_HEAD_DIMS = (64, 128, 256)
-# head_dims whose f32-storage kernels work from split terms (the tensor-core
-# kernels), by direction: the forward at every head_dim; dQ and dK/dV at
-# 256 run on the CUDA cores from the operands
-_SPLIT_HEAD_DIMS = {"fwd": (64, 128, 256), "bwd": (64, 128)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PROBE_N = 128             # the probe's tiles are 128 x 128
 
@@ -111,10 +106,13 @@ def instance_name(pretty: str) -> str:
     host compiler's spelling of the launching function, e.g. "... [with
     auto Kernel = flash_fwd_mma_kernel<256, 0>]"), as "kernel<args>" with
     the mma kernels' Form and Mode named and their default Mode filled
-    in; the whole string where no kernel is named in it."""
-    found = re.search(r"(flash_\w+_kernel)\s*<([^<>]*)>", pretty)
+    in, or the kernel's name where it is no template; the whole string
+    where no kernel is named in it."""
+    found = re.search(r"(flash_\w+_kernel)(?:\s*<([^<>]*)>)?", pretty)
     if found is None:
         return pretty
+    if found[2] is None:
+        return found[1]
     kernel, args = found[1], [a.strip() for a in found[2].split(",")]
     if kernel.endswith("_mma_kernel") and all(a.isdigit() for a in args):
         args += ["0"] * (3 - len(args))
@@ -322,13 +320,10 @@ def _check(name: str, q: torch.Tensor, rows=(), cols=(), stats=(),
     return B, L, H, D
 
 
-def works_from_terms(name: str, q: torch.Tensor) -> bool:
-    """Whether flash kernel `name` (a forward or a dQ or dK/dV kernel) works
-    from split terms for q's storage and head_dim: f32 storage at the
-    head_dims where that direction's kF32 tensor-core instances run."""
-    direction = "fwd" if name.startswith("flash_fwd") else "bwd"
-    return (q.dtype == torch.float32
-            and q.shape[-1] in _SPLIT_HEAD_DIMS[direction])
+def works_from_terms(q: torch.Tensor) -> bool:
+    """Whether the flash kernels work from split terms for q's storage: on
+    f32 storage, where every kernel is a kF32 tensor-core instance."""
+    return q.dtype == torch.float32
 
 
 def split_terms(q: torch.Tensor, n_ops: int = 4) -> torch.Tensor:
@@ -341,11 +336,11 @@ def split_terms(q: torch.Tensor, n_ops: int = 4) -> torch.Tensor:
 
 
 def _terms(name: str, q: torch.Tensor, terms, split: bool):
-    """The split terms a kernel on f32 storage works from (None where the
-    kernel reads its operands as they are, works_from_terms): `terms` as
+    """The split terms a kernel on f32 storage works from (None on bf16
+    storage, where the kernel reads its operands as they are): `terms` as
     given, to be written by this call where `split` is set, else fresh
     scratch, which this call must split into."""
-    if not works_from_terms(name, q):
+    if not works_from_terms(q):
         return None
     n_ops = 3 if name.startswith("flash_fwd") else 4
     if terms is None:
@@ -449,10 +444,10 @@ def _dq_cuda(name, q, k, v, do, lse, delta, causal, sm_scale, kv_len, terms,
 
 def flash_dq_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
                   kv_len=None, terms=None, split=True):
-    """Launch the dQ kernel. On f32 storage at head_dim 64 and 128 it works
-    from `terms` (split_terms), which it first splits Q, K, V and dO into
-    unless `split` is False (the terms of an earlier call); fresh scratch
-    where `terms` is None."""
+    """Launch the dQ kernel. On f32 storage it works from `terms`
+    (split_terms), which it first splits Q, K, V and dO into unless `split`
+    is False (the terms of an earlier call); fresh scratch where `terms` is
+    None."""
     return _dq_cuda("flash_dq", q, k, v, do, lse, delta, causal, sm_scale,
                     kv_len, terms, split)
 
@@ -577,10 +572,14 @@ CUDA = {
 }
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type != "cpu"
+
+
 def kernel(name: str, on: torch.Tensor):
     """Flash kernel `name` for tensors on `on`'s device: its plain version
     on the CPU, its CUDA kernel otherwise."""
-    return (PLAIN if on.device.type == "cpu" else CUDA)[name]
+    return (CUDA if _on_card(on) else PLAIN)[name]
 
 
 # ------------------------------------------------------- dot strategies --
@@ -606,7 +605,7 @@ def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
     dq_fn, dkv_fn = kernel(dq_name, q), kernel(dkv_name, q)
     rest = (lse, delta, causal, sm_scale)
     split = {}
-    if q.is_cuda and works_from_terms(dq_name, q):
+    if _on_card(q) and works_from_terms(q):
         split = {"terms": split_terms(q)}
     reuse = dict(split, split=False) if split else {}
     if impl not in ("nn", "nn2"):

@@ -318,8 +318,13 @@ PRETTY = {
         "flash_dq_mma_kernel<64, kStd, kF32>",
     "const char* {anonymous}::instance_name() [with auto Kernel = "
     "flash_dq_mma_kernel<256, 1>]": "flash_dq_mma_kernel<256, kNN, kBf16>",
-    "[with auto Kernel = flash_dq_wide_kernel<__nv_bfloat16>]":
-        "flash_dq_wide_kernel<__nv_bfloat16>",
+    "const char* {anonymous}::instance_name() [with auto Kernel = "
+    "{anonymous}::flash_dq_wide_kernel]": "flash_dq_wide_kernel",
+    "const char* {anonymous}::instance_name() [with auto Kernel = "
+    "flash_dq_mma_kernel<256, 0, 2>]": "flash_dq_mma_kernel<256, kStd, kF32>",
+    "const char* {anonymous}::instance_name() [with auto Kernel = "
+    "flash_dkv_mma_kernel<256, 0, 2>]":
+        "flash_dkv_mma_kernel<256, kStd, kF32>",
     "const char* {anonymous}::instance_name() [with auto Kernel = "
     "flash_fwd_mma_kernel<256, 0, 1>]":
         "flash_fwd_mma_kernel<256, kStd, kSplit>",
@@ -328,8 +333,9 @@ PRETTY = {
         "flash_fwd_mma_kernel<256, kStd, kF32>",
     "no kernel here": "no kernel here",
 }
-# ptxas's mangled names of the D = 256 forward's kSplit and kF32 instances,
-# as build_kernels reads them from its register and spill report
+# ptxas's mangled names of the D = 256 forward's kSplit and kF32 instances
+# and of the kF32 dQ and dK/dV, as build_kernels reads them from its
+# register and spill report
 MANGLED = {
     "_ZN51_GLOBAL__N__5121eace_18_flash_attention_cu_837abbf520flash_fwd_"
     "mma_kernelILi256ELi0ELi1EEEv14CUtensorMap_stS1_S1_S1_PfPviiifii":
@@ -338,7 +344,13 @@ MANGLED = {
     "mma_kernelILi256ELi0ELi2EEEv14CUtensorMap_stS1_S1_S1_PfPviiifii":
         "flash_fwd_mma_kernel<256, kStd, kF32>",
     "_ZN51_GLOBAL__N__5121eace_18_flash_attention_cu_837abbf519flash_dq_"
-    "wide_kernelIfEEvPKT_S3_S3_S3_PKfS5_PS1_iifiii": None,
+    "mma_kernelILi256ELi0ELi2EEEv14CUtensorMap_stS1_S1_S1_S1_PKfS3_PfPK13__"
+    "nv_bfloat16iiifiii": "flash_dq_mma_kernel<256, kStd, kF32>",
+    "_ZN51_GLOBAL__N__5121eace_18_flash_attention_cu_837abbf520flash_dkv_"
+    "mma_kernelILi256ELi0ELi2EEEv14CUtensorMap_stS1_S1_S1_S1_S1_PKfS3_PfS4_"
+    "iiiifi": "flash_dkv_mma_kernel<256, kStd, kF32>",
+    "_ZN51_GLOBAL__N__5121eace_18_flash_attention_cu_837abbf520flash_dq_"
+    "wide_kernelEPK13__nv_bfloat16S2_S2_S2_PKfS4_PS0_iifiii": None,
 }
 
 
@@ -363,9 +375,8 @@ def test_d256_instances_of_the_tensor_core_strategies():
     """chip_smoke.py requires the tensor-core instances of the forward, dQ
     and dK/dV of strategies bf16, nn and nn2 at head_dim 256, the
     tensor-core kSplit forward and the CUDA-core dQ and dK/dV for the
-    f32-dot forms, and on f32 storage the kF32 forward of every strategy
-    with the CUDA-core dQ and dK/dV; reset_launch_counts clears the
-    instance counts."""
+    f32-dot forms, and on f32 storage the kF32 forward, dQ and dK/dV of
+    every strategy; reset_launch_counts clears the instance counts."""
     for impl in ("bf16", "nn", "nn2"):
         fwd, dq, dkv = fa.STRATEGY_KERNELS[impl]
         assert D256_INSTANCES[fwd].startswith("flash_fwd_mma_kernel<256, ")
@@ -380,17 +391,14 @@ def test_d256_instances_of_the_tensor_core_strategies():
     assert D256_INSTANCES[dkv] == "flash_dkv_wide_kernel"
     assert set(D256_F32_INSTANCES) == set(D256_INSTANCES) == set(fa.CUDA)
     for name, inst in D256_F32_INSTANCES.items():
-        if name.startswith("flash_fwd"):
-            assert inst == "flash_fwd_mma_kernel<256, kStd, kF32>"
-        else:
-            assert inst.endswith("_wide_kernel")
+        kind = name.split("_")[1]
+        assert inst == f"flash_{kind}_mma_kernel<256, kStd, kF32>"
     assert D256_TC_INSTANCES == {
         i for i in D256_INSTANCES.values() if "_mma_kernel<" in i} | {
-        "flash_fwd_mma_kernel<256, kStd, kF32>"}
-    assert is_instance("flash_dq_wide_kernel<__nv_bfloat16>",
-                       "flash_dq_wide_kernel")
-    assert not is_instance("flash_dq_wide_kernel<float>",
-                           "flash_dq_mma_kernel")
+        f"flash_{kind}_mma_kernel<256, kStd, kF32>"
+        for kind in ("fwd", "dq", "dkv")}
+    assert is_instance("flash_dq_wide_kernel", "flash_dq_wide_kernel")
+    assert not is_instance("flash_dq_wide_kernel", "flash_dq_mma_kernel")
     fa.INSTANCE_LAUNCHES["x"] = 1
     fa.reset_launch_counts()
     assert fa.INSTANCE_LAUNCHES == {}

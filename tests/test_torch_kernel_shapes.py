@@ -152,14 +152,20 @@ def test_cuda_wrapper_still_needs_a_card():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_terms_predicate_by_direction(D, dtype):
-    """On f32 storage the forward works from split terms at every head_dim
-    (its kF32 tensor-core instances), dQ and dK/dV only at 64 and 128 (at
-    256 the CUDA-core kernels read the operands); bf16 storage never."""
+    """On f32 storage every kernel works from split terms at every head_dim
+    (its kF32 tensor-core instances): the forward from Q's, K's and V's
+    ([3, 3, B, L, H, D]), dQ and dK/dV from those and dO's ([4, 3, ...]);
+    bf16 storage never."""
     q = torch.zeros(1, 64, 1, D, dtype=dtype)
     f32 = dtype == torch.float32
+    assert fa.works_from_terms(q) == f32
     for name in fa.CUDA:
-        want = f32 and (name.startswith("flash_fwd") or D != 256)
-        assert fa.works_from_terms(name, q) == want, name
+        terms = fa._terms(name, q, None, True)
+        if f32:
+            n_ops = 3 if name.startswith("flash_fwd") else 4
+            assert terms.shape == (n_ops, 3, 1, 64, 1, D), name
+        else:
+            assert terms is None, name
 
 
 @pytest.fixture
@@ -177,53 +183,55 @@ def launched_terms(monkeypatch):
 @pytest.mark.parametrize("name", sorted(ARGS))
 @pytest.mark.parametrize("D", [128, 256])
 def test_f32_storage_terms_reach_the_launch(launched_terms, name, D):
-    """On f32 storage a wrapper that works from terms hands its launch
-    fresh [n, 3, B, L, H, D] bf16 scratch to split into (n = 3 for the
-    forward, 4 for dQ and dK/dV); at D = 256 dQ and dK/dV hand none."""
+    """On f32 storage every wrapper hands its launch fresh
+    [n, 3, B, L, H, D] bf16 scratch to split into (n = 3 for the forward, 4
+    for dQ and dK/dV), at D = 256 as at 128."""
     t = _operands(1, 192, 2, D, torch.float32)
     _call(name, t)
     ((launched, terms, split),) = launched_terms
     assert launched == name and split
-    if fa.works_from_terms(name, t["q"]):
-        n_ops = 3 if name.startswith("flash_fwd") else 4
-        assert terms.shape == (n_ops, 3, 1, 192, 2, D)
-        assert terms.dtype == torch.bfloat16
-    else:
-        assert D == 256 and not name.startswith("flash_fwd")
-        assert terms is None
+    n_ops = 3 if name.startswith("flash_fwd") else 4
+    assert terms.shape == (n_ops, 3, 1, 192, 2, D)
+    assert terms.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("name", sorted(ARGS))
 def test_split_false_needs_terms_where_the_kernel_reads_them(
         launched_terms, name):
-    """split=False without terms raises where the kernel works from terms
-    (every forward at D = 256 on f32 storage) and launches where it reads
-    the operands (dQ and dK/dV there)."""
+    """split=False without terms raises where the kernel works from terms:
+    on f32 storage at D = 256 every forward, dQ and dK/dV; given the terms
+    of an earlier split, it launches without splitting."""
     t = _operands(1, 192, 2, 256, torch.float32)
     args = [t[a] for a in ARGS[name]]
-    if name.startswith("flash_fwd"):
-        with pytest.raises(ValueError, match="split=False"):
-            fa.CUDA[name](*args, True, 0.125, split=False)
-        assert launched_terms == []
-    else:
+    with pytest.raises(ValueError, match="split=False"):
         fa.CUDA[name](*args, True, 0.125, split=False)
-        assert launched_terms == [(name, None, False)]
+    assert launched_terms == []
+    terms = fa.split_terms(t["q"], 3 if name.startswith("flash_fwd") else 4)
+    fa.CUDA[name](*args, True, 0.125, terms=terms, split=False)
+    assert launched_terms == [(name, terms, False)]
 
 
 @pytest.mark.parametrize("impl", ["bf16", "nn", "nn2", "f32"])
-def test_flash_bwd_makes_no_terms_at_d256(monkeypatch, impl):
-    """flash_bwd on f32 storage at D = 256 splits nothing: on CPU tensors
-    the plain versions run, and on a card its dQ and dK/dV read the
-    operands."""
-    def no_split(*a, **k):
-        raise AssertionError("flash_bwd made split terms")
+def test_flash_bwd_splits_once_at_d256(monkeypatch, launched_terms, impl):
+    """flash_bwd on f32 storage at D = 256, on a card (stubbed): the dQ
+    call splits Q, K, V and dO into [4, 3, B, L, H, 256] terms made once,
+    and the dK/dV call reads the same terms without splitting."""
+    made = []
 
-    monkeypatch.setattr(fa, "split_terms", no_split)
+    def split_terms(q, n_ops=4):
+        made.append(torch.empty(n_ops, 3, *q.shape, dtype=torch.bfloat16))
+        return made[-1]
+
+    monkeypatch.setattr(fa, "_on_card", lambda x: True)
+    monkeypatch.setattr(fa, "split_terms", split_terms)
     t = _operands(1, 128, 2, 256, torch.float32)
     dq, dk, dv = fa.flash_bwd(t["q"], t["k"], t["v"], t["do"], t["lse"],
                               t["delta"], True, 0.0625, impl)
     for g in (dq, dk, dv):
         assert g.shape == (1, 128, 2, 256) and g.dtype == torch.float32
-    q = t["q"]
-    assert not fa.works_from_terms(fa.STRATEGY_KERNELS[impl][1], q)
-    assert not fa.works_from_terms(fa.STRATEGY_KERNELS[impl][2], q)
+    (terms,) = made
+    assert terms.shape == (4, 3, 1, 128, 2, 256)
+    dq_name, dkv_name = fa.STRATEGY_KERNELS[impl][1:]
+    assert [(n, s) for n, _, s in launched_terms] == [(dq_name, True),
+                                                      (dkv_name, False)]
+    assert all(x is terms for _, x, _ in launched_terms)
