@@ -11,9 +11,8 @@ same model in f32 (no amp.decorate: the f32-storage kernels) and
 gpt3-large cut to 4 layers (head_dim 96, padded to 128) for 3 steps each;
 then gpt3-xl's widths with 8 heads (head_dim 256: the D = 256 kernels) cut
 to 2 layers, bf16 O2 under auto, nn, nn2 and f32 and in f32, 3 steps each
-(under auto, nn and nn2 and in f32 the forward, dQ and dK/dV launch their
-tensor-core D = 256 instances, under f32 the forward too, which each phase
-checks by the instance counts).
+(in each of them the forward, dQ and dK/dV launch their tensor-core
+D = 256 instances, which each phase checks by the instance counts).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
@@ -71,9 +70,8 @@ F32_STORAGE_SPLIT_PASSES = {"fwd": 6 * 2, "dq": 6 * 3, "dkv": 6 * 4}
 # the same kernels there (the nn forms bitwise, checked each run)
 F32_STORAGE_TIMED = ("flash_fwd", "flash_dq", "flash_dkv")
 # the kernel instance each wrapper launches at head_dim 256 on bf16
-# storage: the tensor-core forward, dQ and dK/dV of strategies bf16, nn
-# and nn2, and the forward of f32; the f32-dot dQ and dK/dV stay on the
-# CUDA cores
+# storage: the tensor-core forward, dQ and dK/dV of every strategy (kBf16
+# for bf16, nn and nn2; kSplit for f32)
 D256_INSTANCES = {
     "flash_fwd": "flash_fwd_mma_kernel<256, kStd, kBf16>",
     "flash_fwd_nn": "flash_fwd_mma_kernel<256, kNN, kBf16>",
@@ -83,8 +81,8 @@ D256_INSTANCES = {
     "flash_dkv_nn": "flash_dkv_mma_kernel<256, kNN, kBf16>",
     "flash_dkv_nn2": "flash_dkv_mma_kernel<256, kNN2, kBf16>",
     "flash_fwd_f32dot": "flash_fwd_mma_kernel<256, kStd, kSplit>",
-    "flash_dq_f32dot": "flash_dq_wide_kernel",
-    "flash_dkv_f32dot": "flash_dkv_wide_kernel",
+    "flash_dq_f32dot": "flash_dq_mma_kernel<256, kStd, kSplit>",
+    "flash_dkv_f32dot": "flash_dkv_mma_kernel<256, kStd, kSplit>",
 }
 # ... and on f32 storage: every strategy's forward, dQ and dK/dV on the
 # tensor cores (nn and nn2 split their transposed operands into the same
@@ -92,11 +90,10 @@ D256_INSTANCES = {
 D256_F32_INSTANCES = {
     name: f"flash_{name.split('_')[1]}_mma_kernel<256, kStd, kF32>"
     for name in D256_INSTANCES}
-# the instances of the tensor-core kernels at head_dim 256, which must not
-# spill
-D256_TC_INSTANCES = frozenset(
-    i for i in (*D256_INSTANCES.values(), *D256_F32_INSTANCES.values())
-    if "_mma_kernel<" in i)
+# the kernel instances at head_dim 256, all on the tensor cores, which
+# must not spill
+D256_TC_INSTANCES = frozenset((*D256_INSTANCES.values(),
+                               *D256_F32_INSTANCES.values()))
 
 # Kernel vs plain version, as the largest error divided by the RMS of its
 # row (the D entries of one position and head), or by the RMS of the whole
@@ -488,11 +485,6 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
         else:
             b = bound(flops[kind], nbytes,
                       "float32" if r["f32dot"] else "bfloat16")
-            if "_wide_kernel" in r["instance"]:
-                # a CUDA-core kernel on bf16 storage: its bound there
-                # beside the tensor cores'
-                extra["cuda_core_bound_ms"] = bound(flops[kind], nbytes,
-                                                    "float32")[0]
         if kind in terms:
             mine = terms[kind]
             ms = median_ms(lambda: fa.CUDA[name](*args, terms=mine,
@@ -953,13 +945,12 @@ def main():
     padded_phase(2, 96, 4, 64, "bfloat16", False, 32)
     padded_phase(2, 96, 4, 64, "float32", False, 32)
     # head_dim 256 (bf16 storage: the tensor-core forward, dQ and dK/dV of
-    # bf16, nn and nn2, the tensor-core f32-dot forward and CUDA-core
-    # f32-dot dQ and dK/dV; f32 storage: the tensor-core kF32 forward, dQ
-    # and dK/dV): timed at B*H = 64, L = 1024 (the D = 256
-    # training phase's shape), causal; at L = 192 causal and not (the
-    # forward's half item, three dK/dV items a head); and head_dims 160 and
-    # 192 through the padding to 256, at L = 96 too (keys past the true
-    # length masked)
+    # bf16, nn and nn2 and their f32-dot kSplit instances; f32 storage: the
+    # tensor-core kF32 forward, dQ and dK/dV): timed at B*H = 64, L = 1024
+    # (the D = 256 training phase's shape), causal; at L = 192 causal and
+    # not (the forward's half item, three dK/dV items a head); and head_dims
+    # 160 and 192 through the padding to 256, at L = 96 too (keys past the
+    # true length masked)
     rows256 = kernel_phase(4, 1024, 16, 256, "bfloat16", True, timed=True)
     f32_rows256 = kernel_phase(4, 1024, 16, 256, "float32", True,
                                timed=True, time_names=F32_STORAGE_TIMED)
@@ -1043,8 +1034,8 @@ def main():
     wide_weights = reference_layout_weights(wide, SEED)
     launches256, f32_counts256, bf16_loss = {}, {}, None
     for impl in STRATEGY_STEPS:
-        # each strategy's forward, dQ and dK/dV instances (auto, nn, nn2:
-        # all three on the tensor cores; f32: the forward)
+        # each strategy's forward, dQ and dK/dV instances, all three on
+        # the tensor cores
         names = fa.STRATEGY_KERNELS["bf16" if impl == "auto" else impl]
         counts, losses = training_phase(
             f"d256-{impl}", impl, wide_weights, wide, D256_STEPS,

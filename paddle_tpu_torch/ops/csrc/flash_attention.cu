@@ -16,19 +16,14 @@
 //   _dkv_kernel_nn2 (:289)  nn2: flash_dkv_mma_kernel<D, kNN2> (reads K^T,
 //                           V^T, Q^T and dO^T, writes dK^T and dV^T)
 //   probe's kern (:467)     flash_probe_kernel (the dot-form probe)
-// That is on bf16 storage at D = 64 and 128; at D = 256 the forward, dQ
-// and dK/dV of bf16, nn and nn2 are the D = 256 instances of the same
-// kernels (flash_fwd_mma_kernel<256, kStd|kNN>, flash_dq_mma_kernel<256,
-// kStd|kNN>, flash_dkv_mma_kernel<256, kStd|kNN|kNN2>), and so is the
-// forward of f32 (flash_fwd_mma_kernel<256, kStd, kSplit>). On f32 storage
-// every strategy runs the kF32 instances
+// That is on bf16 storage at D = 64, 128 and 256 (at D = 256 the same
+// kernels have bodies of their own: fwd_d256_body, dq_d256_body,
+// dkv_d256_body). On f32 storage every strategy runs the kF32 instances
 // flash_fwd_mma_kernel<D, kStd, kF32>, flash_dq_mma_kernel<D, kStd, kF32>
 // and flash_dkv_mma_kernel<D, kStd, kF32>, which read Q, K, V and dO as the
 // bf16 terms flash_split_kernel made of them (nn and nn2 split their
 // transposed operands into the same terms, and nn2's dK/dV stores dK^T and
-// dV^T), at every head_dim. The f32-dot dQ and dK/dV at D = 256 on bf16
-// storage run on the CUDA cores: flash_dq_wide_kernel and
-// flash_dkv_wide_kernel.
+// dV^T), at every head_dim.
 // Each computes what its TPU counterpart computes, with the same numerics:
 // dots accumulate in f32, sm_scale is applied in f32 after the Q.K dot,
 // masked scores are -1e30 (not -inf). Under bf16, nn and nn2, P is rounded
@@ -75,12 +70,10 @@
 // of these kernels, whose f32 dots are bf16 tensor-core products (exact in
 // f32) of split operands. On f32 storage the forward, dQ and dK/dV split
 // both operands of every product and run six bf16 tensor-core passes a
-// product (kF32), operations-bound on the tensor cores. At D = 256 the
-// forward of every strategy on both storages, and dQ and dK/dV on bf16
-// storage (strategies bf16, nn, nn2) and on f32 storage, are tensor-core
-// instances too, whose O, dQ, dK and dV fill 128 registers a thread (their
-// notes say how they fit); the f32-dot dQ and dK/dV on bf16 storage there
-// run plain FMAs on the CUDA cores (67 TFLOP/s), operations-bound.
+// product (kF32), operations-bound on the tensor cores. At D = 256 every
+// kernel of every strategy on both storages is a tensor-core instance too,
+// whose O, dQ, dK and dV fill 128 registers a thread (their notes say how
+// they fit).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -96,6 +89,8 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kTile = 64;  // rows of a query tile and of a key tile
+constexpr int kWideD = 256;  // the widest head_dim, whose kernels have
+                             // bodies of their own
 constexpr float kNegInf = -1e30f;
 
 // Which operands arrive transposed ([B, H, D, L]): none (kStd, strategy
@@ -106,273 +101,6 @@ enum Form { kStd = 0, kNN = 1, kNN2 = 2 };
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ------------------------------------------- CUDA-core kernels at D = 256
-// dQ and dK/dV of strategy f32 on bf16 storage at head_dims in (128, 256]
-// (zero-padded to 256 by the caller), the one form at D = 256 that no
-// tensor-core instance runs yet: flash_dq_wide_kernel and
-// flash_dkv_wide_kernel. Plain FMAs on the CUDA cores; every operand is
-// loaded into an f32 tile in shared memory (rows padded to D + 1 floats, so
-// that the column walks hit 32 distinct banks). P and dS stay f32: this form
-// rounds nothing before a product, and a product of two bf16 values is
-// exact in f32, so the f32 FMAs give the reference's function up to the
-// order of the f32 sums. A block has 256 threads; thread (ty, tx) =
-// (tid / 16, tid % 16). Bound: operations; at the D = 256 kernel phase's
-// shape (B*H = 64, L = 1024, causal) dQ's 5.2e10 flops take 0.77 ms at the
-// CUDA cores' 67 TFLOP/s; their tensor-core instances are later work
-// (ROADMAP).
-
-constexpr int kThreads = 256;
-constexpr int kWideD = 256;                // head_dim of these kernels
-constexpr int kWidePad = kWideD + 1;       // an f32 row of a tile
-constexpr int kWideKeys = 32;              // dQ's key tile, dK/dV's key block
-
-// Positions row0 .. row0+R-1 of head bh of one operand (rows of
-// [B, L, H, D]) into an [R][D + 1] f32 tile.
-template <int R>
-__device__ __forceinline__ void load_wide(float* dst, const bf16* src,
-                                          int bh, int H, int L, int row0) {
-  constexpr int D = kWideD;
-  const bf16* s =
-      src + ((size_t)(bh / H) * L * H + bh % H) * D + (size_t)row0 * H * D;
-  for (int i = threadIdx.x; i < R * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dst[r * kWidePad + c] = __bfloat162float(s[(size_t)r * H * D + c]);
-  }
-}
-
-// dQ (_dq_kernel's f32 form :194 at D = 256). One block per (head, 64-row
-// query tile), Q and dO resident, 32-key K and V tiles streamed; per tile
-// S and dP, P = exp(S scale - LSE) and dS = P (dP - delta) scale in
-// f32, then dQ += dS.K from the same K tile. Keys past the causal diagonal
-// and at and past kv_len are masked. Shared memory:
-// (64 + 64 + 32 + 32) x 257 floats and dS, 64 x 33: 205.8 KB.
-__global__ void __launch_bounds__(kThreads)
-flash_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dq,
-                     int H, int L, float scale, int causal, int kv_len) {
-  constexpr int NJ = kWideD / 16, NK = kWideKeys, DS = NK + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kTile * kWidePad;
-  float* Ks = dOs + kTile * kWidePad;
-  float* Vs = Ks + NK * kWidePad;
-  float* dSs = Vs + NK * kWidePad;        // [64][33]
-  const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_wide<kTile>(Qs, q, bh, H, L, q0);
-  load_wide<kTile>(dOs, dout, bh, H, L, q0);
-  float row_lse[4], row_delta[4], acc[4][NJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    row_lse[a] = lse[(size_t)bh * L + q0 + 4 * ty + a];
-    row_delta[a] = delta[(size_t)bh * L + q0 + 4 * ty + a];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[a][j] = 0.f;
-  }
-  const int n_keys = causal ? q0 + kTile : L;
-
-  for (int k0 = 0; k0 < n_keys; k0 += NK) {
-    __syncthreads();   // the last readers of Ks, Vs, dSs are done
-    load_wide<NK>(Ks, k, bh, H, L, k0);
-    load_wide<NK>(Vs, v, bh, H, L, k0);
-    __syncthreads();
-    float sd[4][2] = {}, dpd[4][2] = {};
-#pragma unroll 4
-    for (int d = 0; d < kWideD; ++d) {
-      float qv[4], ov[4], kv[2], vv[2];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        qv[a] = Qs[(4 * ty + a) * kWidePad + d];
-        ov[a] = dOs[(4 * ty + a) * kWidePad + d];
-      }
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        kv[c] = Ks[(tx + 16 * c) * kWidePad + d];
-        vv[c] = Vs[(tx + 16 * c) * kWidePad + d];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          sd[a][c] += qv[a] * kv[c];
-          dpd[a][c] += ov[a] * vv[c];
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int row = q0 + 4 * ty + a;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int key = k0 + tx + 16 * c;
-        const float p = (causal && key > row) || key >= kv_len
-                            ? 0.f
-                            : expf(sd[a][c] * scale - row_lse[a]);
-        dSs[(4 * ty + a) * DS + tx + 16 * c] =
-            p * (dpd[a][c] - row_delta[a]) * scale;
-      }
-    }
-    __syncthreads();
-    float part[4][NJ] = {};
-#pragma unroll 4
-    for (int kk = 0; kk < NK; ++kk) {
-      float dsv[4], kr[NJ];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) dsv[a] = dSs[(4 * ty + a) * DS + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) kr[j] = Ks[kk * kWidePad + tx + 16 * j];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          part[a][j] = fmaf(dsv[a], kr[j], part[a][j]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[a][j] += part[a][j];
-  }
-
-  const size_t rs = (size_t)H * kWideD;
-  bf16* out = dq + ((size_t)(bh / H) * L * H + bh % H) * kWideD;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      out[(q0 + 4 * ty + a) * rs + tx + 16 * j] =
-          __float2bfloat16_rn(acc[a][j]);
-}
-
-// dK, dV (_dkv_kernel's f32 form :275-278 at D = 256, P^T and dS^T
-// unrounded). One block per (head, 32-key block): dK and dV of 32 keys x 256 columns are 64
-// f32 registers a thread (thread (ty, tx) owns keys 2 ty, 2 ty + 1 and
-// columns tx + 16 j). K and V resident, 64-query Q and dO tiles streamed
-// from the causal start, with their LSE and delta; per tile S^T and dP^T
-// (queries tx + 16 c), P^T and dS^T into shared memory, then dV += P^T.dO
-// and dK += dS^T.Q. Keys at and past kv_len need no mask: the caller cuts their rows off, and a
-// padded query, whose dO and delta are 0, adds nothing. Shared memory:
-// (32 + 32 + 64 + 64) x 257 floats, P^T and dS^T 2 x 32 x 65, LSE and
-// delta 2 x 64: 214.5 KB.
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int H, int L, float scale,
-                      int causal) {
-  constexpr int NJ = kWideD / 16, NK = kWideKeys, PS = kTile + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + NK * kWidePad;
-  float* Qs = Vs + NK * kWidePad;
-  float* dOs = Qs + kTile * kWidePad;
-  float* Pt = dOs + kTile * kWidePad;     // [32][65]
-  float* dSt = Pt + NK * PS;              // [32][65]
-  float* stats = dSt + NK * PS;           // LSE [64], delta [64]
-  const int bh = blockIdx.x, k0 = blockIdx.y * NK;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_wide<NK>(Ks, k, bh, H, L, k0);
-  load_wide<NK>(Vs, v, bh, H, L, k0);
-  float gk[2][NJ], gv[2][NJ];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) gk[a][j] = gv[a][j] = 0.f;
-
-  for (int q0 = causal ? k0 / kTile * kTile : 0; q0 < L; q0 += kTile) {
-    __syncthreads();   // the last readers of Qs, dOs, Pt, dSt are done
-    load_wide<kTile>(Qs, q, bh, H, L, q0);
-    load_wide<kTile>(dOs, dout, bh, H, L, q0);
-    if (threadIdx.x < 2 * kTile)
-      stats[threadIdx.x] = (threadIdx.x < kTile ? lse : delta)
-          [(size_t)bh * L + q0 + threadIdx.x % kTile];
-    __syncthreads();
-    float sd[2][4] = {}, dpd[2][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < kWideD; ++d) {
-      float kv[2], vv[2], qv[4], ov[4];
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        kv[a] = Ks[(2 * ty + a) * kWidePad + d];
-        vv[a] = Vs[(2 * ty + a) * kWidePad + d];
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        qv[c] = Qs[(tx + 16 * c) * kWidePad + d];
-        ov[c] = dOs[(tx + 16 * c) * kWidePad + d];
-      }
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          sd[a][c] += kv[a] * qv[c];
-          dpd[a][c] += vv[a] * ov[c];
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int key = k0 + 2 * ty + a;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = tx + 16 * c, query = q0 + col;
-        const float p = causal && query < key
-                            ? 0.f
-                            : expf(sd[a][c] * scale - stats[col]);
-        const float ds = p * (dpd[a][c] - stats[kTile + col]) * scale;
-        Pt[(2 * ty + a) * PS + col] = p;
-        dSt[(2 * ty + a) * PS + col] = ds;
-      }
-    }
-    __syncthreads();
-    float pk[2][NJ] = {}, pv[2][NJ] = {};
-#pragma unroll 2
-    for (int kk = 0; kk < kTile; ++kk) {
-      float pa[2], da[2], ov[NJ], qv[NJ];
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        pa[a] = Pt[(2 * ty + a) * PS + kk];
-        da[a] = dSt[(2 * ty + a) * PS + kk];
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        ov[j] = dOs[kk * kWidePad + tx + 16 * j];
-        qv[j] = Qs[kk * kWidePad + tx + 16 * j];
-      }
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          pv[a][j] = fmaf(pa[a], ov[j], pv[a][j]);
-          pk[a][j] = fmaf(da[a], qv[j], pk[a][j]);
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        gk[a][j] += pk[a][j];
-        gv[a][j] += pv[a][j];
-      }
-  }
-
-  const int b = bh / H, h = bh % H;
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int key = k0 + 2 * ty + a;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const size_t off = ((size_t)(b * L + key) * H + h) * kWideD + tx + 16 * j;
-      dk[off] = __float2bfloat16_rn(gk[a][j]);
-      dv[off] = __float2bfloat16_rn(gv[a][j]);
-    }
-  }
 }
 
 // ---------------------------------------------------------- Hopper path
@@ -2272,7 +2000,7 @@ __device__ __forceinline__ double warp_sum(double x) {
 // setmaxnreg), where 384 threads would hold it to 168.
 template <int D, int Mode>
 constexpr int bwd_threads() {
-  if constexpr (D == kWideD) return kHopperThreads;   // dkv_d256_body
+  if constexpr (D == kWideD) return kHopperThreads;   // two consumers
   else return (1 + BwdSmem<D, Mode>::kNC) * kWG;
 }
 template <int D, int Mode>
@@ -2732,7 +2460,8 @@ struct DkvD256Smem {
 };
 
 // dK, dV at D = 256 (_dkv_kernel :233, kNN reads K^T and V^T; kNN2:
-// _dkv_kernel_nn2 :289), bf16 storage, strategies bf16, nn and nn2. Bound:
+// _dkv_kernel_nn2 :289), bf16 storage, strategies bf16, nn and nn2 (and, as
+// Split, f32: see the end of this note). Bound:
 // operations, 0.070 ms at the head_dim-256 phase's shape (B*H = 64,
 // L = 1024, causal). dK and dV of 64 keys are 64 x 256 f32 each, 128
 // registers a thread: one warpgroup cannot hold both, so the two consumers
@@ -2762,7 +2491,18 @@ struct DkvD256Smem {
 // item's K and V once both are out. Keys past the true length of
 // zero-padded inputs need no mask (see dkv_mma_body). Maps as for
 // dkv_mma_body.
-template <int Form>
+//
+// Split (strategy f32 on bf16 storage, _dkv_kernel's f32 form :275-278):
+// the same kernel with P^T and dS^T unrounded. S^T and dP^T are already
+// exact in their products; the dV consumer splits P^T, the dK consumer
+// dS^T, into hi, mid and lo bf16 fragments (acc_to_a16_split, as the
+// forward's Split splits P) and runs three passes of its output's products
+// against the same dO (or Q) stage, the small terms first. The f32 scores
+// die as they are split, so the peak is the 128 output registers and 48
+// of fragments, the D = 256 Split forward's shape; shared memory does not
+// change. Eight bf16 passes of 2 D flops a causal pair bound it:
+// operations, 0.139 ms at the head_dim-256 phase's shape.
+template <int Form, bool Split>
 __device__ __forceinline__ void dkv_d256_body(
     const CUtensorMap& map_q, const CUtensorMap& map_k,
     const CUtensorMap& map_v, const CUtensorMap& map_do,
@@ -2774,6 +2514,8 @@ __device__ __forceinline__ void dkv_d256_body(
   constexpr int kKt = Form != kStd;    // K, V arrive as K^T, V^T
   constexpr int kQt = Form == kNN2;    // Q, dO as Q^T, dO^T; dK^T, dV^T out
   constexpr int kFull = 3, kFree = 4;  // named barriers of the exchange
+  constexpr int NP = Split ? 3 : 1;    // bf16 terms of P^T and of dS^T
+  static_assert(!Split || Form == kStd, "Split reads Q and dO as rows");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* k_s = align_1024(smem_raw);
   unsigned char* v_s = k_s + T;
@@ -2890,7 +2632,9 @@ __device__ __forceinline__ void dkv_d256_body(
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(x);
-        uint32_t fa[4][4];   // P^T or dS^T in bf16: A of the output product
+        // P^T or dS^T in bf16 (Split: its lo, mid and hi terms, [term][kk]):
+        // A of the output product
+        uint32_t fa[NP * 4][4];
         if (w == 0) {
           // P^T (0 past the causal diagonal: a masked score is -1e30)
 #pragma unroll
@@ -2924,18 +2668,25 @@ __device__ __forceinline__ void dkv_d256_body(
         }
         ++ex;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) acc_to_a16(fa[kk], x, kk);
-        // dV += P^T.dO or dK += dS^T.Q. Depth: queries 16 kk .. 16 kk + 15,
-        // a 16-row step in a row tile (read MN-major), a column step in a
-        // transposed one
+        for (int kk = 0; kk < 4; ++kk) {
+          if constexpr (Split)
+            acc_to_a16_split(fa[8 + kk], fa[4 + kk], fa[kk], x, kk);
+          else
+            acc_to_a16(fa[kk], x, kk);
+        }
+        // dV += P^T.dO or dK += dS^T.Q, the small terms first. Depth:
+        // queries 16 kk .. 16 kk + 15, a 16-row step in a row tile (read
+        // MN-major), a column step in a transposed one
         const uint32_t ot = w == 0 ? dob : qb;
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<1 - kQt>(acc, fa[kk],
-                            desc(ot + (kQt ? kk * 32 : kk * 16 * kRowBytes),
-                                 kChunk));
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs<1 - kQt>(acc, fa[4 * p + kk],
+                              desc(ot + (kQt ? kk * 32 : kk * 16 * kRowBytes),
+                                   kChunk));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
@@ -3461,8 +3212,8 @@ __device__ __forceinline__ void dkv_f32_d256_body(
   }
 }
 
-// dK/dV: dkv_mma_body at D = 64 and 128; at 256 dkv_d256_body (kBf16) and
-// dkv_f32_d256_body (kF32).
+// dK/dV: dkv_mma_body at D = 64 and 128; at 256 dkv_d256_body (kBf16,
+// kSplit) and dkv_f32_d256_body (kF32).
 template <int D, int Form, int Mode = kBf16>
 __global__ void __launch_bounds__(kBwdThreads<D, Mode>, 1)
 flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -3481,10 +3232,9 @@ flash_dkv_mma_kernel(const __grid_constant__ CUtensorMap map_q,
     dkv_f32_d256_body(map_q, map_k, map_v, map_do, lse, delta, dk_f32,
                       dv_f32, out_t, BH, H, L, scale, causal);
   } else if constexpr (D == kWideD) {
-    static_assert(Mode == kBf16, "the f32-dot dK/dV at D = 256 runs on the "
-                                 "CUDA cores");
-    dkv_d256_body<Form>(map_q, map_k, map_v, map_do, map_dk, map_dv, lse,
-                        delta, BH, H, L, scale, causal);
+    dkv_d256_body<Form, Mode == kSplit>(map_q, map_k, map_v, map_do, map_dk,
+                                        map_dv, lse, delta, BH, H, L, scale,
+                                        causal);
   } else {
     dkv_mma_body<D, Form, Mode>(map_q, map_k, map_v, map_do, map_dk, map_dv,
                                 lse, delta, dk_f32, dv_f32, out_t, BH, H, L,
@@ -3895,13 +3645,15 @@ __device__ __forceinline__ void dq_mma_body(
 
 // Shared memory of dQ at D = 256: the item's Q and dO rows (one buffer,
 // 2 x 32 KB) and their LSE and delta runs, kStages ring stages of a 64-key
-// K tile and V tile (2 x 64 KB), the bf16 dS tile (64 x 64, 8 KB), the P
-// exchange (64 x 64 f32, 16 KB), then the barriers.
+// K tile and V tile (2 x 64 KB), the dS tile (64 x 64: bf16, 8 KB; Split
+// f32, 16 KB), the P exchange (64 x 64 f32, 16 KB), then the barriers:
+// 222,768 bytes, Split 230,960 of the 232,448 a block may have.
+template <bool Split>
 struct DqD256Smem {
   static constexpr int kT = kChunk * (kWideD / kSeg);   // 64 rows, 32 KB
   static constexpr int kStages = 2;
   static constexpr int kStats = 2 * 64 * sizeof(float);   // LSE, delta
-  static constexpr int kDS = 64 * kRowBytes;
+  static constexpr int kDS = Split ? 64 * 64 * sizeof(float) : 64 * kRowBytes;
   static constexpr int kExchange = 64 * 64 * sizeof(float);
   static constexpr size_t kBytes = 2 * kT + kStats + kStages * 2 * kT + kDS +
                                    kExchange + 8 * (2 + 2 * kStages) + 1024;
@@ -3910,7 +3662,8 @@ struct DqD256Smem {
 };
 
 // dQ at D = 256 (_dq_kernel :174; kNN: _dq_kernel_nn :203), bf16 storage,
-// strategies bf16, nn and nn2. Bound: operations, 0.052 ms at the
+// strategies bf16, nn and nn2 (and, as Split, f32: see the end of this
+// note). Bound: operations, 0.052 ms at the
 // head_dim-256 phase's shape (B*H = 64, L = 1024, causal; 6 D flops a
 // pair), with the bytes' 0.050 ms close behind. dQ of 64 rows is 64 x 256
 // f32, 128 registers a thread, and S and dP of a 64-key tile 32 more each:
@@ -3947,23 +3700,38 @@ struct DqD256Smem {
 // chunks 0-1 for the P consumer, dO's chunks 2-3 for the dS consumer, each
 // read by that consumer alone) by TMA stores; the producer loads the next
 // item's Q and dO once both halves are out. Maps as for dq_mma_body.
-template <int Form>
+//
+// Split (strategy f32 on bf16 storage, _dq_kernel's f32 form :194): the
+// same kernel with dS unrounded in dQ += dS.K. S and dP are already exact
+// in their products; the dS consumer writes dS in f32 (16 KB, where the
+// bf16 tile took 8: three bf16 term tiles would need 8 KB more than the
+// block has) in the accumulator order both consumers share, as the P
+// exchange is written, so that each thread reads back only the entries of
+// its own fragments, as 16-byte loads. After barrier 4 each consumer
+// splits its fragments of every k-step into hi, mid and lo in registers
+// (split_fragment, 48 registers beside its 64 of dQ) and runs three passes
+// of its half of dQ as register-A m64n128k16 products against the same K
+// tile, the small terms first. The barriers order the f32 tile as they
+// order the bf16 one. Five bf16 passes of 2 D flops a causal pair bound
+// it: operations, 0.087 ms at the head_dim-256 phase's shape.
+template <int Form, bool Split>
 __device__ __forceinline__ void dq_d256_body(
     const CUtensorMap& map_q, const CUtensorMap& map_k,
     const CUtensorMap& map_v, const CUtensorMap& map_do,
     const CUtensorMap& map_dq, const float* __restrict__ lse,
     const float* __restrict__ delta, int BH, int H, int L, float scale,
     int causal, int kv_len) {
-  using Smem = DqD256Smem;
+  using Smem = DqD256Smem<Split>;
   constexpr int D = kWideD, C = D / kSeg, T = Smem::kT, S = Smem::kStages;
   constexpr int kKt = Form != kStd;    // K, V arrive as K^T, V^T
   constexpr int kPIn = 3, kDSIn = 4;   // named barriers: P, then dS, are in
+  static_assert(!Split || Form == kStd, "Split reads K as rows");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s = align_1024(smem_raw);
   unsigned char* do_s = q_s + T;
   unsigned char* k_s = do_s + T;                     // [stage]
   unsigned char* v_s = k_s + S * T;                  // [stage]
-  unsigned char* ds_s = v_s + S * T;                 // [64][64] bf16
+  unsigned char* ds_s = v_s + S * T;   // [64][64] bf16; Split [8][kWG] float4
   float4* exch = reinterpret_cast<float4*>(ds_s + Smem::kDS);   // [8][kWG]
   float* stats = reinterpret_cast<float*>(exch + 8 * kWG);   // LSE, delta
   uint64_t* q_full = reinterpret_cast<uint64_t*>(stats + 128);
@@ -4054,7 +3822,7 @@ __device__ __forceinline__ void dq_d256_body(
     const int r_lo = 16 * warp + g;        // rows r_lo and r_lo + 8
     unsigned char* mine = w == 0 ? q_s : do_s;   // resident operand, dQ out
     const uint32_t ra = smem_addr(mine);
-    const uint32_t dsa = smem_addr(ds_s);
+    const uint32_t dsa = smem_addr(ds_s);   // the bf16 dS tile
     const float scale_log2 = scale * kLog2e;
     int n = 0;                             // K/V tiles consumed so far
     int bh, qt;
@@ -4128,37 +3896,68 @@ __device__ __forceinline__ void dq_d256_body(
               x[e] = p[u] * (x[e] - row_stat[(e >> 1) & 1]) * scale;   // dS
             }
           }
-          // dS in bf16 as the A tile of dQ += dS.K: rows r_lo, r_lo + 8,
-          // key pairs 8 j8 + 2 t
+          if constexpr (Split) {
+            // dS in f32, float4 j4 of this thread's accumulator order
 #pragma unroll
-          for (int j8 = 0; j8 < 8; ++j8)
+            for (int j4 = 0; j4 < 8; ++j4)
+              *share_at(reinterpret_cast<float4*>(ds_s), j4, tid) =
+                  make_float4(x[4 * j4], x[4 * j4 + 1], x[4 * j4 + 2],
+                              x[4 * j4 + 3]);
+          } else {
+            // dS in bf16 as the A tile of dQ += dS.K: rows r_lo, r_lo + 8,
+            // key pairs 8 j8 + 2 t
 #pragma unroll
-            for (int r2 = 0; r2 < 2; ++r2) {
-              const int e = 4 * j8 + 2 * r2;
-              *reinterpret_cast<uint32_t*>(
-                  ds_s + swz(r_lo + 8 * r2, 8 * j8 + 2 * t)) =
-                  pack_bf16(x[e], x[e + 1]);
-            }
-          fence_async_smem();
+            for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+              for (int r2 = 0; r2 < 2; ++r2) {
+                const int e = 4 * j8 + 2 * r2;
+                *reinterpret_cast<uint32_t*>(
+                    ds_s + swz(r_lo + 8 * r2, 8 * j8 + 2 * t)) =
+                    pack_bf16(x[e], x[e + 1]);
+              }
+            fence_async_smem();
+          }
         }
         named_sync(kDSIn, 2 * kWG);      // this tile's dS is in
         // dQ[:, 128 w ..] += dS.K[:, 128 w ..]. Depth: keys 16 kk .., a
         // column step in the dS tile; a 16-row step in K's row tile (its
         // chunks 2 w, 2 w + 1, read MN-major, kChunk apart), a column step
         // in K^T's rows 128 w .. (read K-major)
-        fence_regs(dq);
-        wgmma_fence();
+        if constexpr (Split) {
+          // dS's hi, mid and lo fragments ([kk][term]), lo's passes first
+          uint32_t fr[4][3][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<0, 1 - kKt>(
-              dq, desc(dsa + kk * 32),
-              desc(kb + (kKt ? 128 * w * kRowBytes + kk * 32
-                             : 2 * w * kChunk + kk * 16 * kRowBytes),
-                   kChunk),
-              1);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dq);
+          for (int kk = 0; kk < 4; ++kk)
+            split_fragment(fr[kk], reinterpret_cast<float4*>(ds_s), kk, tid);
+          fence_regs(dq);
+          wgmma_fence();
+#pragma unroll
+          for (int term = 2; term >= 0; --term)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_rs<1>(dq, fr[kk][term],
+                          desc(kb + 2 * w * kChunk + kk * 16 * kRowBytes,
+                               kChunk));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) fence_regs(fr[kk]);
+        } else {
+          fence_regs(dq);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<0, 1 - kKt>(
+                dq, desc(dsa + kk * 32),
+                desc(kb + (kKt ? 128 * w * kRowBytes + kk * 32
+                               : 2 * w * kChunk + kk * 16 * kRowBytes),
+                     kChunk),
+                1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
+        }
         mbar_arrive(&empty[s]);
       }
 
@@ -4475,8 +4274,8 @@ __device__ __forceinline__ void dq_f32_d256_body(
   }
 }
 
-// dQ: dq_mma_body at D = 64 and 128; at 256 dq_d256_body (kBf16) and
-// dq_f32_d256_body (kF32, which also reads V's terms in global memory,
+// dQ: dq_mma_body at D = 64 and 128; at 256 dq_d256_body (kBf16, kSplit)
+// and dq_f32_d256_body (kF32, which also reads V's terms in global memory,
 // `terms`).
 template <int D, int Form, int Mode = kBf16>
 __global__ void __launch_bounds__(kBwdThreads<D, Mode>, 1)
@@ -4495,10 +4294,9 @@ flash_dq_mma_kernel(const __grid_constant__ CUtensorMap map_q,
     dq_f32_d256_body(map_q, map_k, map_v, map_do, lse, delta, dq_f32, terms,
                      BH, H, L, scale, causal, kv_len);
   } else if constexpr (D == kWideD) {
-    static_assert(Mode == kBf16, "the f32-dot dQ at D = 256 runs on the "
-                                 "CUDA cores");
-    dq_d256_body<Form>(map_q, map_k, map_v, map_do, map_dq, lse, delta, BH,
-                       H, L, scale, causal, kv_len);
+    dq_d256_body<Form, Mode == kSplit>(map_q, map_k, map_v, map_do, map_dq,
+                                       lse, delta, BH, H, L, scale, causal,
+                                       kv_len);
   } else {
     dq_mma_body<D, Form, Mode>(map_q, map_k, map_v, map_do, map_dq, lse,
                                delta, dq_f32, BH, H, L, scale, causal,
@@ -4718,35 +4516,6 @@ bool cols_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int D) {
 
 typedef const float* cf32;   // an f32 input (split pass operands, LSE, delta)
 
-// The f32-dot dQ and dK/dV at D = 256 on bf16 storage, on the CUDA cores.
-constexpr size_t kWideRow = sizeof(float) * kWidePad;
-constexpr size_t kDqWideSmem = kWideRow * (2 * kTile + 2 * kWideKeys) +
-                               sizeof(float) * kTile * (kWideKeys + 1);
-constexpr size_t kDkvWideSmem =
-    kWideRow * (2 * kWideKeys + 2 * kTile) +
-    sizeof(float) * (2 * kWideKeys * (kTile + 1) + 2 * kTile);
-static_assert(kDkvWideSmem <= 227 * 1024, "fits in a block's shared memory");
-
-cudaError_t dq_wide(const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta,
-                    void* dq, int B, int H, int L, float scale, int causal,
-                    int kv_len, cudaStream_t st) {
-  return launch<flash_dq_wide_kernel>(
-      dim3(B * H, L / kTile), kThreads, kDqWideSmem, st, (const bf16*)q,
-      (const bf16*)k, (const bf16*)v, (const bf16*)dout, (cf32)lse,
-      (cf32)delta, (bf16*)dq, H, L, scale, causal, kv_len);
-}
-
-cudaError_t dkv_wide(const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const void* delta,
-                     void* dk, void* dv, int B, int H, int L, float scale,
-                     int causal, cudaStream_t st) {
-  return launch<flash_dkv_wide_kernel>(
-      dim3(B * H, L / kWideKeys), kThreads, kDkvWideSmem, st,
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (cf32)lse, (cf32)delta, (bf16*)dk, (bf16*)dv, H, L, scale, causal);
-}
-
 // kStd: k is K [B, L, H, D]; kNN: K^T [B, H, D, L]. kSplit: the f32-dot
 // forward on bf16 storage. At D = 256 K and V move in 64-row tiles.
 template <int D, int Form, int Mode = kBf16>
@@ -4772,7 +4541,7 @@ cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
 
 // kStd: k, v are K, V [B, L, H, D] (kt unused). kNN: kt, v are K^T, V^T
 // [B, H, D, L] (k unused). kSplit: the f32-dot dQ on bf16 storage. At
-// D = 256 (kBf16) a work item is a 64-row query tile.
+// D = 256 a work item is a 64-row query tile.
 template <int D, int Form, int Mode = kBf16>
 cudaError_t dq_mma(const void* q, const void* k, const void* kt,
                    const void* v, const void* dout, const void* lse,
@@ -4790,7 +4559,7 @@ cudaError_t dq_mma(const void* q, const void* k, const void* kt,
   if (!ok) return cudaErrorInvalidValue;
   constexpr bool wide = D == kWideD;
   size_t smem = 0;
-  if constexpr (wide) smem = DqD256Smem::kBytes;
+  if constexpr (wide) smem = DqD256Smem<Mode == kSplit>::kBytes;
   else smem = BwdSmem<D, Mode>::kBytes;
   return launch<flash_dq_mma_kernel<D, Form, Mode>>(
       persistent_grid(B, H, L, wide ? 64 : kBig), kBwdThreads<D, Mode>, smem,
@@ -4802,7 +4571,7 @@ cudaError_t dq_mma(const void* q, const void* k, const void* kt,
 // kStd: q, k, v, dout, dk, dv all [B, L, H, D] (qt, doutt unused). kNN: k,
 // v are K^T, V^T [B, H, D, L]. kNN2: also qt, doutt = Q^T, dO^T (q, dout
 // unused), and dk, dv are dK^T, dV^T, all [B, H, D, L]. kSplit: the
-// f32-dot dK/dV on bf16 storage. At D = 256 (kBf16) a work item is a
+// f32-dot dK/dV on bf16 storage. At D = 256 a work item is a
 // 64-key tile.
 template <int D, int Form, int Mode = kBf16>
 cudaError_t dkv_mma(const void* q, const void* qt, const void* k,
@@ -4985,58 +4754,58 @@ constexpr int kTransposedK = 0b0010;     // K^T (the nn forward)
 constexpr int kTransposedKV = 0b0110;    // K^T, V^T (nn)
 constexpr int kTransposedAll = 0b1111;   // Q^T, K^T, V^T, dO^T (nn2)
 
-// The forward, dQ and dK/dV of strategies bf16, nn and nn2 on bf16
-// storage: the Hopper kernels at every head_dim the kernels take.
-template <int Form>
+// The forward, dQ and dK/dV on bf16 storage: the Hopper kernels at every
+// head_dim the kernels take, kBf16 for strategies bf16, nn and nn2, kSplit
+// for f32.
+template <int Form, int Mode = kBf16>
 cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o,
                      void* lse, int B, int H, int L, int D, float scale,
                      int causal, int kv_len, cudaStream_t st) {
   if (D == 64)
-    return fwd_mma<64, Form>(q, k, v, o, lse, B, H, L, scale, causal,
-                             kv_len, st);
+    return fwd_mma<64, Form, Mode>(q, k, v, o, lse, B, H, L, scale, causal,
+                                   kv_len, st);
   if (D == 128)
-    return fwd_mma<128, Form>(q, k, v, o, lse, B, H, L, scale, causal,
-                              kv_len, st);
-  return fwd_mma<kWideD, Form>(q, k, v, o, lse, B, H, L, scale, causal,
-                               kv_len, st);
+    return fwd_mma<128, Form, Mode>(q, k, v, o, lse, B, H, L, scale, causal,
+                                    kv_len, st);
+  return fwd_mma<kWideD, Form, Mode>(q, k, v, o, lse, B, H, L, scale, causal,
+                                     kv_len, st);
 }
-template <int Form>
+template <int Form, int Mode = kBf16>
 cudaError_t dq_bf16(const void* q, const void* k, const void* kt,
                     const void* v, const void* dout, const void* lse,
                     const void* delta, void* dq, int B, int H, int L, int D,
                     float scale, int causal, int kv_len, cudaStream_t st) {
   if (D == 64)
-    return dq_mma<64, Form>(q, k, kt, v, dout, lse, delta, dq, B, H, L, scale,
-                            causal, kv_len, st);
+    return dq_mma<64, Form, Mode>(q, k, kt, v, dout, lse, delta, dq, B, H, L,
+                                  scale, causal, kv_len, st);
   if (D == 128)
-    return dq_mma<128, Form>(q, k, kt, v, dout, lse, delta, dq, B, H, L,
-                             scale, causal, kv_len, st);
-  return dq_mma<kWideD, Form>(q, k, kt, v, dout, lse, delta, dq, B, H, L,
-                              scale, causal, kv_len, st);
+    return dq_mma<128, Form, Mode>(q, k, kt, v, dout, lse, delta, dq, B, H,
+                                   L, scale, causal, kv_len, st);
+  return dq_mma<kWideD, Form, Mode>(q, k, kt, v, dout, lse, delta, dq, B, H,
+                                    L, scale, causal, kv_len, st);
 }
-template <int Form>
+template <int Form, int Mode = kBf16>
 cudaError_t dkv_bf16(const void* q, const void* qt, const void* k,
                      const void* v, const void* dout, const void* doutt,
                      const void* lse, const void* delta, void* dk, void* dv,
                      int B, int H, int L, int D, float scale, int causal,
                      cudaStream_t st) {
   if (D == 64)
-    return dkv_mma<64, Form>(q, qt, k, v, dout, doutt, lse, delta, dk, dv,
-                             B, H, L, scale, causal, st);
+    return dkv_mma<64, Form, Mode>(q, qt, k, v, dout, doutt, lse, delta, dk,
+                                   dv, B, H, L, scale, causal, st);
   if (D == 128)
-    return dkv_mma<128, Form>(q, qt, k, v, dout, doutt, lse, delta, dk, dv,
-                              B, H, L, scale, causal, st);
-  return dkv_mma<kWideD, Form>(q, qt, k, v, dout, doutt, lse, delta, dk, dv,
-                               B, H, L, scale, causal, st);
+    return dkv_mma<128, Form, Mode>(q, qt, k, v, dout, doutt, lse, delta, dk,
+                                    dv, B, H, L, scale, causal, st);
+  return dkv_mma<kWideD, Form, Mode>(q, qt, k, v, dout, doutt, lse, delta,
+                                     dk, dv, B, H, L, scale, causal, st);
 }
 
 }  // namespace
 
 // C interface, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. On
-// bf16 storage the mma kernels at D = 64 and 128, and at D = 256 the
-// forward's, dQ's and dK/dV's kBf16 instances of strategies bf16, nn and
-// nn2 and the forward's kSplit instance of f32 (the f32-dot dQ and dK/dV
-// there: the CUDA-core kernels). On f32 storage (where the storage-dtype
+// bf16 storage the mma kernels' kBf16 instances (strategies bf16, nn and
+// nn2) and kSplit instances (f32) at D = 64, 128 and 256. On f32 storage
+// (where the storage-dtype
 // dots are f32 dots) the kF32 instances of the forward, dQ and dK/dV at
 // every head_dim, for every strategy (nn and nn2 split their transposed
 // operands into the same terms, so they run the kStd instance and give its
@@ -5150,24 +4919,16 @@ int paddle_flash_dkv_nn2(const void* q, const void* qt, const void* kt,
 }
 
 // Strategy f32: every dot in f32. On bf16 storage the kSplit instances of
-// the Hopper kernels (at D = 256 the forward's, and the CUDA-core dQ and
-// dK/dV with nothing rounded); on f32 the kF32 instances of every strategy.
+// the Hopper kernels; on f32 the kF32 instances of every strategy.
 int paddle_flash_fwd_f32dot(const void* q, const void* k, const void* v,
                             void* o, void* lse, void* terms, int B, int H,
                             int L, int D, int dtype, int causal, float scale,
                             int kv_len, int split, void* stream) {
   if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1) {
-    if (D == 64)
-      return fwd_mma<64, kStd, kSplit>(q, k, v, o, lse, B, H, L, scale,
-                                       causal, kv_len, st);
-    if (D == 128)
-      return fwd_mma<128, kStd, kSplit>(q, k, v, o, lse, B, H, L, scale,
-                                        causal, kv_len, st);
-    return fwd_mma<kWideD, kStd, kSplit>(q, k, v, o, lse, B, H, L, scale,
-                                         causal, kv_len, st);
-  }
+  if (dtype == 1)
+    return fwd_bf16<kStd, kSplit>(q, k, v, o, lse, B, H, L, D, scale, causal,
+                                  kv_len, st);
   return fwd_storage_f32(q, k, v, 0, o, lse, terms, split, B, H, L, D, scale,
                          causal, kv_len, st);
 }
@@ -5180,13 +4941,9 @@ int paddle_flash_dq_f32dot(const void* q, const void* k, const void* v,
                            void* stream) {
   if (!shape_ok(B, H, L, D) || !keys_ok(L, kv_len)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1 && D == kWideD)
-    return dq_wide(q, k, v, dout, lse, delta, dq, B, H, L, scale, causal,
-                   kv_len, st);
   if (dtype == 1)
-    return D == 64
-        ? dq_mma<64, kStd, kSplit>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st)
-        : dq_mma<128, kStd, kSplit>(q, k, nullptr, v, dout, lse, delta, dq, B, H, L, scale, causal, kv_len, st);
+    return dq_bf16<kStd, kSplit>(q, k, nullptr, v, dout, lse, delta, dq, B,
+                                 H, L, D, scale, causal, kv_len, st);
   return dq_storage_f32(q, k, v, dout, 0, lse, delta, dq, terms, split, B, H,
                         L, D, scale, causal, kv_len, st);
 }
@@ -5199,13 +4956,10 @@ int paddle_flash_dkv_f32dot(const void* q, const void* k, const void* v,
                             void* stream) {
   if (!shape_ok(B, H, L, D)) return kBad;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1 && D == kWideD)
-    return dkv_wide(q, k, v, dout, lse, delta, dk, dv, B, H, L, scale,
-                    causal, st);
   if (dtype == 1)
-    return D == 64
-        ? dkv_mma<64, kStd, kSplit>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st)
-        : dkv_mma<128, kStd, kSplit>(q, nullptr, k, v, dout, nullptr, lse, delta, dk, dv, B, H, L, scale, causal, st);
+    return dkv_bf16<kStd, kSplit>(q, nullptr, k, v, dout, nullptr, lse,
+                                  delta, dk, dv, B, H, L, D, scale, causal,
+                                  st);
   return dkv_storage_f32(q, k, v, dout, 0, lse, delta, dk, dv, 0, terms,
                          split, B, H, L, D, scale, causal, st);
 }

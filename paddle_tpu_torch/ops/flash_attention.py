@@ -28,10 +28,9 @@ which run on the tensor cores at every head_dim from bf16 terms of their
 operands (split_terms, works_from_terms): the forward's call splits Q, K
 and V into its own scratch, the dQ kernel's call splits Q, K, V and dO
 once per backward into scratch that the dK/dV call reads (nn and nn2 split
-their transposed operands into the same terms). At head_dim 256 the
-forward of every strategy, and dQ and dK/dV of bf16, nn and nn2 on bf16
-storage, run on the tensor cores too; the f32-dot dQ and dK/dV on bf16
-storage there run CUDA-core kernels. LAUNCHES counts
+their transposed operands into the same terms). At head_dim 256 every
+kernel of every strategy on both storages runs on the tensor cores too.
+LAUNCHES counts
 each wrapper's launches, INSTANCE_LAUNCHES each kernel instance's (the
 library names the instance it launched), so a run can show which kernel a
 head_dim took.

@@ -18,8 +18,8 @@ in interpret mode within one bf16 step, at D = 256 and L = 256, causal and
 not; the nn and nn2 layouts go through to_t and from_t as the wrappers
 take them. Beside them: the instance names the wrappers count launches by,
 which instances chip_smoke.py requires at head_dim 256, and which kernels
-work from split terms there (the forward on f32 storage: its kF32
-tensor-core instance; dQ and dK/dV read their operands on the CUDA cores).
+work from split terms there (every kernel on f32 storage: their kF32
+tensor-core instances).
 The models are test helpers, not versions of the port."""
 import math
 
@@ -319,7 +319,13 @@ PRETTY = {
     "const char* {anonymous}::instance_name() [with auto Kernel = "
     "flash_dq_mma_kernel<256, 1>]": "flash_dq_mma_kernel<256, kNN, kBf16>",
     "const char* {anonymous}::instance_name() [with auto Kernel = "
-    "{anonymous}::flash_dq_wide_kernel]": "flash_dq_wide_kernel",
+    "{anonymous}::flash_split_kernel]": "flash_split_kernel",
+    "const char* {anonymous}::instance_name() [with auto Kernel = "
+    "flash_dq_mma_kernel<256, 0, 1>]":
+        "flash_dq_mma_kernel<256, kStd, kSplit>",
+    "const char* {anonymous}::instance_name() [with auto Kernel = "
+    "flash_dkv_mma_kernel<256, 0, 1>]":
+        "flash_dkv_mma_kernel<256, kStd, kSplit>",
     "const char* {anonymous}::instance_name() [with auto Kernel = "
     "flash_dq_mma_kernel<256, 0, 2>]": "flash_dq_mma_kernel<256, kStd, kF32>",
     "const char* {anonymous}::instance_name() [with auto Kernel = "
@@ -333,9 +339,9 @@ PRETTY = {
         "flash_fwd_mma_kernel<256, kStd, kF32>",
     "no kernel here": "no kernel here",
 }
-# ptxas's mangled names of the D = 256 forward's kSplit and kF32 instances
-# and of the kF32 dQ and dK/dV, as build_kernels reads them from its
-# register and spill report
+# ptxas's mangled names of the D = 256 forward's, dQ's and dK/dV's kSplit
+# and kF32 instances (and of the split pass, no mma kernel), as
+# build_kernels reads them from its register and spill report
 MANGLED = {
     "_ZN51_GLOBAL__N__5121eace_18_flash_attention_cu_837abbf520flash_fwd_"
     "mma_kernelILi256ELi0ELi1EEEv14CUtensorMap_stS1_S1_S1_PfPviiifii":
@@ -349,8 +355,14 @@ MANGLED = {
     "_ZN51_GLOBAL__N__5121eace_18_flash_attention_cu_837abbf520flash_dkv_"
     "mma_kernelILi256ELi0ELi2EEEv14CUtensorMap_stS1_S1_S1_S1_S1_PKfS3_PfS4_"
     "iiiifi": "flash_dkv_mma_kernel<256, kStd, kF32>",
-    "_ZN51_GLOBAL__N__5121eace_18_flash_attention_cu_837abbf520flash_dq_"
-    "wide_kernelEPK13__nv_bfloat16S2_S2_S2_PKfS4_PS0_iifiii": None,
+    "_ZN51_GLOBAL__N__5121eace_18_flash_attention_cu_837abbf519flash_dq_"
+    "mma_kernelILi256ELi0ELi1EEEv14CUtensorMap_stS1_S1_S1_S1_PKfS3_PfPK13__"
+    "nv_bfloat16iiifii": "flash_dq_mma_kernel<256, kStd, kSplit>",
+    "_ZN51_GLOBAL__N__5121eace_18_flash_attention_cu_837abbf520flash_dkv_"
+    "mma_kernelILi256ELi0ELi1EEEv14CUtensorMap_stS1_S1_S1_S1_S1_PKfS3_PfS4_"
+    "iiiifi": "flash_dkv_mma_kernel<256, kStd, kSplit>",
+    "_ZN51_GLOBAL__N__5121eace_18_flash_attention_cu_837abbf518flash_split_"
+    "kernelEPKfS1_S1_S1_iP13__nv_bfloat16iiii": None,
 }
 
 
@@ -372,33 +384,34 @@ def test_mangled_instance_names(mangled):
 
 
 def test_d256_instances_of_the_tensor_core_strategies():
-    """chip_smoke.py requires the tensor-core instances of the forward, dQ
-    and dK/dV of strategies bf16, nn and nn2 at head_dim 256, the
-    tensor-core kSplit forward and the CUDA-core dQ and dK/dV for the
-    f32-dot forms, and on f32 storage the kF32 forward, dQ and dK/dV of
-    every strategy; reset_launch_counts clears the instance counts."""
-    for impl in ("bf16", "nn", "nn2"):
-        fwd, dq, dkv = fa.STRATEGY_KERNELS[impl]
-        assert D256_INSTANCES[fwd].startswith("flash_fwd_mma_kernel<256, ")
-        assert D256_INSTANCES[dq].startswith("flash_dq_mma_kernel<256, ")
-        assert D256_INSTANCES[dkv].startswith("flash_dkv_mma_kernel<256, ")
+    """chip_smoke.py requires at head_dim 256 the tensor-core instances of
+    the forward, dQ and dK/dV of every strategy on both storages: on bf16
+    storage the kBf16 ones of bf16, nn and nn2 and the kSplit ones of f32,
+    on f32 storage the kF32 ones of every strategy; no CUDA-core kernel is
+    left. reset_launch_counts clears the instance counts."""
+    for impl in ("bf16", "nn", "nn2", "f32"):
+        for name in fa.STRATEGY_KERNELS[impl]:
+            kind = name.split("_")[1]
+            for table in (D256_INSTANCES, D256_F32_INSTANCES):
+                assert table[name].startswith(
+                    f"flash_{kind}_mma_kernel<256, ")
     assert D256_INSTANCES["flash_dq"].endswith("kStd, kBf16>")
     assert D256_INSTANCES["flash_dq_nn"].endswith("kNN, kBf16>")
     assert D256_INSTANCES["flash_dkv_nn2"].endswith("kNN2, kBf16>")
-    fwd, dq, dkv = fa.STRATEGY_KERNELS["f32"]
-    assert D256_INSTANCES[fwd] == "flash_fwd_mma_kernel<256, kStd, kSplit>"
-    assert D256_INSTANCES[dq] == "flash_dq_wide_kernel"
-    assert D256_INSTANCES[dkv] == "flash_dkv_wide_kernel"
+    for name in fa.STRATEGY_KERNELS["f32"]:
+        kind = name.split("_")[1]
+        assert D256_INSTANCES[name] == (
+            f"flash_{kind}_mma_kernel<256, kStd, kSplit>")
     assert set(D256_F32_INSTANCES) == set(D256_INSTANCES) == set(fa.CUDA)
     for name, inst in D256_F32_INSTANCES.items():
         kind = name.split("_")[1]
         assert inst == f"flash_{kind}_mma_kernel<256, kStd, kF32>"
-    assert D256_TC_INSTANCES == {
-        i for i in D256_INSTANCES.values() if "_mma_kernel<" in i} | {
-        f"flash_{kind}_mma_kernel<256, kStd, kF32>"
-        for kind in ("fwd", "dq", "dkv")}
-    assert is_instance("flash_dq_wide_kernel", "flash_dq_wide_kernel")
-    assert not is_instance("flash_dq_wide_kernel", "flash_dq_mma_kernel")
+    every = {*D256_INSTANCES.values(), *D256_F32_INSTANCES.values()}
+    assert not any("_wide_kernel" in i for i in every)
+    assert D256_TC_INSTANCES == every
+    inst = D256_INSTANCES["flash_dq_f32dot"]
+    assert is_instance(inst, "flash_dq_mma_kernel")
+    assert not is_instance(inst, "flash_dq_mma_kernel<256, kStd, kBf16>")
     fa.INSTANCE_LAUNCHES["x"] = 1
     fa.reset_launch_counts()
     assert fa.INSTANCE_LAUNCHES == {}

@@ -10,7 +10,8 @@ and a dot with an f32 operand (P.V, dS.K, P^T.dO, dS^T.Q) as three, the
 f32 operand split into bf16 terms hi, mid and lo that rebuild it exactly.
 Here plain models of that design (the forward's 64-key steps and online
 softmax in base 2, at D = 64 and, as the D = 256 forward steps, at 256;
-dQ's 64-key tiles, dK/dV's 64-query tiles, every sum in f32) are held
+dQ's 64-key tiles, dK/dV's 64-query tiles, at D = 64 and 256; every sum
+in f32) are held
 against the port's f32-dot plain versions and against the reference's f32
 strategy in interpret mode, by the share of bf16 outputs that differ: the
 limit chip_smoke.py holds the kernels to on the card. The models are test
@@ -87,22 +88,24 @@ def _split_forward(q, k, v, causal):
 
 def _tile_p_ds(q, k, v, do, lse, delta, rows, keys, causal, fused):
     """P and dS (f32, [B, H, rows, keys]) of one tile as the kernels form
-    them: S and dP from bf16 values with f32 sums, masked keys at -inf,
-    P = 2^(S scale log2 e - LSE log2 e), with the scale folded into one FMA
-    (dQ, `fused`) or applied before LSE is taken off (dK/dV), then dS = P
-    (dP - delta) scale."""
+    them (q, k, v, do [B, H, L, D] in f32; the scale from D): S and dP
+    from bf16 values with f32 sums, masked keys at -inf, P = 2^(S scale
+    log2 e - LSE log2 e), with the scale folded into one FMA (dQ, `fused`)
+    or applied before LSE is taken off (dK/dV), then dS = P (dP - delta)
+    scale."""
+    n, sc = q.shape[2], 1.0 / math.sqrt(q.shape[3])
     s = q[:, :, rows] @ k[:, :, keys].transpose(-1, -2)
     dp = do[:, :, rows] @ v[:, :, keys].transpose(-1, -2)
     if causal:
-        r = torch.arange(L)[rows][:, None]
-        c = torch.arange(L)[keys][None, :]
+        r = torch.arange(n)[rows][:, None]
+        c = torch.arange(n)[keys][None, :]
         s = s.masked_fill(c > r, -math.inf)
     lse_t = lse[:, :, rows, None]
     if fused:
-        p = torch.exp2(s * (SC * LOG2E) - lse_t * LOG2E)
+        p = torch.exp2(s * (sc * LOG2E) - lse_t * LOG2E)
     else:
-        p = torch.exp2((s * SC - lse_t) * LOG2E)
-    return p, p * (dp - delta[:, :, rows, None]) * SC
+        p = torch.exp2((s * sc - lse_t) * LOG2E)
+    return p, p * (dp - delta[:, :, rows, None]) * sc
 
 
 def _split_dot(acc, x, b, rounded=False):
@@ -116,14 +119,18 @@ def _split_dot(acc, x, b, rounded=False):
 
 
 def _split_backward(q, k, v, do, lse, delta, causal, rounded=False):
-    """(dQ, dK, dV) in bf16 as the split kernels compute them: dQ over
-    64-key tiles, dQ += lo.K + mid.K + hi.K; dK and dV over 64-query tiles,
-    dV += P^T's terms . dO and dK += dS^T's terms . Q; every sum in f32."""
+    """(dQ, dK, dV) in bf16 as the split kernels compute them (at any shape;
+    the scale from the head_dim): dQ over 64-key tiles, dQ += lo.K + mid.K
+    + hi.K, each term's passes over the tile's four 16-key k-steps before
+    the next term's (at D = 256 each consumer splits its fragments per
+    k-step from the f32 dS tile; the split is elementwise, so its terms are
+    the whole tile's); dK and dV over 64-query tiles, dV += P^T's terms .
+    dO and dK += dS^T's terms . Q; every sum in f32."""
     qh, kh, vh, doh = (x.transpose(1, 2).float() for x in (q, k, v, do))
-    dq = torch.zeros(B, H, L, D)
-    dk, dv = torch.zeros(B, H, L, D), torch.zeros(B, H, L, D)
-    every = slice(0, L)
-    for t0 in range(0, L, STEP):
+    n = qh.shape[2]
+    dq, dk, dv = (torch.zeros(qh.shape) for _ in range(3))
+    every = slice(0, n)
+    for t0 in range(0, n, STEP):
         tile = slice(t0, t0 + STEP)
         _, ds = _tile_p_ds(qh, kh, vh, doh, lse, delta, every, tile, causal,
                            fused=True)
@@ -254,24 +261,34 @@ def test_d256_split_model_matches_reference_f32(causal):
     assert _share(o, ref) < SHARE_TOL
 
 
-def _bwd_inputs(causal):
+def _bwd_inputs(causal, shape=(B, L, H, D)):
     """q, k, v, dO (bf16) and the forward's LSE and delta = rowsum(dO * O)
     in f32, from the port's f32-dot plain forward."""
-    q, k, v, do = _inputs(3, n=4)
-    o, lse = fa.flash_fwd_plain(q, k, v, causal, SC, f32_dots=True)
+    q, k, v, do = _inputs(3, n=4, shape=shape)
+    o, lse = fa.flash_fwd_plain(q, k, v, causal, 1.0 / math.sqrt(shape[-1]),
+                                f32_dots=True)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     return q, k, v, do, lse, delta
 
 
+# the backward's shapes: the module's (D = 64), and the D = 256 kernels'
+# with two heads and four 64-row tiles
+BWD_SHAPES = {"D64": (B, L, H, D), "D256": D256_SHAPE}
+
+
 @pytest.mark.parametrize("causal", [False, True])
-def test_split_backward_matches_f32dot_plain(causal):
+@pytest.mark.parametrize("shape", sorted(BWD_SHAPES))
+def test_split_backward_matches_f32dot_plain(shape, causal):
     """The split backward model against the port's f32-dot plain version on
-    the same LSE and delta: the share of differing bf16 entries of dQ, dK
-    and dV below the kernels' limit. P and dS rounded to bf16 (bf16's
-    function, in the same model) read above it."""
-    args = _bwd_inputs(causal)
+    the same LSE and delta, at D = 64 and at the D = 256 kernels' head_dim:
+    the share of differing bf16 entries of dQ, dK and dV below the
+    kernels' limit. P and dS rounded to bf16 (bf16's function, in the same
+    model) read above it."""
+    shape = BWD_SHAPES[shape]
+    args = _bwd_inputs(causal, shape)
     got = _split_backward(*args, causal)
-    want = fa.flash_bwd_plain(*args, causal, SC, f32_dots=True)
+    want = fa.flash_bwd_plain(*args, causal, 1.0 / math.sqrt(shape[-1]),
+                              f32_dots=True)
     rounded = _split_backward(*args, causal, rounded=True)
     for name, g, w, r in zip(("dQ", "dK", "dV"), got, want, rounded):
         assert g.shape == w.shape and g.dtype == w.dtype
@@ -280,13 +297,16 @@ def test_split_backward_matches_f32dot_plain(causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-def test_split_backward_matches_reference_f32(causal):
+@pytest.mark.parametrize("shape", sorted(BWD_SHAPES))
+def test_split_backward_matches_reference_f32(shape, causal):
     """The split forward and backward models against the gradients of the
     reference's f32 strategy in interpret mode (`jax.vjp` of
-    `flash_attention(impl="f32")`), on inputs and dO from a numpy seed: the
-    share of differing bf16 entries of dQ, dK and dV below the kernels'
-    limit."""
-    q, k, v, do = _inputs(4, n=4)
+    `flash_attention(impl="f32")`), on inputs and dO from a numpy seed, at
+    D = 64 and at the D = 256 kernels' head_dim: the share of differing
+    bf16 entries of dQ, dK and dV below the kernels' limit."""
+    shape = BWD_SHAPES[shape]
+    sc = 1.0 / math.sqrt(shape[-1])
+    q, k, v, do = _inputs(4, n=4, shape=shape)
     o, lse = _split_forward(q, k, v, causal)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     got = _split_backward(q, k, v, do, lse, delta, causal)
@@ -294,7 +314,7 @@ def test_split_backward_matches_reference_f32(causal):
                        for x in (q, k, v, do))
     _, vjp = jax.vjp(
         lambda a, b, c: jfa.flash_attention(a, b, c, causal=causal,
-                                            sm_scale=SC, interpret=True,
+                                            sm_scale=sc, interpret=True,
                                             impl="f32"), jq, jk, jv)
     for name, g, ref in zip(("dQ", "dK", "dV"), got, vjp(jdo)):
         ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
