@@ -12,17 +12,26 @@ gpt3-large cut to 4 layers (head_dim 96, padded to 128) for 3 steps each;
 then gpt3-xl's widths with 8 heads (head_dim 256: the D = 256 kernels) cut
 to 2 layers, bf16 O2 under auto, nn, nn2 and f32 and in f32, 3 steps each
 (in each of them the forward, dQ and dK/dV launch their tensor-core
-D = 256 instances, which each phase checks by the instance counts).
+D = 256 instances, which each phase checks by the instance counts); then
+serves gpt3-medium's weights in f32 through the continuous-batching
+GenerativeEngine (8 slots, max_context 1024): 16 requests with prompts of
+16-512 tokens at once, then one alone, 64 greedy tokens each, checked
+against GPTForCausalLM.generate and for zero failures, requeues, sheds,
+first calls after warm-up and flash launches (the serving attention is
+einsum), with one decode step at batch 8 profiled.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
+    python3 chip_smoke.py --serving
 
 Needs one CUDA card (written for an H100, sm_90a) and nvcc. Prints the
 card and its power limit, a `kernels` JSON line (time, achieved TFLOP/s,
 launches on the training path, bound, plain and library times, error of
 each kernel; the f32-storage forward, dQ and dK/dV as `name@float32`, the
 forward and dQ rows with the time of the split pass they run; the D = 256
-kernels as `name@D256` and `name@float32@D256`) and, as the last line,
+kernels as `name@D256` and `name@float32@D256`), a `serving` JSON line
+(warm-up, TTFT, tokens/s, decode step and prefill times by bucket, the
+profiled decode step, KV pool bytes, peak memory) and, as the last line,
 {"ok": true, "device": {...}}. Any failed check exits non-zero without that
 line. With --compare, it only times every flash kernel of this checkout
 and of OTHER_CHECKOUT (another tree of the repo, e.g. the parent commit
@@ -34,7 +43,8 @@ L = 2048 (`@D256@16x2048`, `@D256@32x2048`) and the f32-storage forward at
 D = 256 at the same two shapes (`@float32@D256@16x2048`, `@32x2048`), by
 the same method, in turns (other, this, this, other), each in a process of
 its own that builds that tree's kernels, with the SM clock read after each
-row.
+row. With --serving, it runs only the serving phase and prints its line
+(without the {"ok": ...} line).
 """
 from __future__ import annotations
 
@@ -155,6 +165,16 @@ D96_LAYERS, D96_STEPS = 4, 3
 # head_dim 256: gpt3-xl's widths (hidden 2048) with 8 heads, cut to 2
 # layers; bf16 O2 under each strategy, then in f32 under auto, 3 steps each
 D256_HEADS, D256_LAYERS, D256_STEPS = 8, 2, 3
+# the serving phase: GenerativeEngine over gpt3-medium in f32, 8 slots;
+# SERVING_REQUESTS requests with prompts of uniform length in
+# SERVING_PROMPT, submitted at once, then one alone, SERVING_NEW tokens
+# each. The engine's tokens may part from GPTForCausalLM.generate's only
+# at a step where both paths' top-2 logit margin is under SERVING_MARGIN:
+# the two differ in the order of f32 sums (their LayerNorms, the engine's
+# gathered rows and padded prompt), a few 1e-6 of logits of O(1).
+SERVING_SLOTS, SERVING_REQUESTS, SERVING_NEW = 8, 16, 64
+SERVING_PROMPT = (16, 512)
+SERVING_MARGIN = 1e-4
 SEED = 0
 
 REF = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -810,6 +830,240 @@ def training_phase(label, impl, weights, cfg, steps, o2=True,
     return launches, losses
 
 
+def top2_margin(logits):
+    """Top logit minus the runner-up."""
+    import torch
+
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def serving_margins(model, eng, prefix):
+    """The top-2 logit margin after `prefix` (1-D ids) on each greedy
+    path, each from its own full-prefix pass: GPTForCausalLM.generate's
+    prefill (the cached attention) and the engine's prefill body (its
+    own LayerNorm and attention, into a pool row of its own)."""
+    import torch
+
+    from paddle_tpu_torch.inference.serving import generate as gen
+
+    cfg = model.cfg
+    H, Dh, P = cfg.num_heads, cfg.hidden_size // cfg.num_heads, len(prefix)
+    ids = torch.as_tensor(prefix, device="cuda")[None]
+    with torch.inference_mode():
+        caches = [{"k": torch.zeros(1, P, H, Dh, device="cuda"),
+                   "v": torch.zeros(1, P, H, Dh, device="cuda"), "pos": 0}
+                  for _ in model.gpt.blocks]
+        h = model.gpt(ids, caches=caches)
+        m_model = top2_margin(model._logits_from_hidden(h[0, -1]))
+        pool = torch.zeros(1, cfg.num_layers, P, H, Dh, device="cuda")
+        logits, _, _ = gen._prefill_core(
+            eng._params_for(torch.device("cuda", 0)), pool, pool.clone(), 0,
+            ids, P, H, cfg.layer_norm_eps)
+    return m_model, top2_margin(logits)
+
+
+def profile_decode_step(eng, cfg, lengths):
+    """One decode step of the engine's body at batch bucket
+    len(lengths), on a pool of its own with rows cached to `lengths`:
+    its host time (median of 5, each ending in the tokens' copy to the
+    host), the least time of the bytes the step must read (every weight
+    once, each row's valid K and V once), and one step under
+    torch.profiler: the device time of each kernel, summed by name, and
+    the device's idle share. Returns the phase's `decode_step_b8` dict."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.inference.serving import generate as gen
+
+    dev = torch.device("cuda", 0)
+    p = eng._params_for(dev)
+    pool = eng._alloc_pool(dev)
+    b = len(lengths)
+    args = (torch.arange(b, device=dev),
+            torch.zeros(b, dtype=torch.int64, device=dev),
+            torch.tensor(lengths, device=dev))
+    H = cfg.num_heads
+
+    def step():
+        nxt, _, _ = gen._decode_body(p, pool.buf_k, pool.buf_v, *args,
+                                     eng._slots, H, cfg.layer_norm_eps)
+        return nxt.cpu()
+
+    times = []
+    with torch.inference_mode():
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step()
+            times.append(time.perf_counter() - t)
+        step_s = statistics.median(times[1:])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    kernels = sorted(((e.device_time_total, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_us = sum(k[0] for k in kernels)
+    weight_bytes = sum(t.numel() * t.element_size() for t in p.values())
+    kv_bytes = 2 * 4 * cfg.num_layers * cfg.hidden_size * sum(
+        n + 1 for n in lengths)
+    out = {"ms": step_s * 1e3, "launches": sum(k[1] for k in kernels),
+           "device_busy_ms": busy_us / 1e3,
+           "idle_share": (1 - busy_us / (step_s * 1e6)) if busy_us else None,
+           "bound_ms": (weight_bytes + kv_bytes) / PEAK_BYTES * 1e3,
+           "bound_by": "bytes",
+           "top": [[name[:60], us / 1e3, n] for us, n, name in kernels[:8]]}
+    log(f"[serving] one decode step at batch {b} (lengths {lengths}): "
+        f"{out['ms']:.3f} ms host, device busy {out['device_busy_ms']:.3f} "
+        f"ms in {out['launches']} kernel launches, bound {out['bound_ms']:.3f}"
+        f" ms (weights {weight_bytes / 1e9:.2f} GB + valid K/V "
+        f"{kv_bytes / 1e9:.3f} GB)")
+    for us, n, name in kernels[:12]:
+        log(f"  {us / 1e3:8.3f} ms {100 * us / max(busy_us, 1):5.1f}% "
+            f"x{n:<5d} {name[:90]}")
+    return out
+
+
+def serving_phase(weights, cfg):
+    """Greedy serving on the card: GenerativeEngine (slots 8, max_context
+    1024, prompt buckets pow2 8..1024) over GPTForCausalLM at `cfg`'s
+    full width in f32, with `weights`. SERVING_REQUESTS requests (prompt
+    lengths and ids from RandomState(SEED)) submitted at once, then one
+    request alone (batch bucket 1), each asking for SERVING_NEW tokens and
+    naming no eos. Checks that every request returns SERVING_NEW tokens,
+    that none failed, was requeued or was shed, that the decode batch
+    reached all 8 slots, that no program first ran after warm-up, that
+    no flash kernel launched (the serving attention is einsum, as the
+    reference's), and that the engine's tokens for the shortest and the
+    longest prompt are GPTForCausalLM.generate's (or part from them first
+    where both paths' top-2 logit margin is under SERVING_MARGIN). Prints
+    and returns the `serving` line's dict."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.framework_io import params_from_paddle_tpu
+    from paddle_tpu_torch.inference import GenerativeEngine
+    from paddle_tpu_torch.inference.serving import metrics as sm
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = GPTForCausalLM(cfg, device="cuda")
+    model.load_state_dict(params_from_paddle_tpu(weights))
+    model.eval()
+    fa.reset_launch_counts()
+    t_warm = time.perf_counter()
+    eng = GenerativeEngine(model, slots=SERVING_SLOTS, max_context=1024,
+                           device="cuda")
+    warm_s = time.perf_counter() - t_warm
+    try:
+        rng = np.random.RandomState(SEED)
+        lens = rng.randint(SERVING_PROMPT[0], SERVING_PROMPT[1] + 1,
+                           size=SERVING_REQUESTS)
+        prompts = [rng.randint(0, cfg.vocab_size, size=int(n))
+                   for n in lens]
+        alone_prompt = rng.randint(
+            0, cfg.vocab_size,
+            size=int(rng.randint(SERVING_PROMPT[0], SERVING_PROMPT[1] + 1)))
+        t1 = time.perf_counter()
+        handles = [eng.submit(p, SERVING_NEW) for p in prompts]
+        results = [h.result(300) for h in handles]
+        wall = time.perf_counter() - t1
+        occupancy = eng.metrics.max_occupancy()
+        alone = eng.generate(alone_prompt, SERVING_NEW, timeout=300)
+        snap = eng.metrics.snapshot()
+        report = eng.program_report()
+        flash = {n: c for n, c in fa.LAUNCHES.items() if c}
+        log(f"[serving] {len(prompts)} requests (prompts {sorted(lens)}) in "
+            f"{wall:.3f} s, then one of {len(alone_prompt)} alone; warm-up "
+            f"{warm_s:.3f} s ({eng.warmup_report['warm_passes']} programs); "
+            f"occupancy histogram {snap['occupancy_hist']}; programs "
+            f"{report}")
+        for r in results + [alone]:
+            check(r["n_tokens"] == SERVING_NEW,
+                  f"[serving] a request returned {r['n_tokens']} tokens, "
+                  f"expected {SERVING_NEW}")
+        for key in ("failed_total", "requeues_total", "shed_total",
+                    "rejected_total"):
+            check(snap[key] == 0, f"[serving] {key} is {snap[key]}")
+        check(snap["completed_total"] == SERVING_REQUESTS + 1,
+              f"[serving] {snap['completed_total']} requests completed")
+        check(occupancy == SERVING_SLOTS,
+              f"[serving] the decode batch reached {occupancy} rows, "
+              f"expected {SERVING_SLOTS}")
+        check(report["first_calls_after_warmup"] == 0,
+              f"[serving] {report['first_calls_after_warmup']} calls after "
+              f"admission ran a program for the first time")
+        check(not flash, f"[serving] flash kernels launched: {flash}")
+
+        agreement = {}
+        for i in (int(np.argmin(lens)), int(np.argmax(lens))):
+            p = prompts[i]
+            ref = model.generate(torch.as_tensor(p, device="cuda")[None],
+                                 max_new_tokens=SERVING_NEW)
+            ref = ref[0, len(p):].tolist()
+            got = results[i]["tokens"]
+            j = next((k for k, (a, b) in enumerate(zip(ref, got))
+                      if a != b), None)
+            row = {"prompt": len(p), "first_mismatch": j}
+            if j is not None:
+                row["margins"] = serving_margins(
+                    model, eng, np.concatenate([p, got[:j]]))
+                log(f"[serving] prompt {len(p)}: engine and generate part "
+                    f"at step {j}; top-2 margins there (generate, engine) "
+                    f"{row['margins']}")
+                check(max(row["margins"]) < SERVING_MARGIN,
+                      f"[serving] prompt {len(p)}: tokens part at step {j} "
+                      f"with top-2 margins {row['margins']} (limit "
+                      f"{SERVING_MARGIN})")
+            agreement[str(len(p))] = row
+        check(not any(fa.LAUNCHES.values()),
+              f"[serving] flash kernels launched in generate: "
+              f"{dict(fa.LAUNCHES)}")
+
+        decode = profile_decode_step(
+            eng, cfg, [int(n) + SERVING_NEW // 2
+                       for n in lens[:SERVING_SLOTS]])
+        steps = eng.metrics.step_ms()
+        stream_tps = sorted(
+            (r["n_tokens"] - 1) / ((r["latency_ms"] - r["ttft_ms"]) / 1e3)
+            for r in results)
+        ttft = sm.percentiles([r["ttft_ms"] for r in results])
+        line = {
+            "model": "gpt3-medium", "dtype": "float32",
+            "slots": SERVING_SLOTS, "requests": len(results) + 1,
+            "new_tokens": SERVING_NEW, "warmup_s": warm_s,
+            "ttft_ms": {"p50": ttft["p50"], "p99": ttft["p99"]},
+            "tokens_per_s": len(results) * SERVING_NEW / wall,
+            "stream_tokens_per_s_p50": statistics.median(stream_tps),
+            "alone": {"ttft_ms": alone["ttft_ms"],
+                      "tokens_per_s": (alone["n_tokens"] - 1) / (
+                          (alone["latency_ms"] - alone["ttft_ms"]) / 1e3)},
+            "decode_step_ms": {b: v["p50"] for b, v in
+                               steps["decode"].items()},
+            "decode_steps": {b: v["n"] for b, v in steps["decode"].items()},
+            "prefill_ms": {b: v["p50"] for b, v in
+                           steps["prefill"].items()},
+            "decode_step_b8": decode,
+            "kv_pool_bytes": eng.kv_pool_bytes(),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "agreement": agreement,
+        }
+    finally:
+        eng.shutdown()
+    log(f"[serving] phase took {time.time() - t0:.1f} s")
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
 def profile_step(step, ids, labels, step_s, vocab, top):
     """One more train step under torch.profiler: the device time of each
     kernel, summed by name; that of the LM-head CE's GEMMs (the aten::mm
@@ -1058,13 +1312,36 @@ def main():
         r["launches"] = counts[name]
         check(r["launches"] > 0, f"{r['name']} never launched in the "
                                  f"head_dim 256 phases")
+    # greedy serving over the gpt3-medium weights, in f32 (no kernel of
+    # this path is a flash kernel: its attention is einsum)
+    serving = serving_phase(weights, cfg)
     log(json.dumps({"kernels": rows + f32_rows + rows256 + f32_rows256
                     + [probe_row]}))
+    log(json.dumps({"serving": serving}))
     log(f"chip_smoke took {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def serving_only():
+    """The serving phase alone (no kernel build, no training): prints the
+    card and the `serving` line, not the {"ok": ...} line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from paddle_tpu_torch.models import PRESETS
+
+    card = card_line()
+    log(f"card: {card}")
+    cfg = PRESETS["gpt3-medium"]
+    line = serving_phase(reference_layout_weights(cfg, SEED), cfg)
+    print(card)
+    print(json.dumps({"serving": line}), flush=True)
     return 0
 
 
@@ -1178,6 +1455,8 @@ if __name__ == "__main__":
             sys.exit(time_kernels(sys.argv[2]))
         if sys.argv[1:2] == ["--compare"]:
             sys.exit(compare(sys.argv[2]))
+        if sys.argv[1:2] == ["--serving"]:
+            sys.exit(serving_only())
         sys.exit(main())
     except (SmokeFailure, ImportError) as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

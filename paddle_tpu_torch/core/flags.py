@@ -38,6 +38,13 @@ def set_flags(flags: Dict[str, Any]):
     # validate every key before changing any value
     resolved = {_key(n): v for n, v in flags.items()}
     _REGISTRY.update(resolved)
+    # the tracer and the chaos harness latch their flags; re-arm them
+    if resolved.keys() & {"trace_dir", "trace_buffer_spans"}:
+        from ..observability import trace
+        trace.reconfigure(_REGISTRY["trace_dir"])
+    if resolved.keys() & {"chaos_spec", "chaos_seed"}:
+        from ..testing import chaos
+        chaos.configure()
 
 
 def flag(name: str):
@@ -58,3 +65,20 @@ define_flag("flash_block_k", 128)
 # (every dot in f32, P and dS never rounded), "auto" (probe the card once
 # and pick bf16 > nn > nn2 > f32; see ops.flash_attention.resolve_dot_impl)
 define_flag("flash_dot_impl", "auto")
+
+# generative serving (inference/serving/generate.py): the queue depth
+# beyond which requests are shed with 503 + Retry-After, the decode slots
+# per worker and KV class (decode batch buckets are pow2 up to this), and
+# the server-side cap on tokens per request (also its default)
+define_flag("serving_max_queue_depth", 64)
+define_flag("generate_slots", 8)
+define_flag("generate_max_new_tokens", 128)
+# deterministic fault injection (testing/chaos.py): ';'-separated rules
+# 'site:action[:arg]'; empty disables all injection. The seed drives the
+# probabilistic rules, so the same (spec, seed) fires the same faults
+define_flag("chaos_spec", "")
+define_flag("chaos_seed", 0)
+# span tracer (observability/trace.py): off unless a directory is set;
+# the ring keeps at most this many spans
+define_flag("trace_dir", "")
+define_flag("trace_buffer_spans", 262144)

@@ -1,0 +1,1467 @@
+"""Continuous-batching greedy generation (counterpart of
+paddle_tpu/inference/serving/generate.py, its greedy float path).
+
+Design, as the reference's (Orca-style iteration-level scheduling over
+a vLLM-style slot pool):
+
+- **Prefill/decode split.** Each request is one prefill call (prompt
+  padded to its pow2 bucket, batch 1) plus repeated fixed-shape decode
+  steps over the active rows padded to their pow2 batch bucket:
+
+    prefill[S]  (params, pool_k, pool_v, slot, ids[1, S], len) ->
+                (first_token, pool_k, pool_v)
+    decode[b]   (params, pool_k, pool_v, slots[b], tokens[b],
+                 lengths[b]) -> (next_tokens[b], pool_k, pool_v)
+
+  The bodies are plain PyTorch (einsum attention, as the reference's:
+  no flash kernel runs here), one Python loop over the layers in place
+  of the reference's `lax.scan`.
+
+- **KV slot pool.** Each worker owns a pair of float32 buffers
+  [slots + 1, L, max_context, H, Dh]; rows are slots handed out from a
+  free list, and the +1 row is scratch for decode-batch padding. Prefill
+  stores the prompt's K/V into its slot; each decode step writes one new
+  position per row. The buffers are updated in place (the reference
+  threads them functionally and donates them). The reference's pow2
+  capacity classes (`kv_slot_buckets`) are not ported: one class at
+  max_context.
+
+- **In-flight batching.** Between decode steps the worker admits queued
+  requests into free slots (prefilling them right then) and retires
+  finished rows (eos or max_new_tokens) without stalling the batch.
+
+- **Streaming.** Tokens go onto each request's stream queue per step
+  (GenerateHandle iterates them), with TTFT and tokens/s metrics and
+  per-token spans on the tracer.
+
+- **Warm before admission.** The reference compiles and caches every
+  program before a worker admits traffic and counts compile misses
+  after. Eager PyTorch compiles nothing; here `warm_up`/`add_replica`
+  run every prompt-bucket prefill and every batch-bucket decode once on
+  the worker's device before it turns active, `program_report()` lists
+  them, and `first_calls_after_warmup` counts calls, after admission,
+  of a program that had not run on its device.
+
+Replica lifecycle is the reference's state machine (lifecycle.py):
+warming -> active -> draining -> retired with a generation counter;
+`add_replica` warms before admission, `remove_replica(drain=True)`
+lets in-flight sequences finish, and `revive_replica` supersedes a hung
+worker whose requests requeue: a requeued request re-prefills from its
+prompt and the tokens it already streamed are not emitted again
+(greedy decoding is deterministic, so the regenerated prefix is the
+same).
+
+Chaos site: `serving.decode_step` fires on the worker thread before
+every decode step (testing/chaos.py).
+
+Not ported yet, each raising NotImplementedError that names its ROADMAP
+module queue item: sampling (temperature > 0, top_k, top_p: 1c);
+speculative decoding (draft, draft_params), the prefix cache
+(prefix_cache_slots > 0), the int8 KV pool (kv_dtype="int8") and
+weight-only int8 (quantize_weights=True): 1d; the KV handoff
+(import_handoff, prefill_only, resume_from, shutdown(migrate=True)): 1e.
+"""
+from __future__ import annotations
+
+import math
+import threading
+import time
+from collections import deque
+from contextlib import nullcontext
+from queue import Queue
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ... import resolve_device
+from ...core.flags import flag
+from ...io.bucketing import bucket_boundaries_pow2, bucket_for
+from ...observability import trace as _tr
+from ...quantization import kv as _kvq
+from ...testing import chaos as _chaos
+from ...testing.racecheck import shared_state as _shared_state
+from . import metrics as _sm
+from .lifecycle import (Future, ReplicaSlot, ServingError, device_pool,
+                        pick_least_loaded_device, validate_sampling)
+
+_NEG_INF = -1e30
+# Retry-After of a 503: the queue's drain estimate, clamped to these
+_RETRY_AFTER_S, _RETRY_AFTER_MAX_S = 0.5, 30.0
+_TODO_1C = "ROADMAP module queue item 1c (sampling)"
+_TODO_1D = ("ROADMAP module queue item 1d (speculative decoding, the "
+            "prefix cache, int8 KV and weights)")
+_TODO_1E = "ROADMAP module queue item 1e (KV handoff, HTTP front)"
+
+
+def _todo(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: {item}")
+
+
+# ===================================================================
+# program bodies (params: dict of stacked per-layer tensors, see
+# stack_gpt_params; one Python loop over the layers)
+# ===================================================================
+def _ln(h, w, b, eps):
+    """The bodies' own LayerNorm (mean and variance as means), as the
+    reference's `_ln`."""
+    mu = h.mean(-1, keepdim=True)
+    var = ((h - mu) ** 2).mean(-1, keepdim=True)
+    return (h - mu) / torch.sqrt(var + eps) * w + b
+
+
+def _gelu(x):
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def _logits_head(p, h):
+    if "lm_head" in p:
+        return h @ p["lm_head"]
+    return h @ p["wte"].T
+
+
+def _mlp(p, l, h, eps):
+    y = _ln(h, p["ln2_w"][l], p["ln2_b"][l], eps)
+    return h + _gelu(y @ p["fc1_w"][l] + p["fc1_b"][l]) @ p["fc2_w"][l] \
+        + p["fc2_b"][l]
+
+
+def _prefill_core(p, buf_k, buf_v, slot, ids, length, num_heads, eps):
+    """One full-prompt pass: causal attention within the (padded) prompt
+    ids [1, S], every layer's K/V stored into pool row `slot` (positions
+    [length, S) hold the pad's junk, which decode overwrites before its
+    mask admits them), and the logits [V] at position length-1."""
+    p = _kvq.dequant_params(p)
+    S = ids.shape[1]
+    D = p["wte"].shape[1]
+    H = int(num_heads)
+    Dh = D // H
+    pos = torch.arange(S, device=ids.device)
+    h = p["wte"][ids] + p["wpe"][pos][None]            # [1, S, D]
+    causal = pos[None, :] <= pos[:, None]              # [S, S]
+    ks, vs = [], []
+    for l in range(p["qkv_w"].shape[0]):
+        y = _ln(h, p["ln1_w"][l], p["ln1_b"][l], eps)
+        qkv = (y @ p["qkv_w"][l] + p["qkv_b"][l]).reshape(1, S, 3, H, Dh)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        s = torch.einsum("bhqd,bhkd->bhqk", q.transpose(1, 2),
+                         k.transpose(1, 2)) / math.sqrt(Dh)
+        s = torch.where(causal[None, None], s, _NEG_INF)
+        att = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1),
+                           v.transpose(1, 2))
+        h = h + att.transpose(1, 2).reshape(1, S, D) @ p["out_w"][l] \
+            + p["out_b"][l]
+        h = _mlp(p, l, h, eps)
+        ks.append(k[0])                                # [S, H, Dh]
+        vs.append(v[0])
+    buf_k = _kvq.store_block(buf_k, slot, torch.stack(ks))
+    buf_v = _kvq.store_block(buf_v, slot, torch.stack(vs))
+    h = _ln(h, p["lnf_w"], p["lnf_b"], eps)
+    return _logits_head(p, h[0, int(length) - 1]), buf_k, buf_v
+
+
+def _prefill_body(p, buf_k, buf_v, slot, ids, length, num_heads, eps):
+    """Prefill plus the greedy head: (first token [] int64, pool_k,
+    pool_v); the token is the first maximal logit, as jnp.argmax."""
+    logits, buf_k, buf_v = _prefill_core(p, buf_k, buf_v, slot, ids,
+                                         length, num_heads, eps)
+    return torch.argmax(logits), buf_k, buf_v
+
+
+def _decode_core(p, buf_k, buf_v, slots, tokens, lengths, scratch,
+                 num_heads, eps):
+    """The fixed-shape decode pass for `b` rows of the pool: embed each
+    row's pending token at its position, attend over the row's cached
+    prefix and the token itself, write exactly one new K/V per row back
+    into the pool (a position past the pool's cap lands in the scratch
+    row), return the logits [b, V]. slots, tokens, lengths: [b] int64.
+    Rows are independent; padding rows target the scratch slot with
+    length 0 and the caller drops their outputs."""
+    p = _kvq.dequant_params(p)
+    b = tokens.shape[0]
+    M = buf_k.shape[2]
+    D = p["wte"].shape[1]
+    H = int(num_heads)
+    Dh = D // H
+    h = p["wte"][tokens] + p["wpe"][torch.clamp(
+        lengths, max=p["wpe"].shape[0] - 1)]           # [b, D]
+    k_rows, _ = _kvq.gather_rows(buf_k, slots)         # [b, L, M, H, Dh]
+    v_rows, _ = _kvq.gather_rows(buf_v, slots)
+    kpos = torch.arange(M, device=tokens.device)
+    mask = kpos[None, :] <= lengths[:, None]           # [b, M]
+    rowix = torch.arange(b, device=tokens.device)
+    # the in-loop write at `lengths` is dropped where lengths >= M (the
+    # reference's mode="drop"): such rows write back what they read
+    inb = (lengths < M)[:, None, None]
+    lpos = torch.clamp(lengths, max=M - 1)
+    k_news, v_news = [], []
+    for l in range(p["qkv_w"].shape[0]):
+        y = _ln(h, p["ln1_w"][l], p["ln1_b"][l], eps)
+        qkv = (y @ p["qkv_w"][l] + p["qkv_b"][l]).reshape(b, 3, H, Dh)
+        q, k_new, v_new = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+        k_l, v_l = k_rows[:, l], v_rows[:, l]          # [b, M, H, Dh]
+        k_l[rowix, lpos] = torch.where(inb, k_new, k_l[rowix, lpos])
+        v_l[rowix, lpos] = torch.where(inb, v_new, v_l[rowix, lpos])
+        s = torch.einsum("bhd,bmhd->bhm", q, k_l) / math.sqrt(Dh)
+        s = torch.where(mask[:, None, :], s, _NEG_INF)
+        att = torch.einsum("bhm,bmhd->bhd", torch.softmax(s, -1), v_l)
+        h = h + att.reshape(b, D) @ p["out_w"][l] + p["out_b"][l]
+        h = _mlp(p, l, h, eps)
+        k_news.append(k_new)                           # [b, H, Dh]
+        v_news.append(v_new)
+    h = _ln(h, p["lnf_w"], p["lnf_b"], eps)
+    # write only the new position back (the gathered copies die here);
+    # an out-of-cap position goes to the scratch row
+    safe = lengths < M
+    wslot = torch.where(safe, slots, scratch)
+    wpos = torch.where(safe, lengths, 0)
+    buf_k = _kvq.scatter_rows(buf_k, wslot, wpos, torch.stack(k_news, 1))
+    buf_v = _kvq.scatter_rows(buf_v, wslot, wpos, torch.stack(v_news, 1))
+    return _logits_head(p, h), buf_k, buf_v
+
+
+def _decode_body(p, buf_k, buf_v, slots, tokens, lengths, scratch,
+                 num_heads, eps):
+    """One decode step with the greedy head: (next tokens [b] int64,
+    pool_k, pool_v)."""
+    logits, buf_k, buf_v = _decode_core(p, buf_k, buf_v, slots, tokens,
+                                        lengths, scratch, num_heads, eps)
+    return torch.argmax(logits, dim=-1), buf_k, buf_v
+
+
+_STACKED = {
+    "ln1_w": lambda b: b.ln1.weight, "ln1_b": lambda b: b.ln1.bias,
+    "qkv_w": lambda b: b.attn.qkv_proj.weight.T,
+    "qkv_b": lambda b: b.attn.qkv_proj.bias,
+    "out_w": lambda b: b.attn.out_proj.weight.T,
+    "out_b": lambda b: b.attn.out_proj.bias,
+    "ln2_w": lambda b: b.ln2.weight, "ln2_b": lambda b: b.ln2.bias,
+    "fc1_w": lambda b: b.mlp.fc1.weight.T, "fc1_b": lambda b: b.mlp.fc1.bias,
+    "fc2_w": lambda b: b.mlp.fc2.weight.T, "fc2_b": lambda b: b.mlp.fc2.bias,
+}
+
+
+def stack_gpt_params(model) -> Tuple[dict, object]:
+    """Stack a paddle_tpu_torch GPTForCausalLM's weights into the [L, ...]
+    dict the program bodies loop over. Returns (params, cfg).
+
+    Layout, the reference's: matmul weights [L, in, out] (qkv_w, out_w,
+    fc1_w, fc2_w; torch's Linear stores [out, in], so they are
+    transposed), biases and LayerNorm parameters [L, n], wte [V, D], wpe
+    [max_seq_len, D], lnf_w and lnf_b [D], and lm_head [D, V] when the
+    embeddings are not tied. Every tensor is a new float32 copy on the
+    model's device, so training the model on does not change what the
+    engine serves."""
+    from ...models.gpt import GPTForCausalLM
+
+    if not isinstance(model, GPTForCausalLM):
+        raise TypeError(
+            f"GenerativeEngine wants a paddle_tpu_torch GPTForCausalLM; got "
+            f"{type(model).__name__}")
+
+    def cp(t):
+        return t.detach().to(torch.float32, copy=True).contiguous()
+
+    blocks = model.gpt.blocks
+    with torch.no_grad():
+        p = {name: torch.stack([cp(get(b)) for b in blocks])
+             for name, get in _STACKED.items()}
+        p.update(wte=cp(model.gpt.wte.weight), wpe=cp(model.gpt.wpe.weight),
+                 lnf_w=cp(model.gpt.ln_f.weight),
+                 lnf_b=cp(model.gpt.ln_f.bias))
+        if not model.cfg.tie_embeddings:
+            p["lm_head"] = cp(model.lm_head.weight.T)
+    return p, model.cfg
+
+
+# ===================================================================
+# request / handle
+# ===================================================================
+@_shared_state("tokens", "streamed", "owner", "requeues", "t_first")
+class _GenRequest:
+    __slots__ = ("prompt", "max_new", "eos", "future", "stream",
+                 "deadline", "t_enqueue", "t_enq_ns", "ctx", "requeues",
+                 "tokens", "streamed", "owner", "t_first")
+
+    def __init__(self, prompt: np.ndarray, max_new: int,
+                 eos: Optional[int], deadline: Optional[float]):
+        self.prompt = prompt                  # np.int64 [P]
+        self.max_new = int(max_new)
+        self.eos = eos
+        self.future = Future()
+        self.stream: Queue = Queue()
+        self.deadline = deadline
+        self.t_enqueue = time.monotonic()
+        self.t_enq_ns = time.perf_counter_ns()
+        self.ctx = None
+        self.requeues = 0
+        self.tokens: List[int] = []   # regenerated from scratch on requeue
+        self.streamed = 0             # tokens already delivered downstream
+        self.owner = None             # (rid, generation) while in a slot
+        self.t_first: Optional[float] = None
+
+
+class GenerateHandle:
+    """Client handle for one generation: iterate tokens as they stream,
+    or block on `result()` for the whole thing. Events on the stream
+    queue are ('tok', id) / ('done', info) / ('err', exc)."""
+
+    def __init__(self, req: _GenRequest):
+        self._req = req
+        self.future = req.future
+
+    def __iter__(self):
+        for kind, val in self.events():
+            if kind == "tok":
+                yield int(val)
+
+    def events(self):
+        """Raw event stream: ('tok', id)*, then ('done', info); an
+        ('err', exc) event raises."""
+        while True:
+            kind, val = self._req.stream.get()
+            if kind == "err":
+                raise val
+            yield kind, val
+            if kind == "done":
+                return
+
+    def result(self, timeout: Optional[float] = None) -> dict:
+        """{"tokens": [...], "n_tokens": int, "ttft_ms": float,
+        "finish_reason": "eos"|"length", ...}."""
+        return self.future.result(timeout)
+
+
+class _Row:
+    __slots__ = ("req", "slot", "length")
+
+    def __init__(self, req: _GenRequest, slot: int, length: int):
+        self.req = req
+        self.slot = slot
+        self.length = length   # cached positions; pending tok = tokens[-1]
+
+
+@_shared_state("free", "rows")
+class _PoolState:
+    """One worker's device state (the reference's per-class state, for
+    its one class): the pool buffer pair, the slot free list and the
+    live rows (the owning worker and the admit/finish/fail paths share
+    free and rows under the engine lock). A revived worker allocates a
+    fresh one."""
+
+    __slots__ = ("buf_k", "buf_v", "free", "rows")
+
+    def __init__(self, n_slots: int, buf_k, buf_v):
+        self.buf_k = buf_k
+        self.buf_v = buf_v
+        self.free: List[int] = list(range(n_slots))
+        self.rows: Dict[int, _Row] = {}
+
+
+# ===================================================================
+# metrics
+# ===================================================================
+@_shared_state("requests_total", "completed_total", "failed_total",
+               "shed_total", "rejected_total", "requeues_total",
+               "tokens_out_total", "prompt_tokens_total",
+               "prefills_total", "steps_total", "step_rows_total",
+               "step_padded_rows_total", "occupancy_hist", "_ttft",
+               "_latency", "_token_stamps", "_step_s", "_prefill_s")
+class GenerativeMetrics:
+    """Thread-safe metric store for one GenerativeEngine: tokens/s,
+    TTFT, decode slot occupancy and KV-pool utilisation, the request
+    counters, and (the port's own) the host time of each decode step by
+    batch bucket and of each prefill by prompt bucket, from the call to
+    its tokens on the host."""
+
+    def __init__(self, ring: int = 4096, window_s: float = 30.0):
+        self._lock = threading.Lock()
+        self._t0 = time.monotonic()
+        self._window = float(window_s)
+        self.requests_total = 0
+        self.completed_total = 0
+        self.failed_total = 0
+        self.shed_total = 0
+        self.rejected_total: Dict[str, int] = {}
+        self.requeues_total = 0
+        self.tokens_out_total = 0
+        self.prompt_tokens_total = 0
+        self.prefills_total = 0
+        self.steps_total = 0
+        self.step_rows_total = 0          # real rows over all steps
+        self.step_padded_rows_total = 0   # pad rows added by batch bucket
+        self.occupancy_hist: Dict[int, int] = {}   # active rows -> steps
+        self._ttft = deque(maxlen=int(ring))       # seconds
+        self._latency = deque(maxlen=int(ring))    # request total seconds
+        self._token_stamps = deque(maxlen=65536)   # (monotonic, n)
+        self._step_s: Dict[int, deque] = {}        # batch bucket -> s
+        self._prefill_s: Dict[int, deque] = {}     # prompt bucket -> s
+        self._ring = int(ring)
+        self.queue_depth_fn = lambda: 0
+        self.replicas_fn = lambda: 0
+        self.kv_util_fn = lambda: {"slots_used": 0, "slots_total": 0,
+                                   "positions_used": 0,
+                                   "positions_total": 0}
+
+    # ------------------------------------------------------------ record --
+    def on_accept(self):
+        with self._lock:
+            self.requests_total += 1
+
+    def on_reject(self, reason: str):
+        with self._lock:
+            self.rejected_total[reason] = \
+                self.rejected_total.get(reason, 0) + 1
+
+    def on_shed(self):
+        with self._lock:
+            self.shed_total += 1
+
+    def on_failed(self, n: int = 1):
+        with self._lock:
+            self.failed_total += n
+
+    def on_requeue(self, n: int = 1):
+        with self._lock:
+            self.requeues_total += n
+
+    def on_prefill(self, prompt_tokens: int, bucket: int, seconds: float):
+        with self._lock:
+            self.prefills_total += 1
+            self.prompt_tokens_total += prompt_tokens
+            self._prefill_s.setdefault(
+                bucket, deque(maxlen=self._ring)).append(seconds)
+
+    def on_step(self, rows: int, bucket: int, seconds: float):
+        with self._lock:
+            self.steps_total += 1
+            self.step_rows_total += rows
+            self.step_padded_rows_total += max(bucket - rows, 0)
+            self.occupancy_hist[rows] = \
+                self.occupancy_hist.get(rows, 0) + 1
+            self._step_s.setdefault(
+                bucket, deque(maxlen=self._ring)).append(seconds)
+
+    def _evict_locked(self, now: float):
+        horizon = now - self._window
+        while self._token_stamps and self._token_stamps[0][0] < horizon:
+            self._token_stamps.popleft()
+
+    def on_tokens(self, n: int):
+        now = time.monotonic()
+        with self._lock:
+            self.tokens_out_total += n
+            self._evict_locked(now)
+            self._token_stamps.append((now, n))
+
+    def on_first_token(self, ttft_s: float):
+        with self._lock:
+            self._ttft.append(float(ttft_s))
+
+    def on_complete(self, latency_s: float):
+        with self._lock:
+            self.completed_total += 1
+            self._latency.append(float(latency_s))
+
+    # ------------------------------------------------------------- query --
+    _pcts = staticmethod(_sm.percentiles)
+
+    def latency_percentiles(self) -> Dict[str, float]:
+        with self._lock:
+            return self._pcts(self._latency)
+
+    def ttft_percentiles(self) -> Dict[str, float]:
+        with self._lock:
+            return self._pcts(self._ttft)
+
+    def step_ms(self) -> Dict[str, Dict[int, Dict[str, float]]]:
+        """{"decode": {batch bucket: stats}, "prefill": {prompt bucket:
+        stats}}, each stats {"n", "p50", "p99"} in ms."""
+        with self._lock:
+            out = {}
+            for name, src in (("decode", self._step_s),
+                              ("prefill", self._prefill_s)):
+                out[name] = {}
+                for b, vals in sorted(src.items()):
+                    pc = self._pcts(vals)
+                    out[name][b] = {"n": len(vals),
+                                    "p50": pc["p50"] * 1e3,
+                                    "p99": pc["p99"] * 1e3}
+            return out
+
+    def tokens_per_s(self) -> float:
+        now = time.monotonic()
+        with self._lock:
+            self._evict_locked(now)
+            n = sum(c for _, c in self._token_stamps)
+        window = min(self._window, max(now - self._t0, 1e-9))
+        return n / window
+
+    def max_occupancy(self) -> int:
+        with self._lock:
+            return max(self.occupancy_hist) if self.occupancy_hist else 0
+
+    def snapshot(self) -> dict:
+        ttft = self.ttft_percentiles()
+        lat = self.latency_percentiles()
+        # gauge callbacks before our lock: replicas_fn takes the engine
+        # lock, which the engine holds while calling into us
+        queue_depth = int(self.queue_depth_fn())
+        replicas = int(self.replicas_fn())
+        with self._lock:
+            occ_n = sum(k * v for k, v in self.occupancy_hist.items())
+            occ_d = sum(self.occupancy_hist.values())
+            out = {
+                "requests_total": self.requests_total,
+                "completed_total": self.completed_total,
+                "failed_total": self.failed_total,
+                "shed_total": self.shed_total,
+                "rejected_total": sum(self.rejected_total.values()),
+                "requeues_total": self.requeues_total,
+                "tokens_out_total": self.tokens_out_total,
+                "prompt_tokens_total": self.prompt_tokens_total,
+                "prefills_total": self.prefills_total,
+                "steps_total": self.steps_total,
+                "step_rows_total": self.step_rows_total,
+                "step_padded_rows_total": self.step_padded_rows_total,
+                "avg_slot_occupancy": round(occ_n / occ_d, 3)
+                if occ_d else 0.0,
+                "max_slot_occupancy": max(self.occupancy_hist)
+                if self.occupancy_hist else 0,
+                "occupancy_hist": dict(sorted(self.occupancy_hist.items())),
+                "queue_depth": queue_depth,
+                "replicas": replicas,
+            }
+        out["kv_pool"] = dict(self.kv_util_fn())
+        tot = out["kv_pool"].get("positions_total") or 0
+        used = out["kv_pool"].get("positions_used") or 0
+        out["kv_pool"]["utilization"] = round(used / tot, 4) if tot else 0.0
+        out["ttft_ms"] = {k: round(v * 1e3, 3) for k, v in ttft.items()}
+        out["latency_ms"] = {k: round(v * 1e3, 3) for k, v in lat.items()}
+        out["tokens_per_s"] = round(self.tokens_per_s(), 3)
+        out["step_ms"] = self.step_ms()
+        return out
+
+
+# ===================================================================
+# the engine
+# ===================================================================
+@_shared_state("_queue", "_workers", "_warmed", "_live_rows",
+               "_params_by_dev", "_closing", "_abort", "_shut",
+               "_next_rid", "_cold_calls")
+class GenerativeEngine:
+    """Continuous-batching greedy serving of a paddle_tpu_torch
+    GPTForCausalLM (its weights are copied out and stacked, see
+    stack_gpt_params). `slots` is the decode-batch capacity per worker;
+    prompts are padded to pow2 buckets from 8 to `max_context`. `device`
+    is where the replicas run: the card by default (raising without
+    one), "cpu" when the caller asks; a bare "cuda" spreads replicas over
+    every card.
+    """
+
+    def __init__(self, model, slots: Optional[int] = None,
+                 max_context: Optional[int] = None,
+                 replicas: int = 1,
+                 max_queue_depth: Optional[int] = None,
+                 max_new_tokens_cap: Optional[int] = None,
+                 auto_start: bool = True,
+                 draft=None, draft_params: Optional[tuple] = None,
+                 prefix_cache_slots: int = 0,
+                 kv_dtype: str = "f32",
+                 quantize_weights: bool = False,
+                 device=None):
+        if draft is not None or draft_params is not None:
+            raise _todo("speculative decoding (draft=)", _TODO_1D)
+        if int(prefix_cache_slots) > 0:
+            raise _todo("the prefix cache (prefix_cache_slots > 0)",
+                        _TODO_1D)
+        if kv_dtype == "int8":
+            raise _todo("the int8 KV pool (kv_dtype='int8')", _TODO_1D)
+        if kv_dtype != "f32":
+            raise ValueError(f"kv_dtype must be 'f32' (got {kv_dtype!r})")
+        if quantize_weights:
+            raise _todo("weight-only int8 (quantize_weights=True)",
+                        _TODO_1D)
+        self._device_pool = device_pool(resolve_device(device))
+        self._params, self._cfg = stack_gpt_params(model)
+        self._H = int(self._cfg.num_heads)
+        self._Dh = int(self._cfg.hidden_size) // self._H
+        self._L = int(self._cfg.num_layers)
+        self._eps = float(self._cfg.layer_norm_eps)
+        self._vocab = int(self._cfg.vocab_size)
+
+        self._slots = int(slots if slots is not None
+                          else flag("generate_slots"))
+        self._max_ctx = int(min(max_context or self._cfg.max_seq_len,
+                                self._cfg.max_seq_len))
+        self._prompt_boundaries = bucket_boundaries_pow2(
+            min(8, self._max_ctx), self._max_ctx)
+        self._batch_buckets = bucket_boundaries_pow2(1, self._slots)
+        self._max_queue_depth = int(
+            max_queue_depth if max_queue_depth is not None
+            else flag("serving_max_queue_depth"))
+        self._max_new_cap = int(
+            max_new_tokens_cap if max_new_tokens_cap is not None
+            else flag("generate_max_new_tokens"))
+
+        self._cv = threading.Condition()
+        self._queue: "deque[_GenRequest]" = deque()
+        # rid -> {slot: cached positions}: the lock-protected mirror of
+        # each worker's row table, for the KV-utilisation gauge
+        self._live_rows: Dict[int, Dict[int, int]] = {}
+        self._closing = False
+        self._abort = False
+        self._shut = False
+        self._next_rid = 0
+        self._params_by_dev: dict = {}
+        self._warmed: set = set()     # (device_key, kind, bucket)
+        # calls after admission of a program not yet run on its device
+        self._cold_calls = 0
+        self._workers: List[ReplicaSlot] = []
+
+        self.metrics = GenerativeMetrics()
+        # approximate gauge: a GIL-atomic len, so a scrape never contends
+        self.metrics.queue_depth_fn = lambda: len(self._queue)
+        self.metrics.replicas_fn = lambda: len(self._active())
+        self.metrics.kv_util_fn = self._kv_utilization
+
+        for _ in range(max(int(replicas), 1)):
+            self._workers.append(self._new_worker())
+        self.warm_up()
+        self._started = False
+        if auto_start:
+            self.start()
+
+    def _params_for(self, device):
+        """The stacked parameters on `device`, copied there on first use
+        (in the warm-up, before any worker on it admits a request)."""
+        key = self._device_key(device)
+        with self._cv:
+            p = self._params_by_dev.get(key)
+            if p is None:
+                p = {k: v.to(device) for k, v in self._params.items()}
+                self._params_by_dev[key] = p
+        return p
+
+    def _alloc_pool(self, device) -> _PoolState:
+        # rows: [0, slots) live, [slots] scratch (pad/overflow sink)
+        return _PoolState(self._slots, _kvq.alloc(self._pool_shape(), device),
+                          _kvq.alloc(self._pool_shape(), device))
+
+    def _pool_shape(self) -> tuple:
+        return (self._slots + 1, self._L, self._max_ctx, self._H, self._Dh)
+
+    def kv_pool_bytes(self) -> int:
+        """Bytes ONE worker's KV pool allocates (K and V, the scratch row
+        included)."""
+        return 2 * _kvq.pool_nbytes(self._pool_shape())
+
+    def program_report(self) -> dict:
+        """The program inventory: one prefill per prompt bucket and one
+        decode step per batch bucket, how many (device, program) pairs
+        ran, and how many calls after admission found their program not
+        yet run on its device."""
+        with self._cv:
+            warmed = len(self._warmed)
+            cold = self._cold_calls
+        return {
+            "prefill_buckets": list(self._prompt_boundaries),
+            "decode_batch_buckets": list(self._batch_buckets),
+            "max_context": self._max_ctx,
+            "kv_dtype": "f32",
+            "programs": [f"prefill[b={s}]" for s in self._prompt_boundaries]
+            + [f"decode[b={b}]" for b in self._batch_buckets],
+            "warmed": warmed,
+            "first_calls_after_warmup": cold,
+        }
+
+    # ----------------------------------------------------------- workers --
+    def _new_worker(self, device=None) -> ReplicaSlot:
+        if device is None:
+            device = pick_least_loaded_device(self._device_pool,
+                                              self._workers)
+        w = ReplicaSlot(self._next_rid, device)
+        self._next_rid += 1
+        return w
+
+    def _active(self) -> List[ReplicaSlot]:
+        with self._cv:
+            return [w for w in self._workers if w.state == "active"]
+
+    def _device_key(self, device) -> int:
+        for i, d in enumerate(self._device_pool):
+            if d == torch.device(device):
+                return i
+        return -1
+
+    def replica_states(self) -> List[dict]:
+        now = time.monotonic()
+        with self._cv:
+            return [w.state_row(now) for w in self._workers]
+
+    def _kv_utilization(self) -> dict:
+        """Pool gauge across workers: live slots and positions over the
+        pool every started worker allocates."""
+        with self._cv:
+            pools = sum(1 for w in self._workers
+                        if w.state in ("active", "draining"))
+            snap = [dict(rows) for rows in self._live_rows.values()]
+        slots_used = positions_used = 0
+        for rows in snap:
+            slots_used += len(rows)
+            positions_used += sum(rows.values())
+        return {"slots_used": slots_used,
+                "slots_total": pools * self._slots,
+                "positions_used": positions_used,
+                "positions_total": pools * self._slots * self._max_ctx,
+                "pool_bytes": pools * self.kv_pool_bytes()}
+
+    # --------------------------------------------------------- elasticity --
+    def add_replica(self, device=None) -> dict:
+        """Grow the worker pool at run time; the new worker runs every
+        program on its device before it is admitted."""
+        _chaos.hit("scale.add")
+        if device is not None:
+            device = torch.device(device)
+            k = self._device_key(device)
+            if k < 0:
+                self._device_pool.append(device)
+            else:
+                device = self._device_pool[k]
+        with self._cv:
+            if self._closing:
+                raise ServingError(503, "server shutting down",
+                                   retry_after=_RETRY_AFTER_S)
+            w = self._new_worker(device)
+            self._workers.append(w)
+        t0 = time.perf_counter()
+        try:
+            warmed = self._warm_device(w.device)
+            started = self._started
+            if started:
+                self._start_worker(w)
+        except Exception:
+            with self._cv:
+                if w in self._workers:
+                    self._workers.remove(w)
+            raise
+        with self._cv:
+            w.state = "active"
+            self._cv.notify_all()
+        return {"rid": w.rid, "device": str(w.device),
+                "warmed_programs": warmed,
+                "warm_time_s": round(time.perf_counter() - t0, 3),
+                "admitted_after_warmup": True, "worker_started": started}
+
+    def remove_replica(self, rid: Optional[int] = None, drain: bool = True,
+                       timeout: float = 60.0) -> dict:
+        """Retire one worker. drain=True: it stops admitting, its
+        in-flight sequences run to completion, then it exits. drain=
+        False: it is superseded and its in-flight requests requeue onto
+        the other workers (they re-prefill; tokens already streamed are
+        not emitted again)."""
+        _chaos.hit("scale.drain", rid=rid if rid is not None else -1)
+        with self._cv:
+            target = None
+            if rid is None:
+                actives = [w for w in self._workers
+                           if w.state == "active"]
+                target = actives[-1] if actives else None
+            else:
+                for w in self._workers:
+                    if w.rid == rid and w.state in ("active", "draining"):
+                        target = w
+            if target is None:
+                raise ValueError(f"no removable worker (rid={rid})")
+            n_active = sum(1 for w in self._workers
+                           if w.state == "active")
+            if n_active <= 1 and target.state == "active":
+                raise ValueError(
+                    "cannot remove the last active worker — the queue "
+                    "would starve; add a replacement first")
+            target.state = "draining"
+            self._cv.notify_all()
+        if drain:
+            with self._cv:
+                self._cv.wait_for(
+                    lambda: target.state == "retired", timeout)
+                drained = target.state == "retired"
+        else:
+            self._supersede(target, retire=True)
+            drained = False
+        with self._cv:
+            return {"rid": target.rid, "drained": drained,
+                    "state": target.state}
+
+    def revive_replica(self, rid: int) -> dict:
+        """Replace a (presumed hung) worker's thread in place: the fresh
+        generation gets fresh pool buffers and the stuck in-flight
+        requests requeue for re-prefill."""
+        with self._cv:
+            target = None
+            for w in self._workers:
+                if w.rid == rid and w.state in ("active", "draining"):
+                    target = w
+            if target is None:
+                raise ValueError(f"no live worker rid={rid}")
+        self._supersede(target, retire=False)
+        with self._cv:
+            return {"rid": rid, "generation": target.generation}
+
+    def _supersede(self, w: ReplicaSlot, retire: bool) -> None:
+        with self._cv:
+            w.generation += 1
+            gen = w.generation
+            stuck = list(w.inflight)
+            w.inflight = []
+            w.busy_since = None
+            self._live_rows.pop(w.rid, None)
+            for req in stuck:
+                req.owner = None
+            if retire:
+                w.state = "retired"
+                self._cv.notify_all()
+        self._requeue(stuck)
+        if not retire:
+            with self._cv:
+                w.last_beat = time.monotonic()
+            self._start_worker(w, gen)
+
+    def _requeue(self, reqs: List[_GenRequest], charge: bool = True) -> None:
+        """Put incomplete requests back at the front of the queue for
+        re-prefill. One charged requeue per request (a second one 503s,
+        so bouncing between sick workers cannot mask an outage); the
+        regenerated stream is suppressed up to `streamed`."""
+        if not reqs:
+            return
+        failed = 0
+        with self._cv:
+            dead = self._shut or not any(
+                w.state in ("warming", "active") for w in self._workers)
+            for req in reversed(reqs):
+                if req.future.done():
+                    continue
+                if (charge and req.requeues >= 1) or dead:
+                    msg = ("server shutting down while generation was in "
+                           "flight" if dead else
+                           "worker replaced twice while generation was "
+                           "in flight")
+                    err = ServingError(503, msg,
+                                       retry_after=self._retry_after())
+                    if req.future.set_error(err):
+                        req.stream.put(("err", err))
+                        failed += 1
+                    continue
+                if charge:
+                    req.requeues += 1
+                    self.metrics.on_requeue()
+                req.owner = None
+                req.tokens = []   # regenerate; stream dedupes on streamed
+                self._queue.appendleft(req)
+            self._cv.notify_all()
+        if failed:
+            self.metrics.on_failed(failed)
+
+    # ------------------------------------------------------------ warmup --
+    def _device_ctx(self, device):
+        device = torch.device(device)
+        return torch.cuda.device(device) if device.type == "cuda" \
+            else nullcontext()
+
+    def _warm_device(self, device) -> int:
+        """Run the whole program inventory once on `device`: every
+        prompt-bucket prefill and every batch-bucket decode step, on a
+        pool of its own, through the scratch row."""
+        p = self._params_for(device)
+        devk = self._device_key(device)
+        scratch = self._slots
+        n = 0
+        with torch.inference_mode(), self._device_ctx(device):
+            pool = self._alloc_pool(device)
+            for s in self._prompt_boundaries:
+                tok, _, _ = _prefill_body(
+                    p, pool.buf_k, pool.buf_v, scratch,
+                    torch.zeros(1, s, dtype=torch.int64, device=device), 1,
+                    self._H, self._eps)
+                int(tok)
+                with self._cv:
+                    self._warmed.add((devk, "prefill", s))
+                n += 1
+            for b in self._batch_buckets:
+                nxt, _, _ = _decode_body(
+                    p, pool.buf_k, pool.buf_v,
+                    torch.full((b,), scratch, dtype=torch.int64,
+                               device=device),
+                    torch.zeros(b, dtype=torch.int64, device=device),
+                    torch.zeros(b, dtype=torch.int64, device=device),
+                    scratch, self._H, self._eps)
+                nxt.cpu()
+                with self._cv:
+                    self._warmed.add((devk, "decode", b))
+                n += 1
+            del pool
+        return n
+
+    def warm_up(self) -> None:
+        t0 = time.perf_counter()
+        n = 0
+        with self._cv:
+            warming_devices = [w.device for w in self._workers
+                               if w.state == "warming"]
+        done_devices = set()
+        for device in warming_devices:
+            devk = self._device_key(device)
+            if devk not in done_devices:
+                n += self._warm_device(device)
+                done_devices.add(devk)
+        with self._cv:
+            for w in self._workers:
+                if w.state == "warming":
+                    w.state = "active"
+            self._cv.notify_all()
+            warmed_count = len(self._warmed)
+            n_workers = len(self._workers)
+        self.warmup_report = {
+            "time_s": round(time.perf_counter() - t0, 3),
+            "programs": warmed_count,
+            "warm_passes": n,
+            "replicas": n_workers,
+            "prefill_buckets": list(self._prompt_boundaries),
+            "decode_batch_buckets": list(self._batch_buckets),
+            "max_context": self._max_ctx,
+            "kv_pool_bytes": self.kv_pool_bytes(),
+        }
+
+    # --------------------------------------------------------- lifecycle --
+    def start(self) -> None:
+        if self._started:
+            return
+        self._started = True
+        with self._cv:
+            cold = [w for w in self._workers if w.thread is None]
+        for w in cold:
+            self._start_worker(w)
+
+    def _start_worker(self, w: ReplicaSlot,
+                      gen: Optional[int] = None) -> None:
+        with self._cv:
+            if gen is None:
+                gen = w.generation
+            t = threading.Thread(target=self._worker_loop, args=(w, gen),
+                                 name=f"generate-worker-{w.rid}",
+                                 daemon=True)
+            w.thread = t
+        t.start()
+
+    def shutdown(self, drain: bool = True, timeout: float = 60.0,
+                 migrate: bool = False) -> None:
+        """Stop the engine. drain=True finishes in-flight work first;
+        drain=False fails the queued requests with 503 and requeues (and
+        so fails) the in-flight ones. migrate=True (exporting in-flight
+        streams) is ROADMAP item 1e."""
+        if migrate:
+            raise _todo("stream migration (shutdown(migrate=True))",
+                        _TODO_1E)
+        with self._cv:
+            if self._shut:
+                return
+            self._shut = True
+            self._closing = True
+            if not drain:
+                self._abort = True
+                while self._queue:
+                    r = self._queue.popleft()
+                    err = ServingError(503, "server shutting down",
+                                       retry_after=_RETRY_AFTER_S)
+                    if r.future.set_error(err):
+                        r.stream.put(("err", err))
+            self._cv.notify_all()
+        if not self._started:
+            self.start()
+        with self._cv:
+            threads = [w.thread for w in self._workers if w.thread]
+        for t in threads:
+            t.join(timeout)
+        # stragglers that raced the last worker's exit
+        with self._cv:
+            stranded = list(self._queue)
+            self._queue.clear()
+        n = 0
+        for r in stranded:
+            err = ServingError(503, "server shutting down",
+                               retry_after=_RETRY_AFTER_S)
+            if r.future.set_error(err):
+                r.stream.put(("err", err))
+                n += 1
+        if n:
+            self.metrics.on_failed(n)
+
+    def health(self) -> dict:
+        with self._cv:
+            states = [w.state for w in self._workers]
+            return {
+                "status": "draining" if self._closing else "ok",
+                "replicas": states.count("active"),
+                "replica_states": {s: states.count(s)
+                                   for s in set(states)},
+                "queue_depth": len(self._queue),
+                "prefill_buckets": list(self._prompt_boundaries),
+                "decode_batch_buckets": list(self._batch_buckets),
+                "max_context": self._max_ctx,
+                "kv_dtype": "f32",
+                "warmed_programs": len(self._warmed),
+            }
+
+    def load_report(self) -> dict:
+        """Few-field load digest: queue depth, replicas, tokens/s, and
+        the free and total KV slots, from the lock-protected host-side
+        mirrors (no device sync)."""
+        util = self._kv_utilization()
+        with self._cv:
+            depth = len(self._queue)
+            replicas = sum(1 for w in self._workers
+                           if w.state == "active")
+            draining = self._closing
+        return {
+            "queue_depth": depth,
+            "replicas": replicas,
+            "tokens_per_s": round(self.metrics.tokens_per_s(), 3),
+            "kv_slots_used": util["slots_used"],
+            "kv_slots_free": max(util["slots_total"] - util["slots_used"],
+                                 0),
+            "status": "draining" if draining else "ok",
+        }
+
+    def import_handoff(self, raw: bytes) -> GenerateHandle:
+        """Admit a KV slot exported by another host: ROADMAP item 1e."""
+        raise _todo("the KV handoff (import_handoff)", _TODO_1E)
+
+    # ------------------------------------------------------------ submit --
+    def _retry_after(self) -> float:
+        depth = len(self._queue)
+        tps = self.metrics.tokens_per_s()
+        if depth <= 0 or tps <= 0.0:
+            return _RETRY_AFTER_S
+        # rough drain estimate: backlog * expected tokens per request
+        per_req = max(self.metrics.tokens_out_total /
+                      max(self.metrics.completed_total, 1), 1.0)
+        est = depth * per_req / tps
+        return min(max(est, _RETRY_AFTER_S), _RETRY_AFTER_MAX_S)
+
+    def _decode_request(self, input_ids, max_new_tokens, eos_token_id,
+                        deadline_ms, temperature=None, top_k=None,
+                        top_p=None, seed=None) -> _GenRequest:
+        try:
+            samp = validate_sampling({"temperature": temperature,
+                                      "top_k": top_k, "top_p": top_p,
+                                      "seed": seed})
+        except ServingError:
+            self.metrics.on_reject("sampling")
+            raise
+        if (samp["temperature"] or 0.0) > 0.0 or samp["top_k"] is not None \
+                or samp["top_p"] is not None:
+            raise _todo("sampling (temperature > 0, top_k, top_p)",
+                        _TODO_1C)
+        try:
+            prompt = np.asarray(input_ids)
+            if prompt.ndim == 2 and prompt.shape[0] == 1:
+                prompt = prompt[0]
+            prompt = prompt.astype(np.int64, casting="same_kind")
+        except (TypeError, ValueError) as e:
+            self.metrics.on_reject("decode")
+            raise ServingError(400, f"bad input_ids: {e}") from None
+        if prompt.ndim != 1 or prompt.size < 1:
+            self.metrics.on_reject("shape")
+            raise ServingError(
+                400, f"input_ids must be a non-empty 1-D id sequence "
+                     f"(got shape {tuple(prompt.shape)})")
+        if int(prompt.min()) < 0 or int(prompt.max()) >= self._vocab:
+            self.metrics.on_reject("vocab")
+            raise ServingError(
+                400, f"input_ids out of range [0, {self._vocab})")
+        P = int(prompt.size)
+        cap = self._max_ctx
+        if P > cap - 1:
+            self.metrics.on_reject("too_long")
+            raise ServingError(
+                400, f"prompt length {P} exceeds the usable context "
+                     f"{cap - 1} (KV slot {cap} minus one generated "
+                     f"token)")
+        try:
+            want = int(max_new_tokens) if max_new_tokens is not None \
+                else self._max_new_cap
+            eos = None if eos_token_id is None else int(eos_token_id)
+            dl_s = float(deadline_ms) / 1e3 \
+                if deadline_ms is not None and float(deadline_ms) > 0 \
+                else None
+        except (TypeError, ValueError) as e:
+            self.metrics.on_reject("decode")
+            raise ServingError(
+                400, f"bad generation parameters: {e}") from None
+        if want < 1:
+            self.metrics.on_reject("decode")
+            raise ServingError(
+                400, f"max_new_tokens must be >= 1 (got {want})")
+        max_new = max(1, min(want, self._max_new_cap, cap - P))
+        deadline = time.monotonic() + dl_s if dl_s is not None else None
+        return _GenRequest(np.ascontiguousarray(prompt), max_new, eos,
+                           deadline)
+
+    def _shed_check_locked(self, bound: int) -> None:
+        if self._closing:
+            raise ServingError(503, "server shutting down",
+                               retry_after=_RETRY_AFTER_S)
+        if len(self._queue) >= bound:
+            self.metrics.on_shed()
+            raise ServingError(
+                503, f"generation queue depth {len(self._queue)} at "
+                     f"bound {bound} — load shed",
+                retry_after=self._retry_after())
+
+    def submit(self, input_ids, max_new_tokens: Optional[int] = None,
+               eos_token_id: Optional[int] = None,
+               deadline_ms: Optional[float] = None,
+               temperature: Optional[float] = None,
+               top_k: Optional[int] = None,
+               top_p: Optional[float] = None,
+               seed: Optional[int] = None,
+               prefill_only: bool = False,
+               resume_from: int = 0) -> GenerateHandle:
+        """Enqueue one generation; returns its streaming handle. Raises
+        ServingError for decode rejects (400) and load shedding (503).
+        prefill_only and resume_from (the KV handoff) are ROADMAP item
+        1e."""
+        if prefill_only or resume_from:
+            raise _todo("the KV handoff (prefill_only, resume_from)",
+                        _TODO_1E)
+        bound = self._max_queue_depth
+        # lock-free fast path (a GIL-atomic len); re-checked under _cv
+        if self._closing or len(self._queue) >= bound:
+            with self._cv:
+                self._shed_check_locked(bound)
+        with _tr.span("generate.enqueue", "serving") as sp:
+            req = self._decode_request(input_ids, max_new_tokens,
+                                       eos_token_id, deadline_ms,
+                                       temperature, top_k, top_p, seed)
+            req.ctx = sp.ctx
+            sp.set(prompt_tokens=int(req.prompt.size),
+                   max_new=req.max_new)
+            with self._cv:
+                self._shed_check_locked(bound)
+                self._queue.append(req)
+                self.metrics.on_accept()
+                self._cv.notify_all()
+        return GenerateHandle(req)
+
+    def generate(self, input_ids, max_new_tokens: Optional[int] = None,
+                 eos_token_id: Optional[int] = None,
+                 deadline_ms: Optional[float] = None,
+                 timeout: Optional[float] = 120.0,
+                 temperature: Optional[float] = None,
+                 top_k: Optional[int] = None,
+                 top_p: Optional[float] = None,
+                 seed: Optional[int] = None) -> dict:
+        """Synchronous submit + wait; returns the result dict."""
+        return self.submit(input_ids, max_new_tokens, eos_token_id,
+                           deadline_ms, temperature, top_k, top_p,
+                           seed).result(timeout)
+
+    def stream(self, input_ids, max_new_tokens: Optional[int] = None,
+               eos_token_id: Optional[int] = None,
+               deadline_ms: Optional[float] = None,
+               temperature: Optional[float] = None,
+               top_k: Optional[int] = None,
+               top_p: Optional[float] = None,
+               seed: Optional[int] = None):
+        """Submit and iterate tokens as they are generated."""
+        return iter(self.submit(input_ids, max_new_tokens, eos_token_id,
+                                deadline_ms, temperature, top_k, top_p,
+                                seed))
+
+    # ---------------------------------------------------------- scheduler --
+    def _admit_locked(self, w: ReplicaSlot, gen: int,
+                      pool: _PoolState) -> List[tuple]:
+        """Pop queued requests into free slots, in order (caller holds
+        _cv). Expired requests 503 out; owner and slot markers are set
+        here so a supersede racing the prefill sees them and requeues."""
+        admitted = []
+        now = time.monotonic()
+        while self._queue and pool.free:
+            req = self._queue.popleft()
+            if req.deadline is not None and now > req.deadline and \
+                    req.streamed == 0:
+                err = ServingError(503, "deadline exceeded while queued",
+                                   retry_after=_RETRY_AFTER_S)
+                if req.future.set_error(err):
+                    req.stream.put(("err", err))
+                    self.metrics.on_failed(1)
+                continue
+            slot = pool.free.pop()
+            req.owner = (w.rid, gen)
+            w.inflight.append(req)
+            self._live_rows.setdefault(w.rid, {})[slot] = \
+                int(req.prompt.size)
+            admitted.append((req, slot))
+        return admitted
+
+    def _emit(self, w: ReplicaSlot, gen: int, req: _GenRequest,
+              tok: int) -> str:
+        """Record one generated token under the lock, owner-checked (a
+        zombie that unwedges after a revive must not touch the stream
+        its replacement now owns). Returns 'dead' | 'live' | 'done'."""
+        with self._cv:
+            if w.generation != gen or req.owner != (w.rid, gen) or \
+                    req.future.done():
+                return "dead"
+            req.tokens.append(int(tok))
+            fresh = len(req.tokens) > req.streamed
+            if fresh:
+                req.streamed = len(req.tokens)
+                if req.t_first is None:
+                    req.t_first = time.monotonic()
+                    self.metrics.on_first_token(
+                        req.t_first - req.t_enqueue)
+                req.stream.put(("tok", int(tok)))
+        if fresh:
+            self.metrics.on_tokens(1)
+            if _tr.enabled():
+                now_ns = time.perf_counter_ns()
+                _tr.emit_span("generate.token", now_ns, now_ns,
+                              parent=req.ctx, cat="serving",
+                              args={"index": len(req.tokens),
+                                    "token": int(tok)})
+        done = (len(req.tokens) >= req.max_new or
+                (req.eos is not None and int(tok) == req.eos))
+        return "done" if done else "live"
+
+    def _finish(self, w: ReplicaSlot, gen: int, pool: _PoolState,
+                slot: int, req: _GenRequest, reason: str) -> None:
+        done = time.monotonic()
+        with self._cv:
+            pool.rows.pop(slot, None)
+            pool.free.append(slot)
+            rows = self._live_rows.get(w.rid)
+            if rows is not None:
+                rows.pop(slot, None)
+            if req in w.inflight:
+                w.inflight.remove(req)
+            req.owner = None
+        info = {
+            "tokens": list(req.tokens),
+            "n_tokens": len(req.tokens),
+            "prompt_tokens": int(req.prompt.size),
+            "finish_reason": reason,
+            "ttft_ms": round((req.t_first - req.t_enqueue) * 1e3, 3)
+            if req.t_first is not None else None,
+            "latency_ms": round((done - req.t_enqueue) * 1e3, 3),
+            "requeues": req.requeues,
+        }
+        if req.future.set_result(info):
+            self.metrics.on_complete(done - req.t_enqueue)
+            req.stream.put(("done", info))
+        if _tr.enabled():
+            _tr.emit_span("generate.finish", req.t_enq_ns,
+                          time.perf_counter_ns(), parent=req.ctx,
+                          cat="serving",
+                          args={"n_tokens": len(req.tokens),
+                                "reason": reason})
+
+    def _fail_rows(self, w: ReplicaSlot, gen: int,
+                   pool: _PoolState) -> None:
+        """A failure mid-step: every in-flight row of this worker
+        requeues (one charged strike each; a second strike 503s) onto
+        fresh buffers: re-prefill is the recovery, and the new pool
+        cannot leak a poisoned slot into the next batch."""
+        with self._cv:
+            stuck = list(w.inflight)
+            w.inflight = []
+            for req in stuck:
+                req.owner = None
+            pool.rows.clear()
+            pool.free = list(range(self._slots))
+            self._live_rows.pop(w.rid, None)
+        pool.buf_k = pool.buf_v = None       # free the old pool first
+        pool.buf_k = _kvq.alloc(self._pool_shape(), w.device)
+        pool.buf_v = _kvq.alloc(self._pool_shape(), w.device)
+        self._requeue(stuck)
+
+    def _update_liveness_locked(self, w, pool):
+        rows = self._live_rows.setdefault(w.rid, {})
+        rows.clear()
+        for slot, row in pool.rows.items():
+            rows[slot] = row.length
+
+    def _begin_call_locked(self, w: ReplicaSlot, gen: int,
+                           key: tuple) -> bool:
+        """Mark the worker busy for one program call (caller holds _cv);
+        count the call if its program has not run on this device.
+        False when the worker was superseded."""
+        if w.generation != gen:
+            return False
+        w.busy_since = time.monotonic()
+        self._cold_calls += int(key not in self._warmed)
+        return True
+
+    def _end_call(self, w: ReplicaSlot, gen: int, key: tuple) -> None:
+        with self._cv:
+            if w.generation == gen:
+                w.busy_since = None
+            if key[1] == "decode":
+                w.batches += 1
+            self._warmed.add(key)
+
+    def _prefill_one(self, w: ReplicaSlot, gen: int, pool: _PoolState,
+                     slot: int, req: _GenRequest) -> None:
+        P = int(req.prompt.size)
+        S = bucket_for(P, self._prompt_boundaries)
+        key = (self._device_key(w.device), "prefill", S)
+        args = None
+        if _tr.enabled():
+            args = {"replica": w.rid, "bucket": S, "prompt_tokens": P}
+        with self._cv:
+            if not self._begin_call_locked(w, gen, key):
+                return
+        t0 = time.perf_counter()
+        try:
+            with _tr.span("generate.prefill", "serving", args,
+                          parent=req.ctx):
+                ids = np.zeros((1, S), np.int64)
+                ids[0, :P] = req.prompt
+                tok, pool.buf_k, pool.buf_v = _prefill_body(
+                    self._params_for(w.device), pool.buf_k, pool.buf_v,
+                    slot, torch.from_numpy(ids).to(w.device), P, self._H,
+                    self._eps)
+                tok = int(tok)
+        finally:
+            self._end_call(w, gen, key)
+        self.metrics.on_prefill(P, S, time.perf_counter() - t0)
+        status = self._emit(w, gen, req, tok)
+        if status == "dead":
+            return
+        with self._cv:
+            if w.generation != gen:
+                return
+            pool.rows[slot] = _Row(req, slot, P)
+            self._update_liveness_locked(w, pool)
+        if status == "done":
+            self._finish(w, gen, pool, slot, req, "eos"
+                         if req.eos is not None and tok == req.eos
+                         else "length")
+
+    def _decode_step(self, w: ReplicaSlot, gen: int,
+                     pool: _PoolState) -> None:
+        with self._cv:
+            if w.generation != gen:
+                return
+            rows = [pool.rows[s] for s in sorted(pool.rows)]
+        if not rows:
+            return
+        n = len(rows)
+        bucket = bucket_for(n, self._batch_buckets)
+        scratch = self._slots    # the +1 row: padding lands there
+        slots = np.full((bucket,), scratch, np.int64)
+        toks = np.zeros((bucket,), np.int64)
+        lens = np.zeros((bucket,), np.int64)
+        for i, row in enumerate(rows):
+            slots[i] = row.slot
+            toks[i] = row.req.tokens[-1]
+            lens[i] = row.length
+        key = (self._device_key(w.device), "decode", bucket)
+        args = None
+        if _tr.enabled():
+            args = {"replica": w.rid, "rows": n, "bucket": bucket,
+                    "traces": [r.req.ctx.trace_id for r in rows
+                               if r.req.ctx is not None]}
+        with self._cv:
+            if not self._begin_call_locked(w, gen, key):
+                return
+        t0 = time.perf_counter()
+        try:
+            # hang/raise injection: a `delay` rule wedges this worker
+            # mid-decode as a stuck device would, a `raise` rule takes
+            # the requeue ladder; the context scopes a rule to one worker
+            # incarnation
+            _chaos.hit("serving.decode_step", replica=w.rid,
+                       generation=gen)
+            with _tr.span("generate.decode_step", "serving", args,
+                          parent=rows[0].req.ctx):
+                dev = w.device
+                nxt, pool.buf_k, pool.buf_v = _decode_body(
+                    self._params_for(dev), pool.buf_k, pool.buf_v,
+                    torch.from_numpy(slots).to(dev),
+                    torch.from_numpy(toks).to(dev),
+                    torch.from_numpy(lens).to(dev), scratch, self._H,
+                    self._eps)
+                nxt = nxt.cpu().numpy()
+        finally:
+            self._end_call(w, gen, key)
+        self.metrics.on_step(n, bucket, time.perf_counter() - t0)
+        finished = []
+        with self._cv:
+            if w.generation != gen:
+                return
+            for row in rows:
+                row.length += 1
+            self._update_liveness_locked(w, pool)
+        for i, row in enumerate(rows):
+            status = self._emit(w, gen, row.req, int(nxt[i]))
+            if status == "dead":
+                return
+            if status == "done":
+                finished.append(row)
+        for row in finished:
+            self._finish(w, gen, pool, row.slot, row.req,
+                         "eos" if row.req.eos is not None and
+                         row.req.tokens[-1] == row.req.eos else "length")
+
+    def _worker_loop(self, w: ReplicaSlot, gen: int) -> None:
+        # grad mode is thread-local: the caller's no_grad or
+        # inference_mode does not reach this thread
+        with torch.inference_mode(), self._device_ctx(w.device):
+            self._serve(w, gen)
+
+    def _serve(self, w: ReplicaSlot, gen: int) -> None:
+        # per-generation device state: a revived worker starts from a
+        # fresh zeroed pool; the zombie's buffers die with its frame
+        pool = self._alloc_pool(w.device)
+        while True:
+            with self._cv:
+                if w.generation != gen:
+                    return
+                w.last_beat = time.monotonic()
+                admit_ok = w.state == "active" and not self._abort
+                admitted = self._admit_locked(w, gen, pool) \
+                    if admit_ok else []
+            try:
+                for req, slot in admitted:
+                    self._prefill_one(w, gen, pool, slot, req)
+                if not pool.rows:
+                    with self._cv:
+                        if w.generation != gen:
+                            return
+                        queue_live = bool(self._queue) and not self._abort
+                        if w.state in ("draining", "retired") or \
+                                (self._closing and not queue_live):
+                            w.state = "retired"
+                            self._cv.notify_all()
+                            return
+                        if not queue_live:
+                            self._cv.wait(0.05)
+                    continue
+                with self._cv:
+                    aborting = self._abort
+                if aborting:
+                    self._fail_rows(w, gen, pool)
+                    continue
+                self._decode_step(w, gen, pool)
+            except Exception:  # noqa: BLE001 — the worker thread must
+                # never die (its slots would leak and the queue would
+                # starve): requeue the in-flight sequences, keep serving
+                with self._cv:
+                    owned = w.generation == gen
+                if owned:
+                    self._fail_rows(w, gen, pool)
+
+
+__all__ = ["GenerativeEngine", "GenerateHandle", "GenerativeMetrics",
+           "stack_gpt_params"]

@@ -7,6 +7,10 @@ stores them (the reference stores [in, out]; framework_io converts).
 PyTorch runs eagerly, so the reference's scan-over-layers model has no
 counterpart here: its stacked parameters are unstacked by
 `framework_io.params_from_paddle_tpu`.
+
+`generate` is the reference's greedy decoding over a fixed-size KV cache:
+one prefill pass, then one cached step per token, every attention through
+`cached_attention` (plain einsum, as the reference's `_cached_attn_p`).
 """
 from __future__ import annotations
 
@@ -51,6 +55,39 @@ PRESETS = {
 }
 
 
+_NEG_INF = -1e30
+_SAMPLING_TODO = ("sampling (do_sample=True) is not ported yet: matching "
+                  "the reference token for token needs its threefry keys "
+                  "(ROADMAP module queue item 1c)")
+
+
+def cached_attention(q, k_new, v_new, k_buf, v_buf, pos: int):
+    """Attention over a fixed-size KV cache (the reference's
+    `_cached_attn_p`). q, k_new, v_new: [B, Ln, H, D]; k_buf, v_buf:
+    [B, max, H, D]; pos: the number of tokens already cached. Writes the
+    new K/V at [pos, pos+Ln) of the buffers, in place (a start past
+    max - Ln is clamped, as dynamic_update_slice clamps it), attends
+    causally over the valid prefix (masked logits -1e30) and returns
+    (out [B, Ln, H, D], k_buf, v_buf)."""
+    B, Ln, H, D = q.shape
+    maxlen = k_buf.shape[1]
+    start = min(max(int(pos), 0), maxlen - Ln)
+    k_buf[:, start:start + Ln] = k_new.to(k_buf.dtype)
+    v_buf[:, start:start + Ln] = v_new.to(v_buf.dtype)
+    dt = torch.promote_types(q.dtype, k_buf.dtype)
+    qh = q.transpose(1, 2).to(dt)                  # [B, H, Ln, D]
+    kh = k_buf.transpose(1, 2).to(dt)              # [B, H, max, D]
+    vh = v_buf.transpose(1, 2).to(dt)
+    s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) / math.sqrt(D)
+    kpos = torch.arange(maxlen, device=q.device)
+    qpos = int(pos) + torch.arange(Ln, device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]          # causal over the prefix
+    s = torch.where(mask[None, None], s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vh)
+    return out.transpose(1, 2), k_buf, v_buf
+
+
 class GPTAttention(nn.Module):
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
@@ -61,10 +98,17 @@ class GPTAttention(nn.Module):
         self.out_proj = nn.Linear(cfg.hidden_size, cfg.hidden_size,
                                   **factory)
 
-    def forward(self, x):
+    def forward(self, x, cache=None):
+        """`cache` ({"k", "v": [B, max, H, D] buffers, "pos": int}) takes
+        the cached path, which updates the buffers in place; without it
+        the training path's attention."""
         b, l, h = x.shape
         qkv = self.qkv_proj(x).view(b, l, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.unbind(2)
+        if cache is not None:
+            out, cache["k"], cache["v"] = cached_attention(
+                q, k, v, cache["k"], cache["v"], cache["pos"])
+            return self.out_proj(out.reshape(b, l, h))
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         return self.out_proj(out.reshape(b, l, h))
 
@@ -87,8 +131,8 @@ class GPTBlock(nn.Module):
         self.ln2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **factory)
         self.mlp = GPTMLP(cfg, **factory)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x))
+    def forward(self, x, cache=None):
+        x = x + self.attn(self.ln1(x), cache=cache)
         return x + self.mlp(self.ln2(x))
 
 
@@ -103,12 +147,16 @@ class GPTModel(nn.Module):
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                               **factory)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, caches=None, pos_offset: int = 0):
+        """`caches` (one per block, see GPTAttention.forward) and
+        `pos_offset` (the position of input_ids' first token) are the
+        cached path's."""
         l = input_ids.shape[1]
-        pos = torch.arange(l, device=input_ids.device)
+        pos = torch.arange(pos_offset, pos_offset + l,
+                           device=input_ids.device)
         x = self.wte(input_ids) + self.wpe(pos)[None]
-        for blk in self.blocks:
-            x = blk(x)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, cache=caches[i] if caches is not None else None)
         return self.ln_f(x)
 
 
@@ -152,5 +200,50 @@ class GPTForCausalLM(nn.Module):
                 else self.lm_head.weight)
 
     def forward(self, input_ids):
-        return torch.nn.functional.linear(self.hidden(input_ids),
-                                          self.head_weight())
+        return self._logits_from_hidden(self.hidden(input_ids))
+
+    def _logits_from_hidden(self, h):
+        return torch.nn.functional.linear(h, self.head_weight())
+
+    def generate(self, input_ids, max_new_tokens=32, do_sample=False,
+                 top_k=0, temperature=1.0, eos_token_id=None):
+        """Greedy decoding over a fixed-size KV cache: the whole prompt in
+        one prefill pass, then one cached step per token, until
+        max_new_tokens, the cache's end (min(max_seq_len, L +
+        max_new_tokens)) or, with `eos_token_id`, a step where every row
+        emits it. input_ids: [B, L] ids (a tensor, array or list; moved
+        to the model's device). Returns [B, L + n] int64 ids.
+        do_sample=True raises NotImplementedError (ROADMAP item 1c);
+        top_k only applies to sampling."""
+        if do_sample:
+            raise NotImplementedError(_SAMPLING_TODO)
+        dev = self.gpt.wte.weight.device
+        ids = torch.as_tensor(input_ids, device=dev).to(torch.int64)
+        B, L = ids.shape
+        maxlen = min(self.cfg.max_seq_len, L + max_new_tokens)
+        H = self.cfg.num_heads
+        D = self.cfg.hidden_size // H
+        with torch.inference_mode():
+            caches = [{"k": torch.zeros(B, maxlen, H, D, device=dev),
+                       "v": torch.zeros(B, maxlen, H, D, device=dev),
+                       "pos": 0} for _ in self.gpt.blocks]
+            # prefill the whole prompt in one pass
+            h = self.gpt(ids, caches=caches, pos_offset=0)
+            logits = self._logits_from_hidden(h[:, -1:])
+            out_ids = [ids]
+            cur_len = L
+            for _ in range(max_new_tokens):
+                if cur_len >= maxlen:
+                    break
+                step_logits = logits[:, -1] / max(temperature, 1e-6)
+                nxt = torch.argmax(step_logits, dim=-1).reshape(B, 1)
+                out_ids.append(nxt)
+                if eos_token_id is not None and bool(
+                        (nxt == eos_token_id).all()):
+                    break
+                for c in caches:
+                    c["pos"] = cur_len
+                h = self.gpt(nxt, caches=caches, pos_offset=cur_len)
+                logits = self._logits_from_hidden(h)
+                cur_len += 1
+            return torch.cat(out_ids, dim=1)

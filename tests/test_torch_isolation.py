@@ -19,13 +19,24 @@ SOURCES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "chip_order_checks.py"]
 MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.core.flags", "paddle_tpu_torch.framework_io",
+           "paddle_tpu_torch.inference",
+           "paddle_tpu_torch.inference.serving",
+           "paddle_tpu_torch.inference.serving.generate",
+           "paddle_tpu_torch.inference.serving.lifecycle",
+           "paddle_tpu_torch.inference.serving.metrics",
+           "paddle_tpu_torch.io.bucketing",
            "paddle_tpu_torch.jit", "paddle_tpu_torch.models",
            "paddle_tpu_torch.nn.functional",
            "paddle_tpu_torch.nn.functional_more",
            "paddle_tpu_torch.nn.norm",
            "paddle_tpu_torch.ops._build",
+           "paddle_tpu_torch.observability.exporter",
+           "paddle_tpu_torch.observability.trace",
            "paddle_tpu_torch.ops.flash_attention",
-           "paddle_tpu_torch.optimizer"]
+           "paddle_tpu_torch.optimizer",
+           "paddle_tpu_torch.quantization.kv",
+           "paddle_tpu_torch.testing.chaos",
+           "paddle_tpu_torch.testing.racecheck"]
 
 
 def _forbidden(name: str) -> bool:
