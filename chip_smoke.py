@@ -18,7 +18,13 @@ GenerativeEngine (8 slots, max_context 1024): 16 requests with prompts of
 16-512 tokens at once, then one alone, 64 greedy tokens each, checked
 against GPTForCausalLM.generate and for zero failures, requeues, sheds,
 first calls after warm-up and flash launches (the serving attention is
-einsum), with one decode step at batch 8 profiled.
+einsum), with one decode step at batch 8 profiled; then, on 8 of those
+prompts, seeded sampling (batched against one by one, another seed,
+temperature 0 and top_k=1 against greedy), the sampler alone (threefry
+bits on the card against the CPU's, 8192 draws against the filtered
+softmax), the prefix cache (8 prompts sharing a 256-token head), a
+gpt3-small draft and a self-draft, the int8 KV pool and weight-only int8,
+each engine of its own checked the same way.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
@@ -31,7 +37,9 @@ each kernel; the f32-storage forward, dQ and dK/dV as `name@float32`, the
 forward and dQ rows with the time of the split pass they run; the D = 256
 kernels as `name@D256` and `name@float32@D256`), a `serving` JSON line
 (warm-up, TTFT, tokens/s, decode step and prefill times by bucket, the
-profiled decode step, KV pool bytes, peak memory) and, as the last line,
+profiled decode step, KV pool bytes, peak memory; the sampling, sampler,
+prefix-cache, speculation and int8 checks with each engine's decode step
+at bucket 8) and, as the last line,
 {"ok": true, "device": {...}}. Any failed check exits non-zero without that
 line. With --compare, it only times every flash kernel of this checkout
 and of OTHER_CHECKOUT (another tree of the repo, e.g. the parent commit
@@ -175,6 +183,27 @@ D256_HEADS, D256_LAYERS, D256_STEPS = 8, 2, 3
 SERVING_SLOTS, SERVING_REQUESTS, SERVING_NEW = 8, 16, 64
 SERVING_PROMPT = (16, 512)
 SERVING_MARGIN = 1e-4
+# Beyond greedy, on the same weights: each check runs BEYOND_ROWS of the
+# burst's prompts (batch bucket 8) for BEYOND_NEW tokens. SAMPLE is the
+# reference serving tests' sampling set. Sampled tokens follow the greedy
+# rule on the logits they were drawn from (filtered, plus the step's
+# Gumbel noise): two paths may part first only where both margins are
+# under SERVING_MARGIN, or where the two passes keep different top-k/top-p
+# sets (a boundary case; counted).
+SAMPLE = {"temperature": 0.8, "top_k": 50, "top_p": 0.9, "seed": 42}
+BEYOND_ROWS, BEYOND_NEW = 8, 32
+# the sampler alone: SAMPLER_DRAWS draws on one row of logits, held to a
+# total-variation distance of SAMPLER_TV_FACTOR times the one expected
+# from the draw count alone
+SAMPLER_DRAWS, SAMPLER_TV_FACTOR = 8192, 3.0
+# the prefix cache: 8 prompts sharing a PREFIX_HEAD-token head, tails of
+# PREFIX_TAILS tokens, PREFIX_SLOTS cache rows
+PREFIX_HEAD, PREFIX_TAILS, PREFIX_SLOTS = 256, (16, 128), 4
+# speculation: a gpt3-small draft (its own seeded weights), SPEC_TOKENS
+# positions a burst; a self-draft must accept at least SELF_DRAFT_ACCEPT
+# of its proposals (draft decode and the verify pass round differently
+# only at near ties)
+SPEC_TOKENS, SELF_DRAFT_ACCEPT = 4, 0.9
 SEED = 0
 
 REF = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -838,11 +867,11 @@ def top2_margin(logits):
     return float(top[0] - top[1])
 
 
-def serving_margins(model, eng, prefix):
-    """The top-2 logit margin after `prefix` (1-D ids) on each greedy
-    path, each from its own full-prefix pass: GPTForCausalLM.generate's
-    prefill (the cached attention) and the engine's prefill body (its
-    own LayerNorm and attention, into a pool row of its own)."""
+def prefix_logits(model, eng, prefix):
+    """The logits after `prefix` (1-D ids) on each path, each from its
+    own full-prefix pass: GPTForCausalLM.generate's prefill (the cached
+    attention) and the engine's prefill body (its own LayerNorm and
+    attention, into a pool row of its own)."""
     import torch
 
     from paddle_tpu_torch.inference.serving import generate as gen
@@ -855,12 +884,92 @@ def serving_margins(model, eng, prefix):
                    "v": torch.zeros(1, P, H, Dh, device="cuda"), "pos": 0}
                   for _ in model.gpt.blocks]
         h = model.gpt(ids, caches=caches)
-        m_model = top2_margin(model._logits_from_hidden(h[0, -1]))
+        by_model = model._logits_from_hidden(h[0, -1])
         pool = torch.zeros(1, cfg.num_layers, P, H, Dh, device="cuda")
-        logits, _, _ = gen._prefill_core(
+        by_engine, _, _ = gen._prefill_core(
             eng._params_for(torch.device("cuda", 0)), pool, pool.clone(), 0,
             ids, P, H, cfg.layer_norm_eps)
-    return m_model, top2_margin(logits)
+    return by_model, by_engine
+
+
+def serving_margins(model, eng, prefix, sample=None, step=0):
+    """The top-2 margins of the logits the token after `prefix` is drawn
+    from, on each of prefix_logits' two passes: the logits themselves
+    (greedy), or with `sample` (a request's temperature, top_k, top_p and
+    seed) the filtered logits plus the Gumbel noise of the request's
+    `step`-th token. Returns (margins, whether the two passes keep the
+    same top-k/top-p set)."""
+    import torch
+
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.inference.serving import generate as gen
+
+    logits = prefix_logits(model, eng, prefix)
+    if sample is None:
+        return tuple(top2_margin(x) for x in logits), True
+    key = rng.key(sample["seed"])
+    for _ in range(step + 1):
+        key, sub = rng.split(key)
+    drawn, kept = [], []
+    for x in logits:
+        f = gen._filter_logits(x[None], torch.tensor([sample["temperature"]]),
+                               torch.tensor([sample["top_k"]]),
+                               torch.tensor([sample["top_p"]]))[0]
+        kept.append(f > -1e29)
+        drawn.append(f + rng.gumbel(sub[None].to(f.device),
+                                    (f.shape[-1],))[0])
+    return (tuple(top2_margin(x) for x in drawn),
+            bool(torch.equal(kept[0], kept[1])))
+
+
+def token_agreement(label, model, eng, prompt, got, ref, sample=None):
+    """Tokens `got` against `ref` after `prompt`: they may part first only
+    where both passes' top-2 margins (serving_margins) are under
+    SERVING_MARGIN, or where the passes keep different sampling sets.
+    Returns the row of the check."""
+    import numpy as np
+
+    j = next((k for k, (a, b) in enumerate(zip(ref, got)) if a != b), None)
+    row = {"prompt": len(prompt), "first_mismatch": j}
+    if j is None:
+        check(len(got) == len(ref), f"[{label}] {len(got)} tokens against "
+                                    f"{len(ref)}")
+        return row
+    margins, same_set = serving_margins(
+        model, eng, np.concatenate([prompt, got[:j]]), sample, j)
+    row.update(margins=margins, same_set=same_set)
+    log(f"[{label}] prompt {len(prompt)}: tokens part at step {j}; top-2 "
+        f"margins there {margins}, same sampling set {same_set}")
+    check(not same_set or max(margins) < SERVING_MARGIN,
+          f"[{label}] prompt {len(prompt)}: tokens part at step {j} with "
+          f"top-2 margins {margins} (limit {SERVING_MARGIN})")
+    return row
+
+
+def burst(eng, prompts, new, **samp):
+    """All `prompts` submitted at once: (tokens of each, the peak of
+    allocated device memory during the burst above its start)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    handles = [eng.submit(p, new, **samp) for p in prompts]
+    out = [h.result(300)["tokens"] for h in handles]
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def engine_checks(label, eng):
+    """Zero failures, requeues, sheds, rejects and first calls after
+    warm-up; returns the decode step's p50 ms at batch bucket 8."""
+    snap = eng.metrics.snapshot()
+    for key in ("failed_total", "requeues_total", "shed_total",
+                "rejected_total"):
+        check(snap[key] == 0, f"[{label}] {key} is {snap[key]}")
+    cold = eng.program_report()["first_calls_after_warmup"]
+    check(cold == 0, f"[{label}] {cold} calls after admission ran a "
+                     f"program for the first time")
+    return eng.metrics.step_ms()["decode"].get(SERVING_SLOTS, {}).get("p50")
 
 
 def profile_decode_step(eng, cfg, lengths):
@@ -884,11 +993,15 @@ def profile_decode_step(eng, cfg, lengths):
     args = (torch.arange(b, device=dev),
             torch.zeros(b, dtype=torch.int64, device=dev),
             torch.tensor(lengths, device=dev))
+    # greedy rows: temperature 0 (the host's sampling values and keys)
+    samp = (torch.zeros(b), torch.ones(b, dtype=torch.int64), torch.ones(b),
+            torch.zeros(b, 2, dtype=torch.int64))
     H = cfg.num_heads
 
     def step():
-        nxt, _, _ = gen._decode_body(p, pool.buf_k, pool.buf_v, *args,
-                                     eng._slots, H, cfg.layer_norm_eps)
+        nxt, _, _, _ = gen._decode_body(p, pool.buf_k, pool.buf_v, *args,
+                                        *samp, eng._slots, H,
+                                        cfg.layer_norm_eps)
         return nxt.cpu()
 
     times = []
@@ -939,8 +1052,10 @@ def serving_phase(weights, cfg):
     no flash kernel launched (the serving attention is einsum, as the
     reference's), and that the engine's tokens for the shortest and the
     longest prompt are GPTForCausalLM.generate's (or part from them first
-    where both paths' top-2 logit margin is under SERVING_MARGIN). Prints
-    and returns the `serving` line's dict."""
+    where both paths' top-2 logit margin is under SERVING_MARGIN). Then
+    the checks beyond greedy on BEYOND_ROWS of the prompts (sampling,
+    sampler, prefix cache, speculation, int8), each engine checked as the
+    first. Prints and returns the `serving` line's dict."""
     import numpy as np
     import torch
 
@@ -1007,22 +1122,9 @@ def serving_phase(weights, cfg):
             p = prompts[i]
             ref = model.generate(torch.as_tensor(p, device="cuda")[None],
                                  max_new_tokens=SERVING_NEW)
-            ref = ref[0, len(p):].tolist()
-            got = results[i]["tokens"]
-            j = next((k for k, (a, b) in enumerate(zip(ref, got))
-                      if a != b), None)
-            row = {"prompt": len(p), "first_mismatch": j}
-            if j is not None:
-                row["margins"] = serving_margins(
-                    model, eng, np.concatenate([p, got[:j]]))
-                log(f"[serving] prompt {len(p)}: engine and generate part "
-                    f"at step {j}; top-2 margins there (generate, engine) "
-                    f"{row['margins']}")
-                check(max(row["margins"]) < SERVING_MARGIN,
-                      f"[serving] prompt {len(p)}: tokens part at step {j} "
-                      f"with top-2 margins {row['margins']} (limit "
-                      f"{SERVING_MARGIN})")
-            agreement[str(len(p))] = row
+            agreement[str(len(p))] = token_agreement(
+                "serving", model, eng, p, results[i]["tokens"],
+                ref[0, len(p):].tolist())
         check(not any(fa.LAUNCHES.values()),
               f"[serving] flash kernels launched in generate: "
               f"{dict(fa.LAUNCHES)}")
@@ -1055,12 +1157,289 @@ def serving_phase(weights, cfg):
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "agreement": agreement,
         }
+        ps = prompts[:BEYOND_ROWS]
+        greedy, f32_peak = burst(eng, ps, BEYOND_NEW)
+        line["sampling"], sampled = sampling_checks(model, eng, ps)
+        line["sampler"] = sampler_checks(model, eng, ps[0])
+        line["prefix_cache"] = prefix_checks(model, eng, cfg)
+        line["speculation"] = spec_checks(model, eng, cfg, ps, greedy,
+                                          sampled)
+        line["int8"] = int8_checks(model, eng, ps, greedy, f32_peak)
+        line["decode_step_ms_b8"] = {
+            "greedy": engine_checks("serving", eng),
+            **{k: v["decode_step_ms_b8"] for k, v in line.items()
+               if isinstance(v, dict) and "decode_step_ms_b8" in v}}
+        check(not any(fa.LAUNCHES.values()),
+              f"[serving] flash kernels launched: {dict(fa.LAUNCHES)}")
     finally:
         eng.shutdown()
     log(f"[serving] phase took {time.time() - t0:.1f} s")
     del eng, model
     gc.collect()
     torch.cuda.empty_cache()
+    return line
+
+
+def new_engine(model, **kw):
+    """A GenerativeEngine on the card as the serving phase's (8 slots at
+    cap 1024) with options `kw`."""
+    from paddle_tpu_torch.inference import GenerativeEngine
+
+    return GenerativeEngine(model, slots=SERVING_SLOTS, max_context=1024,
+                            device="cuda", **kw)
+
+
+def free_engine(eng):
+    import torch
+
+    eng.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sampling_checks(model, eng, ps):
+    """Seeded sampling on the serving engine (no new warm-up): SAMPLE's
+    tokens for `ps` submitted at once and one by one agree (margin rule);
+    another seed gives other tokens; temperature 0 with any top_k, top_p
+    and seed is greedy bitwise, and so is top_k=1 at temperature 5 (one
+    prompt, alone, against greedy alone). The median decode step of the
+    sampled burst is read apart. Returns (its line, the batched
+    tokens)."""
+    steps = eng.metrics._step_s[SERVING_SLOTS]
+    n0 = len(steps)
+    batched, _ = burst(eng, ps, BEYOND_NEW, **SAMPLE)
+    sampled_ms = statistics.median(list(steps)[n0:]) * 1e3
+    seq = [eng.generate(p, BEYOND_NEW, timeout=300, **SAMPLE)["tokens"]
+           for p in ps]
+    rows = [token_agreement("sampling", model, eng, p, a, b, SAMPLE)
+            for p, a, b in zip(ps, batched, seq)]
+    other = eng.generate(ps[0], BEYOND_NEW, timeout=300,
+                         **dict(SAMPLE, seed=43))["tokens"]
+    check(other != seq[0], "[sampling] seeds 42 and 43 gave the same "
+                           "tokens")
+    greedy = eng.generate(ps[0], BEYOND_NEW, timeout=300)["tokens"]
+    frozen = eng.generate(ps[0], BEYOND_NEW, timeout=300, temperature=0.0,
+                          top_k=5, top_p=0.5, seed=7)["tokens"]
+    check(frozen == greedy, "[sampling] temperature 0 is not greedy")
+    k1 = eng.generate(ps[0], BEYOND_NEW, timeout=300, temperature=5.0,
+                      top_k=1, seed=9)["tokens"]
+    check(k1 == greedy, "[sampling] top_k=1 is not greedy")
+    parted = [r["first_mismatch"] for r in rows]
+    log(f"[sampling] {len(ps)} prompts x {BEYOND_NEW} tokens, batched vs "
+        f"one by one: first differences {parted}; seed 43 differs, "
+        f"temperature 0 and top_k=1 equal greedy")
+    return {"agreement": rows, "seed_43_differs": True,
+            "temperature_0_is_greedy": True, "top_k_1_is_greedy": True,
+            "distinct_tokens": len({t for r in seq for t in r}),
+            "decode_step_ms_b8": sampled_ms}, batched
+
+
+def sampler_checks(model, eng, prompt):
+    """The sampler alone on the card: threefry bits and uniforms of 8 keys
+    x vocab on CUDA equal the CPU's bitwise (the Gumbel noise is reported
+    against the CPU's); SAMPLER_DRAWS draws of `_sample_rows` with
+    SAMPLE's filter on the logits after `prompt` follow the filtered
+    softmax (computed in f64 on the host): every draw in the kept set,
+    and the total-variation distance under SAMPLER_TV_FACTOR times the
+    distance expected from the draw count. Returns its line."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.inference.serving import generate as gen
+
+    V = model.cfg.vocab_size
+    keys = rng.split(rng.key(SEED), 8)
+    for name, fn in (("bits", rng.random_bits), ("uniform", rng.uniform)):
+        a, b = fn(keys.cuda(), (V,)), fn(keys, (V,))
+        check(torch.equal(a.cpu(), b), f"[sampler] CUDA {name} differ from "
+                                       f"the CPU's")
+    g_err = float((rng.gumbel(keys.cuda(), (V,)).cpu()
+                   - rng.gumbel(keys, (V,))).abs().max())
+    logits = prefix_logits(model, eng, prompt)[1].float()
+    x = logits.double().cpu().numpy() / SAMPLE["temperature"]
+    order = np.argsort(-x, kind="stable")
+    top = x[order[:SAMPLE["top_k"]]]
+    sp = np.exp(top - top.max())
+    sp /= sp.sum()
+    n_keep = int(((np.cumsum(sp) - sp) < SAMPLE["top_p"]).sum())
+    kept = order[:n_keep]
+    p_exp = np.exp(top[:n_keep] - top[0])
+    p_exp /= p_exp.sum()
+    draw_keys = rng.split(rng.key(SEED + 1), SAMPLER_DRAWS)
+    counts = np.zeros(V, np.int64)
+    t0 = time.perf_counter()
+    for c in range(0, SAMPLER_DRAWS, 1024):
+        k = draw_keys[c:c + 1024]
+        n = k.shape[0]
+        toks = gen._sample_rows(
+            logits[None].expand(n, V), torch.full((n,), SAMPLE["temperature"]),
+            torch.full((n,), SAMPLE["top_k"]),
+            torch.full((n,), SAMPLE["top_p"]), k)
+        counts += np.bincount(toks.cpu().numpy(), minlength=V)
+    draw_s = time.perf_counter() - t0
+    outside = int(counts.sum() - counts[kept].sum())
+    freq = counts[kept] / SAMPLER_DRAWS
+    tv = 0.5 * float(np.abs(freq - p_exp).sum())
+    tv_expected = 0.5 * float(np.sqrt(
+        2 * p_exp * (1 - p_exp) / (math.pi * SAMPLER_DRAWS)).sum())
+    line = {"bits_equal_cpu": True, "uniform_equal_cpu": True,
+            "gumbel_max_abs_err_vs_cpu": g_err, "draws": SAMPLER_DRAWS,
+            "kept": n_keep, "outside_kept": outside, "tv": tv,
+            "tv_expected": tv_expected,
+            "tv_limit": SAMPLER_TV_FACTOR * tv_expected,
+            "draw_ms_per_1024": draw_s * 1e3 / (SAMPLER_DRAWS / 1024)}
+    log(f"[sampler] {json.dumps(line)}")
+    check(outside == 0, f"[sampler] {outside} draws outside the kept set")
+    check(tv <= SAMPLER_TV_FACTOR * tv_expected,
+          f"[sampler] total variation {tv} over {SAMPLER_TV_FACTOR} x "
+          f"{tv_expected}")
+    return line
+
+
+def prefix_checks(model, eng, cfg):
+    """The prefix cache: an engine with PREFIX_SLOTS cache rows serves 8
+    prompts sharing a PREFIX_HEAD-token head at once (the first prefills
+    and admits the head, the other 7 hit it and prefill their tails);
+    the hits and reused tokens are counted, and the tokens agree with the
+    cache-less serving engine's (margin rule). Returns its line."""
+    import numpy as np
+
+    r = np.random.RandomState(SEED + 2)
+    head = r.randint(0, cfg.vocab_size, size=PREFIX_HEAD)
+    ps = [np.concatenate([head, r.randint(0, cfg.vocab_size, size=int(n))])
+          for n in r.randint(PREFIX_TAILS[0], PREFIX_TAILS[1] + 1,
+                             size=BEYOND_ROWS)]
+    ref, _ = burst(eng, ps, BEYOND_NEW)
+    t = time.perf_counter()
+    pc = new_engine(model, prefix_cache_slots=PREFIX_SLOTS)
+    warm_s = time.perf_counter() - t
+    try:
+        out, _ = burst(pc, ps, BEYOND_NEW)
+        snap = pc.metrics.snapshot()
+        rows = [token_agreement("prefix", model, eng, p, a, b)
+                for p, a, b in zip(ps, out, ref)]
+        line = {k: snap[k] for k in ("prefix_hits_total",
+                                     "prefix_misses_total",
+                                     "prefix_evictions_total",
+                                     "prefix_tokens_reused_total")}
+        check(snap["prefix_hits_total"] == BEYOND_ROWS - 1 and
+              snap["prefix_tokens_reused_total"] ==
+              (BEYOND_ROWS - 1) * PREFIX_HEAD,
+              f"[prefix] hits {line}, expected {BEYOND_ROWS - 1} of "
+              f"{PREFIX_HEAD} tokens")
+        line.update(agreement=rows, warmup_s=warm_s,
+                    programs=len(pc.program_report()["programs"]),
+                    kv_pool_bytes=pc.kv_pool_bytes(),
+                    extend_ms=pc.metrics.step_ms()["extend"],
+                    prefill_ms=pc.metrics.step_ms()["prefill"],
+                    decode_step_ms_b8=engine_checks("prefix", pc))
+        log(f"[prefix] {json.dumps(line)}")
+    finally:
+        free_engine(pc)
+    return line
+
+
+def spec_checks(model, eng, cfg, ps, greedy, sampled):
+    """Speculative decoding: a gpt3-small draft (seeded weights of its
+    own, spec_tokens SPEC_TOKENS) gives the serving engine's greedy and
+    SAMPLE tokens for `ps` (margin rule), its accept rate reported; a
+    self-draft engine accepts at least SELF_DRAFT_ACCEPT of its
+    proposals. Returns its line."""
+    from paddle_tpu_torch.framework_io import params_from_paddle_tpu
+    from paddle_tpu_torch.models import PRESETS, GPTForCausalLM
+
+    small = PRESETS["gpt3-small"]
+    draft = GPTForCausalLM(small, device="cuda")
+    draft.load_state_dict(params_from_paddle_tpu(
+        reference_layout_weights(small, SEED + 3)))
+    draft.eval()
+    line = {}
+    for label, d in (("gpt3-small", draft), ("self", model)):
+        t = time.perf_counter()
+        spec = new_engine(model, draft=d, spec_tokens=SPEC_TOKENS)
+        warm_s = time.perf_counter() - t
+        try:
+            g, _ = burst(spec, ps, BEYOND_NEW)
+            rows = [token_agreement(f"spec-{label}", model, eng, p, a, b)
+                    for p, a, b in zip(ps, g, greedy)]
+            rate_g = spec.metrics.snapshot()["spec_accept_rate"]
+            row = {"greedy_accept_rate": rate_g, "greedy_agreement": rows,
+                   "warmup_s": warm_s,
+                   "programs": len(spec.program_report()["programs"]),
+                   "kv_pool_bytes": spec.kv_pool_bytes()}
+            if label == "self":
+                check(rate_g >= SELF_DRAFT_ACCEPT,
+                      f"[spec-self] accept rate {rate_g} under "
+                      f"{SELF_DRAFT_ACCEPT}")
+            else:
+                s_, _ = burst(spec, ps, BEYOND_NEW, **SAMPLE)
+                row["sampled_agreement"] = [
+                    token_agreement(f"spec-{label}", model, eng, p, a, b,
+                                    SAMPLE)
+                    for p, a, b in zip(ps, s_, sampled)]
+            snap = spec.metrics.snapshot()
+            row.update({k: snap[k] for k in (
+                "spec_steps_total", "spec_proposed_total",
+                "spec_accepted_total", "spec_accept_rate",
+                "draft_steps_total")})
+            row["decode_step_ms_b8"] = engine_checks(f"spec-{label}", spec)
+            log(f"[spec-{label}] {json.dumps(row)}")
+            line[label] = row
+        finally:
+            free_engine(spec)
+    del draft
+    line["decode_step_ms_b8"] = line["gpt3-small"]["decode_step_ms_b8"]
+    return line
+
+
+def int8_checks(model, eng, ps, greedy, f32_peak):
+    """The int8 KV pool (its bytes are pool_nbytes(shape, "int8")) and
+    weight-only int8, each an engine of its own: greedy tokens for `ps`
+    against the f32 engine's, first tokens required equal for the int8
+    pool (its prefill attends the pass's own float K/V), the share of
+    equal tokens reported; with int8 weights the bytes of the engine's
+    parameters and the burst's peak memory above its start, beside the
+    f32 engine's. Returns its line."""
+    import numpy as np
+
+    from paddle_tpu_torch.quantization import kv as kvq
+
+    def share(out):
+        return float(np.mean([np.mean([a == b for a, b in zip(x, y)])
+                              for x, y in zip(out, greedy)]))
+
+    def nbytes(p):
+        return sum(t.numel() * t.element_size() for t in p.values())
+
+    line = {"f32": {"kv_pool_bytes": eng.kv_pool_bytes(),
+                    "param_bytes": nbytes(eng._params),
+                    "burst_peak_bytes": f32_peak}}
+    for label, kw in (("kv", {"kv_dtype": "int8"}),
+                      ("weights", {"quantize_weights": True})):
+        q = new_engine(model, **kw)
+        try:
+            out, peak = burst(q, ps, BEYOND_NEW)
+            first = [a[0] == b[0] for a, b in zip(out, greedy)]
+            row = {"kv_pool_bytes": q.kv_pool_bytes(),
+                   "param_bytes": nbytes(q._params),
+                   "burst_peak_bytes": peak,
+                   "first_tokens_equal": int(sum(first)),
+                   "token_match_share": share(out),
+                   "decode_step_ms_b8": engine_checks(f"int8-{label}", q)}
+            if label == "kv":
+                want = 2 * kvq.pool_nbytes(q._pool_shape(), "int8")
+                check(row["kv_pool_bytes"] == want and
+                      q._alloc_bufs("cuda")[0].nbytes == want // 2,
+                      f"[int8-kv] pool {row['kv_pool_bytes']} B, expected "
+                      f"{want}")
+                check(all(first), f"[int8-kv] first tokens differ from "
+                                  f"f32's: {first}")
+            log(f"[int8-{label}] {json.dumps(row)}")
+            line[label] = row
+        finally:
+            free_engine(q)
+    line["decode_step_ms_b8"] = line["kv"]["decode_step_ms_b8"]
     return line
 
 

@@ -8,6 +8,8 @@ kernel written for sm_90a (`ops/csrc/`).
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`, which the tests do; without a card they raise.
+`seed(s)` reseeds the default key generator (core/rng.py), which
+`GPTForCausalLM.generate(do_sample=True)` draws from.
 """
 from __future__ import annotations
 
@@ -35,3 +37,6 @@ def default_device() -> torch.device:
 def resolve_device(device=None) -> torch.device:
     """`device` as a torch.device; None means `default_device()`."""
     return default_device() if device is None else torch.device(device)
+
+
+from .core.rng import seed  # noqa: E402,F401

@@ -1,0 +1,183 @@
+"""Threefry random numbers in torch (counterpart of what the reference
+takes from `jax.random` and of paddle_tpu/core/rng.py).
+
+A key is an int64 tensor [..., 2] holding the two uint32 words of a JAX
+raw key; leading dims batch keys (one chain per serving row). torch's
+uint32 lacks most arithmetic and shifts on the CPU and on CUDA, so the
+words live in int64 and every add and shift is masked to 32 bits. The
+functions follow JAX 0.9 with `jax_threefry_partitionable` on (its
+default): `split` and `random_bits` hash the counters of a reshaped
+64-bit iota (`iota_2x32_shape`, high words 0 below 2**32 draws); `split`
+stacks the two output words, 32-bit `random_bits` XORs them.
+
+Bits are computed on the device of the key tensor; `categorical` moves
+its keys to the logits' device first, so the noise is drawn where the
+logits are.
+
+`Generator` is the reference's (seed, counter) generator: `next_key()`
+is `fold_in(key(seed), counter)` after the counter's increment; the
+module's `seed(s)` and `next_key()` drive the default one.
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _rotl(x, r: int):
+    return ((x << r) & _M32) | (x >> (32 - r))
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash (20 rounds) of counter words (x1, x2) under
+    key words (k1, k2); int64 tensors holding uint32 values, broadcast
+    together. Returns the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x1, x2
+
+
+def key(seed: int) -> torch.Tensor:
+    """The key of a 64-bit seed: its high and low 32-bit words (two's
+    complement for a negative seed), as the serving engine's `_seed_key`
+    builds a request's key and as `jax.random.key(seed)` builds the
+    reference generator's under its x64 mode."""
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return torch.tensor([(s >> 32) & _M32, s & _M32], dtype=torch.int64)
+
+
+def _hash_iota(keys, n: int):
+    """Both Threefry words of counters 0..n-1 (high words 0) under each
+    key of `keys` [..., 2]: two tensors [..., n]."""
+    lo = torch.arange(n, dtype=torch.int64, device=keys.device)
+    return threefry2x32(keys[..., 0:1], keys[..., 1:2],
+                        torch.zeros_like(lo), lo)
+
+
+def split(keys, num: int = 2) -> torch.Tensor:
+    """`jax.random.split`: [..., 2] keys -> [..., num, 2]."""
+    b1, b2 = _hash_iota(keys, num)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(keys, data: int) -> torch.Tensor:
+    """`jax.random.fold_in` of a uint32 `data` into [..., 2] keys."""
+    data = torch.tensor(int(data) & _M32, dtype=torch.int64,
+                        device=keys.device)
+    y1, y2 = threefry2x32(keys[..., 0], keys[..., 1],
+                          torch.zeros_like(data), data)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def random_bits(keys, shape, width: int = 32) -> torch.Tensor:
+    """`jax.random.bits`: [..., 2] keys -> [..., *shape] int64 tensors of
+    uint32 values (width 32: the two words XORed), or of the top 63 bits'
+    worth of uint64 values as JAX forms them (width 64: the first word
+    over the second), which only `uniform`'s float64 path reads, by
+    halves."""
+    shape = tuple(int(d) for d in shape)
+    n = 1
+    for d in shape:
+        n *= d
+    b1, b2 = _hash_iota(keys, n)
+    out = keys.shape[:-1] + shape
+    if width == 32:
+        return (b1 ^ b2).reshape(out)
+    return b1.reshape(out), b2.reshape(out)
+
+
+def uniform(keys, shape, minval: float = 0.0, maxval: float = 1.0,
+            dtype=torch.float32) -> torch.Tensor:
+    """`jax.random.uniform`: random mantissa bits under the exponent of
+    1.0 (23 from 32 bits in float32, 52 from 64 in float64), minus 1,
+    scaled into [minval, maxval) in `dtype`, then floored at minval."""
+    if dtype == torch.float32:
+        bits = random_bits(keys, shape)
+        fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    else:
+        # the 64-bit bits are hi << 32 | lo; their top 52 bits
+        hi, lo = random_bits(keys, shape, 64)
+        fbits = (hi << 20) | (lo >> 12) | 0x3FF0000000000000
+    floats = fbits.view(dtype) - 1.0
+    lo_v = torch.tensor(minval, dtype=dtype, device=keys.device)
+    hi_v = torch.tensor(maxval, dtype=dtype, device=keys.device)
+    return torch.maximum(lo_v, floats * (hi_v - lo_v) + lo_v)
+
+
+def gumbel(keys, shape, dtype=torch.float32) -> torch.Tensor:
+    """`jax.random.gumbel`, its "low" mode: -log(-log(u)) with u uniform
+    in [tiny, 1) of `dtype`."""
+    tiny = torch.finfo(dtype).tiny
+    return -torch.log(-torch.log(uniform(keys, shape, tiny, 1.0, dtype)))
+
+
+def categorical(keys, logits) -> torch.Tensor:
+    """`jax.random.categorical` over the last axis (the Gumbel-max
+    trick): logits [..., V] with one key [..., 2] per row; the noise is
+    drawn on the logits' device. Returns int64 [...]."""
+    keys = keys.to(logits.device)
+    g = gumbel(keys, (logits.shape[-1],))
+    return torch.argmax(g + logits, dim=-1)
+
+
+class Generator:
+    """A (seed, counter) generator of keys: `next_key()` never returns
+    the same key twice."""
+
+    def __init__(self, seed: int = 0):
+        self._lock = threading.Lock()
+        self.manual_seed(seed)
+
+    def manual_seed(self, seed: int):
+        self._seed = int(seed)
+        self._counter = 0
+        return self
+
+    def initial_seed(self) -> int:
+        return self._seed
+
+    def next_key(self) -> torch.Tensor:
+        """fold_in(key(seed), counter) after the counter's increment, on
+        the CPU."""
+        with self._lock:
+            self._counter += 1
+            c = self._counter
+        return fold_in(key(self._seed), c)
+
+    def get_state(self):
+        return (self._seed, self._counter)
+
+    def set_state(self, state):
+        seed, counter = state
+        self.manual_seed(seed)
+        self._counter = int(counter)
+
+
+_default_generator = Generator(0)
+
+
+def seed(s: int) -> Generator:
+    """Reseed the default generator (paddle.seed's counterpart for the
+    keys that `GPTForCausalLM.generate` samples with)."""
+    return _default_generator.manual_seed(s)
+
+
+def next_key() -> torch.Tensor:
+    return _default_generator.next_key()
+
+
+__all__ = ["threefry2x32", "key", "split", "fold_in",
+           "random_bits", "uniform", "gumbel", "categorical", "Generator",
+           "seed", "next_key"]

@@ -1,5 +1,5 @@
-"""Continuous-batching greedy generation (counterpart of
-paddle_tpu/inference/serving/generate.py, its greedy float path).
+"""Continuous-batching generation (counterpart of
+paddle_tpu/inference/serving/generate.py).
 
 Design, as the reference's (Orca-style iteration-level scheduling over
 a vLLM-style slot pool):
@@ -8,23 +8,26 @@ a vLLM-style slot pool):
   padded to its pow2 bucket, batch 1) plus repeated fixed-shape decode
   steps over the active rows padded to their pow2 batch bucket:
 
-    prefill[S]  (params, pool_k, pool_v, slot, ids[1, S], len) ->
-                (first_token, pool_k, pool_v)
-    decode[b]   (params, pool_k, pool_v, slots[b], tokens[b],
-                 lengths[b]) -> (next_tokens[b], pool_k, pool_v)
+    prefill[S]  (params, pool_k, pool_v, slot, ids[1, S], len, temp,
+                 top_k, top_p, key) -> (first_token, key, pool_k, pool_v)
+    decode[b]   (params, pool_k, pool_v, slots[b], tokens[b], lengths[b],
+                 temps[b], top_ks[b], top_ps[b], keys[b, 2])
+                -> (next_tokens[b], keys[b, 2], pool_k, pool_v)
 
   The bodies are plain PyTorch (einsum attention, as the reference's:
   no flash kernel runs here), one Python loop over the layers in place
   of the reference's `lax.scan`.
 
-- **KV slot pool.** Each worker owns a pair of float32 buffers
-  [slots + 1, L, max_context, H, Dh]; rows are slots handed out from a
-  free list, and the +1 row is scratch for decode-batch padding. Prefill
-  stores the prompt's K/V into its slot; each decode step writes one new
-  position per row. The buffers are updated in place (the reference
-  threads them functionally and donates them). The reference's pow2
-  capacity classes (`kv_slot_buckets`) are not ported: one class at
-  max_context.
+- **KV slot pool.** Each worker owns a pair of buffers [slots + 1 +
+  prefix_cache_slots, L, max_context, H, Dh] (quantization/kv.py:
+  float32, or int8 with a scale per row and layer); rows are slots
+  handed out from a free list, the row after them is scratch for
+  decode-batch padding and out-of-cap writes, and the rest are the
+  prefix cache's. Prefill stores the prompt's K/V into its slot; each
+  decode step writes one new position per row. The buffers are updated
+  in place (the reference threads them functionally and donates them).
+  The reference's pow2 capacity classes (`kv_slot_buckets`) are not
+  ported: one class at max_context.
 
 - **In-flight batching.** Between decode steps the worker admits queued
   requests into free slots (prefilling them right then) and retires
@@ -34,39 +37,72 @@ a vLLM-style slot pool):
   (GenerateHandle iterates them), with TTFT and tokens/s metrics and
   per-token spans on the tracer.
 
+- **Seeded sampling.** temperature, top-k and top-p are per-row values
+  beside slots and lengths; each row carries a threefry key (core/rng.py)
+  built from its request's seed and split once per emitted token, row by
+  row, so a row's chain does not depend on the batch it runs in: the
+  same (prompt, parameters, seed) gives the same tokens on every path
+  and after a requeue (the chain replays from the seed). Keys and the
+  sampling values live on the host; the Gumbel noise is drawn on the
+  logits' device, and only when a row of the call samples. A row at
+  temperature 0 takes the argmax of its logits, bitwise the greedy
+  head's.
+
+- **Speculative decoding.** With a `draft=` model, each scheduler
+  iteration runs one k-step greedy draft burst (`_propose_body`) over
+  the draft's own pool and one target pass that scores all k positions
+  (`_verify_body`), sampling the target's own token at every position
+  with the key chain plain decode would use. The host accepts the
+  longest agreed prefix (at least one token: a rejection falls back to
+  the target's token), so the tokens are plain decode's.
+
+- **Prefix caching.** Prefill K/V is kept under (pow2 boundary, hash of
+  the prompt's first tokens) in a per-worker LRU of extra pool rows. A
+  hit copies the cached row into the request's slot (`_copy_row_body`)
+  and prefills only the tail (`_extend_body`: the tail's queries attend
+  the cached prefix and, causally, the tail); a miss admits the longest
+  uncached boundary below the prompt. The cache dies with its pool (a
+  revive or a failed step resets it).
+
+- **Quantized serving.** `kv_dtype="int8"` makes the pool int8 with
+  quantize-on-scatter and dequantize-on-gather in the bodies; a body's
+  own writes are fake-quantized with the row's scale, so it reads what
+  the pool will hold. `quantize_weights=True` keeps the stacked matmul
+  weights int8 and dequantizes one layer at a time in the layer loop.
+
 - **Warm before admission.** The reference compiles and caches every
   program before a worker admits traffic and counts compile misses
   after. Eager PyTorch compiles nothing; here `warm_up`/`add_replica`
-  run every prompt-bucket prefill and every batch-bucket decode once on
-  the worker's device before it turns active, `program_report()` lists
-  them, and `first_calls_after_warmup` counts calls, after admission,
-  of a program that had not run on its device.
+  run every program once on the worker's device before it turns active
+  (every prompt-bucket prefill and batch-bucket decode; with the prefix
+  cache the row copy and every tail-bucket extend; with a draft every
+  draft prefill, and the propose and verify passes by batch bucket),
+  `program_report()` lists them, and `first_calls_after_warmup` counts
+  calls, after admission, of a program that had not run on its device.
 
 Replica lifecycle is the reference's state machine (lifecycle.py):
 warming -> active -> draining -> retired with a generation counter;
 `add_replica` warms before admission, `remove_replica(drain=True)`
 lets in-flight sequences finish, and `revive_replica` supersedes a hung
 worker whose requests requeue: a requeued request re-prefills from its
-prompt and the tokens it already streamed are not emitted again
-(greedy decoding is deterministic, so the regenerated prefix is the
-same).
+prompt and its key chain replays from its seed, so the regenerated
+prefix is the same and the tokens it already streamed are not emitted
+again.
 
 Chaos site: `serving.decode_step` fires on the worker thread before
 every decode step (testing/chaos.py).
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-module queue item: sampling (temperature > 0, top_k, top_p: 1c);
-speculative decoding (draft, draft_params), the prefix cache
-(prefix_cache_slots > 0), the int8 KV pool (kv_dtype="int8") and
-weight-only int8 (quantize_weights=True): 1d; the KV handoff
-(import_handoff, prefill_only, resume_from, shutdown(migrate=True)): 1e.
+Not ported yet, each raising NotImplementedError that names ROADMAP
+module queue item 1e: the KV handoff (import_handoff, prefill_only,
+resume_from, shutdown(migrate=True)) and the HTTP front.
 """
 from __future__ import annotations
 
+import hashlib
 import math
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from contextlib import nullcontext
 from queue import Queue
 from typing import Dict, List, Optional, Tuple
@@ -75,6 +111,7 @@ import numpy as np
 import torch
 
 from ... import resolve_device
+from ...core import rng as _rng
 from ...core.flags import flag
 from ...io.bucketing import bucket_boundaries_pow2, bucket_for
 from ...observability import trace as _tr
@@ -88,14 +125,20 @@ from .lifecycle import (Future, ReplicaSlot, ServingError, device_pool,
 _NEG_INF = -1e30
 # Retry-After of a 503: the queue's drain estimate, clamped to these
 _RETRY_AFTER_S, _RETRY_AFTER_MAX_S = 0.5, 30.0
-_TODO_1C = "ROADMAP module queue item 1c (sampling)"
-_TODO_1D = ("ROADMAP module queue item 1d (speculative decoding, the "
-            "prefix cache, int8 KV and weights)")
 _TODO_1E = "ROADMAP module queue item 1e (KV handoff, HTTP front)"
 
 
 def _todo(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: {item}")
+
+
+def _prefix_hash(prompt: np.ndarray, n: int) -> str:
+    """Content key of the first n prompt tokens (the prefix cache keys
+    on (n, hash), so distinct boundaries never collide). The prompt is
+    hashed as int32, as the reference holds it."""
+    return hashlib.blake2b(
+        np.ascontiguousarray(prompt[:n], dtype=np.int32).tobytes(),
+        digest_size=16).hexdigest()
 
 
 # ===================================================================
@@ -114,24 +157,93 @@ def _gelu(x):
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
+_w = _kvq.weight     # a layer's matmul weight, dequantized if int8
+
+
+def _n_layers(p) -> int:
+    return p["ln1_w"].shape[0]
+
+
 def _logits_head(p, h):
-    if "lm_head" in p:
-        return h @ p["lm_head"]
+    if "lm_head" in p or "lm_head__q" in p:
+        return h @ _w(p, "lm_head")
     return h @ p["wte"].T
 
 
-def _mlp(p, l, h, eps):
+def _qkv(p, l, h, eps):
+    y = _ln(h, p["ln1_w"][l], p["ln1_b"][l], eps)
+    return y @ _w(p, "qkv_w", l) + p["qkv_b"][l]
+
+
+def _attn_out_mlp(p, l, h, att, eps):
+    """Residual attention output, then the residual MLP."""
+    h = h + att @ _w(p, "out_w", l) + p["out_b"][l]
     y = _ln(h, p["ln2_w"][l], p["ln2_b"][l], eps)
-    return h + _gelu(y @ p["fc1_w"][l] + p["fc1_b"][l]) @ p["fc2_w"][l] \
-        + p["fc2_b"][l]
+    return h + _gelu(y @ _w(p, "fc1_w", l) + p["fc1_b"][l]) \
+        @ _w(p, "fc2_w", l) + p["fc2_b"][l]
+
+
+def _filter_logits(logits, temps, topks, topps):
+    """The sampled branch's logits [b, V] before the noise: over each
+    row's temperature, then -1e30 below the top-k value and outside the
+    top-p nucleus of the top-k survivors (the smallest sorted prefix
+    that reaches mass top_p; the head token always survives). temps,
+    topks, topps: [b], on any device."""
+    dev = logits.device
+    V = logits.shape[-1]
+    t = temps.to(dev, torch.float32)
+    scaled = logits / torch.clamp(t, min=1e-6)[:, None]
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    kth = torch.gather(srt, 1, torch.clamp(topks.to(dev) - 1, 0,
+                                           V - 1)[:, None].long())
+    masked = torch.where(srt < kth, _NEG_INF, srt)
+    sp = torch.softmax(masked, -1)
+    keep = (torch.cumsum(sp, -1) - sp) < topps.to(dev, torch.float32)[:,
+                                                                      None]
+    cutoff = torch.amin(torch.where(keep, masked, math.inf), -1,
+                        keepdim=True)
+    return torch.where(scaled < torch.maximum(kth, cutoff), _NEG_INF,
+                       scaled)
+
+
+def _sample_rows(logits, temps, topks, topps, keys):
+    """Each row's next token from its logits [b, V] (the reference's
+    `_sample_token` vmapped): the argmax where the row's temperature is 0,
+    else a draw from `_filter_logits` by the Gumbel-max trick with the
+    row's key. temps, topks, topps: [b] on the host; keys [b, 2]. The
+    sampled branch is computed only when a row samples (the host knows),
+    so an all-greedy call is the argmax alone. Returns int64 [b] on the
+    logits' device."""
+    greedy = torch.argmax(logits, dim=-1)
+    if not bool((temps > 0).any()):
+        return greedy
+    sampled = _rng.categorical(keys, _filter_logits(logits, temps, topks,
+                                                    topps))
+    return torch.where(temps.to(logits.device) > 0.0, sampled, greedy)
+
+
+def _sample_token(logits, temp, topk, topp, key):
+    """One row's next token from its logits [V] (the reference's
+    `_sample_token`): scalars temp, topk, topp and its key [2]."""
+    return _sample_rows(logits[None], torch.tensor([float(temp)]),
+                        torch.tensor([int(topk)]),
+                        torch.tensor([float(topp)]), key[None])[0]
+
+
+def _split_keys(keys):
+    """Per-row split of keys [b, 2] -> (carry, use), each [b, 2]: a row's
+    chain depends on its own key only."""
+    kk = _rng.split(keys)
+    return kk[:, 0], kk[:, 1]
 
 
 def _prefill_core(p, buf_k, buf_v, slot, ids, length, num_heads, eps):
     """One full-prompt pass: causal attention within the (padded) prompt
     ids [1, S], every layer's K/V stored into pool row `slot` (positions
     [length, S) hold the pad's junk, which decode overwrites before its
-    mask admits them), and the logits [V] at position length-1."""
-    p = _kvq.dequant_params(p)
+    mask admits them), and the logits [V] at position length-1. The
+    attention runs on the pass's own float K/V; only the pool store
+    quantizes (int8 pool), so the first token is the float pool's."""
     S = ids.shape[1]
     D = p["wte"].shape[1]
     H = int(num_heads)
@@ -140,18 +252,16 @@ def _prefill_core(p, buf_k, buf_v, slot, ids, length, num_heads, eps):
     h = p["wte"][ids] + p["wpe"][pos][None]            # [1, S, D]
     causal = pos[None, :] <= pos[:, None]              # [S, S]
     ks, vs = [], []
-    for l in range(p["qkv_w"].shape[0]):
-        y = _ln(h, p["ln1_w"][l], p["ln1_b"][l], eps)
-        qkv = (y @ p["qkv_w"][l] + p["qkv_b"][l]).reshape(1, S, 3, H, Dh)
+    for l in range(_n_layers(p)):
+        qkv = _qkv(p, l, h, eps).reshape(1, S, 3, H, Dh)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         s = torch.einsum("bhqd,bhkd->bhqk", q.transpose(1, 2),
                          k.transpose(1, 2)) / math.sqrt(Dh)
         s = torch.where(causal[None, None], s, _NEG_INF)
         att = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1),
                            v.transpose(1, 2))
-        h = h + att.transpose(1, 2).reshape(1, S, D) @ p["out_w"][l] \
-            + p["out_b"][l]
-        h = _mlp(p, l, h, eps)
+        h = _attn_out_mlp(p, l, h, att.transpose(1, 2).reshape(1, S, D),
+                          eps)
         ks.append(k[0])                                # [S, H, Dh]
         vs.append(v[0])
     buf_k = _kvq.store_block(buf_k, slot, torch.stack(ks))
@@ -160,12 +270,29 @@ def _prefill_core(p, buf_k, buf_v, slot, ids, length, num_heads, eps):
     return _logits_head(p, h[0, int(length) - 1]), buf_k, buf_v
 
 
-def _prefill_body(p, buf_k, buf_v, slot, ids, length, num_heads, eps):
-    """Prefill plus the greedy head: (first token [] int64, pool_k,
-    pool_v); the token is the first maximal logit, as jnp.argmax."""
+def _prefill_body(p, buf_k, buf_v, slot, ids, length, temp, topk, topp,
+                  key, num_heads, eps):
+    """Prefill plus the sampling head: (first token [] int64, the key
+    after one split, pool_k, pool_v)."""
     logits, buf_k, buf_v = _prefill_core(p, buf_k, buf_v, slot, ids,
                                          length, num_heads, eps)
-    return torch.argmax(logits), buf_k, buf_v
+    key, sub = _rng.split(key)
+    return _sample_token(logits, temp, topk, topp, sub), key, buf_k, buf_v
+
+
+def _drop_index(pos, M):
+    """(positions clamped into the cap, which of them are in it [b, 1,
+    1]) for `_write_positions`, once per call rather than per layer."""
+    return torch.clamp(pos, max=M - 1), (pos < M)[:, None, None]
+
+
+def _write_positions(rows, rowix, index, vals):
+    """rows[rowix, pos] = vals [b, H, Dh] for index = _drop_index(pos, M),
+    dropping writes at pos >= the rows' cap M (the reference's
+    mode="drop"): such entries write back what they read."""
+    cpos, inb = index
+    rows[rowix, cpos] = torch.where(inb, vals.to(rows.dtype),
+                                    rows[rowix, cpos])
 
 
 def _decode_core(p, buf_k, buf_v, slots, tokens, lengths, scratch,
@@ -173,40 +300,38 @@ def _decode_core(p, buf_k, buf_v, slots, tokens, lengths, scratch,
     """The fixed-shape decode pass for `b` rows of the pool: embed each
     row's pending token at its position, attend over the row's cached
     prefix and the token itself, write exactly one new K/V per row back
-    into the pool (a position past the pool's cap lands in the scratch
-    row), return the logits [b, V]. slots, tokens, lengths: [b] int64.
-    Rows are independent; padding rows target the scratch slot with
-    length 0 and the caller drops their outputs."""
-    p = _kvq.dequant_params(p)
+    into the pool (a position past the pool's cap, which only a draft
+    burst reaches, lands in the scratch row), return the logits [b, V].
+    slots, tokens, lengths: [b] int64. Rows are independent; padding
+    rows target the scratch slot with length 0 and the caller drops
+    their outputs."""
     b = tokens.shape[0]
-    M = buf_k.shape[2]
+    M = _kvq.cap_of(buf_k)
     D = p["wte"].shape[1]
     H = int(num_heads)
     Dh = D // H
     h = p["wte"][tokens] + p["wpe"][torch.clamp(
         lengths, max=p["wpe"].shape[0] - 1)]           # [b, D]
-    k_rows, _ = _kvq.gather_rows(buf_k, slots)         # [b, L, M, H, Dh]
-    v_rows, _ = _kvq.gather_rows(buf_v, slots)
+    k_rows, k_scl = _kvq.gather_rows(buf_k, slots)     # [b, L, M, H, Dh]
+    v_rows, v_scl = _kvq.gather_rows(buf_v, slots)
     kpos = torch.arange(M, device=tokens.device)
     mask = kpos[None, :] <= lengths[:, None]           # [b, M]
     rowix = torch.arange(b, device=tokens.device)
-    # the in-loop write at `lengths` is dropped where lengths >= M (the
-    # reference's mode="drop"): such rows write back what they read
-    inb = (lengths < M)[:, None, None]
-    lpos = torch.clamp(lengths, max=M - 1)
+    index = _drop_index(lengths, M)
     k_news, v_news = [], []
-    for l in range(p["qkv_w"].shape[0]):
-        y = _ln(h, p["ln1_w"][l], p["ln1_b"][l], eps)
-        qkv = (y @ p["qkv_w"][l] + p["qkv_b"][l]).reshape(b, 3, H, Dh)
+    for l in range(_n_layers(p)):
+        qkv = _qkv(p, l, h, eps).reshape(b, 3, H, Dh)
         q, k_new, v_new = qkv[:, 0], qkv[:, 1], qkv[:, 2]
         k_l, v_l = k_rows[:, l], v_rows[:, l]          # [b, M, H, Dh]
-        k_l[rowix, lpos] = torch.where(inb, k_new, k_l[rowix, lpos])
-        v_l[rowix, lpos] = torch.where(inb, v_new, v_l[rowix, lpos])
+        # fake-quant: the row reads what the int8 pool will hold
+        _write_positions(k_l, rowix, index, _kvq.fake_quant(
+            k_new, None if k_scl is None else k_scl[:, l]))
+        _write_positions(v_l, rowix, index, _kvq.fake_quant(
+            v_new, None if v_scl is None else v_scl[:, l]))
         s = torch.einsum("bhd,bmhd->bhm", q, k_l) / math.sqrt(Dh)
         s = torch.where(mask[:, None, :], s, _NEG_INF)
         att = torch.einsum("bhm,bmhd->bhd", torch.softmax(s, -1), v_l)
-        h = h + att.reshape(b, D) @ p["out_w"][l] + p["out_b"][l]
-        h = _mlp(p, l, h, eps)
+        h = _attn_out_mlp(p, l, h, att.reshape(b, D), eps)
         k_news.append(k_new)                           # [b, H, Dh]
         v_news.append(v_new)
     h = _ln(h, p["lnf_w"], p["lnf_b"], eps)
@@ -220,13 +345,155 @@ def _decode_core(p, buf_k, buf_v, slots, tokens, lengths, scratch,
     return _logits_head(p, h), buf_k, buf_v
 
 
-def _decode_body(p, buf_k, buf_v, slots, tokens, lengths, scratch,
-                 num_heads, eps):
-    """One decode step with the greedy head: (next tokens [b] int64,
-    pool_k, pool_v)."""
+def _decode_body(p, buf_k, buf_v, slots, tokens, lengths, temps, topks,
+                 topps, keys, scratch, num_heads, eps):
+    """One decode step with the sampling head, one key split per row:
+    (next tokens [b] int64, keys [b, 2], pool_k, pool_v)."""
     logits, buf_k, buf_v = _decode_core(p, buf_k, buf_v, slots, tokens,
                                         lengths, scratch, num_heads, eps)
-    return torch.argmax(logits, dim=-1), buf_k, buf_v
+    keys, subs = _split_keys(keys)
+    return (_sample_rows(logits, temps, topks, topps, subs), keys, buf_k,
+            buf_v)
+
+
+def _propose_body(p, buf_k, buf_v, slots, tokens, lengths, k, scratch,
+                  num_heads, eps):
+    """The draft's burst: k greedy decode steps in one call, leaving the
+    draft pool's K/V advanced through all k inputs (so a fully accepted
+    burst finds every position it needs next time). Returns (proposals
+    [b, k], pool_k, pool_v)."""
+    props = []
+    for _ in range(int(k)):
+        logits, buf_k, buf_v = _decode_core(p, buf_k, buf_v, slots, tokens,
+                                            lengths, scratch, num_heads,
+                                            eps)
+        tokens = torch.argmax(logits, dim=-1)
+        lengths = lengths + 1
+        props.append(tokens)
+    return torch.stack(props, 1), buf_k, buf_v
+
+
+def _verify_body(p, buf_k, buf_v, slots, tokens, lengths, temps, topks,
+                 topps, keys, scratch, num_heads, eps):
+    """Speculative verification: tokens [b, k] are each row's pending
+    token and k-1 draft proposals; one batched pass computes the target's
+    own token at every position, sampled with the key chain plain decode
+    would use (one split a position), stores the block's K/V (positions
+    past the cap land in the scratch row) and returns (tokens [b, k],
+    the key after each position's split [b, k, 2], pool_k, pool_v), so
+    that the host can accept the longest agreed prefix and carry the key
+    as far as the tokens it emits."""
+    b, kk = tokens.shape
+    M = _kvq.cap_of(buf_k)
+    D = p["wte"].shape[1]
+    H = int(num_heads)
+    Dh = D // H
+    dev = tokens.device
+    pos = lengths[:, None] + torch.arange(kk, device=dev)[None, :]
+    h = p["wte"][tokens] + p["wpe"][torch.clamp(
+        pos, max=p["wpe"].shape[0] - 1)]               # [b, k, D]
+    k_rows, k_scl = _kvq.gather_rows(buf_k, slots)     # [b, L, M, H, Dh]
+    v_rows, v_scl = _kvq.gather_rows(buf_v, slots)
+    kpos = torch.arange(M, device=dev)
+    mask = kpos[None, None, :] <= pos[:, :, None]      # [b, k, M]
+    rowix = torch.arange(b, device=dev)
+    index = [_drop_index(pos[:, j], M) for j in range(kk)]
+    k_news, v_news = [], []
+    for l in range(_n_layers(p)):
+        qkv = _qkv(p, l, h, eps).reshape(b, kk, 3, H, Dh)
+        q, k_new, v_new = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        k_l, v_l = k_rows[:, l], v_rows[:, l]
+        sk = None if k_scl is None else k_scl[:, l]
+        sv = None if v_scl is None else v_scl[:, l]
+        # the block's positions in order, so that a dropped write past
+        # the cap never overwrites an earlier position's
+        for j in range(kk):
+            _write_positions(k_l, rowix, index[j],
+                             _kvq.fake_quant(k_new[:, j], sk))
+            _write_positions(v_l, rowix, index[j],
+                             _kvq.fake_quant(v_new[:, j], sv))
+        s = torch.einsum("bqhd,bmhd->bhqm", q, k_l) / math.sqrt(Dh)
+        s = torch.where(mask[:, None], s, _NEG_INF)
+        att = torch.einsum("bhqm,bmhd->bqhd", torch.softmax(s, -1), v_l)
+        h = _attn_out_mlp(p, l, h, att.reshape(b, kk, D), eps)
+        k_news.append(k_new)                           # [b, k, H, Dh]
+        v_news.append(v_new)
+    h = _ln(h, p["lnf_w"], p["lnf_b"], eps)
+    logits = _logits_head(p, h)                        # [b, k, V]
+    outs, hist = [], []
+    cur = keys
+    for i in range(kk):
+        cur, subs = _split_keys(cur)
+        outs.append(_sample_rows(logits[:, i], temps, topks, topps, subs))
+        hist.append(cur)
+    safe = pos < M
+    wslot = torch.where(safe, slots[:, None], scratch)
+    wpos = torch.where(safe, pos, 0)
+    buf_k = _kvq.scatter_rows(buf_k, wslot, wpos, torch.stack(k_news, 2))
+    buf_v = _kvq.scatter_rows(buf_v, wslot, wpos, torch.stack(v_news, 2))
+    return torch.stack(outs, 1), torch.stack(hist, 1), buf_k, buf_v
+
+
+def _extend_body(p, buf_k, buf_v, slot, ids, start, length, temp, topk,
+                 topp, key, scratch, num_heads, eps):
+    """Prefix-cache tail prefill: row `slot` already holds valid K/V for
+    positions [0, start); the T-token tail block ids [1, T] runs in one
+    pass (its queries attend the cached prefix and, causally, the
+    block), its K/V land at [start, start + T) (a bucket's overshoot
+    past the cap lands in the scratch row), and the first token comes
+    from the logits at absolute position length-1. An int8 pool keeps
+    the row's scale (set by the cached prefix's own prefill): the tail
+    quantizes with it, clip semantics. Returns (token, key after one
+    split, pool_k, pool_v)."""
+    T = ids.shape[1]
+    start, length = int(start), int(length)
+    M = _kvq.cap_of(buf_k)
+    D = p["wte"].shape[1]
+    H = int(num_heads)
+    Dh = D // H
+    dev = ids.device
+    pos = start + torch.arange(T, device=dev)          # absolute
+    h = p["wte"][ids] + p["wpe"][torch.clamp(
+        pos, max=p["wpe"].shape[0] - 1)][None]         # [1, T, D]
+    kpos = torch.arange(M, device=dev)
+    mask = kpos[None, :] <= pos[:, None]               # [T, M]
+    row_k, k_scl = _kvq.gather_rows(buf_k, slot)       # [L, M, H, Dh]
+    row_v, v_scl = _kvq.gather_rows(buf_v, slot)
+    n_in = max(0, min(T, M - start))                   # writes kept
+    ks, vs = [], []
+    for l in range(_n_layers(p)):
+        qkv = _qkv(p, l, h, eps).reshape(1, T, 3, H, Dh)
+        q, k_new, v_new = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        k_l, v_l = row_k[l], row_v[l]                  # [M, H, Dh]
+        k_l[start:start + n_in] = _kvq.fake_quant(
+            k_new[0], None if k_scl is None else k_scl[l])[:n_in]
+        v_l[start:start + n_in] = _kvq.fake_quant(
+            v_new[0], None if v_scl is None else v_scl[l])[:n_in]
+        s = torch.einsum("bhqd,mhd->bhqm", q.transpose(1, 2),
+                         k_l) / math.sqrt(Dh)
+        s = torch.where(mask[None, None], s, _NEG_INF)
+        att = torch.einsum("bhqm,mhd->bhqd", torch.softmax(s, -1), v_l)
+        h = _attn_out_mlp(p, l, h, att.transpose(1, 2).reshape(1, T, D),
+                          eps)
+        ks.append(k_new[0])                            # [T, H, Dh]
+        vs.append(v_new[0])
+    h = _ln(h, p["lnf_w"], p["lnf_b"], eps)
+    key, sub = _rng.split(key)
+    tok = _sample_token(_logits_head(p, h[0, length - 1 - start]), temp,
+                        topk, topp, sub)
+    safe = pos < M
+    wslot = torch.where(safe, torch.full_like(pos, int(slot)),
+                        scratch)                       # [T]
+    wpos = torch.where(safe, pos, 0)
+    buf_k = _kvq.scatter_rows(buf_k, wslot, wpos, torch.stack(ks, 1))
+    buf_v = _kvq.scatter_rows(buf_v, wslot, wpos, torch.stack(vs, 1))
+    return tok, key, buf_k, buf_v
+
+
+def _copy_row_body(buf_k, buf_v, src, dst):
+    """One pool-row copy (a prefix-cache admission or hit): row dst
+    becomes row src; an int8 row copies raw with its scales."""
+    return (_kvq.copy_row(buf_k, src, dst), _kvq.copy_row(buf_v, src, dst))
 
 
 _STACKED = {
@@ -281,13 +548,22 @@ def stack_gpt_params(model) -> Tuple[dict, object]:
 class _GenRequest:
     __slots__ = ("prompt", "max_new", "eos", "future", "stream",
                  "deadline", "t_enqueue", "t_enq_ns", "ctx", "requeues",
-                 "tokens", "streamed", "owner", "t_first")
+                 "tokens", "streamed", "owner", "t_first",
+                 "temperature", "top_k", "top_p", "seed")
 
     def __init__(self, prompt: np.ndarray, max_new: int,
-                 eos: Optional[int], deadline: Optional[float]):
+                 eos: Optional[int], deadline: Optional[float],
+                 temperature: float = 0.0, top_k: int = 1,
+                 top_p: float = 1.0, seed: int = 0):
         self.prompt = prompt                  # np.int64 [P]
         self.max_new = int(max_new)
         self.eos = eos
+        # fixed for the request's life: a requeue replays the same key
+        # chain from the same seed
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.seed = int(seed)
         self.future = Future()
         self.stream: Queue = Queue()
         self.deadline = deadline
@@ -333,29 +609,47 @@ class GenerateHandle:
 
 
 class _Row:
-    __slots__ = ("req", "slot", "length")
+    __slots__ = ("req", "slot", "length", "key")
 
-    def __init__(self, req: _GenRequest, slot: int, length: int):
+    def __init__(self, req: _GenRequest, slot: int, length: int,
+                 key: torch.Tensor):
         self.req = req
         self.slot = slot
         self.length = length   # cached positions; pending tok = tokens[-1]
+        # the row's current key (int64 [2] on the host), split once per
+        # emitted token (prefill took the first split)
+        self.key = key
 
 
-@_shared_state("free", "rows")
+@_shared_state("free", "rows", "pcache", "pc_free")
 class _PoolState:
     """One worker's device state (the reference's per-class state, for
-    its one class): the pool buffer pair, the slot free list and the
-    live rows (the owning worker and the admit/finish/fail paths share
-    free and rows under the engine lock). A revived worker allocates a
-    fresh one."""
+    its one class): the pool buffer pair (with speculation, a second
+    pair in the draft's geometry for the same slots), the slot free
+    list, the live rows, and the prefix cache's LRU over its pool rows
+    (the owning worker and the admit/finish/fail paths share free, rows,
+    pcache and pc_free under the engine lock). A revived worker
+    allocates a fresh one; a failed step resets it."""
 
-    __slots__ = ("buf_k", "buf_v", "free", "rows")
+    __slots__ = ("n_slots", "pc_slots", "buf_k", "buf_v", "dbuf_k",
+                 "dbuf_v", "free", "rows", "pcache", "pc_free")
 
-    def __init__(self, n_slots: int, buf_k, buf_v):
-        self.buf_k = buf_k
-        self.buf_v = buf_v
-        self.free: List[int] = list(range(n_slots))
+    def __init__(self, n_slots: int, pc_slots: int, bufs: tuple):
+        self.n_slots = int(n_slots)
+        self.pc_slots = int(pc_slots)
+        self.reset(bufs)
+
+    def reset(self, bufs: tuple) -> None:
+        """Fresh buffers (buf_k, buf_v, dbuf_k, dbuf_v), every slot free
+        and an empty cache."""
+        self.buf_k, self.buf_v, self.dbuf_k, self.dbuf_v = bufs
+        self.free: List[int] = list(range(self.n_slots))
         self.rows: Dict[int, _Row] = {}
+        # (prefix length, blake2b hex) -> pool row; insertion order is
+        # recency order (move_to_end on a hit, the first one evicted)
+        self.pcache: "OrderedDict[tuple, int]" = OrderedDict()
+        self.pc_free: List[int] = list(
+            range(self.n_slots + 1, self.n_slots + 1 + self.pc_slots))
 
 
 # ===================================================================
@@ -366,13 +660,18 @@ class _PoolState:
                "tokens_out_total", "prompt_tokens_total",
                "prefills_total", "steps_total", "step_rows_total",
                "step_padded_rows_total", "occupancy_hist", "_ttft",
-               "_latency", "_token_stamps", "_step_s", "_prefill_s")
+               "_latency", "_token_stamps", "_step_s", "_prefill_s",
+               "draft_steps_total", "spec_steps_total",
+               "spec_proposed_total", "spec_accepted_total",
+               "prefix_hits_total", "prefix_misses_total",
+               "prefix_evictions_total", "prefix_tokens_reused_total")
 class GenerativeMetrics:
     """Thread-safe metric store for one GenerativeEngine: tokens/s,
-    TTFT, decode slot occupancy and KV-pool utilisation, the request
-    counters, and (the port's own) the host time of each decode step by
-    batch bucket and of each prefill by prompt bucket, from the call to
-    its tokens on the host."""
+    TTFT, decode slot occupancy and KV-pool utilisation, the request,
+    speculation and prefix-cache counters, and (the port's own) the host
+    time of each decode step by batch bucket and of each prefill by
+    prompt bucket (a prefix-cache hit's by tail bucket, as "extend"),
+    from the call to its tokens on the host."""
 
     def __init__(self, ring: int = 4096, window_s: float = 30.0):
         self._lock = threading.Lock()
@@ -390,18 +689,29 @@ class GenerativeMetrics:
         self.steps_total = 0
         self.step_rows_total = 0          # real rows over all steps
         self.step_padded_rows_total = 0   # pad rows added by batch bucket
+        self.draft_steps_total = 0        # k-step draft bursts
+        self.spec_steps_total = 0         # target verify passes
+        self.spec_proposed_total = 0      # draft tokens offered (k-1/row)
+        self.spec_accepted_total = 0      # draft tokens accepted
+        self.prefix_hits_total = 0
+        self.prefix_misses_total = 0
+        self.prefix_evictions_total = 0
+        self.prefix_tokens_reused_total = 0   # prompt tokens not prefilled
         self.occupancy_hist: Dict[int, int] = {}   # active rows -> steps
         self._ttft = deque(maxlen=int(ring))       # seconds
         self._latency = deque(maxlen=int(ring))    # request total seconds
         self._token_stamps = deque(maxlen=65536)   # (monotonic, n)
         self._step_s: Dict[int, deque] = {}        # batch bucket -> s
-        self._prefill_s: Dict[int, deque] = {}     # prompt bucket -> s
+        # (kind, bucket) -> s: kind "prefill" by prompt bucket, "extend"
+        # by tail bucket
+        self._prefill_s: Dict[tuple, deque] = {}
         self._ring = int(ring)
         self.queue_depth_fn = lambda: 0
         self.replicas_fn = lambda: 0
         self.kv_util_fn = lambda: {"slots_used": 0, "slots_total": 0,
                                    "positions_used": 0,
                                    "positions_total": 0}
+        self.quant_flags_fn = lambda: (0, 0)   # (kv int8?, weights int8?)
 
     # ------------------------------------------------------------ record --
     def on_accept(self):
@@ -425,12 +735,34 @@ class GenerativeMetrics:
         with self._lock:
             self.requeues_total += n
 
-    def on_prefill(self, prompt_tokens: int, bucket: int, seconds: float):
+    def on_prefill(self, prompt_tokens: int, bucket: int, seconds: float,
+                   kind: str = "prefill"):
         with self._lock:
             self.prefills_total += 1
             self.prompt_tokens_total += prompt_tokens
             self._prefill_s.setdefault(
-                bucket, deque(maxlen=self._ring)).append(seconds)
+                (kind, bucket), deque(maxlen=self._ring)).append(seconds)
+
+    def on_spec_step(self, proposed: int, accepted: int):
+        """One draft burst and one verify pass over the batch: `proposed`
+        draft tokens offered ((k-1) a real row), `accepted` kept."""
+        with self._lock:
+            self.draft_steps_total += 1
+            self.spec_steps_total += 1
+            self.spec_proposed_total += int(proposed)
+            self.spec_accepted_total += int(accepted)
+
+    def on_prefix(self, hit: bool, tokens_reused: int = 0):
+        with self._lock:
+            if hit:
+                self.prefix_hits_total += 1
+                self.prefix_tokens_reused_total += int(tokens_reused)
+            else:
+                self.prefix_misses_total += 1
+
+    def on_prefix_evict(self):
+        with self._lock:
+            self.prefix_evictions_total += 1
 
     def on_step(self, rows: int, bucket: int, seconds: float):
         with self._lock:
@@ -476,11 +808,16 @@ class GenerativeMetrics:
 
     def step_ms(self) -> Dict[str, Dict[int, Dict[str, float]]]:
         """{"decode": {batch bucket: stats}, "prefill": {prompt bucket:
-        stats}}, each stats {"n", "p50", "p99"} in ms."""
+        stats}, "extend": {tail bucket: stats}}, each stats {"n", "p50",
+        "p99"} in ms (a speculative step is one draft burst and its
+        verify pass)."""
         with self._lock:
+            srcs = {"decode": dict(self._step_s), "prefill": {},
+                    "extend": {}}
+            for (kind, b), vals in self._prefill_s.items():
+                srcs[kind][b] = vals
             out = {}
-            for name, src in (("decode", self._step_s),
-                              ("prefill", self._prefill_s)):
+            for name, src in srcs.items():
                 out[name] = {}
                 for b, vals in sorted(src.items()):
                     pc = self._pcts(vals)
@@ -508,6 +845,7 @@ class GenerativeMetrics:
         # lock, which the engine holds while calling into us
         queue_depth = int(self.queue_depth_fn())
         replicas = int(self.replicas_fn())
+        quant_kv, quant_w = self.quant_flags_fn()
         with self._lock:
             occ_n = sum(k * v for k, v in self.occupancy_hist.items())
             occ_d = sum(self.occupancy_hist.values())
@@ -524,6 +862,20 @@ class GenerativeMetrics:
                 "steps_total": self.steps_total,
                 "step_rows_total": self.step_rows_total,
                 "step_padded_rows_total": self.step_padded_rows_total,
+                "draft_steps_total": self.draft_steps_total,
+                "spec_steps_total": self.spec_steps_total,
+                "spec_proposed_total": self.spec_proposed_total,
+                "spec_accepted_total": self.spec_accepted_total,
+                "spec_accept_rate": _sm.rate(self.spec_accepted_total,
+                                             self.spec_proposed_total),
+                "prefix_hits_total": self.prefix_hits_total,
+                "prefix_misses_total": self.prefix_misses_total,
+                "prefix_evictions_total": self.prefix_evictions_total,
+                "prefix_tokens_reused_total":
+                    self.prefix_tokens_reused_total,
+                "prefix_hit_rate": _sm.rate(
+                    self.prefix_hits_total,
+                    self.prefix_hits_total + self.prefix_misses_total),
                 "avg_slot_occupancy": round(occ_n / occ_d, 3)
                 if occ_d else 0.0,
                 "max_slot_occupancy": max(self.occupancy_hist)
@@ -531,6 +883,8 @@ class GenerativeMetrics:
                 "occupancy_hist": dict(sorted(self.occupancy_hist.items())),
                 "queue_depth": queue_depth,
                 "replicas": replicas,
+                "quant_kv_enabled": int(quant_kv),
+                "quant_weights_enabled": int(quant_w),
             }
         out["kv_pool"] = dict(self.kv_util_fn())
         tot = out["kv_pool"].get("positions_total") or 0
@@ -547,16 +901,23 @@ class GenerativeMetrics:
 # the engine
 # ===================================================================
 @_shared_state("_queue", "_workers", "_warmed", "_live_rows",
-               "_params_by_dev", "_closing", "_abort", "_shut",
-               "_next_rid", "_cold_calls")
+               "_params_by_dev", "_draft_by_dev", "_closing", "_abort",
+               "_shut", "_next_rid", "_cold_calls")
 class GenerativeEngine:
-    """Continuous-batching greedy serving of a paddle_tpu_torch
-    GPTForCausalLM (its weights are copied out and stacked, see
-    stack_gpt_params). `slots` is the decode-batch capacity per worker;
-    prompts are padded to pow2 buckets from 8 to `max_context`. `device`
-    is where the replicas run: the card by default (raising without
-    one), "cpu" when the caller asks; a bare "cuda" spreads replicas over
-    every card.
+    """Continuous-batching serving of a paddle_tpu_torch GPTForCausalLM
+    (its weights are copied out and stacked, see stack_gpt_params).
+    `slots` is the decode-batch capacity per worker; prompts are padded
+    to pow2 buckets from 8 to `max_context`. `device` is where the
+    replicas run: the card by default (raising without one), "cpu" when
+    the caller asks; a bare "cuda" spreads replicas over every card.
+
+    `draft` (a GPTForCausalLM sharing the vocab, its max_seq_len covering
+    max_context) or `draft_params` (a stacked (params, cfg) pair) turns
+    on speculative decoding with `spec_tokens` (>= 2) positions a burst;
+    `prefix_cache_slots` extra pool rows cache prompt prefixes;
+    `kv_dtype="int8"` quantizes the KV pool and `quantize_weights=True`
+    keeps the matmul weights int8 (quantization/kv.py). A request's
+    `temperature`, `top_k`, `top_p` and `seed` select seeded sampling.
     """
 
     def __init__(self, model, slots: Optional[int] = None,
@@ -566,22 +927,14 @@ class GenerativeEngine:
                  max_new_tokens_cap: Optional[int] = None,
                  auto_start: bool = True,
                  draft=None, draft_params: Optional[tuple] = None,
+                 spec_tokens: int = 4,
                  prefix_cache_slots: int = 0,
                  kv_dtype: str = "f32",
                  quantize_weights: bool = False,
                  device=None):
-        if draft is not None or draft_params is not None:
-            raise _todo("speculative decoding (draft=)", _TODO_1D)
-        if int(prefix_cache_slots) > 0:
-            raise _todo("the prefix cache (prefix_cache_slots > 0)",
-                        _TODO_1D)
-        if kv_dtype == "int8":
-            raise _todo("the int8 KV pool (kv_dtype='int8')", _TODO_1D)
-        if kv_dtype != "f32":
-            raise ValueError(f"kv_dtype must be 'f32' (got {kv_dtype!r})")
-        if quantize_weights:
-            raise _todo("weight-only int8 (quantize_weights=True)",
-                        _TODO_1D)
+        if kv_dtype not in ("f32", "int8"):
+            raise ValueError(
+                f"kv_dtype must be 'f32' or 'int8' (got {kv_dtype!r})")
         self._device_pool = device_pool(resolve_device(device))
         self._params, self._cfg = stack_gpt_params(model)
         self._H = int(self._cfg.num_heads)
@@ -594,6 +947,48 @@ class GenerativeEngine:
                           else flag("generate_slots"))
         self._max_ctx = int(min(max_context or self._cfg.max_seq_len,
                                 self._cfg.max_seq_len))
+
+        # speculative decoding: a cheap draft sharing the vocab
+        if draft_params is not None:
+            self._draft_params, dcfg = draft_params
+        elif draft is not None:
+            self._draft_params, dcfg = stack_gpt_params(draft)
+        else:
+            self._draft_params = dcfg = None
+        self._spec = self._draft_params is not None
+        if self._spec:
+            if int(dcfg.vocab_size) != self._vocab:
+                raise ValueError(
+                    f"draft vocab {int(dcfg.vocab_size)} != target vocab "
+                    f"{self._vocab}: speculative decoding needs a shared "
+                    f"tokenizer")
+            if int(dcfg.max_seq_len) < self._max_ctx:
+                raise ValueError(
+                    f"draft max_seq_len {int(dcfg.max_seq_len)} < engine "
+                    f"max_context {self._max_ctx}: the draft must cover "
+                    f"every cached position")
+            if int(spec_tokens) < 2:
+                raise ValueError(
+                    f"spec_tokens must be >= 2 (got {spec_tokens}); 1 "
+                    f"means plain decode, so drop the draft instead")
+            self._dH = int(dcfg.num_heads)
+            self._dL = int(dcfg.num_layers)
+            self._dDh = int(dcfg.hidden_size) // self._dH
+            self._deps = float(dcfg.layer_norm_eps)
+            self._spec_k = int(spec_tokens)
+        else:
+            self._spec_k = 1
+        self._pc_slots = max(0, int(prefix_cache_slots))
+        self._kv_dtype = str(kv_dtype)
+        self._quant_w = bool(quantize_weights)
+        if self._quant_w:
+            # once, where the model lives: the replicas copy the int8
+            # tensors, which stay int8 at rest on every device
+            self._params = _kvq.quantize_stacked_params(self._params)
+            if self._spec:
+                self._draft_params = _kvq.quantize_stacked_params(
+                    self._draft_params)
+
         self._prompt_boundaries = bucket_boundaries_pow2(
             min(8, self._max_ctx), self._max_ctx)
         self._batch_buckets = bucket_boundaries_pow2(1, self._slots)
@@ -614,6 +1009,7 @@ class GenerativeEngine:
         self._shut = False
         self._next_rid = 0
         self._params_by_dev: dict = {}
+        self._draft_by_dev: dict = {}
         self._warmed: set = set()     # (device_key, kind, bucket)
         # calls after admission of a program not yet run on its device
         self._cold_calls = 0
@@ -624,6 +1020,8 @@ class GenerativeEngine:
         self.metrics.queue_depth_fn = lambda: len(self._queue)
         self.metrics.replicas_fn = lambda: len(self._active())
         self.metrics.kv_util_fn = self._kv_utilization
+        self.metrics.quant_flags_fn = lambda: (
+            int(self._kv_dtype == "int8"), int(self._quant_w))
 
         for _ in range(max(int(replicas), 1)):
             self._workers.append(self._new_worker())
@@ -632,35 +1030,80 @@ class GenerativeEngine:
         if auto_start:
             self.start()
 
-    def _params_for(self, device):
-        """The stacked parameters on `device`, copied there on first use
-        (in the warm-up, before any worker on it admits a request)."""
+    def _on_device(self, cache: dict, params: dict, device) -> dict:
+        """`params` on `device`, copied there on first use (in the
+        warm-up, before any worker on it admits a request)."""
         key = self._device_key(device)
         with self._cv:
-            p = self._params_by_dev.get(key)
+            p = cache.get(key)
             if p is None:
-                p = {k: v.to(device) for k, v in self._params.items()}
-                self._params_by_dev[key] = p
+                p = {k: v.to(device) for k, v in params.items()}
+                cache[key] = p
         return p
 
+    def _params_for(self, device):
+        return self._on_device(self._params_by_dev, self._params, device)
+
+    def _draft_params_for(self, device):
+        return self._on_device(self._draft_by_dev, self._draft_params,
+                               device)
+
+    def _alloc_bufs(self, device) -> tuple:
+        """(pool_k, pool_v, draft_k, draft_v) for one worker; the draft's
+        pair is None without speculation."""
+        mk = lambda shape: _kvq.alloc(shape, device,      # noqa: E731
+                                      self._kv_dtype)
+        bufs = (mk(self._pool_shape()), mk(self._pool_shape()))
+        if self._spec:
+            return bufs + (mk(self._draft_pool_shape()),
+                           mk(self._draft_pool_shape()))
+        return bufs + (None, None)
+
     def _alloc_pool(self, device) -> _PoolState:
-        # rows: [0, slots) live, [slots] scratch (pad/overflow sink)
-        return _PoolState(self._slots, _kvq.alloc(self._pool_shape(), device),
-                          _kvq.alloc(self._pool_shape(), device))
+        # rows: [0, slots) live, [slots] scratch (pad/overflow sink),
+        # [slots + 1, slots + 1 + prefix_cache_slots) the prefix cache
+        return _PoolState(self._slots, self._pc_slots,
+                          self._alloc_bufs(device))
 
     def _pool_shape(self) -> tuple:
-        return (self._slots + 1, self._L, self._max_ctx, self._H, self._Dh)
+        return (self._slots + 1 + self._pc_slots, self._L, self._max_ctx,
+                self._H, self._Dh)
+
+    def _draft_pool_shape(self) -> tuple:
+        return (self._slots + 1, self._dL, self._max_ctx, self._dH,
+                self._dDh)
 
     def kv_pool_bytes(self) -> int:
-        """Bytes ONE worker's KV pool allocates (K and V, the scratch row
-        included)."""
-        return 2 * _kvq.pool_nbytes(self._pool_shape())
+        """Bytes ONE worker's KV pools allocate (K and V, the scratch and
+        prefix-cache rows included, and the draft's pair with
+        speculation)."""
+        total = 2 * _kvq.pool_nbytes(self._pool_shape(), self._kv_dtype)
+        if self._spec:
+            total += 2 * _kvq.pool_nbytes(self._draft_pool_shape(),
+                                          self._kv_dtype)
+        return total
+
+    def _programs(self) -> List[str]:
+        progs = [f"prefill[b={s}]" for s in self._prompt_boundaries] \
+            + [f"decode[b={b}]" for b in self._batch_buckets]
+        if self._pc_slots:
+            progs += ["pcopy[b=1]"] + [f"extend[b={s}]"
+                                       for s in self._prompt_boundaries]
+        if self._spec:
+            k = self._spec_k
+            progs += [f"dprefill[b={s}]" for s in self._prompt_boundaries]
+            progs += [f"{kind}[b={b},k={k}]" for kind in ("dpropose",
+                                                          "verify")
+                      for b in self._batch_buckets]
+        return progs
 
     def program_report(self) -> dict:
         """The program inventory: one prefill per prompt bucket and one
-        decode step per batch bucket, how many (device, program) pairs
-        ran, and how many calls after admission found their program not
-        yet run on its device."""
+        decode step per batch bucket (with the prefix cache the row copy
+        and one extend per tail bucket; with a draft one draft prefill
+        per prompt bucket and the propose and verify passes per batch
+        bucket), how many (device, program) pairs ran, and how many calls
+        after admission found their program not yet run on its device."""
         with self._cv:
             warmed = len(self._warmed)
             cold = self._cold_calls
@@ -668,9 +1111,9 @@ class GenerativeEngine:
             "prefill_buckets": list(self._prompt_boundaries),
             "decode_batch_buckets": list(self._batch_buckets),
             "max_context": self._max_ctx,
-            "kv_dtype": "f32",
-            "programs": [f"prefill[b={s}]" for s in self._prompt_boundaries]
-            + [f"decode[b={b}]" for b in self._batch_buckets],
+            "kv_dtype": self._kv_dtype,
+            "quantize_weights": self._quant_w,
+            "programs": self._programs(),
             "warmed": warmed,
             "first_calls_after_warmup": cold,
         }
@@ -869,36 +1312,77 @@ class GenerativeEngine:
             else nullcontext()
 
     def _warm_device(self, device) -> int:
-        """Run the whole program inventory once on `device`: every
-        prompt-bucket prefill and every batch-bucket decode step, on a
-        pool of its own, through the scratch row."""
+        """Run the whole program inventory once on `device`, on a pool of
+        its own, through the scratch row, sampling (temperature 1) so
+        that the sampling head's kernels run too: every prompt-bucket
+        prefill and batch-bucket decode step; with the prefix cache the
+        row copy and every tail-bucket extend; with a draft every draft
+        prefill and the propose and verify passes by batch bucket."""
         p = self._params_for(device)
         devk = self._device_key(device)
         scratch = self._slots
+        V, k = self._vocab, self._spec_k
         n = 0
+
+        def ids(*shape):
+            return torch.zeros(shape, dtype=torch.int64, device=device)
+
+        def rows(b):
+            """Per-row inputs of a batch-bucket program: (slots, tokens,
+            lengths) on the device, (temps, topks, topps, keys) on the
+            host."""
+            return ((torch.full((b,), scratch, dtype=torch.int64,
+                                device=device), ids(b), ids(b)),
+                    (torch.ones(b), torch.full((b,), V), torch.ones(b),
+                     torch.zeros(b, 2, dtype=torch.int64)))
+
+        def done(kind, bucket, out):
+            nonlocal n
+            out.cpu()
+            with self._cv:
+                self._warmed.add((devk, kind, bucket))
+            n += 1
+
+        key0 = torch.zeros(2, dtype=torch.int64)
         with torch.inference_mode(), self._device_ctx(device):
             pool = self._alloc_pool(device)
             for s in self._prompt_boundaries:
-                tok, _, _ = _prefill_body(
-                    p, pool.buf_k, pool.buf_v, scratch,
-                    torch.zeros(1, s, dtype=torch.int64, device=device), 1,
-                    self._H, self._eps)
-                int(tok)
-                with self._cv:
-                    self._warmed.add((devk, "prefill", s))
-                n += 1
+                tok, _, _, _ = _prefill_body(
+                    p, pool.buf_k, pool.buf_v, scratch, ids(1, s), 1, 1.0,
+                    V, 1.0, key0, self._H, self._eps)
+                done("prefill", s, tok)
             for b in self._batch_buckets:
-                nxt, _, _ = _decode_body(
-                    p, pool.buf_k, pool.buf_v,
-                    torch.full((b,), scratch, dtype=torch.int64,
-                               device=device),
-                    torch.zeros(b, dtype=torch.int64, device=device),
-                    torch.zeros(b, dtype=torch.int64, device=device),
-                    scratch, self._H, self._eps)
-                nxt.cpu()
-                with self._cv:
-                    self._warmed.add((devk, "decode", b))
-                n += 1
+                dev_in, samp = rows(b)
+                nxt, _, _, _ = _decode_body(
+                    p, pool.buf_k, pool.buf_v, *dev_in, *samp, scratch,
+                    self._H, self._eps)
+                done("decode", b, nxt)
+            if self._pc_slots:
+                _copy_row_body(pool.buf_k, pool.buf_v, scratch, scratch)
+                done("pcopy", 1,
+                     _kvq.row_raw(pool.buf_k, scratch)[0][0, 0])
+                for s in self._prompt_boundaries:
+                    tok, _, _, _ = _extend_body(
+                        p, pool.buf_k, pool.buf_v, scratch, ids(1, s), 0,
+                        1, 1.0, V, 1.0, key0, scratch, self._H, self._eps)
+                    done("extend", s, tok)
+            if self._spec:
+                dp = self._draft_params_for(device)
+                for s in self._prompt_boundaries:
+                    tok, _, _, _ = _prefill_body(
+                        dp, pool.dbuf_k, pool.dbuf_v, scratch, ids(1, s),
+                        1, 0.0, 1, 1.0, key0, self._dH, self._deps)
+                    done("dprefill", s, tok)
+                for b in self._batch_buckets:
+                    dev_in, samp = rows(b)
+                    props, _, _ = _propose_body(
+                        dp, pool.dbuf_k, pool.dbuf_v, *dev_in, k, scratch,
+                        self._dH, self._deps)
+                    done("dpropose", b, props)
+                    ys, _, _, _ = _verify_body(
+                        p, pool.buf_k, pool.buf_v, dev_in[0], ids(b, k),
+                        dev_in[2], *samp, scratch, self._H, self._eps)
+                    done("verify", b, ys)
             del pool
         return n
 
@@ -929,6 +1413,8 @@ class GenerativeEngine:
             "prefill_buckets": list(self._prompt_boundaries),
             "decode_batch_buckets": list(self._batch_buckets),
             "max_context": self._max_ctx,
+            "kv_dtype": self._kv_dtype,
+            "quantize_weights": self._quant_w,
             "kv_pool_bytes": self.kv_pool_bytes(),
         }
 
@@ -1008,7 +1494,7 @@ class GenerativeEngine:
                 "prefill_buckets": list(self._prompt_boundaries),
                 "decode_batch_buckets": list(self._batch_buckets),
                 "max_context": self._max_ctx,
-                "kv_dtype": "f32",
+                "kv_dtype": self._kv_dtype,
                 "warmed_programs": len(self._warmed),
             }
 
@@ -1058,10 +1544,6 @@ class GenerativeEngine:
         except ServingError:
             self.metrics.on_reject("sampling")
             raise
-        if (samp["temperature"] or 0.0) > 0.0 or samp["top_k"] is not None \
-                or samp["top_p"] is not None:
-            raise _todo("sampling (temperature > 0, top_k, top_p)",
-                        _TODO_1C)
         try:
             prompt = np.asarray(input_ids)
             if prompt.ndim == 2 and prompt.shape[0] == 1:
@@ -1104,8 +1586,15 @@ class GenerativeEngine:
                 400, f"max_new_tokens must be >= 1 (got {want})")
         max_new = max(1, min(want, self._max_new_cap, cap - P))
         deadline = time.monotonic() + dl_s if dl_s is not None else None
+        temp = samp["temperature"] if samp["temperature"] is not None \
+            else 0.0
+        tk = min(samp["top_k"], self._vocab) \
+            if samp["top_k"] is not None else self._vocab
+        tp = samp["top_p"] if samp["top_p"] is not None else 1.0
+        sd = samp["seed"] if samp["seed"] is not None else 0
         return _GenRequest(np.ascontiguousarray(prompt), max_new, eos,
-                           deadline)
+                           deadline, temperature=temp, top_k=tk, top_p=tp,
+                           seed=sd)
 
     def _shed_check_locked(self, bound: int) -> None:
         if self._closing:
@@ -1270,19 +1759,20 @@ class GenerativeEngine:
                    pool: _PoolState) -> None:
         """A failure mid-step: every in-flight row of this worker
         requeues (one charged strike each; a second strike 503s) onto
-        fresh buffers: re-prefill is the recovery, and the new pool
-        cannot leak a poisoned slot into the next batch."""
+        fresh buffers and an empty prefix cache: re-prefill is the
+        recovery, and the new pool cannot leak a poisoned slot into the
+        next batch."""
         with self._cv:
             stuck = list(w.inflight)
             w.inflight = []
             for req in stuck:
                 req.owner = None
-            pool.rows.clear()
-            pool.free = list(range(self._slots))
             self._live_rows.pop(w.rid, None)
-        pool.buf_k = pool.buf_v = None       # free the old pool first
-        pool.buf_k = _kvq.alloc(self._pool_shape(), w.device)
-        pool.buf_v = _kvq.alloc(self._pool_shape(), w.device)
+            # free the old buffers before the new ones are allocated
+            pool.reset((None,) * 4)
+        bufs = self._alloc_bufs(w.device)
+        with self._cv:
+            pool.reset(bufs)
         self._requeue(stuck)
 
     def _update_liveness_locked(self, w, pool):
@@ -1292,56 +1782,140 @@ class GenerativeEngine:
             rows[slot] = row.length
 
     def _begin_call_locked(self, w: ReplicaSlot, gen: int,
-                           key: tuple) -> bool:
-        """Mark the worker busy for one program call (caller holds _cv);
-        count the call if its program has not run on this device.
+                           keys: List[tuple]) -> bool:
+        """Mark the worker busy for one scheduler call (caller holds
+        _cv); count each of its programs not yet run on this device.
         False when the worker was superseded."""
         if w.generation != gen:
             return False
         w.busy_since = time.monotonic()
-        self._cold_calls += int(key not in self._warmed)
+        self._cold_calls += sum(int(k not in self._warmed) for k in keys)
         return True
 
-    def _end_call(self, w: ReplicaSlot, gen: int, key: tuple) -> None:
+    def _end_call(self, w: ReplicaSlot, gen: int,
+                  keys: List[tuple]) -> None:
         with self._cv:
             if w.generation == gen:
                 w.busy_since = None
-            if key[1] == "decode":
+            if keys[-1][1] in ("decode", "verify"):
                 w.batches += 1
-            self._warmed.add(key)
+            self._warmed.update(keys)
+
+    def _probe_prefix_locked(self, pool: _PoolState, req: _GenRequest):
+        """The prefix-cache probe (caller holds _cv): the longest cached
+        boundary below the prompt wins (F < P always: the tail samples
+        the first token), and the longest uncached boundary longer than
+        the hit is admitted on the way out. Returns (hit length, hit row,
+        admit length, admit hash), each None where there is none."""
+        P = int(req.prompt.size)
+        hit_f = hit_row = admit_f = admit_h = None
+        for F in reversed(self._prompt_boundaries):
+            if F >= P:
+                continue
+            h = _prefix_hash(req.prompt, F)
+            row = pool.pcache.get((F, h))
+            if row is not None:
+                hit_f, hit_row = F, row
+                pool.pcache.move_to_end((F, h))
+                break
+            if admit_f is None:
+                admit_f, admit_h = F, h
+        return hit_f, hit_row, admit_f, admit_h
+
+    def _admit_prefix(self, pool: _PoolState, slot: int, F: int,
+                      h: str) -> None:
+        """Copy the prompt's first F positions (the whole of row `slot`)
+        into a cache row, evicting the least recently used one when the
+        cache is full."""
+        with self._cv:
+            evict = not pool.pc_free
+            if evict:
+                _, crow = pool.pcache.popitem(last=False)
+            else:
+                crow = pool.pc_free.pop()
+            pool.pcache[(F, h)] = crow
+        pool.buf_k, pool.buf_v = _copy_row_body(pool.buf_k, pool.buf_v,
+                                                slot, crow)
+        if evict:
+            self.metrics.on_prefix_evict()
 
     def _prefill_one(self, w: ReplicaSlot, gen: int, pool: _PoolState,
                      slot: int, req: _GenRequest) -> None:
         P = int(req.prompt.size)
         S = bucket_for(P, self._prompt_boundaries)
-        key = (self._device_key(w.device), "prefill", S)
+        devk = self._device_key(w.device)
+        dev = w.device
+        samp = (req.temperature, req.top_k, req.top_p)
+        key0 = _rng.key(req.seed)
+        hit_f = hit_row = admit_f = admit_h = None
+        if pool.pc_slots:
+            with self._cv:
+                hit_f, hit_row, admit_f, admit_h = \
+                    self._probe_prefix_locked(pool, req)
+        T = bucket_for(P - hit_f, self._prompt_boundaries) \
+            if hit_f is not None else None
+        keys = [(devk, "pcopy", 1), (devk, "extend", T)] \
+            if hit_f is not None else [(devk, "prefill", S)]
+        if self._spec:
+            keys.append((devk, "dprefill", S))
+        if admit_f is not None:
+            keys.append((devk, "pcopy", 1))
         args = None
         if _tr.enabled():
-            args = {"replica": w.rid, "bucket": S, "prompt_tokens": P}
+            args = {"replica": w.rid, "bucket": S, "prompt_tokens": P,
+                    "prefix_hit": hit_f or 0}
         with self._cv:
-            if not self._begin_call_locked(w, gen, key):
+            if not self._begin_call_locked(w, gen, keys):
                 return
         t0 = time.perf_counter()
         try:
             with _tr.span("generate.prefill", "serving", args,
                           parent=req.ctx):
-                ids = np.zeros((1, S), np.int64)
-                ids[0, :P] = req.prompt
-                tok, pool.buf_k, pool.buf_v = _prefill_body(
-                    self._params_for(w.device), pool.buf_k, pool.buf_v,
-                    slot, torch.from_numpy(ids).to(w.device), P, self._H,
-                    self._eps)
+                p = self._params_for(dev)
+                if hit_f is not None:
+                    pool.buf_k, pool.buf_v = _copy_row_body(
+                        pool.buf_k, pool.buf_v, hit_row, slot)
+                    ids = np.zeros((1, T), np.int64)
+                    ids[0, :P - hit_f] = req.prompt[hit_f:]
+                    tok, kcar, pool.buf_k, pool.buf_v = _extend_body(
+                        p, pool.buf_k, pool.buf_v, slot,
+                        torch.from_numpy(ids).to(dev), hit_f, P, *samp,
+                        key0, self._slots, self._H, self._eps)
+                else:
+                    ids = np.zeros((1, S), np.int64)
+                    ids[0, :P] = req.prompt
+                    tok, kcar, pool.buf_k, pool.buf_v = _prefill_body(
+                        p, pool.buf_k, pool.buf_v, slot,
+                        torch.from_numpy(ids).to(dev), P, *samp, key0,
+                        self._H, self._eps)
+                if self._spec:
+                    # the draft has no prefix cache: it prefills the
+                    # whole prompt into its own pool
+                    dids = np.zeros((1, S), np.int64)
+                    dids[0, :P] = req.prompt
+                    _, _, pool.dbuf_k, pool.dbuf_v = _prefill_body(
+                        self._draft_params_for(dev), pool.dbuf_k,
+                        pool.dbuf_v, slot, torch.from_numpy(dids).to(dev),
+                        P, 0.0, 1, 1.0, key0, self._dH, self._deps)
+                if admit_f is not None:
+                    self._admit_prefix(pool, slot, admit_f, admit_h)
                 tok = int(tok)
         finally:
-            self._end_call(w, gen, key)
-        self.metrics.on_prefill(P, S, time.perf_counter() - t0)
+            self._end_call(w, gen, keys)
+        if hit_f is None:
+            self.metrics.on_prefill(P, S, time.perf_counter() - t0)
+        else:
+            self.metrics.on_prefill(P - hit_f, T, time.perf_counter() - t0,
+                                    kind="extend")
+        if pool.pc_slots:
+            self.metrics.on_prefix(hit_f is not None, hit_f or 0)
         status = self._emit(w, gen, req, tok)
         if status == "dead":
             return
         with self._cv:
             if w.generation != gen:
                 return
-            pool.rows[slot] = _Row(req, slot, P)
+            pool.rows[slot] = _Row(req, slot, P, kcar)
             self._update_liveness_locked(w, pool)
         if status == "done":
             self._finish(w, gen, pool, slot, req, "eos"
@@ -1359,21 +1933,36 @@ class GenerativeEngine:
         n = len(rows)
         bucket = bucket_for(n, self._batch_buckets)
         scratch = self._slots    # the +1 row: padding lands there
+        spec, k = self._spec, self._spec_k
         slots = np.full((bucket,), scratch, np.int64)
         toks = np.zeros((bucket,), np.int64)
         lens = np.zeros((bucket,), np.int64)
+        # the sampling values and keys stay on the host (a padding row is
+        # greedy with a zero key)
+        temps = torch.zeros(bucket)
+        topks = torch.ones(bucket, dtype=torch.int64)
+        topps = torch.ones(bucket)
+        keys = torch.zeros(bucket, 2, dtype=torch.int64)
         for i, row in enumerate(rows):
             slots[i] = row.slot
             toks[i] = row.req.tokens[-1]
             lens[i] = row.length
-        key = (self._device_key(w.device), "decode", bucket)
+            temps[i] = row.req.temperature
+            topks[i] = row.req.top_k
+            topps[i] = row.req.top_p
+            keys[i] = row.key
+        samp = (temps, topks, topps, keys)
+        devk = self._device_key(w.device)
+        prog_keys = [(devk, "dpropose", bucket), (devk, "verify", bucket)] \
+            if spec else [(devk, "decode", bucket)]
         args = None
         if _tr.enabled():
             args = {"replica": w.rid, "rows": n, "bucket": bucket,
+                    "spec_k": k if spec else 0,
                     "traces": [r.req.ctx.trace_id for r in rows
                                if r.req.ctx is not None]}
         with self._cv:
-            if not self._begin_call_locked(w, gen, key):
+            if not self._begin_call_locked(w, gen, prog_keys):
                 return
         t0 = time.perf_counter()
         try:
@@ -1386,29 +1975,69 @@ class GenerativeEngine:
             with _tr.span("generate.decode_step", "serving", args,
                           parent=rows[0].req.ctx):
                 dev = w.device
-                nxt, pool.buf_k, pool.buf_v = _decode_body(
-                    self._params_for(dev), pool.buf_k, pool.buf_v,
-                    torch.from_numpy(slots).to(dev),
-                    torch.from_numpy(toks).to(dev),
-                    torch.from_numpy(lens).to(dev), scratch, self._H,
-                    self._eps)
-                nxt = nxt.cpu().numpy()
+                slots_d = torch.from_numpy(slots).to(dev)
+                toks_d = torch.from_numpy(toks).to(dev)
+                lens_d = torch.from_numpy(lens).to(dev)
+                if spec:
+                    # one k-step draft burst; the draft pool advances
+                    # through all k inputs so that a full accept finds
+                    # every position it needs next time
+                    props, pool.dbuf_k, pool.dbuf_v = _propose_body(
+                        self._draft_params_for(dev), pool.dbuf_k,
+                        pool.dbuf_v, slots_d, toks_d, lens_d, k, scratch,
+                        self._dH, self._deps)
+                    tok_mat = torch.cat([toks_d[:, None],
+                                         props[:, :k - 1]], 1)
+                    ys, khist, pool.buf_k, pool.buf_v = _verify_body(
+                        self._params_for(dev), pool.buf_k, pool.buf_v,
+                        slots_d, tok_mat, lens_d, *samp, scratch, self._H,
+                        self._eps)
+                    props = props.cpu().numpy()        # [bucket, k]
+                    ys = ys.cpu().numpy()              # [bucket, k]
+                else:
+                    nxt, nkeys, pool.buf_k, pool.buf_v = _decode_body(
+                        self._params_for(dev), pool.buf_k, pool.buf_v,
+                        slots_d, toks_d, lens_d, *samp, scratch, self._H,
+                        self._eps)
+                    nxt = nxt.cpu().numpy()
         finally:
-            self._end_call(w, gen, key)
+            self._end_call(w, gen, prog_keys)
         self.metrics.on_step(n, bucket, time.perf_counter() - t0)
-        finished = []
+        if spec:
+            # accept the longest agreed prefix of each row: ys[i, j] is
+            # the target's own token at position j (plain decode's key
+            # chain), valid while every earlier proposal matched; a
+            # rejection still yields ys[i, m-1] (>= 1 token a burst)
+            ms = []
+            for i in range(n):
+                m = 1
+                while m < k and props[i, m - 1] == ys[i, m - 1]:
+                    m += 1
+                ms.append(m)
+            self.metrics.on_spec_step(proposed=n * (k - 1),
+                                      accepted=sum(m - 1 for m in ms))
+            emitted = [ys[i, :ms[i]] for i in range(n)]
+            new_keys = [khist[i, ms[i] - 1] for i in range(n)]
+        else:
+            ms = [1] * n
+            emitted = [nxt[i:i + 1] for i in range(n)]
+            new_keys = [nkeys[i] for i in range(n)]
         with self._cv:
             if w.generation != gen:
                 return
-            for row in rows:
-                row.length += 1
+            for i, row in enumerate(rows):
+                row.length += ms[i]
+                row.key = new_keys[i].clone()
             self._update_liveness_locked(w, pool)
+        finished = []
         for i, row in enumerate(rows):
-            status = self._emit(w, gen, row.req, int(nxt[i]))
-            if status == "dead":
-                return
-            if status == "done":
-                finished.append(row)
+            for tok in emitted[i]:
+                status = self._emit(w, gen, row.req, int(tok))
+                if status == "dead":
+                    return
+                if status == "done":
+                    finished.append(row)
+                    break
         for row in finished:
             self._finish(w, gen, pool, row.slot, row.req,
                          "eos" if row.req.eos is not None and

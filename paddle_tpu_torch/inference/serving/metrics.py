@@ -1,7 +1,7 @@
 """Serving metrics helpers (counterpart of
 paddle_tpu/inference/serving/metrics.py, cut to what the generation
-engine uses): the nearest-rank percentile rule. The registry of live
-engines and the safe ratio wait for their first caller, the HTTP front
+engine uses): the nearest-rank percentile rule and the safe ratio. The
+registry of live engines waits for its first caller, the HTTP front
 (ROADMAP module queue item 1e); the predict engine's ServingMetrics
 waits for the predict engine's port.
 """
@@ -24,4 +24,9 @@ def percentiles(vals) -> Dict[str, float]:
     return {"p50": pct(0.50), "p95": pct(0.95), "p99": pct(0.99)}
 
 
-__all__ = ["percentiles"]
+def rate(num, den) -> float:
+    """Safe ratio for snapshot fields (0.0 on an empty denominator)."""
+    return round(num / den, 4) if den else 0.0
+
+
+__all__ = ["percentiles", "rate"]

@@ -8,9 +8,10 @@ PyTorch runs eagerly, so the reference's scan-over-layers model has no
 counterpart here: its stacked parameters are unstacked by
 `framework_io.params_from_paddle_tpu`.
 
-`generate` is the reference's greedy decoding over a fixed-size KV cache:
-one prefill pass, then one cached step per token, every attention through
-`cached_attention` (plain einsum, as the reference's `_cached_attn_p`).
+`generate` is the reference's decoding over a fixed-size KV cache, greedy
+or top-k sampled: one prefill pass, then one cached step per token, every
+attention through `cached_attention` (plain einsum, as the reference's
+`_cached_attn_p`).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..core import rng as _rng
 from ..nn import functional as F
 from ..nn.norm import LayerNorm
 
@@ -56,9 +58,6 @@ PRESETS = {
 
 
 _NEG_INF = -1e30
-_SAMPLING_TODO = ("sampling (do_sample=True) is not ported yet: matching "
-                  "the reference token for token needs its threefry keys "
-                  "(ROADMAP module queue item 1c)")
 
 
 def cached_attention(q, k_new, v_new, k_buf, v_buf, pos: int):
@@ -207,16 +206,17 @@ class GPTForCausalLM(nn.Module):
 
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,
                  top_k=0, temperature=1.0, eos_token_id=None):
-        """Greedy decoding over a fixed-size KV cache: the whole prompt in
-        one prefill pass, then one cached step per token, until
+        """Decoding over a fixed-size KV cache: the whole prompt in one
+        prefill pass, then one cached step per token, until
         max_new_tokens, the cache's end (min(max_seq_len, L +
         max_new_tokens)) or, with `eos_token_id`, a step where every row
         emits it. input_ids: [B, L] ids (a tensor, array or list; moved
-        to the model's device). Returns [B, L + n] int64 ids.
-        do_sample=True raises NotImplementedError (ROADMAP item 1c);
-        top_k only applies to sampling."""
-        if do_sample:
-            raise NotImplementedError(_SAMPLING_TODO)
+        to the model's device). Returns [B, L + n] int64 ids. Greedy, or
+        with do_sample=True the reference's top-k sampling: the logits
+        over `temperature`, those under the k-th largest set to -1e30
+        (top_k > 0), then the argmax after float64 Gumbel noise [B, V]
+        drawn each step with the default generator's next key
+        (core/rng.py; reseed it with `paddle_tpu_torch.seed`)."""
         dev = self.gpt.wte.weight.device
         ids = torch.as_tensor(input_ids, device=dev).to(torch.int64)
         B, L = ids.shape
@@ -236,6 +236,16 @@ class GPTForCausalLM(nn.Module):
                 if cur_len >= maxlen:
                     break
                 step_logits = logits[:, -1] / max(temperature, 1e-6)
+                if do_sample:
+                    if top_k and top_k > 0:
+                        kth = torch.topk(step_logits, top_k).values[:, -1:]
+                        step_logits = torch.where(step_logits < kth,
+                                                  _NEG_INF, step_logits)
+                    # float64 noise, as the reference draws it (its JAX
+                    # runs in x64 mode), added to the f32 logits in f64
+                    g = _rng.gumbel(_rng.next_key().to(dev),
+                                    tuple(step_logits.shape), torch.float64)
+                    step_logits = step_logits.double() + g
                 nxt = torch.argmax(step_logits, dim=-1).reshape(B, 1)
                 out_ids.append(nxt)
                 if eos_token_id is not None and bool(

@@ -1,8 +1,9 @@
-"""Greedy generation in the port (paddle_tpu_torch/models/gpt.py's cached
-path and `generate`, and the program bodies and KV helpers of
-paddle_tpu_torch/inference/serving/generate.py and quantization/kv.py)
-against the reference package on the same seeded numpy weights and
-inputs, in f32 on the CPU.
+"""Generation in the port (paddle_tpu_torch/models/gpt.py's cached path
+and greedy `generate`, and the program bodies and KV helpers of
+paddle_tpu_torch/inference/serving/generate.py and quantization/kv.py:
+prefill, decode, the prefix cache's extend and row copy, the draft's
+propose and the verify pass) against the reference package on the same
+seeded numpy weights and inputs, in f32 on the CPU.
 
 Tolerances: attention outputs and pool rows 1e-5 absolute, logits 1e-4
 absolute (the packages differ in the order of f32 sums only); greedy
@@ -133,19 +134,34 @@ def test_kv_store_gather_scatter_copy_match_reference():
     jb = jkv.copy_row(jb, 3, 0)
     tb = tkv.copy_row(tb, 3, 0)
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
-    assert tkv.pool_nbytes(shape) == jkv.pool_nbytes(shape, "f32")
+    for dt in ("f32", "int8"):
+        assert tkv.pool_nbytes(shape, dt) == jkv.pool_nbytes(shape, dt)
     assert tkv.alloc(shape, "cpu").abs().sum() == 0
     assert tkv.fake_quant(tb, None) is tb and not tkv.is_quantized(tb)
-    p = {"wte": tb}
+    # the int8 round trip: a block stored into a fresh int8 pool and
+    # gathered back is the reference's, and is fake_quant of the block
+    # under the row's new scales
+    q = tkv.alloc(shape, "cpu", "int8")
+    assert tkv.is_quantized(q)
+    assert q.nbytes == tkv.pool_nbytes(shape, "int8")
+    assert q.data.abs().sum() == 0 and bool((q.scale == 1).all())
+    jq = jkv.store_block(jkv.alloc(shape, None, "int8"), jnp.int32(2),
+                         jnp.asarray(block))
+    q = tkv.store_block(q, 2, torch.from_numpy(block))
+    np.testing.assert_array_equal(q.scale.numpy(), np.asarray(jq.scale))
+    np.testing.assert_array_equal(q.data.numpy(), np.asarray(jq.data))
+    rows, scl = tkv.gather_rows(q, 2)
+    np.testing.assert_array_equal(rows[:, :6].numpy(), tkv.fake_quant(
+        torch.from_numpy(block), scl).numpy())
+    # weight-only int8 of the stacked float dict and back
+    p = {"wte": tb[0, 0, 0], "qkv_w": tb[:, 0]}
     assert tkv.dequant_params(p) is p
-
-
-@pytest.mark.parametrize("fn,args", [
-    (tkv.alloc, ((2, 1, 4, 1, 2), "cpu", "int8")),
-    (tkv.pool_nbytes, ((2, 1, 4, 1, 2), "int8"))])
-def test_kv_int8_waits_for_item_1d(fn, args):
-    with pytest.raises(NotImplementedError, match="1d"):
-        fn(*args)
+    qp = tkv.quantize_stacked_params(p)
+    assert set(qp) == {"wte", "qkv_w__q", "qkv_w__s"}
+    jp = jkv.dequant_params(jkv.quantize_stacked_params(
+        {k: np.asarray(v) for k, v in p.items()}))
+    np.testing.assert_array_equal(tkv.dequant_params(qp)["qkv_w"].numpy(),
+                                  np.asarray(jp["qkv_w"]))
 
 
 # --------------------------------------------------------- program bodies --
@@ -164,7 +180,7 @@ def test_prefill_body_matches_reference(small, P):
              cfg.hidden_size // cfg.num_heads)
     ids = np.zeros((1, S), np.int64)
     ids[0, :P] = _prompt(1, P, cfg.vocab_size, seed=P)[0]
-    jt, _, jk, jv = jgen._prefill_body(
+    jt, jkey, jk, jv = jgen._prefill_body(
         jp, jnp.zeros(shape), jnp.zeros(shape), jnp.int32(slot),
         jnp.asarray(ids, jnp.int32), jnp.int32(P), jnp.float32(0.0),
         jnp.int32(1), jnp.float32(1.0), jnp.zeros(2, jnp.uint32),
@@ -179,9 +195,12 @@ def test_prefill_body_matches_reference(small, P):
     # the logits at length-1 are the reference model's forward logits
     ref = jm(paddle.to_tensor(ids[:, :P])).numpy()[0, -1]
     np.testing.assert_allclose(logits.numpy(), ref, atol=LOGIT_ATOL)
-    tok, _, _ = tgen._prefill_body(tp, tk, tv, slot, torch.from_numpy(ids),
-                                   P, cfg.num_heads, cfg.layer_norm_eps)
+    tok, key, _, _ = tgen._prefill_body(
+        tp, tk, tv, slot, torch.from_numpy(ids), P, 0.0, 1, 1.0,
+        torch.zeros(2, dtype=torch.int64), cfg.num_heads,
+        cfg.layer_norm_eps)
     assert int(tok) == int(jt)
+    np.testing.assert_array_equal(key.numpy(), np.asarray(jkey))
 
 
 def test_decode_core_matches_reference(small):
@@ -214,12 +233,109 @@ def test_decode_core_matches_reference(small):
     changed = np.argwhere(np.abs(tk.numpy() - pool_k).sum((3, 4)) > 0)
     assert {(int(s), int(p)) for s, _, p in changed} == \
         {(2, 9), (0, 0), (scratch, 0)}
-    nxt, _, _ = tgen._decode_body(
+    nxt, _, _, _ = tgen._decode_body(
         tp, torch.from_numpy(pool_k.copy()), torch.from_numpy(pool_v.copy()),
         torch.from_numpy(slots), torch.from_numpy(tokens),
-        torch.from_numpy(lengths), scratch, H, cfg.layer_norm_eps)
+        torch.from_numpy(lengths), torch.zeros(4),
+        torch.ones(4, dtype=torch.int64), torch.ones(4),
+        torch.zeros(4, 2, dtype=torch.int64), scratch, H,
+        cfg.layer_norm_eps)
     np.testing.assert_array_equal(nxt.numpy(),
                                   np.argmax(np.asarray(jl), -1))
+
+
+# ------------------------------------- bodies of speculation and the cache --
+@pytest.fixture(scope="module")
+def bodies(small):
+    """Stacked parameters of both packages (the small model and a draft:
+    hidden 32, 1 layer, 2 heads) and random pool pairs [slots + 1 + 2
+    cache rows, L, 32, H, Dh] and the draft's [slots + 1, ...]."""
+    _, _, jp, tp, _ = small
+    jd, td = _models(dict(SMALL, hidden_size=32, num_layers=1,
+                          num_heads=2), seed=4)
+    djp, _ = jgen.stack_gpt_params(jd)
+    dtp, _ = tgen.stack_gpt_params(td)
+    r = np.random.default_rng(5)
+    pool = [r.standard_normal((7, 2, 32, 4, 16)).astype(np.float32)
+            for _ in range(2)]
+    dpool = [r.standard_normal((5, 1, 32, 2, 16)).astype(np.float32)
+             for _ in range(2)]
+    return jp, tp, djp, dtp, pool, dpool
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def j(x, dt=jnp.int32):
+    return jnp.asarray(np.asarray(x), dt)
+
+
+@pytest.mark.parametrize("start,T,length", [(8, 8, 13), (16, 16, 29),
+                                            (24, 16, 31)])
+def test_extend_body_matches_reference(bodies, start, T, length):
+    """The tail block over a row cached to `start` (T = 16 at 24 runs past
+    the cap of 32: its overshoot lands in the scratch row 4)."""
+    jp, tp, _, _, pool, _ = bodies
+    ids = np.random.default_rng(T).integers(0, 256, (1, T))
+    key = np.array([3, 9], np.uint32)
+    jt, jk, jbk, jbv = jgen._extend_body(
+        jp, j(pool[0], jnp.float32), j(pool[1], jnp.float32), j(2),
+        j(ids), j(start), j(length), jnp.float32(0.7), j(20),
+        jnp.float32(0.9), jnp.asarray(key), 4, num_heads=4, eps=1e-5)
+    tt, tk, tbk, tbv = tgen._extend_body(
+        tp, t(pool[0]), t(pool[1]), 2, t(ids), start, length, 0.7, 20, 0.9,
+        t(key.astype(np.int64)), 4, 4, 1e-5)
+    assert int(tt) == int(jt)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_allclose(tbk.numpy(), np.asarray(jbk), atol=1e-5)
+    np.testing.assert_allclose(tbv.numpy(), np.asarray(jbv), atol=1e-5)
+
+
+def test_propose_and_verify_bodies_match_reference(bodies):
+    """A draft burst of k = 3 then the target's verify pass over 4 rows
+    (one 2 positions short of the cap of 32, one padding row): proposals,
+    sampled tokens, key history and both pools."""
+    jp, tp, djp, dtp, pool, dpool = bodies
+    slots = np.array([0, 1, 3, 4])
+    toks = np.array([5, 77, 200, 0])
+    lens = np.array([3, 12, 30, 0])
+    jprops, jdk, jdv = jgen._propose_body(
+        djp, j(dpool[0], jnp.float32), j(dpool[1], jnp.float32), j(slots),
+        j(toks), j(lens), 3, 4, num_heads=2, eps=1e-5)
+    tprops, tdk, tdv = tgen._propose_body(
+        dtp, t(dpool[0]), t(dpool[1]), t(slots), t(toks), t(lens), 3, 4, 2,
+        1e-5)
+    np.testing.assert_array_equal(tprops.numpy(), np.asarray(jprops))
+    np.testing.assert_allclose(tdk.numpy(), np.asarray(jdk), atol=1e-5)
+    np.testing.assert_allclose(tdv.numpy(), np.asarray(jdv), atol=1e-5)
+    block = np.concatenate([toks[:, None], tprops.numpy()[:, :2]], 1)
+    temps = np.array([0.0, 0.8, 1.2, 0.0], np.float32)
+    topks = np.array([256, 50, 8, 1])
+    topps = np.array([1.0, 0.9, 0.7, 1.0], np.float32)
+    keys = np.random.default_rng(2).integers(0, 2**32, (4, 2),
+                                             dtype=np.uint64)
+    jys, jh, jbk, jbv = jgen._verify_body(
+        jp, j(pool[0], jnp.float32), j(pool[1], jnp.float32), j(slots),
+        j(block), j(lens), j(temps, jnp.float32), j(topks),
+        j(topps, jnp.float32), j(keys, jnp.uint32), 4, num_heads=4,
+        eps=1e-5)
+    tys, th, tbk, tbv = tgen._verify_body(
+        tp, t(pool[0]), t(pool[1]), t(slots), t(block), t(lens), t(temps),
+        t(topks), t(topps), t(keys.astype(np.int64)), 4, 4, 1e-5)
+    np.testing.assert_array_equal(tys.numpy(), np.asarray(jys))
+    np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+    np.testing.assert_allclose(tbk.numpy(), np.asarray(jbk), atol=1e-5)
+    np.testing.assert_allclose(tbv.numpy(), np.asarray(jbv), atol=1e-5)
+
+
+def test_copy_row_body_matches_reference(bodies):
+    _, _, _, _, pool, _ = bodies
+    jk, jv = jgen._copy_row_body(j(pool[0], jnp.float32),
+                                 j(pool[1], jnp.float32), 1, 5)
+    tk, tv = tgen._copy_row_body(t(pool[0]), t(pool[1]), 1, 5)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
 # ------------------------------------------------------------- generate --
@@ -319,12 +435,6 @@ def test_training_forward_unchanged_without_cache(tiny):
     cached = _cached_logits_torch(tm, ids, ids[:, :1])[:, 0]
     np.testing.assert_allclose(cached, logits.numpy()[:, -1],
                                atol=LOGIT_ATOL)
-
-
-def test_generate_sampling_waits_for_item_1c(tiny):
-    _, tm = tiny
-    with pytest.raises(NotImplementedError, match="1c"):
-        tm.generate(_prompt(1, 4), max_new_tokens=2, do_sample=True)
 
 
 def test_cached_attention_scale_is_head_dim():

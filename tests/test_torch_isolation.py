@@ -18,7 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "chip_order_checks.py"]
 MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
-           "paddle_tpu_torch.core.flags", "paddle_tpu_torch.framework_io",
+           "paddle_tpu_torch.core.flags", "paddle_tpu_torch.core.rng",
+           "paddle_tpu_torch.framework_io",
            "paddle_tpu_torch.inference",
            "paddle_tpu_torch.inference.serving",
            "paddle_tpu_torch.inference.serving.generate",
@@ -34,6 +35,7 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.observability.trace",
            "paddle_tpu_torch.ops.flash_attention",
            "paddle_tpu_torch.optimizer",
+           "paddle_tpu_torch.quantization",
            "paddle_tpu_torch.quantization.kv",
            "paddle_tpu_torch.testing.chaos",
            "paddle_tpu_torch.testing.racecheck"]
