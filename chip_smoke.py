@@ -24,7 +24,16 @@ temperature 0 and top_k=1 against greedy), the sampler alone (threefry
 bits on the card against the CPU's, 8192 draws against the filtered
 softmax), the prefix cache (8 prompts sharing a 256-token head), a
 gpt3-small draft and a self-draft, the int8 KV pool and weight-only int8,
-each engine of its own checked the same way.
+each engine of its own checked the same way; last, the HTTP front and
+the KV handoff: those 8 prompts over ServingHTTPServer (streamed and
+not) against the engine's own tokens, the client's TTFT beside the
+engine's, /healthz and /metrics; prefill_only exports continued on a
+second engine through /admin/kv/import (f32, and an int8 pool pair;
+greedy and sampled) with their payload bytes and export and import ms;
+resume_from; a migrating drain (POST /admin/drain) of streams spliced on
+the second engine; and the CLI (python -m
+paddle_tpu_torch.inference.serve --generate gpt3-medium --state-dict)
+serving the same weights from a checkpoint in a subprocess.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
@@ -39,7 +48,8 @@ kernels as `name@D256` and `name@float32@D256`), a `serving` JSON line
 (warm-up, TTFT, tokens/s, decode step and prefill times by bucket, the
 profiled decode step, KV pool bytes, peak memory; the sampling, sampler,
 prefix-cache, speculation and int8 checks with each engine's decode step
-at bucket 8) and, as the last line,
+at bucket 8; the HTTP, handoff, migration, resume and CLI checks) and,
+as the last line,
 {"ok": true, "device": {...}}. Any failed check exits non-zero without that
 line. With --compare, it only times every flash kernel of this checkout
 and of OTHER_CHECKOUT (another tree of the repo, e.g. the parent commit
@@ -65,6 +75,7 @@ import statistics
 import subprocess
 import sys
 import time
+import urllib.request
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): tensor-core bf16,
 # f32 on the CUDA cores (f32 products run without TF32 here), HBM3.
@@ -204,6 +215,15 @@ PREFIX_HEAD, PREFIX_TAILS, PREFIX_SLOTS = 256, (16, 128), 4
 # of its proposals (draft decode and the verify pass round differently
 # only at near ties)
 SPEC_TOKENS, SELF_DRAFT_ACCEPT = 4, 0.9
+# the HTTP front and the KV handoff, last, on the serving engine (A) and a
+# second engine of the same weights (B): HANDOFF_STREAMS of the prompts
+# exported by prefill_only on A and continued on B (greedy, then SAMPLE),
+# in f32 and on an int8 pool pair; MIGRATE_STREAMS streams of MIGRATE_NEW
+# tokens drained off A with migration once each has MIGRATE_AFTER tokens;
+# resume_from=RESUME_FROM; then the CLI serving the same weights from a
+# checkpoint, given CLI_START_S to answer /healthz
+HANDOFF_STREAMS, MIGRATE_STREAMS, MIGRATE_NEW, MIGRATE_AFTER = 2, 3, 96, 8
+RESUME_FROM, CLI_START_S = 5, 240
 SEED = 0
 
 REF = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -1171,6 +1191,11 @@ def serving_phase(weights, cfg):
                if isinstance(v, dict) and "decode_step_ms_b8" in v}}
         check(not any(fa.LAUNCHES.values()),
               f"[serving] flash kernels launched: {dict(fa.LAUNCHES)}")
+        # last: it drains the serving engine
+        line["http"] = http_handoff_checks(model, eng, ps, greedy, sampled)
+        line["cli"] = cli_checks(model, eng, weights, ps[0], greedy[0])
+        check(not any(fa.LAUNCHES.values()),
+              f"[http] flash kernels launched: {dict(fa.LAUNCHES)}")
     finally:
         eng.shutdown()
     log(f"[serving] phase took {time.time() - t0:.1f} s")
@@ -1441,6 +1466,378 @@ def int8_checks(model, eng, ps, greedy, f32_peak):
             free_engine(q)
     line["decode_step_ms_b8"] = line["kv"]["decode_step_ms_b8"]
     return line
+
+
+# a urllib opener that consults no proxy: every request of this script
+# goes to 127.0.0.1
+LOCAL = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def http_post(url, obj=None, raw=None, on_line=None):
+    """POST `obj` as JSON, or the bytes `raw`: (the JSON reply, or a
+    streamed reply's ndjson lines, and the seconds from the request to
+    the first token line). `on_line` sees each ndjson line as it comes.
+    A status other than 200 raises."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=raw if raw is not None else json.dumps(obj).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with LOCAL.open(req, timeout=600) as r:
+        if r.headers.get("Content-Type") != "application/x-ndjson":
+            return json.loads(r.read()), None
+        lines, t_first = [], None
+        for ln in r:
+            obj = json.loads(ln)
+            if t_first is None and "token" in obj:
+                t_first = time.perf_counter() - t0
+            lines.append(obj)
+            if on_line is not None:
+                on_line(obj)
+        return lines, t_first
+
+
+def http_get(url):
+    """(status, body text) of a GET; a status other than 200 raises."""
+    with LOCAL.open(url, timeout=60) as r:
+        return r.status, r.read().decode()
+
+
+def stream_tokens(label, lines, terminal="done"):
+    """The token lines of an ndjson stream, which must end in a
+    `terminal` line ("done" or "handoff")."""
+    check(lines and terminal in lines[-1],
+          f"[{label}] the stream ended in "
+          f"{str(lines[-1])[:200] if lines else 'nothing'}, not {terminal}")
+    toks = [obj["token"] for obj in lines if "token" in obj]
+    check(len(toks) == len(lines) - 1,
+          f"[{label}] a line that is neither a token nor the end")
+    return toks
+
+
+def metrics_agree(label, text, snap):
+    """Every paddle_generate_* counter of /metrics' text equals the
+    engine's snapshot (read while it is idle)."""
+    counters = {ln.split()[2] for ln in text.splitlines()
+                if ln.startswith("# TYPE") and ln.split()[3] == "counter"}
+    values = {ln.split()[0]: float(ln.split()[1])
+              for ln in text.splitlines() if ln and not ln.startswith("#")}
+    check(len(counters) >= 16, f"[{label}] /metrics has {len(counters)} "
+                               f"counters")
+    for name in counters:
+        key = name[len("paddle_generate_"):]
+        key = "tokens_out_total" if key == "tokens_total" else key
+        check(values[name] == snap[key],
+              f"[{label}] /metrics {name} {values[name]} against the "
+              f"snapshot's {snap[key]}")
+    return len(counters)
+
+
+def handoff_checks(label, model, eng, src_url, dst_url, prompts, refs,
+                   samples):
+    """Each prompt exported by prefill_only on the engine behind
+    `src_url` and continued through /admin/kv/import on `dst_url`: the
+    continuation against `refs` (margin rule, on `eng`'s logits), the
+    payload's bytes, and from the tracer's spans the export's and the
+    import's ms (kv_export: the row's copy to the host and the encode;
+    kv_import: the copy to the card and the row write)."""
+    from paddle_tpu_torch.inference.fabric import handoff
+    from paddle_tpu_torch.observability import trace
+
+    trace.reset()
+    rows = []
+    for p, ref, samp in zip(prompts, refs, samples):
+        t0 = time.perf_counter()
+        body, _ = http_post(src_url + "/generate", dict(
+            samp or {}, input_ids=p.tolist(), max_new_tokens=BEYOND_NEW,
+            prefill_only=True))
+        check(body["finish_reason"] == "handoff",
+              f"[{label}] prefill_only finished as {body['finish_reason']}")
+        raw = handoff.from_b64(body["handoff"])
+        t1 = time.perf_counter()
+        lines, _ = http_post(dst_url + "/admin/kv/import", raw=raw)
+        t2 = time.perf_counter()
+        row = token_agreement(label, model, eng, p,
+                              stream_tokens(label, lines), ref, samp)
+        # client wall time: the prefill_only request to the decoded
+        # payload, and the import request to its stream's end
+        row.update(sampled=samp is not None, payload_bytes=len(raw),
+                   prefill_only_request_ms=(t1 - t0) * 1e3,
+                   import_request_ms=(t2 - t1) * 1e3)
+        rows.append(row)
+    spans = trace.spans()
+    for name, key in (("generate.kv_export", "export_ms"),
+                      ("generate.kv_import", "import_ms")):
+        ms = [s["dur"] / 1e3 for s in spans if s["name"] == name]
+        check(len(ms) == len(rows), f"[{label}] {len(ms)} {name} spans for "
+                                    f"{len(rows)} handoffs")
+        for row, t in zip(rows, ms):
+            row[key] = t
+    log(f"[{label}] {json.dumps(rows)}")
+    return rows
+
+
+def migrate_checks(model, eng, url_a, url_b, b, ps):
+    """MIGRATE_STREAMS streams of MIGRATE_NEW tokens over HTTP on the
+    engine behind `url_a`; once each has MIGRATE_AFTER tokens, POST
+    /admin/drain {"migrate": true}: every stream must end in a handoff
+    line whose `streamed` is the tokens it sent, and its payload imported
+    on `url_b` must continue it with no duplicate and no gap, the splice
+    against engine `b`'s uninterrupted tokens (margin rule)."""
+    import threading
+
+    from paddle_tpu_torch.inference.fabric import handoff
+
+    prompts = ps[:MIGRATE_STREAMS]
+    want, _ = burst(b, prompts, MIGRATE_NEW)
+    outs = [None] * len(prompts)
+    ready = [threading.Event() for _ in prompts]
+    errors = []
+
+    def run(i):
+        n = [0]
+
+        def on_line(obj):
+            n[0] += "token" in obj
+            if n[0] == MIGRATE_AFTER:
+                ready[i].set()
+
+        try:
+            outs[i], _ = http_post(url_a + "/generate", {
+                "input_ids": prompts[i].tolist(),
+                "max_new_tokens": MIGRATE_NEW, "stream": True},
+                on_line=on_line)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            ready[i].set()
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for ev in ready:
+        check(ev.wait(300), "[migrate] a stream never reached "
+                            f"{MIGRATE_AFTER} tokens")
+    drain, _ = http_post(url_a + "/admin/drain", {"migrate": True})
+    for t in threads:
+        t.join(300)
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"[migrate] streams failed: {errors}")
+    check(drain == {"draining": True, "migrate": True},
+          f"[migrate] /admin/drain answered {drain}")
+    status, health = http_get_status(url_a + "/healthz")
+    check(status == 503, f"[migrate] /healthz gave {status} while draining")
+    rows = []
+    for p, lines, ref in zip(prompts, outs, want):
+        head = stream_tokens("migrate", lines, "handoff")
+        end = lines[-1]
+        check(end["streamed"] == end["n_tokens"] == len(head) and
+              MIGRATE_AFTER <= len(head) < MIGRATE_NEW,
+              f"[migrate] a handoff line after {len(head)} tokens says "
+              f"streamed {end['streamed']}, n_tokens {end['n_tokens']}")
+        tail = stream_tokens("migrate", http_post(
+            url_b + "/admin/kv/import",
+            raw=handoff.from_b64(end["handoff"]))[0])
+        check(len(head) + len(tail) == MIGRATE_NEW,
+              f"[migrate] {len(head)} + {len(tail)} tokens, expected "
+              f"{MIGRATE_NEW}")
+        row = token_agreement("migrate", model, eng, p, head + tail, ref)
+        row.update(head=len(head), tail=len(tail))
+        rows.append(row)
+    migrated = eng.metrics.snapshot()["migrations_out_total"]
+    check(migrated == len(prompts), f"[migrate] {migrated} migrations")
+    log(f"[migrate] {json.dumps(rows)}")
+    return rows
+
+
+def http_get_status(url):
+    """(status, body) of a GET that may answer an error status."""
+    import urllib.error
+
+    try:
+        return http_get(url)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def http_handoff_checks(model, eng, ps, greedy, sampled):
+    """The HTTP front and the KV handoff on the card, over the serving
+    engine A (which this drains) and an engine B of the same weights
+    (new_engine), each behind an in-process admin ServingHTTPServer on
+    127.0.0.1:0: `ps` streamed and not over /generate at once, their
+    tokens against A's direct burst tokens `greedy` (margin rule), the
+    client's TTFT beside the engine's, /healthz, /metrics against the
+    snapshot; HANDOFF_STREAMS prefill_only exports from A continued on B
+    (greedy against `greedy`, SAMPLE against `sampled`) and the same on
+    an int8 pool pair (against the exporting engine's own uninterrupted
+    tokens); resume_from on B; the migrating drain (migrate_checks); and
+    every engine checked by engine_checks. Returns the `http` line."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.inference import ServingHTTPServer
+
+    t0 = time.time()
+    line = {}
+    engines = {"B": new_engine(model)}
+    servers = []
+
+    def serve(e):
+        srv = ServingHTTPServer(generator=e, admin=True).start()
+        servers.append(srv)
+        return f"http://127.0.0.1:{srv.port}"
+
+    try:
+        url_a, url_b = serve(eng), serve(engines["B"])
+        reqs = [(p, s) for s in (True, False) for p in ps]
+        with ThreadPoolExecutor(len(reqs)) as pool:
+            outs = list(pool.map(lambda r: http_post(url_a + "/generate", {
+                "input_ids": r[0].tolist(), "max_new_tokens": BEYOND_NEW,
+                "stream": r[1]}), reqs))
+        client_ttft, engine_ttft, rows = [], [], []
+        for (p, streamed), (body, t_first), ref in zip(reqs, outs,
+                                                      greedy * 2):
+            if streamed:
+                toks = stream_tokens("http", body)
+                check(toks == body[-1]["tokens"],
+                      "[http] the token lines differ from the done line's")
+                client_ttft.append(t_first * 1e3)
+                engine_ttft.append(body[-1]["ttft_ms"])
+            else:
+                toks = body["tokens"]
+            rows.append(token_agreement("http", model, eng, p, toks, ref))
+        status, _ = http_get(url_a + "/healthz")
+        check(status == 200, f"[http] /healthz gave {status}")
+        _, text = http_get(url_a + "/metrics")
+        line.update(
+            agreement=[r["first_mismatch"] for r in rows],
+            client_ttft_ms=sorted(client_ttft),
+            engine_ttft_ms=sorted(engine_ttft),
+            metrics_counters=metrics_agree("http", text,
+                                           eng.metrics.snapshot()))
+        log(f"[http] {len(reqs)} requests over HTTP; TTFT p50 "
+            f"{statistics.median(client_ttft):.3f} ms at the client, "
+            f"{statistics.median(engine_ttft):.3f} ms in the engine")
+        parts = {"http": time.time() - t0}
+
+        set_flags({"trace_dir": os.path.join("build", "serving_trace")})
+        try:
+            n = HANDOFF_STREAMS
+            line["handoff_f32"] = handoff_checks(
+                "handoff-f32", model, eng, url_a, url_b,
+                ps[:n] * 2, greedy[:n] + sampled[:n],
+                [None] * n + [SAMPLE] * n)
+            parts["handoff_f32"] = time.time() - t0 - sum(parts.values())
+            engines["A8"] = new_engine(model, kv_dtype="int8")
+            engines["B8"] = new_engine(model, kv_dtype="int8")
+            own = [engines["A8"].generate(p, BEYOND_NEW, timeout=300,
+                                          **(s or {}))["tokens"]
+                   for p, s in zip(ps[:n] * 2, [None] * n + [SAMPLE] * n)]
+            line["handoff_int8"] = handoff_checks(
+                "handoff-int8", model, eng, serve(engines["A8"]),
+                serve(engines["B8"]), ps[:n] * 2, own,
+                [None] * n + [SAMPLE] * n)
+        finally:
+            set_flags({"trace_dir": ""})
+        parts["handoff_int8"] = time.time() - t0 - sum(parts.values())
+
+        full = engines["B"].generate(ps[0], BEYOND_NEW, timeout=300,
+                                     **SAMPLE)["tokens"]
+        lines, _ = http_post(url_b + "/generate", dict(
+            SAMPLE, input_ids=ps[0].tolist(), max_new_tokens=BEYOND_NEW,
+            stream=True, resume_from=RESUME_FROM))
+        toks = stream_tokens("resume", lines)
+        check(toks == lines[-1]["tokens"][RESUME_FROM:] and
+              len(toks) == BEYOND_NEW - RESUME_FROM,
+              f"[resume] {len(toks)} tokens streamed, not tokens "
+              f"{RESUME_FROM}: of the run")
+        line["resume_from"] = token_agreement(
+            "resume", model, eng, ps[0], lines[-1]["tokens"], full, SAMPLE)
+
+        parts["resume"] = time.time() - t0 - sum(parts.values())
+        line["migrate"] = migrate_checks(model, eng, url_a, url_b,
+                                         engines["B"], ps)
+        parts["migrate"] = time.time() - t0 - sum(parts.values())
+        line["parts_s"] = parts
+        line["decode_step_ms_b8"] = {
+            k: engine_checks(f"http-{k}", e)
+            for k, e in dict(engines, A=eng).items()}
+    finally:
+        for srv in servers:
+            srv.stop(drain=False)
+        for e in engines.values():
+            free_engine(e)
+    line["s"] = time.time() - t0
+    log(f"[http] the HTTP and handoff checks took {line['s']:.1f} s")
+    return line
+
+
+def cli_checks(model, eng, weights, prompt, ref):
+    """`python -m paddle_tpu_torch.inference.serve --generate gpt3-medium
+    --state-dict CKPT --http PORT` in a subprocess on the card, CKPT the
+    serving phase's weights written as the reference's paddle_tpu.save
+    writes a state_dict (the scan model's names): /healthz must answer
+    within CLI_START_S, then /generate of `prompt` against `ref` (the
+    serving engine's tokens; margin rule). The process is stopped and the
+    checkpoint removed. Returns the `cli` line."""
+    import pickle
+    import shutil
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckdir = os.path.join(root, "build", "serving_ckpt")
+    os.makedirs(ckdir, exist_ok=True)
+    ckpt = os.path.join(ckdir, "gpt3-medium.pdparams")
+    with open(ckpt, "wb") as f:
+        pickle.dump({n: {"__tensor__": True, "data": a,
+                         "stop_gradient": False, "is_param": True,
+                         "name": n} for n, a in weights.items()},
+                    f, protocol=4)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logpath = os.path.join(ckdir, "serve.log")
+    t0 = time.perf_counter()
+    with open(logpath, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.inference.serve",
+             "--generate", "gpt3-medium", "--state-dict", ckpt, "--http",
+             str(port)], cwd=root, stdout=logf, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            if proc.poll() is not None:
+                with open(logpath) as f:
+                    raise SmokeFailure(f"[cli] the server exited: "
+                                       f"{f.read()[-2000:]}")
+            try:
+                if http_get(url + "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(time.perf_counter() - t0 < CLI_START_S,
+                  f"[cli] no /healthz answer within {CLI_START_S} s")
+            time.sleep(0.5)
+        start_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        body, _ = http_post(url + "/generate", {
+            "input_ids": prompt.tolist(), "max_new_tokens": BEYOND_NEW})
+        answer_ms = (time.perf_counter() - t1) * 1e3
+        row = token_agreement("cli", model, eng, prompt, body["tokens"],
+                              ref)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    row.update(start_s=start_s, answer_ms=answer_ms)
+    log(f"[cli] {json.dumps(row)}")
+    return row
 
 
 def profile_step(step, ids, labels, step_s, vocab, top):

@@ -89,12 +89,28 @@ prompt and its key chain replays from its seed, so the regenerated
 prefix is the same and the tokens it already streamed are not emitted
 again.
 
+- **KV handoff** (fabric/handoff.py, the reference's wire format). A
+  live row leaves its worker as one payload: the pool row pair raw in
+  its stored dtype (`_kvget_body`; int8 with its per-layer scales) and
+  the metadata that continues the stream bitwise (length, tokens, the
+  key-chain cursor as the reference's uint32 pair, sampling values,
+  prefix lineage). `submit(prefill_only=True)` finishes with the
+  payload (finish_reason "handoff"); `import_handoff` validates a
+  payload (400 malformed, 409 another kv_dtype or geometry, 503 a full
+  queue) before it touches a slot, then the owning worker scatters the
+  row into a free slot (`_kvput_body`) and decodes on; tokens the client
+  already holds (`streamed`) are not emitted again.
+  `shutdown(migrate=True)` ends every streamed row's stream with a
+  ('handoff', payload) event; `submit(resume_from=n)` regenerates and
+  emits only tokens n and after. Exports and imports run on the worker
+  that owns the pool, never on a caller's thread.
+
 Chaos site: `serving.decode_step` fires on the worker thread before
 every decode step (testing/chaos.py).
 
-Not ported yet, each raising NotImplementedError that names ROADMAP
-module queue item 1e: the KV handoff (import_handoff, prefill_only,
-resume_from, shutdown(migrate=True)) and the HTTP front.
+Not ported: the predict engine (ROADMAP queue 4, after jit.save/load)
+and the fabric tiers above one host (router, front door, membership,
+fleet, client, host agent: ROADMAP queue 6).
 """
 from __future__ import annotations
 
@@ -118,6 +134,7 @@ from ...observability import trace as _tr
 from ...quantization import kv as _kvq
 from ...testing import chaos as _chaos
 from ...testing.racecheck import shared_state as _shared_state
+from ..fabric import handoff as _ho
 from . import metrics as _sm
 from .lifecycle import (Future, ReplicaSlot, ServingError, device_pool,
                         pick_least_loaded_device, validate_sampling)
@@ -125,17 +142,15 @@ from .lifecycle import (Future, ReplicaSlot, ServingError, device_pool,
 _NEG_INF = -1e30
 # Retry-After of a 503: the queue's drain estimate, clamped to these
 _RETRY_AFTER_S, _RETRY_AFTER_MAX_S = 0.5, 30.0
-_TODO_1E = "ROADMAP module queue item 1e (KV handoff, HTTP front)"
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {item}")
+# prefix-cache entries load_report's residency digest lists at most
+_PREFIX_DIGEST_MAX = 32
 
 
 def _prefix_hash(prompt: np.ndarray, n: int) -> str:
     """Content key of the first n prompt tokens (the prefix cache keys
     on (n, hash), so distinct boundaries never collide). The prompt is
-    hashed as int32, as the reference holds it."""
+    hashed as int32, as the reference holds it; fabric/handoff.py's
+    `prefix_hash` is the same function."""
     return hashlib.blake2b(
         np.ascontiguousarray(prompt[:n], dtype=np.int32).tobytes(),
         digest_size=16).hexdigest()
@@ -496,6 +511,27 @@ def _copy_row_body(buf_k, buf_v, src, dst):
     return (_kvq.copy_row(buf_k, src, dst), _kvq.copy_row(buf_v, src, dst))
 
 
+def _kvget_body(buf_k, buf_v, slot):
+    """The KV handoff's export read: pool row `slot` of both buffers in
+    the stored dtype, copied to the host (an int8 row as int8 with its
+    per-layer scales, never dequantized). Returns (k, k_scale or None,
+    v, v_scale or None), numpy arrays."""
+    def host(t):
+        return None if t is None else t.to("cpu", copy=True).numpy()
+
+    kd, ks = _kvq.row_raw(buf_k, slot)
+    vd, vs = _kvq.row_raw(buf_v, slot)
+    return host(kd), host(ks), host(vd), host(vs)
+
+
+def _kvput_body(buf_k, buf_v, slot, kd, ks, vd, vs):
+    """The import write: raw row values (tensors on the pool's device,
+    the scales None for the f32 pool) into pool row `slot`, bit-exact
+    like a row copy."""
+    return (_kvq.set_row_raw(buf_k, slot, kd, ks),
+            _kvq.set_row_raw(buf_v, slot, vd, vs))
+
+
 _STACKED = {
     "ln1_w": lambda b: b.ln1.weight, "ln1_b": lambda b: b.ln1.bias,
     "qkv_w": lambda b: b.attn.qkv_proj.weight.T,
@@ -549,7 +585,8 @@ class _GenRequest:
     __slots__ = ("prompt", "max_new", "eos", "future", "stream",
                  "deadline", "t_enqueue", "t_enq_ns", "ctx", "requeues",
                  "tokens", "streamed", "owner", "t_first",
-                 "temperature", "top_k", "top_p", "seed")
+                 "temperature", "top_k", "top_p", "seed",
+                 "prefill_only", "handoff")
 
     def __init__(self, prompt: np.ndarray, max_new: int,
                  eos: Optional[int], deadline: Optional[float],
@@ -575,12 +612,18 @@ class _GenRequest:
         self.streamed = 0             # tokens already delivered downstream
         self.owner = None             # (rid, generation) while in a slot
         self.t_first: Optional[float] = None
+        # the KV handoff: prefill_only finishes with an export in place
+        # of decoding here; handoff holds an imported (meta, arrays)
+        # payload, which a worker installs in place of a prefill
+        self.prefill_only = False
+        self.handoff: Optional[tuple] = None
 
 
 class GenerateHandle:
     """Client handle for one generation: iterate tokens as they stream,
     or block on `result()` for the whole thing. Events on the stream
-    queue are ('tok', id) / ('done', info) / ('err', exc)."""
+    queue are ('tok', id) / ('done', info) / ('handoff', obj) /
+    ('err', exc)."""
 
     def __init__(self, req: _GenRequest):
         self._req = req
@@ -592,19 +635,22 @@ class GenerateHandle:
                 yield int(val)
 
     def events(self):
-        """Raw event stream: ('tok', id)*, then ('done', info); an
+        """Raw event stream: ('tok', id)*, then ('done', info), or, when
+        a drain migrates the stream, ('handoff', {"handoff": base64
+        payload, "streamed", "n_tokens"}) for another host to import. An
         ('err', exc) event raises."""
         while True:
             kind, val = self._req.stream.get()
             if kind == "err":
                 raise val
             yield kind, val
-            if kind == "done":
+            if kind in ("done", "handoff"):
                 return
 
     def result(self, timeout: Optional[float] = None) -> dict:
         """{"tokens": [...], "n_tokens": int, "ttft_ms": float,
-        "finish_reason": "eos"|"length", ...}."""
+        "finish_reason": "eos"|"length"|"handoff"|"migrated", ...}; the
+        last two carry the payload as base64 under "handoff"."""
         return self.future.result(timeout)
 
 
@@ -664,14 +710,18 @@ class _PoolState:
                "draft_steps_total", "spec_steps_total",
                "spec_proposed_total", "spec_accepted_total",
                "prefix_hits_total", "prefix_misses_total",
-               "prefix_evictions_total", "prefix_tokens_reused_total")
+               "prefix_evictions_total", "prefix_tokens_reused_total",
+               "handoffs_out_total", "handoffs_in_total",
+               "migrations_out_total", "handoff_bytes_total")
 class GenerativeMetrics:
     """Thread-safe metric store for one GenerativeEngine: tokens/s,
     TTFT, decode slot occupancy and KV-pool utilisation, the request,
-    speculation and prefix-cache counters, and (the port's own) the host
-    time of each decode step by batch bucket and of each prefill by
-    prompt bucket (a prefix-cache hit's by tail bucket, as "extend"),
-    from the call to its tokens on the host."""
+    speculation, prefix-cache and handoff counters (`snapshot()`, and
+    `prometheus_text()` for /metrics, each with the reference's names),
+    and (the port's own, read by `step_ms()`) the host time of each
+    decode step by batch bucket and of each prefill by prompt bucket (a
+    prefix-cache hit's by tail bucket, as "extend"), from the call to
+    its tokens on the host."""
 
     def __init__(self, ring: int = 4096, window_s: float = 30.0):
         self._lock = threading.Lock()
@@ -697,6 +747,10 @@ class GenerativeMetrics:
         self.prefix_misses_total = 0
         self.prefix_evictions_total = 0
         self.prefix_tokens_reused_total = 0   # prompt tokens not prefilled
+        self.handoffs_out_total = 0       # KV slots exported (all causes)
+        self.handoffs_in_total = 0        # KV slots imported
+        self.migrations_out_total = 0     # exports of a migrating drain
+        self.handoff_bytes_total = 0      # payload bytes, both ways
         self.occupancy_hist: Dict[int, int] = {}   # active rows -> steps
         self._ttft = deque(maxlen=int(ring))       # seconds
         self._latency = deque(maxlen=int(ring))    # request total seconds
@@ -763,6 +817,18 @@ class GenerativeMetrics:
     def on_prefix_evict(self):
         with self._lock:
             self.prefix_evictions_total += 1
+
+    def on_handoff_out(self, nbytes: int, migrated: bool = False):
+        with self._lock:
+            self.handoffs_out_total += 1
+            self.handoff_bytes_total += int(nbytes)
+            if migrated:
+                self.migrations_out_total += 1
+
+    def on_handoff_in(self, nbytes: int):
+        with self._lock:
+            self.handoffs_in_total += 1
+            self.handoff_bytes_total += int(nbytes)
 
     def on_step(self, rows: int, bucket: int, seconds: float):
         with self._lock:
@@ -873,6 +939,10 @@ class GenerativeMetrics:
                 "prefix_evictions_total": self.prefix_evictions_total,
                 "prefix_tokens_reused_total":
                     self.prefix_tokens_reused_total,
+                "handoffs_out_total": self.handoffs_out_total,
+                "handoffs_in_total": self.handoffs_in_total,
+                "migrations_out_total": self.migrations_out_total,
+                "handoff_bytes_total": self.handoff_bytes_total,
                 "prefix_hit_rate": _sm.rate(
                     self.prefix_hits_total,
                     self.prefix_hits_total + self.prefix_misses_total),
@@ -893,8 +963,86 @@ class GenerativeMetrics:
         out["ttft_ms"] = {k: round(v * 1e3, 3) for k, v in ttft.items()}
         out["latency_ms"] = {k: round(v * 1e3, 3) for k, v in lat.items()}
         out["tokens_per_s"] = round(self.tokens_per_s(), 3)
-        out["step_ms"] = self.step_ms()
         return out
+
+    def prometheus_text(self) -> str:
+        """The snapshot in Prometheus' text format (GET /metrics), the
+        reference's metric names, types and help strings."""
+        s = self.snapshot()
+        lines: List[str] = []
+
+        def metric(name, mtype, value, help_):
+            lines.append(f"# HELP {name} {help_}")
+            lines.append(f"# TYPE {name} {mtype}")
+            lines.append(f"{name} {value}")
+
+        for name, mtype, value, help_ in (
+                ("requests_total", "counter", s["requests_total"],
+                 "generation requests accepted"),
+                ("completed_total", "counter", s["completed_total"],
+                 "generations completed"),
+                ("failed_total", "counter", s["failed_total"],
+                 "generations failed at runtime"),
+                ("shed_total", "counter", s["shed_total"],
+                 "generation requests shed by the circuit breaker (503)"),
+                ("tokens_total", "counter", s["tokens_out_total"],
+                 "tokens generated"),
+                ("steps_total", "counter", s["steps_total"],
+                 "decode steps executed"),
+                ("prefills_total", "counter", s["prefills_total"],
+                 "prefill calls executed"),
+                ("queue_depth", "gauge", s["queue_depth"],
+                 "generation queue depth"),
+                ("replicas", "gauge", s["replicas"],
+                 "active decode workers"),
+                ("tokens_per_s", "gauge", s["tokens_per_s"],
+                 "tokens/sec over the sliding window"),
+                ("kv_pool_utilization", "gauge",
+                 s["kv_pool"]["utilization"],
+                 "fraction of KV-pool positions holding live sequences"),
+                ("kv_pool_bytes", "gauge",
+                 s["kv_pool"].get("pool_bytes", 0),
+                 "bytes the KV pools allocate across active replicas"),
+                ("quant_kv_enabled", "gauge", s["quant_kv_enabled"],
+                 "1 when the engine's KV pool is int8-quantized"),
+                ("quant_weights_enabled", "gauge",
+                 s["quant_weights_enabled"],
+                 "1 when the engine serves weight-only int8 replicas"),
+                ("slot_occupancy_avg", "gauge", s["avg_slot_occupancy"],
+                 "mean active rows per executed decode step"),
+                ("spec_steps_total", "counter", s["spec_steps_total"],
+                 "speculative verify passes executed"),
+                ("spec_accepted_total", "counter",
+                 s["spec_accepted_total"],
+                 "draft-proposed tokens accepted by the target"),
+                ("spec_accept_rate", "gauge", s["spec_accept_rate"],
+                 "accepted / proposed draft tokens (lifetime)"),
+                ("prefix_hits_total", "counter", s["prefix_hits_total"],
+                 "prefills served from the prefix cache"),
+                ("prefix_misses_total", "counter",
+                 s["prefix_misses_total"],
+                 "prefills with no cached prefix"),
+                ("prefix_tokens_reused_total", "counter",
+                 s["prefix_tokens_reused_total"],
+                 "prompt tokens NOT re-prefilled thanks to the cache"),
+                ("handoffs_out_total", "counter", s["handoffs_out_total"],
+                 "KV slots exported for cross-host handoff"),
+                ("handoffs_in_total", "counter", s["handoffs_in_total"],
+                 "KV slots imported from another host"),
+                ("migrations_out_total", "counter",
+                 s["migrations_out_total"],
+                 "in-flight streams migrated out on drain"),
+                ("handoff_bytes_total", "counter",
+                 s["handoff_bytes_total"],
+                 "handoff wire bytes, exports plus imports")):
+            metric("paddle_generate_" + name, mtype, value, help_)
+        lines.append("# HELP paddle_generate_ttft_seconds time-to-first-"
+                     "token quantiles over the recent-sample ring")
+        lines.append("# TYPE paddle_generate_ttft_seconds summary")
+        for q, key in (("0.5", "p50"), ("0.95", "p95"), ("0.99", "p99")):
+            lines.append(f'paddle_generate_ttft_seconds{{quantile="{q}"}} '
+                         f'{s["ttft_ms"][key] / 1e3:.6f}')
+        return "\n".join(lines) + "\n"
 
 
 # ===================================================================
@@ -902,7 +1050,8 @@ class GenerativeMetrics:
 # ===================================================================
 @_shared_state("_queue", "_workers", "_warmed", "_live_rows",
                "_params_by_dev", "_draft_by_dev", "_closing", "_abort",
-               "_shut", "_next_rid", "_cold_calls")
+               "_shut", "_next_rid", "_cold_calls", "_migrate_streams",
+               "_pc_index")
 class GenerativeEngine:
     """Continuous-batching serving of a paddle_tpu_torch GPTForCausalLM
     (its weights are copied out and stacked, see stack_gpt_params).
@@ -918,6 +1067,9 @@ class GenerativeEngine:
     `kv_dtype="int8"` quantizes the KV pool and `quantize_weights=True`
     keeps the matmul weights int8 (quantization/kv.py). A request's
     `temperature`, `top_k`, `top_p` and `seed` select seeded sampling.
+    `import_handoff`, `submit(prefill_only=True)`, `submit(resume_from=
+    n)` and `shutdown(migrate=True)` move live streams between engines
+    (the KV handoff, see the module docstring).
     """
 
     def __init__(self, model, slots: Optional[int] = None,
@@ -1004,6 +1156,11 @@ class GenerativeEngine:
         # rid -> {slot: cached positions}: the lock-protected mirror of
         # each worker's row table, for the KV-utilisation gauge
         self._live_rows: Dict[int, Dict[int, int]] = {}
+        # the KV handoff: whether a drain migrates streamed rows out, and
+        # rid -> the "F:hash8" keys of that worker's prefix cache (the
+        # residency digest of load_report)
+        self._migrate_streams = False
+        self._pc_index: Dict[int, set] = {}
         self._closing = False
         self._abort = False
         self._shut = False
@@ -1085,7 +1242,8 @@ class GenerativeEngine:
 
     def _programs(self) -> List[str]:
         progs = [f"prefill[b={s}]" for s in self._prompt_boundaries] \
-            + [f"decode[b={b}]" for b in self._batch_buckets]
+            + [f"decode[b={b}]" for b in self._batch_buckets] \
+            + ["kvget[b=1]", "kvput[b=1]"]
         if self._pc_slots:
             progs += ["pcopy[b=1]"] + [f"extend[b={s}]"
                                        for s in self._prompt_boundaries]
@@ -1098,10 +1256,11 @@ class GenerativeEngine:
         return progs
 
     def program_report(self) -> dict:
-        """The program inventory: one prefill per prompt bucket and one
-        decode step per batch bucket (with the prefix cache the row copy
-        and one extend per tail bucket; with a draft one draft prefill
-        per prompt bucket and the propose and verify passes per batch
+        """The program inventory: one prefill per prompt bucket, one
+        decode step per batch bucket and the handoff's row read and
+        write, kvget and kvput (with the prefix cache the row copy and
+        one extend per tail bucket; with a draft one draft prefill per
+        prompt bucket and the propose and verify passes per batch
         bucket), how many (device, program) pairs ran, and how many calls
         after admission found their program not yet run on its device."""
         with self._cv:
@@ -1160,9 +1319,11 @@ class GenerativeEngine:
                 "pool_bytes": pools * self.kv_pool_bytes()}
 
     # --------------------------------------------------------- elasticity --
-    def add_replica(self, device=None) -> dict:
+    def add_replica(self, device=None, warm: bool = True) -> dict:
         """Grow the worker pool at run time; the new worker runs every
-        program on its device before it is admitted."""
+        program on its device before it is admitted (warm=False admits
+        it at once, and program_report counts its first calls).
+        `warmed_executables` is the programs run before admission."""
         _chaos.hit("scale.add")
         if device is not None:
             device = torch.device(device)
@@ -1179,7 +1340,7 @@ class GenerativeEngine:
             self._workers.append(w)
         t0 = time.perf_counter()
         try:
-            warmed = self._warm_device(w.device)
+            warmed = self._warm_device(w.device) if warm else 0
             started = self._started
             if started:
                 self._start_worker(w)
@@ -1192,7 +1353,7 @@ class GenerativeEngine:
             w.state = "active"
             self._cv.notify_all()
         return {"rid": w.rid, "device": str(w.device),
-                "warmed_programs": warmed,
+                "warmed_executables": warmed,
                 "warm_time_s": round(time.perf_counter() - t0, 3),
                 "admitted_after_warmup": True, "worker_started": started}
 
@@ -1259,6 +1420,7 @@ class GenerativeEngine:
             w.inflight = []
             w.busy_since = None
             self._live_rows.pop(w.rid, None)
+            self._pc_index.pop(w.rid, None)
             for req in stuck:
                 req.owner = None
             if retire:
@@ -1315,7 +1477,8 @@ class GenerativeEngine:
         """Run the whole program inventory once on `device`, on a pool of
         its own, through the scratch row, sampling (temperature 1) so
         that the sampling head's kernels run too: every prompt-bucket
-        prefill and batch-bucket decode step; with the prefix cache the
+        prefill and batch-bucket decode step, and the handoff's row read
+        and write; with the prefix cache the
         row copy and every tail-bucket extend; with a draft every draft
         prefill and the propose and verify passes by batch bucket."""
         p = self._params_for(device)
@@ -1357,6 +1520,14 @@ class GenerativeEngine:
                     p, pool.buf_k, pool.buf_v, *dev_in, *samp, scratch,
                     self._H, self._eps)
                 done("decode", b, nxt)
+            # the handoff's export read and import write, over the
+            # scratch row
+            kd, ks, vd, vs = _kvget_body(pool.buf_k, pool.buf_v, scratch)
+            done("kvget", 1, torch.from_numpy(kd[:1, :1]))
+            put = [None if a is None else torch.from_numpy(a).to(device)
+                   for a in (kd, ks, vd, vs)]
+            _kvput_body(pool.buf_k, pool.buf_v, scratch, *put)
+            done("kvput", 1, _kvq.row_raw(pool.buf_k, scratch)[0][0, 0])
             if self._pc_slots:
                 _copy_row_body(pool.buf_k, pool.buf_v, scratch, scratch)
                 done("pcopy", 1,
@@ -1443,16 +1614,18 @@ class GenerativeEngine:
                  migrate: bool = False) -> None:
         """Stop the engine. drain=True finishes in-flight work first;
         drain=False fails the queued requests with 503 and requeues (and
-        so fails) the in-flight ones. migrate=True (exporting in-flight
-        streams) is ROADMAP item 1e."""
-        if migrate:
-            raise _todo("stream migration (shutdown(migrate=True))",
-                        _TODO_1E)
+        so fails) the in-flight ones. migrate=True (with drain) exports
+        every in-flight streamed row as a KV-handoff payload, ending its
+        stream with ('handoff', payload) for another host to import;
+        rows not yet streamed decode to the end here (their callers hold
+        a result, not a stream to splice)."""
         with self._cv:
             if self._shut:
                 return
             self._shut = True
             self._closing = True
+            if drain and migrate:
+                self._migrate_streams = True
             if not drain:
                 self._abort = True
                 while self._queue:
@@ -1493,14 +1666,18 @@ class GenerativeEngine:
                 "queue_depth": len(self._queue),
                 "prefill_buckets": list(self._prompt_boundaries),
                 "decode_batch_buckets": list(self._batch_buckets),
-                "max_context": self._max_ctx,
+                # the reference's capacity classes: one, at max_context
+                "kv_classes": [self._max_ctx],
                 "kv_dtype": self._kv_dtype,
-                "warmed_programs": len(self._warmed),
+                "quantize_weights": self._quant_w,
+                "warmed_executables": len(self._warmed),
             }
 
     def load_report(self) -> dict:
-        """Few-field load digest: queue depth, replicas, tokens/s, and
-        the free and total KV slots, from the lock-protected host-side
+        """Few-field load digest: queue depth, replicas, tokens/s, the
+        slots in use, the free and total slots of the one capacity class
+        ("kv") and a bounded prefix-cache residency digest ("prefix", at
+        most 32 "F:hash8" keys), from the lock-protected host-side
         mirrors (no device sync)."""
         util = self._kv_utilization()
         with self._cv:
@@ -1508,19 +1685,18 @@ class GenerativeEngine:
             replicas = sum(1 for w in self._workers
                            if w.state == "active")
             draining = self._closing
+            digest = set().union(*self._pc_index.values())
         return {
             "queue_depth": depth,
             "replicas": replicas,
             "tokens_per_s": round(self.metrics.tokens_per_s(), 3),
             "kv_slots_used": util["slots_used"],
-            "kv_slots_free": max(util["slots_total"] - util["slots_used"],
-                                 0),
             "status": "draining" if draining else "ok",
+            "kv": {str(self._max_ctx): {
+                "free": max(util["slots_total"] - util["slots_used"], 0),
+                "slots": util["slots_total"]}},
+            "prefix": sorted(digest)[:_PREFIX_DIGEST_MAX],
         }
-
-    def import_handoff(self, raw: bytes) -> GenerateHandle:
-        """Admit a KV slot exported by another host: ROADMAP item 1e."""
-        raise _todo("the KV handoff (import_handoff)", _TODO_1E)
 
     # ------------------------------------------------------------ submit --
     def _retry_after(self) -> float:
@@ -1586,15 +1762,20 @@ class GenerativeEngine:
                 400, f"max_new_tokens must be >= 1 (got {want})")
         max_new = max(1, min(want, self._max_new_cap, cap - P))
         deadline = time.monotonic() + dl_s if dl_s is not None else None
-        temp = samp["temperature"] if samp["temperature"] is not None \
-            else 0.0
-        tk = min(samp["top_k"], self._vocab) \
-            if samp["top_k"] is not None else self._vocab
-        tp = samp["top_p"] if samp["top_p"] is not None else 1.0
-        sd = samp["seed"] if samp["seed"] is not None else 0
         return _GenRequest(np.ascontiguousarray(prompt), max_new, eos,
-                           deadline, temperature=temp, top_k=tk, top_p=tp,
-                           seed=sd)
+                           deadline, **self._sampling(samp))
+
+    def _sampling(self, samp: dict) -> dict:
+        """validate_sampling's fields with their defaults: greedy, top_k
+        the vocab (clamped to it), top_p 1, seed 0."""
+        tk = samp["top_k"]
+        return {"temperature": samp["temperature"]
+                if samp["temperature"] is not None else 0.0,
+                "top_k": min(tk, self._vocab) if tk is not None
+                else self._vocab,
+                "top_p": samp["top_p"] if samp["top_p"] is not None
+                else 1.0,
+                "seed": samp["seed"] if samp["seed"] is not None else 0}
 
     def _shed_check_locked(self, bound: int) -> None:
         if self._closing:
@@ -1618,11 +1799,13 @@ class GenerativeEngine:
                resume_from: int = 0) -> GenerateHandle:
         """Enqueue one generation; returns its streaming handle. Raises
         ServingError for decode rejects (400) and load shedding (503).
-        prefill_only and resume_from (the KV handoff) are ROADMAP item
-        1e."""
-        if prefill_only or resume_from:
-            raise _todo("the KV handoff (prefill_only, resume_from)",
-                        _TODO_1E)
+
+        `prefill_only` fills a KV slot, samples the first token and
+        finishes with the exported handoff payload (finish_reason
+        "handoff", the payload as base64 under "handoff") in place of
+        decoding here. `resume_from=n` is the replay resume: the client
+        already holds n tokens, so the regenerated stream (the same key
+        chain, so the same tokens) emits only those after them."""
         bound = self._max_queue_depth
         # lock-free fast path (a GIL-atomic len); re-checked under _cv
         if self._closing or len(self._queue) >= bound:
@@ -1632,14 +1815,116 @@ class GenerativeEngine:
             req = self._decode_request(input_ids, max_new_tokens,
                                        eos_token_id, deadline_ms,
                                        temperature, top_k, top_p, seed)
+            req.prefill_only = bool(prefill_only)
+            if resume_from:
+                try:
+                    rf = int(resume_from)
+                except (TypeError, ValueError):
+                    rf = -1
+                if rf < 0:
+                    self.metrics.on_reject("decode")
+                    raise ServingError(
+                        400, f"bad resume_from: {resume_from!r}")
+                req.streamed = min(rf, req.max_new)
             req.ctx = sp.ctx
             sp.set(prompt_tokens=int(req.prompt.size),
                    max_new=req.max_new)
-            with self._cv:
-                self._shed_check_locked(bound)
-                self._queue.append(req)
-                self.metrics.on_accept()
-                self._cv.notify_all()
+            self._enqueue(req, bound)
+        return GenerateHandle(req)
+
+    def _enqueue(self, req: _GenRequest, bound: int) -> None:
+        with self._cv:
+            self._shed_check_locked(bound)
+            self._queue.append(req)
+            self.metrics.on_accept()
+            self._cv.notify_all()
+
+    def import_handoff(self, raw: bytes) -> GenerateHandle:
+        """Admit one exported KV slot (fabric/handoff.py's wire format,
+        from this package's engine or the reference's). The payload's
+        kv_dtype and geometry must be this engine's, and its cap this
+        engine's one class, max_context: 409 otherwise; a malformed
+        payload, a missing or misshapen array or an out-of-vocabulary
+        token is 400, a full queue 503, all before any slot is taken.
+        The request queues carrying its payload; the worker that admits
+        it scatters the row into a free slot and decodes on from the
+        payload's key-chain cursor, emitting only the tokens past
+        meta["streamed"]."""
+        def refuse(status, msg):
+            self.metrics.on_reject("handoff")
+            return ServingError(status, msg)
+
+        try:
+            meta, arrays = _ho.decode(raw)
+        except ValueError as e:
+            raise refuse(400, f"bad handoff payload: {e}") from None
+        try:
+            cap = int(meta["cap"])
+            dtype = str(meta["kv_dtype"])
+            shape = [int(d) for d in meta["shape"]]
+            length = int(meta["length"])
+            tokens = [int(t) for t in meta["tokens"]]
+            streamed = int(meta["streamed"])
+            max_new = int(meta["max_new"])
+            eos = meta.get("eos")
+            eos = None if eos is None else int(eos)
+        except (KeyError, TypeError, ValueError) as e:
+            raise refuse(400, f"bad handoff meta: {e!r}"[:300]) from None
+        if dtype != self._kv_dtype:
+            raise refuse(409, f"handoff kv_dtype {dtype!r} != engine "
+                              f"{self._kv_dtype!r}")
+        geometry = [self._L, self._max_ctx, self._H, self._Dh]
+        if cap != self._max_ctx or shape != geometry:
+            raise refuse(409, f"handoff geometry cap={cap} shape={shape} "
+                              f"does not match this engine (cap "
+                              f"{self._max_ctx}, shape {geometry})")
+        want = {"prompt", "key", "k", "v"}
+        row_dt = "float32"
+        if self._kv_dtype == "int8":
+            want |= {"k_scale", "v_scale"}
+            row_dt = "int8"
+        if set(arrays) != want:
+            raise refuse(400, f"handoff arrays {sorted(arrays)} != "
+                              f"{sorted(want)}")
+        bad = any(arrays[nm].shape != tuple(shape) or
+                  arrays[nm].dtype.name != row_dt for nm in ("k", "v"))
+        if self._kv_dtype == "int8":
+            bad = bad or any(arrays[nm].shape != (self._L,) or
+                             arrays[nm].dtype.name != "float32"
+                             for nm in ("k_scale", "v_scale"))
+        prompt = arrays["prompt"]
+        P = int(prompt.size)
+        bad = bad or prompt.ndim != 1 or P < 1 or \
+            prompt.dtype.name != "int32" or \
+            arrays["key"].shape != (2,) or \
+            arrays["key"].dtype.name != "uint32"
+        if not bad:
+            bad = int(prompt.min()) < 0 or \
+                int(prompt.max()) >= self._vocab or \
+                not (1 <= len(tokens) <= max_new) or \
+                not (0 <= streamed <= len(tokens)) or \
+                length != P + len(tokens) - 1 or length >= cap or \
+                any(not (0 <= t < self._vocab) for t in tokens)
+        if bad:
+            raise refuse(400, "handoff arrays fail validation")
+        try:
+            samp = validate_sampling(
+                {"temperature": meta.get("temperature"),
+                 "top_k": meta.get("top_k"), "top_p": meta.get("top_p"),
+                 "seed": meta.get("seed")})
+        except ServingError:
+            self.metrics.on_reject("sampling")
+            raise
+        req = _GenRequest(np.ascontiguousarray(prompt, dtype=np.int64),
+                          max_new, eos, None, **self._sampling(samp))
+        req.requeues = int(meta.get("requeues", 0))
+        req.streamed = streamed
+        req.handoff = (meta, arrays)
+        with _tr.span("generate.import", "serving") as sp:
+            req.ctx = sp.ctx
+            sp.set(prompt_tokens=P, length=length)
+            self._enqueue(req, self._max_queue_depth)
+        self.metrics.on_handoff_in(len(raw))
         return GenerateHandle(req)
 
     def generate(self, input_ids, max_new_tokens: Optional[int] = None,
@@ -1723,19 +2008,22 @@ class GenerativeEngine:
                 (req.eos is not None and int(tok) == req.eos))
         return "done" if done else "live"
 
-    def _finish(self, w: ReplicaSlot, gen: int, pool: _PoolState,
-                slot: int, req: _GenRequest, reason: str) -> None:
-        done = time.monotonic()
-        with self._cv:
-            pool.rows.pop(slot, None)
-            pool.free.append(slot)
-            rows = self._live_rows.get(w.rid)
-            if rows is not None:
-                rows.pop(slot, None)
-            if req in w.inflight:
-                w.inflight.remove(req)
-            req.owner = None
-        info = {
+    def _release_locked(self, w: ReplicaSlot, pool: _PoolState, slot: int,
+                        req: _GenRequest) -> None:
+        """Free `slot` and drop its row from the worker's tables (caller
+        holds _cv)."""
+        pool.rows.pop(slot, None)
+        pool.free.append(slot)
+        rows = self._live_rows.get(w.rid)
+        if rows is not None:
+            rows.pop(slot, None)
+        if req in w.inflight:
+            w.inflight.remove(req)
+        req.owner = None
+
+    def _result_info(self, req: _GenRequest, reason: str,
+                     done: float) -> dict:
+        return {
             "tokens": list(req.tokens),
             "n_tokens": len(req.tokens),
             "prompt_tokens": int(req.prompt.size),
@@ -1743,8 +2031,17 @@ class GenerativeEngine:
             "ttft_ms": round((req.t_first - req.t_enqueue) * 1e3, 3)
             if req.t_first is not None else None,
             "latency_ms": round((done - req.t_enqueue) * 1e3, 3),
-            "requeues": req.requeues,
         }
+
+    def _finish(self, w: ReplicaSlot, gen: int, pool: _PoolState,
+                slot: int, req: _GenRequest, reason: str,
+                extra: Optional[dict] = None) -> None:
+        done = time.monotonic()
+        with self._cv:
+            self._release_locked(w, pool, slot, req)
+        info = self._result_info(req, reason, done)
+        if extra:
+            info.update(extra)
         if req.future.set_result(info):
             self.metrics.on_complete(done - req.t_enqueue)
             req.stream.put(("done", info))
@@ -1768,6 +2065,7 @@ class GenerativeEngine:
             for req in stuck:
                 req.owner = None
             self._live_rows.pop(w.rid, None)
+            self._pc_index.pop(w.rid, None)
             # free the old buffers before the new ones are allocated
             pool.reset((None,) * 4)
         bufs = self._alloc_bufs(w.device)
@@ -1822,18 +2120,21 @@ class GenerativeEngine:
                 admit_f, admit_h = F, h
         return hit_f, hit_row, admit_f, admit_h
 
-    def _admit_prefix(self, pool: _PoolState, slot: int, F: int,
-                      h: str) -> None:
+    def _admit_prefix(self, w: ReplicaSlot, pool: _PoolState, slot: int,
+                      F: int, h: str) -> None:
         """Copy the prompt's first F positions (the whole of row `slot`)
         into a cache row, evicting the least recently used one when the
-        cache is full."""
+        cache is full; the worker's residency digest follows."""
         with self._cv:
+            idx = self._pc_index.setdefault(w.rid, set())
             evict = not pool.pc_free
             if evict:
-                _, crow = pool.pcache.popitem(last=False)
+                (ev_f, ev_h), crow = pool.pcache.popitem(last=False)
+                idx.discard(f"{ev_f}:{ev_h[:8]}")
             else:
                 crow = pool.pc_free.pop()
             pool.pcache[(F, h)] = crow
+            idx.add(f"{F}:{h[:8]}")
         pool.buf_k, pool.buf_v = _copy_row_body(pool.buf_k, pool.buf_v,
                                                 slot, crow)
         if evict:
@@ -1898,7 +2199,7 @@ class GenerativeEngine:
                         pool.dbuf_v, slot, torch.from_numpy(dids).to(dev),
                         P, 0.0, 1, 1.0, key0, self._dH, self._deps)
                 if admit_f is not None:
-                    self._admit_prefix(pool, slot, admit_f, admit_h)
+                    self._admit_prefix(w, pool, slot, admit_f, admit_h)
                 tok = int(tok)
         finally:
             self._end_call(w, gen, keys)
@@ -1921,6 +2222,16 @@ class GenerativeEngine:
             self._finish(w, gen, pool, slot, req, "eos"
                          if req.eos is not None and tok == req.eos
                          else "length")
+        elif req.prefill_only:
+            # the slot is filled and the first token sampled: export it
+            # for a decode host. streamed=0 in the payload: the client has
+            # seen no token (this result is the handoff), so the importer
+            # emits the first token as new
+            raw = self._export_row(w, gen, pool, slot, streamed=0)
+            if raw is not None:
+                self.metrics.on_handoff_out(len(raw))
+                self._finish(w, gen, pool, slot, req, "handoff",
+                             extra={"handoff": _ho.to_b64(raw)})
 
     def _decode_step(self, w: ReplicaSlot, gen: int,
                      pool: _PoolState) -> None:
@@ -2043,6 +2354,177 @@ class GenerativeEngine:
                          "eos" if row.req.eos is not None and
                          row.req.tokens[-1] == row.req.eos else "length")
 
+    # ------------------------------------------------------------ handoff --
+    def _export_row(self, w: ReplicaSlot, gen: int, pool: _PoolState,
+                    slot: int,
+                    streamed: Optional[int] = None) -> Optional[bytes]:
+        """One live row's decode state as a handoff payload: the pool row
+        pair raw in its stored dtype (`_kvget_body`) and the metadata
+        that continues it bitwise. On the owning worker's thread, outside
+        the engine lock. None when the row is gone (a supersede)."""
+        keys = [(self._device_key(w.device), "kvget", 1)]
+        with self._cv:
+            row = pool.rows.get(slot)
+            if row is None or row.req.owner != (w.rid, gen) or \
+                    not self._begin_call_locked(w, gen, keys):
+                return None
+            req = row.req
+            length = int(row.length)
+            # int64 words holding uint32 values: the reference's key
+            key = row.key.numpy().astype(np.uint32)
+            tokens = [int(t) for t in req.tokens]
+            sent = int(req.streamed if streamed is None else streamed)
+        P = int(req.prompt.size)
+        lineage = [[F, _prefix_hash(req.prompt, F)]
+                   for F in reversed(self._prompt_boundaries) if F < P][:1]
+        meta = {"cap": self._max_ctx, "kv_dtype": self._kv_dtype,
+                "shape": [self._L, self._max_ctx, self._H, self._Dh],
+                "length": length, "tokens": tokens, "streamed": sent,
+                "max_new": int(req.max_new),
+                "eos": None if req.eos is None else int(req.eos),
+                "temperature": float(req.temperature),
+                "top_k": int(req.top_k), "top_p": float(req.top_p),
+                "seed": int(req.seed), "requeues": int(req.requeues),
+                "lineage": lineage}
+        with _tr.span("generate.kv_export", "serving", parent=req.ctx):
+            try:
+                kd, ks, vd, vs = _kvget_body(pool.buf_k, pool.buf_v, slot)
+            finally:
+                self._end_call(w, gen, keys)
+            arrays = {"prompt": req.prompt.astype(np.int32), "key": key,
+                      "k": kd, "v": vd}
+            if ks is not None:
+                arrays["k_scale"] = ks
+                arrays["v_scale"] = vs
+            return _ho.encode(meta, arrays)
+
+    def _import_one(self, w: ReplicaSlot, gen: int, pool: _PoolState,
+                    slot: int, req: _GenRequest) -> None:
+        """Install an imported payload in pool slot `slot` (the twin of
+        `_prefill_one`): the raw row through `_kvput_body`, the row's key
+        from the payload; with a draft, the draft's pool rebuilt by its
+        prefill over the generated history (the draft never travels);
+        the payload's prefix lineage admitted into the local cache. The
+        tokens past meta["streamed"] are emitted as new."""
+        meta, arrays = req.handoff
+        P = int(req.prompt.size)
+        length = int(meta["length"])
+        toks = [int(t) for t in meta["tokens"]]
+        devk = self._device_key(w.device)
+        dev = w.device
+        admit_f = admit_h = None
+        if pool.pc_slots:
+            with self._cv:
+                for ent in meta.get("lineage") or ():
+                    try:
+                        F, h = int(ent[0]), str(ent[1])
+                    except (TypeError, ValueError, IndexError):
+                        continue
+                    if F in self._prompt_boundaries and F < P and \
+                            (F, h) not in pool.pcache:
+                        admit_f, admit_h = F, h
+                        break
+        keys = [(devk, "kvput", 1)]
+        S = bucket_for(length, self._prompt_boundaries) if self._spec \
+            else 0
+        if self._spec:
+            keys.append((devk, "dprefill", S))
+        if admit_f is not None:
+            keys.append((devk, "pcopy", 1))
+        args = None
+        if _tr.enabled():
+            args = {"replica": w.rid, "length": length,
+                    "tokens": len(toks)}
+        with self._cv:
+            if not self._begin_call_locked(w, gen, keys):
+                return
+        try:
+            with _tr.span("generate.kv_import", "serving", args,
+                          parent=req.ctx):
+                put = [None if nm not in arrays else
+                       torch.from_numpy(np.array(arrays[nm])).to(dev)
+                       for nm in ("k", "k_scale", "v", "v_scale")]
+                pool.buf_k, pool.buf_v = _kvput_body(
+                    pool.buf_k, pool.buf_v, slot, *put)
+                if self._spec:
+                    # the prompt and every token but the pending one
+                    hist = np.zeros((1, S), np.int64)
+                    hist[0, :P] = req.prompt
+                    hist[0, P:length] = toks[:-1]
+                    _, _, pool.dbuf_k, pool.dbuf_v = _prefill_body(
+                        self._draft_params_for(dev), pool.dbuf_k,
+                        pool.dbuf_v, slot, torch.from_numpy(hist).to(dev),
+                        length, 0.0, 1, 1.0,
+                        torch.zeros(2, dtype=torch.int64), self._dH,
+                        self._deps)
+                if admit_f is not None:
+                    self._admit_prefix(w, pool, slot, admit_f, admit_h)
+        finally:
+            self._end_call(w, gen, keys)
+        with self._cv:
+            if w.generation != gen or req.owner != (w.rid, gen) or \
+                    req.future.done():
+                return
+            req.handoff = None
+            # re-emit what the exporter had not delivered: a prefill
+            # handoff records streamed=0 (the client saw nothing), a
+            # migration the delivered count (nothing re-emits)
+            pending = toks[req.streamed:]
+            req.tokens = toks[:req.streamed]
+            pool.rows[slot] = _Row(req, slot, length, torch.from_numpy(
+                arrays["key"].astype(np.int64)))
+            self._update_liveness_locked(w, pool)
+        status = "live"
+        for t in pending:
+            status = self._emit(w, gen, req, t)
+            if status == "dead":
+                return
+            if status == "done":
+                break
+        if status == "done":
+            self._finish(w, gen, pool, slot, req,
+                         "eos" if req.eos is not None and
+                         req.tokens[-1] == req.eos else "length")
+
+    def _migrate_rows(self, w: ReplicaSlot, gen: int,
+                      pool: _PoolState) -> None:
+        """The migrating drain's sweep: export every in-flight streamed
+        row and end its stream with ('handoff', {"handoff", "streamed",
+        "n_tokens"}) for another host to import. The stream queue is
+        FIFO, so every counted token went out before the handoff line
+        and the importer emits none again. Rows not yet streamed decode
+        to the end here."""
+        with self._cv:
+            if w.generation != gen:
+                return
+            victims = [s for s, row in pool.rows.items()
+                       if row.req.streamed > 0 and not row.req.prefill_only]
+        for slot in victims:
+            with self._cv:
+                row = pool.rows.get(slot)
+            if row is None:
+                continue
+            req = row.req
+            raw = self._export_row(w, gen, pool, slot)
+            if raw is None:
+                continue
+            self.metrics.on_handoff_out(len(raw), migrated=True)
+            done = time.monotonic()
+            obj = {"handoff": _ho.to_b64(raw),
+                   "streamed": int(req.streamed),
+                   "n_tokens": len(req.tokens)}
+            with self._cv:
+                self._release_locked(w, pool, slot, req)
+            info = self._result_info(req, "migrated", done)
+            info["handoff"] = obj["handoff"]
+            if req.future.set_result(info):
+                req.stream.put(("handoff", obj))
+            if _tr.enabled():
+                _tr.emit_span("generate.migrate", req.t_enq_ns,
+                              time.perf_counter_ns(), parent=req.ctx,
+                              cat="serving",
+                              args={"n_tokens": len(req.tokens)})
+
     def _worker_loop(self, w: ReplicaSlot, gen: int) -> None:
         # grad mode is thread-local: the caller's no_grad or
         # inference_mode does not reach this thread
@@ -2063,7 +2545,15 @@ class GenerativeEngine:
                     if admit_ok else []
             try:
                 for req, slot in admitted:
-                    self._prefill_one(w, gen, pool, slot, req)
+                    if req.handoff is not None:
+                        self._import_one(w, gen, pool, slot, req)
+                    else:
+                        self._prefill_one(w, gen, pool, slot, req)
+                with self._cv:
+                    migrating = self._migrate_streams and \
+                        w.generation == gen
+                if migrating:
+                    self._migrate_rows(w, gen, pool)
                 if not pool.rows:
                     with self._cv:
                         if w.generation != gen:

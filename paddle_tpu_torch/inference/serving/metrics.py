@@ -1,9 +1,9 @@
 """Serving metrics helpers (counterpart of
 paddle_tpu/inference/serving/metrics.py, cut to what the generation
 engine uses): the nearest-rank percentile rule and the safe ratio. The
-registry of live engines waits for its first caller, the HTTP front
-(ROADMAP module queue item 1e); the predict engine's ServingMetrics
-waits for the predict engine's port.
+HTTP front reads its one engine's metrics, so the reference's registry
+of live engines has no caller here; the predict engine's ServingMetrics
+waits for the predict engine's port (ROADMAP queue 4).
 """
 from __future__ import annotations
 

@@ -21,10 +21,14 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.core.flags", "paddle_tpu_torch.core.rng",
            "paddle_tpu_torch.framework_io",
            "paddle_tpu_torch.inference",
+           "paddle_tpu_torch.inference.fabric",
+           "paddle_tpu_torch.inference.fabric.handoff",
+           "paddle_tpu_torch.inference.serve",
            "paddle_tpu_torch.inference.serving",
            "paddle_tpu_torch.inference.serving.generate",
            "paddle_tpu_torch.inference.serving.lifecycle",
            "paddle_tpu_torch.inference.serving.metrics",
+           "paddle_tpu_torch.inference.serving.server",
            "paddle_tpu_torch.io.bucketing",
            "paddle_tpu_torch.jit", "paddle_tpu_torch.models",
            "paddle_tpu_torch.nn.functional",

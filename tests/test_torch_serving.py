@@ -6,8 +6,8 @@ heads, max_seq_len 64; 4 slots, max_context 64, a cap of 16 new tokens),
 against the port's own GPTForCausalLM.generate, and through the
 scheduler's contracts: in-flight batching, eos and the max-new cap, the
 400 rejects, the 503 queue shed, drain shutdown, the requeue ladder
-under an injected fault, warm before admission, and the KV handoff that
-is not ported yet. Sampling, speculation, the prefix cache and int8
+under an injected fault, warm before admission, and the KV handoff's
+entry points (test_torch_handoff.py holds the handoff). Sampling, speculation, the prefix cache and int8
 serving have files of their own (test_torch_sampling.py,
 test_torch_serving_beyond_greedy.py, test_torch_quantized_serving.py).
 
@@ -303,14 +303,15 @@ def test_warm_before_admission(make_engine):
     rep = eng.program_report()
     assert rep["programs"] == \
         [f"prefill[b={b}]" for b in (8, 16, 32, 64)] + \
-        [f"decode[b={b}]" for b in (1, 2, 4)]
-    assert rep["warmed"] == eng.warmup_report["warm_passes"] == 7
+        [f"decode[b={b}]" for b in (1, 2, 4)] + ["kvget[b=1]", "kvput[b=1]"]
+    assert rep["warmed"] == eng.warmup_report["warm_passes"] == 9
     handles = [eng.submit(p, 8) for p in mixed_prompts(8, seed=7)]
     for h in handles:
         h.result(RESULT_S)
     assert eng.program_report()["first_calls_after_warmup"] == 0
     report = eng.add_replica()
-    assert report["admitted_after_warmup"] and report["warmed_programs"] == 7
+    assert report["admitted_after_warmup"] and \
+        report["warmed_executables"] == 9
     assert len(eng._active()) == 2
     # with the warm-up's record wiped, the first calls of the prefill at
     # bucket 8 and of the decode step at batch 1 come after admission
@@ -334,18 +335,37 @@ def test_stacked_params_are_copies(model):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"prefill_only": True}, "1e"), ({"resume_from": 3}, "1e")],
+    ({"prefill_only": True}, "handoff"), ({"resume_from": 3}, "length")],
     ids=["prefill_only", "resume_from"])
 def test_unported_request_options_raise(shared, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        shared.submit([1, 2, 3], 4, **kw)
+    """The handoff's request options, which raised NotImplementedError
+    until the KV handoff was ported: prefill_only finishes with the
+    payload, resume_from=3 emits the tokens after the first 3, and a bad
+    resume_from raises a 400."""
+    prompt = [1, 2, 3]
+    full = shared.generate(prompt, 6, timeout=RESULT_S)["tokens"]
+    h = shared.submit(prompt, 6, **kw)
+    out = h.result(RESULT_S)
+    assert out["finish_reason"] == item
+    assert out["tokens"] == full[:1 if "prefill_only" in kw else 6]
+    assert list(h) == (full[:1] if "prefill_only" in kw else full[3:])
+    with pytest.raises(ServingError) as e:
+        shared.submit(prompt, 6, resume_from="x")
+    assert e.value.status == 400
 
 
-def test_unported_handoff_and_migration_raise(shared):
-    with pytest.raises(NotImplementedError, match="1e"):
+def test_unported_handoff_and_migration_raise(shared, make_engine):
+    """import_handoff and shutdown(migrate=True), which raised
+    NotImplementedError until the KV handoff was ported: a malformed
+    payload raises a 400, and a migrating drain of an idle engine ends
+    it like a drain."""
+    with pytest.raises(ServingError) as e:
         shared.import_handoff(b"")
-    with pytest.raises(NotImplementedError, match="1e"):
-        shared.shutdown(migrate=True)
+    assert e.value.status == 400
+    eng = make_engine()
+    eng.shutdown(migrate=True, timeout=RESULT_S)
+    assert eng.health()["status"] == "draining"
+    assert all(w.state == "retired" for w in eng._workers)
 
 
 def test_engine_defaults_to_the_card(model, monkeypatch):
@@ -413,7 +433,8 @@ def test_spans_and_flag_armed_chaos(make_engine, shared, tmp_path):
         path = trace.export()
     finally:
         set_flags({"trace_dir": "", "chaos_spec": ""})
-    assert out["tokens"] == ref and out["requeues"] == 1
+    assert out["tokens"] == ref
+    assert eng.metrics.snapshot()["requeues_total"] == 1
     assert chaos.counters()["total_injected"] == 0   # disarmed again
     spans = [e for e in json.load(open(path))["traceEvents"]
              if e["ph"] == "X"]

@@ -402,7 +402,7 @@ def test_warm_before_admission_covers_every_program(make_engine, draft):
     assert rep["programs"] == \
         [f"prefill[b={s}]" for s in b] + \
         [f"decode[b={n}]" for n in (1, 2, 4)] + \
-        ["pcopy[b=1]"] + [f"extend[b={s}]" for s in b] + \
+        ["kvget[b=1]", "kvput[b=1]"] + ["pcopy[b=1]"] + [f"extend[b={s}]" for s in b] + \
         [f"dprefill[b={s}]" for s in b] + \
         [f"dpropose[b={n},k=3]" for n in (1, 2, 4)] + \
         [f"verify[b={n},k=3]" for n in (1, 2, 4)]
