@@ -33,11 +33,28 @@ greedy and sampled) with their payload bytes and export and import ms;
 resume_from; a migrating drain (POST /admin/drain) of streams spliced on
 the second engine; and the CLI (python -m
 paddle_tpu_torch.inference.serve --generate gpt3-medium --state-dict)
-serving the same weights from a checkpoint in a subprocess.
+serving the same weights from a checkpoint in a subprocess. Between the
+training phases and serving, the trainer's phases, at gpt3-medium, batch
+8 x 1024, bf16 O2 unless named: train-full (dropout 0.1, two
+micro-batches of 4 a step by accumulate_steps=2, AdamW under
+LinearWarmup(CosineAnnealingDecay) with ClipGradByGlobalNorm(1.0) and a
+decay gate sparing biases and LayerNorms, skip_bad_steps under the chaos
+rule step:nan:3; 4 steps: no flash launch, each lr the CPU scheduler's,
+post-clip norms <= 1, one dropped micro-batch, one dropout mask bitwise
+the CPU's, the cost of drawing the masks), ckpt (that model and
+optimizer saved by framework_io.save, the optimizer read back bitwise,
+the model served by the CLI from its bf16 file), skip-bad (step:nan:2:
+the state bitwise unchanged across it), recompute (all 24 blocks wrapped:
+losses of 3 steps against the plain run's, 48 forward, 24 dQ and 24
+dK/dV launches a step, peak memory; batch 32's tokens/s), o1 (f32
+parameters under auto_cast O1 with GradScaler and eager steps) and
+chunked (flash off: the chunked query scan's loss against the full
+einsum's, chunks counted, peak memory of both).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
     python3 chip_smoke.py --serving
+    python3 chip_smoke.py --trainer
 
 Needs one CUDA card (written for an H100, sm_90a) and nvcc. Prints the
 card and its power limit, a `kernels` JSON line (time, achieved TFLOP/s,
@@ -48,8 +65,10 @@ kernels as `name@D256` and `name@float32@D256`), a `serving` JSON line
 (warm-up, TTFT, tokens/s, decode step and prefill times by bucket, the
 profiled decode step, KV pool bytes, peak memory; the sampling, sampler,
 prefix-cache, speculation and int8 checks with each engine's decode step
-at bucket 8; the HTTP, handoff, migration, resume and CLI checks) and,
-as the last line,
+at bucket 8; the HTTP, handoff, migration, resume and CLI checks), a
+`trainer` JSON line (each trainer phase's losses, step ms, peak memory,
+launches, checks and seconds; the masks' share of a train-full step)
+and, as the last line,
 {"ok": true, "device": {...}}. Any failed check exits non-zero without that
 line. With --compare, it only times every flash kernel of this checkout
 and of OTHER_CHECKOUT (another tree of the repo, e.g. the parent commit
@@ -62,7 +81,8 @@ D = 256 at the same two shapes (`@float32@D256@16x2048`, `@32x2048`), by
 the same method, in turns (other, this, this, other), each in a process of
 its own that builds that tree's kernels, with the SM clock read after each
 row. With --serving, it runs only the serving phase and prints its line
-(without the {"ok": ...} line).
+(without the {"ok": ...} line); with --trainer, only the kernels' build
+and the trainer's phases, and their line (without it either).
 """
 from __future__ import annotations
 
@@ -224,6 +244,17 @@ SPEC_TOKENS, SELF_DRAFT_ACCEPT = 4, 0.9
 # checkpoint, given CLI_START_S to answer /healthz
 HANDOFF_STREAMS, MIGRATE_STREAMS, MIGRATE_NEW, MIGRATE_AFTER = 2, 3, 96, 8
 RESUME_FROM, CLI_START_S = 5, 240
+# the trainer's phases, at gpt3-medium, batch x seq 8 x 1024, bf16 O2 unless
+# named: train-full (dropout 0.1, two micro-batches of 4 a step), skip-bad,
+# recompute (batch 8 with and without, then batch 32 with), o1 (f32
+# parameters), chunked (flash off) and ckpt. The recompute run's losses
+# should equal the plain run's bitwise (the replay runs the same kernels on
+# the same inputs); the limit admits autograd summing the tied embedding's
+# two gradients in another order. The chunked scan's scores are f32 where
+# the full einsum's are bf16, so the losses part by where bf16 rounds:
+# 1e-3 relative (1.3e-5 read on an H100).
+TRAIN_FULL_STEPS, RECOMPUTE_STEPS, O1_STEPS = 4, 3, 3
+RECOMPUTE_LOSS_RTOL, CHUNKED_RTOL = 1e-6, 1e-3
 SEED = 0
 
 REF = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -877,6 +908,531 @@ def training_phase(label, impl, weights, cfg, steps, o2=True,
     gc.collect()
     torch.cuda.empty_cache()
     return launches, losses
+
+
+# ------------------------------------------------------ trainer phases --
+def trainer_model(weights, cfg, dropout=0.0, o2=True):
+    """gpt3-medium (`cfg`) on the card from `weights`, in train mode, with
+    `dropout`; bf16 O2 unless `o2` is False (f32 parameters)."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework_io import params_from_paddle_tpu
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPTForCausalLM(type(cfg)(**{**vars(cfg), "dropout": dropout}),
+                           device="cuda")
+    model.load_state_dict(params_from_paddle_tpu(weights))
+    model.train()
+    return amp.decorate(model, level="O2", dtype="bfloat16") if o2 \
+        else model
+
+
+def trainer_batch(cfg, batch):
+    """bench.py's batch (ids from default_rng(SEED), labels the ids
+    shifted) at `batch` x 1024 on the card, and a float per-token loss
+    weight of ones: the floating batch element that the chaos harness's
+    `step:nan` poisons (ids and labels are integers)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(0, cfg.vocab_size, (batch, 1024)).astype(np.int64)
+    return (torch.as_tensor(ids, device="cuda"),
+            torch.as_tensor(np.roll(ids, -1, axis=1), device="cuda"),
+            torch.ones(batch, 1024, device="cuda"))
+
+
+def trainer_loss(m, ids, labels, weight):
+    """The fused LM-head CE (bench.py's), times the batch's mean loss
+    weight (1, or NaN once poisoned)."""
+    from paddle_tpu_torch.nn.functional_more import \
+        fused_linear_cross_entropy
+
+    return fused_linear_cross_entropy(m.hidden(ids), m.head_weight(),
+                                      labels, transpose_y=True,
+                                      chunk=2048) * weight.mean()
+
+
+def decay_gate(name):
+    """AdamW's apply_decay_param_fun: no decay of biases and LayerNorms."""
+    return not (name.endswith(".bias") or ".ln" in name)
+
+
+def run_steps(step, batch, n, per_step=1):
+    """`n` optimizer steps of `step`, `per_step` calls each (micro-batches
+    split from `batch` along rows); returns (losses of every call, host
+    seconds of each step, synchronised)."""
+    import torch
+
+    rows = batch[0].shape[0] // per_step
+    losses, times = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(per_step):
+            losses.append(float(step(*(x[i * rows:(i + 1) * rows]
+                                       for x in batch))))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return losses, times
+
+
+def flash_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    return {n: c for n, c in fa.LAUNCHES.items() if c}
+
+
+def gib(nbytes):
+    return round(nbytes / 2**30, 3)
+
+
+def mask_draw_ms(shape, reps=3):
+    """Device ms of one dropout mask of `shape` (threefry float64
+    uniforms below 0.9, plain PyTorch), the median of `reps` draws."""
+    import torch
+
+    from paddle_tpu_torch.core import rng
+
+    key = rng.fold_in(rng.key(SEED), 1).cuda()
+    times = []
+    for _ in range(reps + 1):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        rng.bernoulli(key, 0.9, shape)
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times[1:])
+
+
+def train_full_phase(weights, cfg):
+    """gpt3-medium with dropout 0.1, bf16 O2, batch 8 as two micro-batches
+    of 4 (accumulate_steps=2), TRAIN_FULL_STEPS steps of AdamW (f32
+    masters) under LinearWarmup(CosineAnnealingDecay), ClipGradByGlobalNorm
+    (1.0) and a decay gate sparing biases and LayerNorms, skip_bad_steps
+    with the chaos rule step:nan:3 (the first micro-batch of step 2).
+    Checks: no flash launch (attention dropout takes the einsum), the lr
+    of each update equal to a CPU scheduler's, every post-clip global norm
+    <= 1 (1 + 1e-6), exactly one dropped micro-batch and no skipped
+    update, every loss finite but the poisoned one's, and a dropout mask
+    drawn on the card equal to the same key's on the CPU. Returns (its
+    line, the model, the optimizer)."""
+    import torch
+
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm, lr
+
+    class RecordingClip(ClipGradByGlobalNorm):
+        """The clip, recording the global norm of what it returns."""
+
+        post = []
+
+        def _apply(self, params_grads):
+            out = super()._apply(params_grads)
+            self.post.append(float(self.global_norm([g for _, g in out])))
+            return out
+
+    def schedule():
+        return lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=8),
+                               warmup_steps=2, start_lr=1e-5, end_lr=1e-4)
+
+    t0 = time.time()
+    model = trainer_model(weights, cfg, dropout=0.1)
+    clip = RecordingClip(1.0)
+    opt = AdamW(schedule(), parameters=model.parameters(),
+                weight_decay=0.01, apply_decay_param_fun=decay_gate,
+                grad_clip=clip, multi_precision=True)
+    step = TrainStep(model, opt, trainer_loss, accumulate_steps=2,
+                     skip_bad_steps=True)
+    batch = trainer_batch(cfg, 8)
+    cpu_sched = schedule()
+    rng.seed(SEED)
+    set_flags({"chaos_spec": "step:nan:3"})
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, lrs, want_lrs = [], [], [], []
+    try:
+        for _ in range(TRAIN_FULL_STEPS):
+            ls, ts = run_steps(step, batch, 1, per_step=2)
+            losses += ls
+            times += ts
+            lrs.append(step.last_lr)
+            want_lrs.append(cpu_sched())
+            opt._learning_rate.step()
+            cpu_sched.step()
+    finally:
+        set_flags({"chaos_spec": ""})
+    peak = torch.cuda.max_memory_allocated()
+    launches = flash_counts()
+    log(f"[train-full] losses {losses}; lr {lrs}; post-clip norms "
+        f"{clip.post}; bad micro {step.bad_micro_count}, bad steps "
+        f"{step.bad_step_count}; flash launches {launches}")
+    check(not launches, f"[train-full] flash launched {launches} with "
+                        f"attention dropout")
+    check(lrs == want_lrs, f"[train-full] lr {lrs} != the scheduler's "
+                           f"{want_lrs}")
+    check(len(clip.post) == TRAIN_FULL_STEPS
+          and all(n <= 1.0 * (1 + 1e-6) for n in clip.post),
+          f"[train-full] post-clip global norms {clip.post}")
+    check(step.bad_micro_count == 1 and step.bad_step_count == 0,
+          f"[train-full] bad micro {step.bad_micro_count}, bad steps "
+          f"{step.bad_step_count}; expected 1 and 0")
+    check([i for i, x in enumerate(losses) if not math.isfinite(x)] == [2],
+          f"[train-full] losses {losses}: only the 3rd call's may be NaN")
+    # one mask of the embedding dropout's shape at micro-batch 4, drawn on
+    # the card and on the CPU from one key
+    key = rng.fold_in(rng.key(SEED), 7)
+    card = rng.bernoulli(key.cuda(), 0.9, (4, 1024, cfg.hidden_size))
+    cpu = rng.bernoulli(key, 0.9, (4, 1024, cfg.hidden_size))
+    check(torch.equal(card.cpu(), cpu), "[train-full] the card's dropout "
+                                        "mask differs from the CPU's")
+    # what drawing the masks costs: per micro-batch, 24 attention masks
+    # [4, 16, 1024, 1024] and 49 of the hidden states [4, 1024, 1024]
+    attn_ms = mask_draw_ms((4, cfg.num_heads, 1024, 1024))
+    hid_ms = mask_draw_ms((4, 1024, cfg.hidden_size))
+    step_ms = statistics.median(times[1:]) * 1e3
+    masks_ms = 2 * (cfg.num_layers * attn_ms
+                    + (2 * cfg.num_layers + 1) * hid_ms)
+    line = {"steps": TRAIN_FULL_STEPS, "micro_batch": 4,
+            "step_ms": [round(t * 1e3, 1) for t in times],
+            "median_step_ms": round(step_ms, 1),
+            "tokens_per_s": round(8 * 1024 / (step_ms / 1e3)),
+            "peak_gib": gib(peak), "losses": losses, "lr": lrs,
+            "post_clip_norm": clip.post,
+            "bad_micro_count": step.bad_micro_count,
+            "bad_step_count": step.bad_step_count,
+            "attn_mask_ms": round(attn_ms, 3),
+            "hidden_mask_ms": round(hid_ms, 3),
+            "mask_ms_per_step": round(masks_ms, 1),
+            "mask_share": round(masks_ms / step_ms, 3),
+            "flash_launches": 0, "s": round(time.time() - t0, 1)}
+    log(f"[train-full] {json.dumps(line)}")
+    return line, model, opt
+
+
+def skip_bad_phase(weights, cfg):
+    """gpt3-medium, dropout 0, bf16 O2, batch 8, 3 AdamW steps with
+    skip_bad_steps and step:nan:2: parameters, f32 masters and moments
+    bitwise the same after step 2 as before it; bad_step_count 1; the
+    flash kernels launched by steps 1-3 (the poisoned step runs forward
+    and backward too)."""
+    import torch
+
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.time()
+    model = trainer_model(weights, cfg)
+    opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                multi_precision=True)
+    step = TrainStep(model, opt, trainer_loss, skip_bad_steps=True)
+    batch = trainer_batch(cfg, 8)
+    fa.resolve_dot_impl(torch.device("cuda", 0))    # no probe in the count
+    set_flags({"chaos_spec": "step:nan:2"})
+    fa.reset_launch_counts()
+    try:
+        losses, times = run_steps(step, batch, 1)
+        before = [t.clone() for t in (*model.parameters(),
+                                      *(v for st in opt.state.values()
+                                        for v in st.values()))]
+        ls, ts = run_steps(step, batch, 1)
+        losses += ls
+        times += ts
+        after = [*model.parameters(),
+                 *(v for st in opt.state.values() for v in st.values())]
+        same = len(before) == len(after) and all(
+            torch.equal(a, b) for a, b in zip(before, after))
+        del before
+        ls, ts = run_steps(step, batch, 1)
+        losses += ls
+        times += ts
+    finally:
+        set_flags({"chaos_spec": ""})
+    launches = flash_counts()
+    log(f"[skip-bad] losses {losses}; state unchanged across step 2: "
+        f"{same}; bad steps {step.bad_step_count}; launches {launches}")
+    check(same, "[skip-bad] the state moved across the skipped step")
+    check(step.bad_step_count == 1, f"[skip-bad] bad_step_count "
+                                    f"{step.bad_step_count}")
+    check(math.isfinite(losses[0]) and math.isfinite(losses[2])
+          and not math.isfinite(losses[1]),
+          f"[skip-bad] losses {losses}")
+    check(sum(launches.values()) == 3 * 3 * cfg.num_layers,
+          f"[skip-bad] flash launches {launches}")
+    line = {"losses": losses, "bad_step_count": step.bad_step_count,
+            "state_unchanged": same,
+            "step_ms": [round(t * 1e3, 1) for t in times],
+            "s": round(time.time() - t0, 1)}
+    del step, opt, model
+    return line
+
+
+def recompute_phase(weights, cfg):
+    """gpt3-medium, dropout 0, bf16 O2 under auto, batch 8: RECOMPUTE_STEPS
+    AdamW steps without recompute and, on the same weights and batch,
+    with `recompute_wrap_sublayers` on all 24 blocks: the same losses
+    (RECOMPUTE_LOSS_RTOL), launches per step of the strategy's kernels
+    (forward twice a layer under recompute, dQ and dK/dV once), peak
+    memory of both; then batch 32 with recompute (bench.py's
+    batch32_remat): tokens/s and peak memory."""
+    import torch
+
+    from paddle_tpu_torch.distributed import recompute_wrap_sublayers
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.time()
+    # resolve auto now, so that no probe launch falls in a counted step
+    resolved = fa.resolve_dot_impl(torch.device("cuda", 0))
+    blocks = [f"gpt.blocks.{i}" for i in range(cfg.num_layers)]
+    runs = {}
+    for label, batch_n, remat in (("plain", 8, False), ("remat", 8, True),
+                                  ("remat-b32", 32, True)):
+        model = trainer_model(weights, cfg)
+        if remat:
+            recompute_wrap_sublayers(model, blocks)
+        opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                    multi_precision=True)
+        step = TrainStep(model, opt, trainer_loss)
+        batch = trainer_batch(cfg, batch_n)
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        losses, times = run_steps(step, batch, RECOMPUTE_STEPS)
+        step_s = statistics.median(times[1:])
+        runs[label] = {"losses": losses, "launches": flash_counts(),
+                       "peak_gib": gib(torch.cuda.max_memory_allocated()),
+                       "step_ms": round(step_s * 1e3, 1),
+                       "tokens_per_s": round(batch_n * 1024 / step_s)}
+        log(f"[recompute] {label}: {json.dumps(runs[label])}")
+        del step, opt, model, batch
+    fwd, dq, dkv = fa.STRATEGY_KERNELS[resolved]
+    n = cfg.num_layers * RECOMPUTE_STEPS
+    for label in ("remat", "remat-b32"):
+        want = {fwd: 2 * n, dq: n, dkv: n}
+        check(runs[label]["launches"] == want,
+              f"[recompute] {label} launches {runs[label]['launches']}, "
+              f"expected {want}")
+    check(runs["plain"]["launches"] == {fwd: n, dq: n, dkv: n},
+          f"[recompute] plain launches {runs['plain']['launches']}")
+    a, b = runs["plain"]["losses"], runs["remat"]["losses"]
+    bitwise = a == b
+    diff = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    log(f"[recompute] losses without {a}, with {b}: bitwise {bitwise}, "
+        f"largest relative difference {diff:.3e} "
+        f"(limit {RECOMPUTE_LOSS_RTOL})")
+    check(diff <= RECOMPUTE_LOSS_RTOL, f"[recompute] losses {b} part from "
+                                       f"{a}")
+    line = {**runs, "bitwise": bitwise, "max_rel_diff": diff,
+            "per_step": {"flash_fwd": 2 * cfg.num_layers,
+                         "dq": cfg.num_layers, "dkv": cfg.num_layers},
+            "s": round(time.time() - t0, 1)}
+    return line
+
+
+def o1_phase(weights, cfg):
+    """gpt3-medium with f32 parameters, dropout 0, batch 8: O1_STEPS eager
+    steps of amp.auto_cast O1 (bf16) with GradScaler and AdamW's
+    optimizer.step(): finite losses, and the scaler's state the
+    reference's rules give for that many finite steps."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.time()
+    model = trainer_model(weights, cfg, o2=False)
+    opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01)
+    scaler = amp.GradScaler()
+    batch = trainer_batch(cfg, 8)
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(O1_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = trainer_loss(model, *batch)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    state = scaler.state_dict()
+    want = {"scale": 2.0 ** 16, "good_steps": O1_STEPS, "bad_steps": 0}
+    launches = flash_counts()
+    log(f"[o1] losses {losses}; scaler {state}; launches {launches}")
+    check(all(math.isfinite(x) for x in losses), f"[o1] losses {losses}")
+    check(state == want, f"[o1] scaler state {state}, expected {want}")
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "[o1] a parameter left f32")
+    line = {"losses": losses, "scaler": state, "launches": launches,
+            "step_ms": [round(t * 1e3, 1) for t in times],
+            "peak_gib": gib(torch.cuda.max_memory_allocated()),
+            "s": round(time.time() - t0, 1)}
+    del opt, model
+    return line
+
+
+def chunked_phase(weights, cfg):
+    """gpt3-medium, dropout 0, bf16 O2, batch 8, flash off: one step
+    through the chunked query scan (FLAGS_attention_chunk 256: 4 chunks a
+    layer) and one through the full einsum (attention_chunk 0), each on
+    a fresh model of the same weights: the losses within CHUNKED_RTOL,
+    the chunks counted, peak memory of both."""
+    import torch
+
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.time()
+    out = {}
+    set_flags({"use_flash_attention": False})
+    try:
+        for label, chunk in (("chunked", 256), ("einsum", 0)):
+            set_flags({"attention_chunk": chunk})
+            model = trainer_model(weights, cfg)
+            opt = AdamW(1e-4, parameters=model.parameters(),
+                        multi_precision=True)
+            step = TrainStep(model, opt, trainer_loss)
+            batch = trainer_batch(cfg, 8)
+            torch.cuda.reset_peak_memory_stats()
+            before = F.CHUNKED_CALLS["chunks"]
+            losses, times = run_steps(step, batch, 1)
+            out[label] = {"loss": losses[0],
+                          "chunks": F.CHUNKED_CALLS["chunks"] - before,
+                          "step_ms": round(times[0] * 1e3, 1),
+                          "peak_gib": gib(torch.cuda.max_memory_allocated())}
+            del step, opt, model, batch
+    finally:
+        set_flags({"use_flash_attention": True, "attention_chunk": 256})
+    diff = abs(out["chunked"]["loss"] - out["einsum"]["loss"]) / \
+        abs(out["einsum"]["loss"])
+    log(f"[chunked] {json.dumps(out)}; relative loss difference "
+        f"{diff:.3e} (limit {CHUNKED_RTOL})")
+    check(out["chunked"]["chunks"] == cfg.num_layers * 1024 // 256,
+          f"[chunked] {out['chunked']['chunks']} chunks, expected "
+          f"{cfg.num_layers * 4}")
+    check(out["einsum"]["chunks"] == 0, "[chunked] the einsum run chunked")
+    check(diff <= CHUNKED_RTOL, f"[chunked] loss {out['chunked']['loss']} "
+                                f"vs the einsum's {out['einsum']['loss']}")
+    return {**out, "rel_diff": diff, "s": round(time.time() - t0, 1)}
+
+
+def ckpt_phase(model, opt):
+    """The train-full model (bf16) and its optimizer saved with
+    framework_io.save in the reference's layout; the optimizer's file
+    loaded back equal bitwise; the model's served by `python -m
+    paddle_tpu_torch.inference.serve --generate gpt3-medium --state-dict`
+    in a subprocess, which must answer /healthz within CLI_START_S and one
+    /generate. Files and process removed."""
+    import shutil
+    import socket
+
+    import torch
+
+    from paddle_tpu_torch import framework_io as fio
+
+    t0 = time.time()
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckdir = os.path.join(root, "build", "trainer_ckpt")
+    os.makedirs(ckdir, exist_ok=True)
+    model_path = os.path.join(ckdir, "gpt3-medium-bf16.pdparams")
+    opt_path = os.path.join(ckdir, "gpt3-medium-bf16.pdopt")
+    names = [n for n, _ in model.named_parameters()]
+    try:
+        t = time.perf_counter()
+        fio.save(fio.params_to_paddle_tpu(model.state_dict()), model_path)
+        fio.save(fio.transpose_optimizer_state(opt.state_dict(), names),
+                 opt_path)
+        save_s = time.perf_counter() - t
+        sizes = {"model_gib": gib(os.path.getsize(model_path)),
+                 "optimizer_gib": gib(os.path.getsize(opt_path))}
+        back = fio.transpose_optimizer_state(fio.load(opt_path), names)
+        live = opt.state_dict()
+        same = back.keys() == live.keys() and all(
+            torch.equal(v.cpu(), back[k]) if isinstance(v, torch.Tensor)
+            else v == back[k] for k, v in live.items())
+        check(same, "[ckpt] the optimizer state read back differs")
+        del back, live
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        logpath = os.path.join(ckdir, "serve.log")
+        t = time.perf_counter()
+        with open(logpath, "w") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "paddle_tpu_torch.inference.serve",
+                 "--generate", "gpt3-medium", "--state-dict", model_path,
+                 "--http", str(port)], cwd=root, stdout=logf,
+                stderr=subprocess.STDOUT)
+        url = f"http://127.0.0.1:{port}"
+        try:
+            while True:
+                if proc.poll() is not None:
+                    with open(logpath) as f:
+                        raise SmokeFailure(f"[ckpt] the server exited: "
+                                           f"{f.read()[-2000:]}")
+                try:
+                    if http_get(url + "/healthz")[0] == 200:
+                        break
+                except OSError:
+                    pass
+                check(time.perf_counter() - t < CLI_START_S,
+                      f"[ckpt] no /healthz answer within {CLI_START_S} s")
+                time.sleep(0.5)
+            healthz_s = time.perf_counter() - t
+            body, _ = http_post(url + "/generate", {
+                "input_ids": list(range(1, 17)), "max_new_tokens": 8})
+            check(len(body["tokens"]) == 8, f"[ckpt] /generate gave {body}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    line = {**sizes, "save_s": round(save_s, 1), "healthz_s":
+            round(healthz_s, 1), "optimizer_round_trip": True,
+            "s": round(time.time() - t0, 1)}
+    log(f"[ckpt] {json.dumps(line)}")
+    return line
+
+
+def trainer_phases(weights, cfg):
+    """The trainer's phases at gpt3-medium; returns the `trainer` line."""
+    import torch
+
+    t0 = time.time()
+    line = {}
+    line["train_full"], model, opt = train_full_phase(weights, cfg)
+    line["ckpt"] = ckpt_phase(model, opt)
+    del model, opt
+    line["skip_bad"] = skip_bad_phase(weights, cfg)
+    line["recompute"] = recompute_phase(weights, cfg)
+    line["o1"] = o1_phase(weights, cfg)
+    line["chunked"] = chunked_phase(weights, cfg)
+    line["card"] = card_line()
+    line["s"] = round(time.time() - t0, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
 
 
 def top2_margin(logits):
@@ -2088,12 +2644,16 @@ def main():
         r["launches"] = counts[name]
         check(r["launches"] > 0, f"{r['name']} never launched in the "
                                  f"head_dim 256 phases")
+    # the trainer's phases (dropout, skip-bad steps, recompute, O1,
+    # the chunked attention, checkpoints) at gpt3-medium
+    trainer = trainer_phases(weights, cfg)
     # greedy serving over the gpt3-medium weights, in f32 (no kernel of
     # this path is a flash kernel: its attention is einsum)
     serving = serving_phase(weights, cfg)
     log(json.dumps({"kernels": rows + f32_rows + rows256 + f32_rows256
                     + [probe_row]}))
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"trainer": trainer}))
     log(f"chip_smoke took {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2118,6 +2678,26 @@ def serving_only():
     line = serving_phase(reference_layout_weights(cfg, SEED), cfg)
     print(card)
     print(json.dumps({"serving": line}), flush=True)
+    return 0
+
+
+def trainer_only():
+    """The kernels' build and the trainer's phases alone: prints the card
+    and the `trainer` line, not the {"ok": ...} line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from paddle_tpu_torch.models import PRESETS
+
+    card = card_line()
+    log(f"card: {card}")
+    build_kernels()
+    cfg = PRESETS["gpt3-medium"]
+    line = trainer_phases(reference_layout_weights(cfg, SEED), cfg)
+    print(card)
+    print(json.dumps({"trainer": line}), flush=True)
     return 0
 
 
@@ -2233,6 +2813,8 @@ if __name__ == "__main__":
             sys.exit(compare(sys.argv[2]))
         if sys.argv[1:2] == ["--serving"]:
             sys.exit(serving_only())
+        if sys.argv[1:2] == ["--trainer"]:
+            sys.exit(trainer_only())
         sys.exit(main())
     except (SmokeFailure, ImportError) as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -51,8 +51,15 @@ def flag(name: str):
     return _REGISTRY[name]
 
 
+# the train step's finiteness check of the loss and the f32-cast grads:
+# a non-finite step raises FloatingPointError
+define_flag("check_nan_inf", False)
 # route attention to the flash kernels when the shape allows
 define_flag("use_flash_attention", True)
+# query-chunk size of the einsum attention at L >= 1024 when flash is not
+# taken (each chunk's [B, H, chunk, L] scores recomputed in backward); 0
+# takes the full einsum
+define_flag("attention_chunk", 256)
 # take the flash path even where the dot strategy alone would not: an
 # auto-resolved "f32" below seq 2048 (see nn.functional's routing)
 define_flag("force_flash_attention", False)
@@ -78,6 +85,10 @@ define_flag("generate_max_new_tokens", 128)
 # probabilistic rules, so the same (spec, seed) fires the same faults
 define_flag("chaos_spec", "")
 define_flag("chaos_seed", 0)
+# the train step's default for skip_bad_steps: a step whose loss or
+# grads are non-finite leaves parameters and optimizer state as they were
+# and is counted in TrainStep.bad_step_count instead of raising
+define_flag("skip_nan_steps", False)
 # span tracer (observability/trace.py): off unless a directory is set;
 # the ring keeps at most this many spans
 define_flag("trace_dir", "")

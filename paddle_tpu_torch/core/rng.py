@@ -14,9 +14,13 @@ Bits are computed on the device of the key tensor; `categorical` moves
 its keys to the logits' device first, so the noise is drawn where the
 logits are.
 
-`Generator` is the reference's (seed, counter) generator: `next_key()`
-is `fold_in(key(seed), counter)` after the counter's increment; the
-module's `seed(s)` and `next_key()` drive the default one.
+`Generator` is the reference's (key, counter) generator: `next_key()`
+is `fold_in(base, counter)` after the counter's increment, the base key
+being `key(seed)` until `set_key` installs another (and resets the
+counter); the module's `seed(s)` and `next_key()` drive the default one,
+and `rng_key_scope(k)` rebases it on `k` for a block, as the reference's
+train step does for its forward. `bernoulli` draws dropout masks as
+`jax.random.bernoulli` does under x64 (float64 uniforms below p).
 """
 from __future__ import annotations
 
@@ -116,6 +120,31 @@ def uniform(keys, shape, minval: float = 0.0, maxval: float = 1.0,
     return torch.maximum(lo_v, floats * (hi_v - lo_v) + lo_v)
 
 
+def bernoulli(keys, p: float, shape, chunk: int = 1 << 24) -> torch.Tensor:
+    """`jax.random.bernoulli(key, p, shape)` with a Python float `p` under
+    the reference's x64 mode: `uniform(key, shape, float64) < p`, as a
+    bool tensor on the key's device. The counters are hashed `chunk` at a
+    time, so the int64 words of a large mask never live at once."""
+    shape = tuple(int(d) for d in shape)
+    n = 1
+    for d in shape:
+        n *= d
+    if n >= 1 << 32:
+        raise ValueError(f"bernoulli: {n} draws need the high counter "
+                         f"words, which this port does not form")
+    out = torch.empty(n, dtype=torch.bool, device=keys.device)
+    k1, k2 = keys[..., 0:1], keys[..., 1:2]
+    for lo in range(0, n, chunk):
+        ctr = torch.arange(lo, min(n, lo + chunk), dtype=torch.int64,
+                           device=keys.device)
+        hi, low = threefry2x32(k1, k2, torch.zeros_like(ctr), ctr)
+        # uniform's float64: the top 52 of the 64 bits under 1.0's
+        # exponent, minus 1 (scaled by 1 and floored at 0: unchanged)
+        fbits = (hi << 20) | (low >> 12) | 0x3FF0000000000000
+        out[lo:lo + ctr.numel()] = (fbits.view(torch.float64) - 1.0) < p
+    return out.reshape(shape)
+
+
 def gumbel(keys, shape, dtype=torch.float32) -> torch.Tensor:
     """`jax.random.gumbel`, its "low" mode: -log(-log(u)) with u uniform
     in [tiny, 1) of `dtype`."""
@@ -133,7 +162,7 @@ def categorical(keys, logits) -> torch.Tensor:
 
 
 class Generator:
-    """A (seed, counter) generator of keys: `next_key()` never returns
+    """A (key, counter) generator of keys: `next_key()` never returns
     the same key twice."""
 
     def __init__(self, seed: int = 0):
@@ -142,21 +171,36 @@ class Generator:
 
     def manual_seed(self, seed: int):
         self._seed = int(seed)
+        self._key = None          # key(seed), built when first needed
         self._counter = 0
         return self
 
     def initial_seed(self) -> int:
         return self._seed
 
+    def _base_key(self) -> torch.Tensor:
+        if self._key is None:
+            self._key = key(self._seed)
+        return self._key
+
     def next_key(self) -> torch.Tensor:
-        """fold_in(key(seed), counter) after the counter's increment, on
-        the CPU."""
+        """fold_in(base key, counter) after the counter's increment, on
+        the base key's device (the CPU unless set_key gave another)."""
         with self._lock:
             self._counter += 1
             c = self._counter
-        return fold_in(key(self._seed), c)
+            base = self._base_key()
+        return fold_in(base, c)
+
+    def set_key(self, k: torch.Tensor):
+        """Install `k` as the base key and reset the counter to 0."""
+        with self._lock:
+            self._key = k
+            self._counter = 0
 
     def get_state(self):
+        """(seed, counter), the reference's state: a base key that
+        set_key installed is not part of it."""
         return (self._seed, self._counter)
 
     def set_state(self, state):
@@ -164,8 +208,22 @@ class Generator:
         self.manual_seed(seed)
         self._counter = int(counter)
 
+    def snapshot(self):
+        """(base key, counter): what `restore` puts back, so that a
+        replayed forward (recompute) draws the keys the first one drew."""
+        with self._lock:
+            return self._key, self._counter
+
+    def restore(self, snap):
+        with self._lock:
+            self._key, self._counter = snap
+
 
 _default_generator = Generator(0)
+
+
+def default_generator() -> Generator:
+    return _default_generator
 
 
 def seed(s: int) -> Generator:
@@ -178,6 +236,25 @@ def next_key() -> torch.Tensor:
     return _default_generator.next_key()
 
 
+class rng_key_scope:
+    """Rebase the default generator on `k` (counter 0) for the block, and
+    put its base key and counter back after it: the train step draws one
+    key a step and runs the forward's dropout under it."""
+
+    def __init__(self, k: torch.Tensor):
+        self._new_key = k
+
+    def __enter__(self):
+        self._saved = _default_generator.snapshot()
+        _default_generator.set_key(self._new_key)
+        return self
+
+    def __exit__(self, *exc):
+        _default_generator.restore(self._saved)
+        return False
+
+
 __all__ = ["threefry2x32", "key", "split", "fold_in",
-           "random_bits", "uniform", "gumbel", "categorical", "Generator",
-           "seed", "next_key"]
+           "random_bits", "uniform", "bernoulli", "gumbel", "categorical",
+           "Generator", "default_generator", "seed", "next_key",
+           "rng_key_scope"]

@@ -1,15 +1,32 @@
-"""Load the reference package's parameters into the port.
+"""Checkpoints in the reference's format, and its parameters in the port.
 
-`params_from_paddle_tpu` takes the JAX package's parameters as numpy
-arrays, by the names its `named_parameters()` gives, and returns a
-state_dict for `paddle_tpu_torch.models.GPTForCausalLM`. It accepts both
-the unrolled `GPTForCausalLM` names and the stacked
+`save(obj, path)` and `load(path)` are `paddle_tpu.save`/`load`'s format
+(paddle_tpu/framework_io.py): a pickle (protocol 4) of `obj` with every
+tensor written as {"__tensor__": True, "data": ndarray, "stop_gradient",
+"is_param", "name"}, through nested dicts, lists and tuples. A bfloat16
+tensor is written as the reference writes it, an `ml_dtypes.bfloat16`
+array of the same bits, without importing ml_dtypes: the pickle names
+`ml_dtypes.bfloat16` as a global and the reader's numpy builds the
+dtype from it. `load` reads such an array without ml_dtypes too, by its
+raw 16-bit words viewed as torch.bfloat16; it admits numpy's array
+reconstruction and that one global and nothing else, since unpickling
+can run code. It returns every saved tensor as a CPU torch tensor.
+
+`params_from_paddle_tpu` takes the JAX package's parameters (numpy
+arrays or torch tensors), by the names its `named_parameters()` gives,
+and returns a state_dict for `paddle_tpu_torch.models.GPTForCausalLM`. It
+accepts both the unrolled `GPTForCausalLM` names and the stacked
 `GPTForCausalLMScan` names (`qkv_w [L, D, 3D]`, ...), which it unstacks.
 Paddle stores a Linear weight as [in, out] and torch as [out, in], so
-every Linear weight is transposed.
+every Linear weight is transposed; `params_to_paddle_tpu` is the way
+back (unrolled names), and `transpose_optimizer_state` transposes an
+optimizer state_dict's per-parameter entries (`p{i}.moment1`, ...) alike,
+either way, so that a checkpoint of either package loads in the other.
 """
 from __future__ import annotations
 
+import os
+import pickle
 import re
 
 import numpy as np
@@ -46,7 +63,8 @@ def _unroll(named: dict) -> dict:
     unrolled names pass through. Unknown names raise."""
     out = {}
     for name, arr in named.items():
-        arr = np.asarray(arr)
+        if not isinstance(arr, torch.Tensor):
+            arr = np.asarray(arr)
         if name in _SCAN_BLOCK:
             for i in range(arr.shape[0]):
                 out[f"gpt.blocks.{i}.{_SCAN_BLOCK[name]}"] = arr[i]
@@ -60,12 +78,218 @@ def _unroll(named: dict) -> dict:
     return out
 
 
+def _to_torch(arr) -> torch.Tensor:
+    """A CPU tensor of `arr`; a bfloat16 numpy array (ml_dtypes, as the
+    reference's arrays are) by its 16-bit words, without ml_dtypes."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().cpu().contiguous()
+    arr = np.array(arr, order="C")
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def params_from_paddle_tpu(named: dict) -> dict:
-    """{reference name: numpy array} -> state_dict of the port's GPT
-    (CPU tensors of the arrays' dtypes; Linear weights transposed)."""
+    """{reference name: numpy array or tensor} -> state_dict of the port's
+    GPT (CPU tensors of the arrays' dtypes; Linear weights transposed)."""
     sd = {}
     for name, arr in _unroll(named).items():
         if _is_linear_weight(name):
             arr = arr.T
-        sd[name] = torch.from_numpy(np.array(arr, order="C"))
+        sd[name] = _to_torch(arr)
     return sd
+
+
+def params_to_paddle_tpu(state_dict: dict) -> dict:
+    """The port GPT's state_dict -> {reference (unrolled) name: CPU
+    tensor in the reference's layout}: Linear weights transposed back."""
+    out = {}
+    for name, t in state_dict.items():
+        if not _UNROLLED.match(name):
+            raise KeyError(f"params_to_paddle_tpu: unknown parameter "
+                           f"{name!r}")
+        t = t.detach().cpu()
+        out[name] = (t.t() if _is_linear_weight(name) else t).contiguous()
+    return out
+
+
+def transpose_optimizer_state(opt_sd: dict, names) -> dict:
+    """An optimizer state_dict in the other package's layout, either way:
+    the `p{i}.*` entries of every Linear weight transposed. `names[i]` is
+    the name of the optimizer's i-th parameter (the model's
+    `named_parameters()` order, which both packages share)."""
+    names = list(names)
+    out = dict(opt_sd)
+    for key, v in opt_sd.items():
+        m = re.match(r"^p(\d+)\.", key) if isinstance(key, str) else None
+        if m and _is_linear_weight(names[int(m.group(1))]):
+            v = v if isinstance(v, torch.Tensor) else _to_torch(v)
+            out[key] = v.t().contiguous()
+    return out
+
+
+# ------------------------------------------------------------ save/load --
+class _Bf16Name:
+    """Stands for the global `ml_dtypes.bfloat16` in a pickle."""
+
+
+class _Bf16Dtype:
+    """numpy's reduction of the bfloat16 dtype: np.dtype(bfloat16, False,
+    True) with its state (byte order, itemsize 2, alignment 2, flags)."""
+
+    def __reduce__(self):
+        return (np.dtype, (_Bf16Name, False, True),
+                (3, "<", None, None, None, 2, 2, 64))
+
+
+class _Bf16Array:
+    """numpy's reduction of a C-ordered bfloat16 array, from its uint16
+    words."""
+
+    def __init__(self, words: np.ndarray):
+        self.words = words
+
+    def __reduce__(self):
+        return (_ndarray_reconstruct(), (np.ndarray, (0,), b"b"),
+                (1, self.words.shape, _Bf16Dtype(), False,
+                 self.words.tobytes()))
+
+
+def _ndarray_reconstruct():
+    try:
+        from numpy._core.multiarray import _reconstruct
+    except ImportError:                       # numpy 1
+        from numpy.core.multiarray import _reconstruct
+    return _reconstruct
+
+
+class _Pickler(pickle._Pickler):
+    """The pure-Python pickler, which lets `save_global` write the
+    global `ml_dtypes.bfloat16` without importing ml_dtypes."""
+
+    def save_global(self, obj, name=None):
+        if obj is _Bf16Name:
+            self.save("ml_dtypes")
+            self.save("bfloat16")
+            self.write(pickle.STACK_GLOBAL)
+            self.memoize(obj)
+            return
+        super().save_global(obj, name)
+
+
+def _tensor_data(t: torch.Tensor):
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return _Bf16Array(t.view(torch.int16).numpy().view(np.uint16))
+    return t.numpy()
+
+
+def _to_saveable(obj):
+    if isinstance(obj, torch.Tensor):
+        return {"__tensor__": True, "data": _tensor_data(obj),
+                "stop_gradient": not obj.requires_grad,
+                "is_param": isinstance(obj, torch.nn.Parameter),
+                "name": None}
+    if isinstance(obj, dict):
+        return {k: _to_saveable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_saveable(v) for v in obj)
+    return obj
+
+
+def save(obj, path, protocol=4):
+    """paddle_tpu.save's format: see the module's docstring."""
+    if protocol < 4:
+        raise ValueError("save: bfloat16 arrays need pickle protocol >= 4")
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "wb") as f:
+        _Pickler(f, protocol=protocol).dump(_to_saveable(obj))
+
+
+class _Bf16Marker:
+    """What `load` reads for the dtype `ml_dtypes.bfloat16`."""
+
+    def __setstate__(self, state):
+        pass
+
+
+def _load_dtype(obj, align=False, copy=False):
+    if obj is _Bf16Marker:
+        return _Bf16Marker()
+    return np.dtype(obj, align, copy)
+
+
+class _LoadedArray:
+    """What `load` reads for an array: numpy's `_reconstruct` result, to
+    which the pickle then hands (version, shape, dtype, fortran, bytes)."""
+
+    def __setstate__(self, state):
+        _, shape, dtype, fortran, raw = state
+        if not isinstance(raw, (bytes, bytearray)):
+            raise pickle.UnpicklingError("load: object arrays are not "
+                                         "admitted")
+        order = "F" if fortran else "C"
+        if isinstance(dtype, _Bf16Marker):
+            words = np.frombuffer(raw, np.int16).reshape(shape, order=order)
+            self.value = torch.from_numpy(words.copy()).view(torch.bfloat16)
+        else:
+            self.value = np.frombuffer(raw, dtype).reshape(
+                shape, order=order).copy()
+
+
+def _load_reconstruct(cls, shape, typecode):
+    return _LoadedArray()
+
+
+def _load_frombuffer(buf, dtype, shape, order):
+    """numpy's protocol-5 array reduction (`numeric._frombuffer`)."""
+    a = _LoadedArray()
+    a.__setstate__((1, shape, dtype, order == "F", bytes(buf)))
+    return a.value
+
+
+class _Unpickler(pickle.Unpickler):
+    """Admits numpy's array reconstruction, numpy dtypes and
+    `ml_dtypes.bfloat16`, and nothing else."""
+
+    def find_class(self, module, name):
+        if module in ("numpy", "numpy._core", "numpy.core"):
+            if name == "ndarray":
+                return np.ndarray
+            if name == "dtype":
+                return _load_dtype
+        if module in ("numpy._core.multiarray", "numpy.core.multiarray") \
+                and name == "_reconstruct":
+            return _load_reconstruct
+        if module in ("numpy._core.numeric", "numpy.core.numeric") \
+                and name == "_frombuffer":
+            return _load_frombuffer
+        if (module, name) == ("ml_dtypes", "bfloat16"):
+            return _Bf16Marker
+        raise pickle.UnpicklingError(
+            f"the checkpoint names {module}.{name}; only numpy arrays "
+            f"(bfloat16 among them) are admitted")
+
+
+def _from_loaded(obj):
+    if isinstance(obj, _LoadedArray):
+        return obj.value
+    if isinstance(obj, dict):
+        if obj.get("__tensor__"):
+            data = _from_loaded(obj["data"])
+            return data if isinstance(data, torch.Tensor) else \
+                torch.from_numpy(np.asarray(data))
+        return {k: _from_loaded(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_from_loaded(v) for v in obj)
+    return obj
+
+
+def load(path):
+    """paddle_tpu.load's counterpart: every saved tensor comes back as a
+    CPU torch tensor (bfloat16 ones as torch.bfloat16, same bits); a bare
+    array outside a saved tensor as a numpy array (bfloat16: a tensor)."""
+    with open(path, "rb") as f:
+        return _from_loaded(_Unpickler(f).load())

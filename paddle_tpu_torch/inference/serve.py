@@ -13,11 +13,9 @@ initialisation (a torch.Generator seeded 0, drawn on the CPU, so the
 same on every device): they are not the reference's demo weights, and
 neither are its tokens. --state-dict reads a checkpoint that the
 reference's `paddle_tpu.save(model.state_dict(), path)` wrote (a pickle
-of {"__tensor__": True, "data": ndarray, ...} per parameter) without
-importing the reference: the unpickler admits numpy's array
-reconstruction and nothing else. A bfloat16 checkpoint pickles its
-arrays as ml_dtypes.bfloat16, which this loader refuses; save it in
-float32.
+of {"__tensor__": True, "data": ndarray, ...} per parameter), or the
+port's `framework_io.save` of `params_to_paddle_tpu(...)`, through
+`framework_io.load` (numpy arrays only, bfloat16 ones included).
 
 Refused, each naming the ROADMAP item that would port it: the pipe
 worker of the C deployment ABI and the predict engine (a model prefix,
@@ -27,66 +25,27 @@ serving fabric (--fabric, --pool: queue 6).
 from __future__ import annotations
 
 import argparse
-import importlib
-import pickle
 import sys
-
-import numpy as np
 
 _PREDICT_ITEM = "ROADMAP queue 4 (jit.save/load, then the predict engine)"
 _FABRIC_ITEM = "ROADMAP queue 6 (the serving fabric's tiers)"
 
 
-def _numpy_attr(module: str, name: str):
-    """numpy's `module.name` under numpy 2's `numpy._core` or numpy 1's
-    `numpy.core` (a checkpoint names the one that wrote it)."""
-    for prefix in ("numpy._core.", "numpy.core."):
-        try:
-            return getattr(importlib.import_module(prefix + module), name)
-        except (ImportError, AttributeError):
-            continue
-    raise pickle.UnpicklingError(f"numpy has no {module}.{name}")
-
-
-class _CheckpointUnpickler(pickle.Unpickler):
-    """Admits numpy's array reconstruction and nothing else: a
-    checkpoint is outside input, and unpickling can run code."""
-
-    _ARRAYS = {("multiarray", "_reconstruct"), ("numeric", "_frombuffer")}
-
-    def find_class(self, module, name):
-        if module in ("numpy", "numpy._core", "numpy.core") and \
-                name in ("ndarray", "dtype"):
-            return getattr(np, name)
-        for prefix in ("numpy._core.", "numpy.core."):
-            if module.startswith(prefix) and \
-                    (module[len(prefix):], name) in self._ARRAYS:
-                return _numpy_attr(module[len(prefix):], name)
-        if module.split(".")[0] == "ml_dtypes":
-            raise pickle.UnpicklingError(
-                f"the checkpoint holds {name} arrays (ml_dtypes), which "
-                f"this loader does not read: save the state_dict in "
-                f"float32")
-        raise pickle.UnpicklingError(
-            f"the checkpoint names {module}.{name}; only numpy arrays are "
-            f"admitted")
-
-
 def load_reference_state_dict(path: str) -> dict:
-    """{parameter name: numpy array} of a checkpoint that
+    """{parameter name: CPU tensor} of a checkpoint that
     `paddle_tpu.save(model.state_dict(), path)` wrote."""
-    with open(path, "rb") as f:
-        obj = _CheckpointUnpickler(f).load()
+    import torch
+
+    from ..framework_io import load
+
+    obj = load(path)
     if not isinstance(obj, dict):
         raise ValueError(f"{path}: not a state_dict (got "
                          f"{type(obj).__name__})")
-    out = {}
     for name, ent in obj.items():
-        if not (isinstance(ent, dict) and ent.get("__tensor__") and
-                isinstance(ent.get("data"), np.ndarray)):
+        if not isinstance(ent, torch.Tensor):
             raise ValueError(f"{path}: entry {name!r} is not a saved tensor")
-        out[str(name)] = ent["data"]
-    return out
+    return {str(n): t for n, t in obj.items()}
 
 
 def build_model(preset: str, state_dict, device):
@@ -129,9 +88,9 @@ def main(argv=None) -> int:
                          "seeded weights (not the reference's demo "
                          "weights, so not its tokens), or --state-dict")
     ap.add_argument("--state-dict", default=None,
-                    help="a float32 checkpoint for the --generate model, "
-                         "as paddle_tpu.save(model.state_dict(), path) "
-                         "writes it")
+                    help="a checkpoint for the --generate model (float32 "
+                         "or bfloat16), as paddle_tpu.save(model."
+                         "state_dict(), path) writes it")
     ap.add_argument("--slots", type=int, default=None,
                     help="decode-batch capacity per worker")
     ap.add_argument("--draft", metavar="PRESET", default=None,

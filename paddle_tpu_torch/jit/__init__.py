@@ -1,1 +1,1 @@
-from .train_step import TrainStep  # noqa: F401
+from .train_step import EvalStep, TrainStep  # noqa: F401

@@ -8,6 +8,14 @@ PyTorch runs eagerly, so the reference's scan-over-layers model has no
 counterpart here: its stacked parameters are unstacked by
 `framework_io.params_from_paddle_tpu`.
 
+`cfg.dropout` applies where the reference applies it: after the
+embeddings, on each block's attention and MLP outputs, and on the
+attention probabilities (which routes attention to the einsum with
+dropout, never to flash). Each draws its mask from the default generator
+(core/rng.py), in the reference's order; `model.eval()` turns all of it
+off (the reference's attention still drops in eval mode: it passes no
+`training` to its sdpa).
+
 `generate` is the reference's decoding over a fixed-size KV cache, greedy
 or top-k sampled: one prefill pass, then one cached step per token, every
 attention through `cached_attention` (plain einsum, as the reference's
@@ -21,8 +29,10 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..amp import cast_inputs
 from ..core import rng as _rng
 from ..nn import functional as F
+from ..nn.layers_common import Dropout, Linear
 from ..nn.norm import LayerNorm
 
 
@@ -92,10 +102,10 @@ class GPTAttention(nn.Module):
         super().__init__()
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
-        self.qkv_proj = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size,
-                                  **factory)
-        self.out_proj = nn.Linear(cfg.hidden_size, cfg.hidden_size,
-                                  **factory)
+        self.qkv_proj = Linear(cfg.hidden_size, 3 * cfg.hidden_size,
+                               **factory)
+        self.out_proj = Linear(cfg.hidden_size, cfg.hidden_size, **factory)
+        self.dropout = cfg.dropout
 
     def forward(self, x, cache=None):
         """`cache` ({"k", "v": [B, max, H, D] buffers, "pos": int}) takes
@@ -108,15 +118,17 @@ class GPTAttention(nn.Module):
             out, cache["k"], cache["v"] = cached_attention(
                 q, k, v, cache["k"], cache["v"], cache["pos"])
             return self.out_proj(out.reshape(b, l, h))
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        out = F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, dropout_p=self.dropout,
+            training=self.training)
         return self.out_proj(out.reshape(b, l, h))
 
 
 class GPTMLP(nn.Module):
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.ffn_hidden, **factory)
-        self.fc2 = nn.Linear(cfg.ffn_hidden, cfg.hidden_size, **factory)
+        self.fc1 = Linear(cfg.hidden_size, cfg.ffn_hidden, **factory)
+        self.fc2 = Linear(cfg.ffn_hidden, cfg.hidden_size, **factory)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate=True))
@@ -129,10 +141,11 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(cfg, **factory)
         self.ln2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **factory)
         self.mlp = GPTMLP(cfg, **factory)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x, cache=None):
-        x = x + self.attn(self.ln1(x), cache=cache)
-        return x + self.mlp(self.ln2(x))
+        x = x + self.dropout(self.attn(self.ln1(x), cache=cache))
+        return x + self.dropout(self.mlp(self.ln2(x)))
 
 
 class GPTModel(nn.Module):
@@ -141,6 +154,7 @@ class GPTModel(nn.Module):
         self.cfg = cfg
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **factory)
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size, **factory)
+        self.drop = Dropout(cfg.dropout)
         self.blocks = nn.ModuleList([GPTBlock(cfg, **factory)
                                      for _ in range(cfg.num_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
@@ -153,7 +167,7 @@ class GPTModel(nn.Module):
         l = input_ids.shape[1]
         pos = torch.arange(pos_offset, pos_offset + l,
                            device=input_ids.device)
-        x = self.wte(input_ids) + self.wpe(pos)[None]
+        x = self.drop(self.wte(input_ids) + self.wpe(pos)[None])
         for i, blk in enumerate(self.blocks):
             x = blk(x, cache=caches[i] if caches is not None else None)
         return self.ln_f(x)
@@ -168,15 +182,12 @@ class GPTForCausalLM(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.dropout:
-            raise ValueError("paddle_tpu_torch's GPT is the dropout-free "
-                             "training path; use dropout=0")
         factory = {"device": resolve_device(device)}
         self.cfg = cfg
         self.gpt = GPTModel(cfg, **factory)
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                     bias=False, **factory)
+            self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
+                                  bias=False, **factory)
         self._init_weights(generator)
 
     @torch.no_grad()
@@ -202,7 +213,12 @@ class GPTForCausalLM(nn.Module):
         return self._logits_from_hidden(self.hidden(input_ids))
 
     def _logits_from_hidden(self, h):
-        return torch.nn.functional.linear(h, self.head_weight())
+        """The LM head: the reference's `matmul(h, wte, transpose_y)` when
+        tied, else its `lm_head` Linear."""
+        if self.cfg.tie_embeddings:
+            h, w = cast_inputs("matmul", h, self.head_weight())
+            return torch.nn.functional.linear(h, w)
+        return self.lm_head(h)
 
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,
                  top_k=0, temperature=1.0, eos_token_id=None):

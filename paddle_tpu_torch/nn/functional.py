@@ -1,21 +1,97 @@
 """Functional ops of the ported path (counterpart of
-paddle_tpu/nn/functional.py): attention with the reference's routing,
-GELU and layer norm."""
+paddle_tpu/nn/functional.py): attention with the reference's routing
+(flash, the chunked query scan, the einsum, and the einsum with dropout
+on the probabilities), dropout, GELU, linear and layer norm.
+
+Dropout masks are the reference's bitwise: each call draws one key from
+the default generator (core/rng.py; the train step rebases it on the
+step's key) and keeps an element where a float64 uniform of that key is
+below 1 - p, as `jax.random.bernoulli` under x64. Masks are drawn in
+plain PyTorch, as the reference draws them in XLA. `linear` and
+`layer_norm` cast their inputs under `amp.auto_cast` (O1) as the
+reference's ops of those names do.
+"""
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..amp import cast_inputs
+from ..core import rng as _rng
 from ..core.flags import flag
 from ..ops.flash_attention import (flash_attention,
                                    flash_attention_supported,
                                    resolve_dot_impl)
 
+# chunks the chunked attention has run (forward passes, not the
+# recomputation in backward): how a caller sees that the path ran
+CHUNKED_CALLS = {"chunks": 0}
+
 
 def gelu(x, approximate: bool = False):
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
+
+
+def linear(x, weight, bias=None):
+    """x @ weight^T + bias (torch's [out, in] weight); under auto_cast
+    the reference's `linear` op: f32 inputs in the AMP dtype."""
+    x, weight, bias = cast_inputs("linear", x, weight, bias)
+    return torch.nn.functional.linear(x, weight, bias)
+
+
+def scalar_like(x, c: float):
+    """A Python scalar as JAX takes it beside `x` (weakly typed): rounded
+    to x's dtype, where torch would keep it in f32 for a bf16 product."""
+    return torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
+def _mask_shape(shape, axis):
+    if axis is None:
+        return tuple(shape)
+    axes = [axis] if isinstance(axis, int) else list(axis)
+    return tuple(s if i in axes else 1 for i, s in enumerate(shape))
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train"):
+    """The reference's dropout: in training, one key from the default
+    generator and a mask over x's shape (over the `axis` dims only,
+    broadcast over the rest) keeping where uniform < 1 - p; kept elements
+    scaled by 1/(1 - p) ("upscale_in_train") or not ("downscale_in_infer",
+    which scales by 1 - p outside training)."""
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * scalar_like(x, 1 - p)
+        return x
+    key = _rng.next_key().to(x.device)
+    keep = _rng.bernoulli(key, 1.0 - p, _mask_shape(x.shape, axis))
+    kept = x / scalar_like(x, 1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept, scalar_like(x, 0.0))
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW"):
+    return dropout(x, p=p, axis=[0, 1] if data_format == "NCHW" else [0, 3],
+                   training=training)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW"):
+    return dropout(x, p=p, axis=[0, 1], training=training)
+
+
+def alpha_dropout(x, p=0.5, training=True):
+    """SELU-preserving dropout: dropped elements take alpha' = -alpha *
+    scale, then a * (...) + b restores mean and variance."""
+    if not training or p == 0.0:
+        return x
+    key = _rng.next_key().to(x.device)
+    alpha_p = -1.6732632423543772 * 1.0507009873554805
+    keep = _rng.bernoulli(key, 1.0 - p, x.shape)
+    a = (1.0 / math.sqrt((1 - p) * (1 + p * alpha_p ** 2))) if p < 1 else 1.0
+    b = -a * alpha_p * p
+    dropped = torch.where(keep, x, scalar_like(x, alpha_p))
+    return scalar_like(x, a) * dropped + scalar_like(x, b)
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -70,7 +146,9 @@ class _LayerNorm(torch.autograd.Function):
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     """The reference's arithmetic (`_layer_norm_p`, under O2 on bf16
     activations too): mean and variance reduced in f32 and rounded to x's
-    dtype, the normalisation, scale and shift in x's dtype."""
+    dtype, the normalisation, scale and shift in x's dtype. Under
+    auto_cast (black-listed) its AMP-dtype inputs run in f32."""
+    x, weight, bias = cast_inputs("layer_norm", x, weight, bias)
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     dims = tuple(range(x.dim() - len(normalized_shape), x.dim()))
@@ -98,15 +176,68 @@ def _attention_probs(q, k, v, mask, is_causal, scale):
     return torch.softmax(logits, dim=-1), vh
 
 
-def scaled_dot_product_attention(q, k, v, attn_mask=None, is_causal=False,
+def _chunk_out(qc, kh, vh, causal, s, start):
+    """One query chunk of `_chunked_attention`: f32 scores (products of
+    the inputs' values, summed in f32, as the reference's
+    preferred_element_type=f32 einsum), masked to -1e30, softmax, the
+    probabilities in V's dtype times V."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", qc.float(), kh.float()) * s
+    if causal:
+        n, L = qc.shape[2], kh.shape[2]
+        qpos = start + torch.arange(n, device=qc.device)
+        m = torch.arange(L, device=qc.device)[None, :] <= qpos[:, None]
+        logits = torch.where(m[None, None], logits,
+                             torch.tensor(-1e30, device=qc.device))
+    p = torch.softmax(logits, dim=-1).to(vh.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vh)
+
+
+def _chunked_attention(qh, kh, vh, causal, s, chunk):
+    """The reference's `_chunked_attention` ([B, H, L, D] in, [B, L, H, D]
+    out): exact attention over query chunks of `chunk` rows, each chunk's
+    full-row softmax; each chunk is checkpointed (its scores recomputed in
+    backward), as the reference's jax.checkpoint per chunk."""
+    outs = []
+    for start in range(0, qh.shape[2], chunk):
+        qc = qh[:, :, start:start + chunk]
+        if torch.is_grad_enabled():
+            out = checkpoint(_chunk_out, qc, kh, vh, causal, s, start,
+                             use_reentrant=False)
+        else:
+            out = _chunk_out(qc, kh, vh, causal, s, start)
+        outs.append(out)
+        CHUNKED_CALLS["chunks"] += 1
+    return torch.cat(outs, dim=2).transpose(1, 2)
+
+
+def _sdpa_dropout(q, k, v, key, mask, dropout_p, is_causal, scale):
+    """The reference's `_sdpa_dropout_fn`: the einsum probabilities, then
+    dropout on them (mask from `key`, kept ones scaled by 1/(1 - p))."""
+    probs, vh = _attention_probs(q, k, v, mask, is_causal, scale)
+    keep = _rng.bernoulli(key.to(q.device), 1.0 - dropout_p, probs.shape)
+    probs = torch.where(keep, probs / scalar_like(probs, 1.0 - dropout_p),
+                        scalar_like(probs, 0.0))
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vh)
+    return out.transpose(1, 2)
+
+
+def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
+                                 is_causal=False, training=True,
                                  scale=None):
     """Attention on the [B, L, H, D] layout, routed as the reference's
-    `_sdpa_p`: with FLAGS_use_flash_attention on, no mask, q, k and v of one
-    shape and a shape that passes the gate, the flash kernels under the
-    dot strategy FLAGS_flash_dot_impl resolves to; otherwise the einsum
-    path. The reference's backend gate has no counterpart: the flash path
-    runs on the card and, through its plain versions, on the CPU. (The port
-    has no attention dropout: the training path runs dropout-free.)"""
+    `scaled_dot_product_attention`: with `dropout_p` > 0 in training, the
+    einsum with dropout on the probabilities (one key from the default
+    generator), never flash. Otherwise as `_sdpa_p`: with
+    FLAGS_use_flash_attention on, no mask, q, k and v of one shape and a
+    shape that passes the gate, the flash kernels under the dot strategy
+    FLAGS_flash_dot_impl resolves to; else, at L >= 1024 with no mask and
+    L a multiple of FLAGS_attention_chunk (above it), the chunked query
+    scan; else the einsum. The reference's backend gate has no
+    counterpart: the flash path runs on the card and, through its plain
+    versions, on the CPU."""
+    if dropout_p and training:
+        return _sdpa_dropout(q, k, v, _rng.next_key(), attn_mask,
+                             float(dropout_p), bool(is_causal), scale)
     if (flag("use_flash_attention") and attn_mask is None
             and q.shape == k.shape == v.shape):
         bq, bk = int(flag("flash_block_q")), int(flag("flash_block_k"))
@@ -123,6 +254,15 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, is_causal=False,
                 return flash_attention(q, k, v, causal=bool(is_causal),
                                        sm_scale=scale, block_q=bq,
                                        block_k=bk, impl=impl)
+    chunk = int(flag("attention_chunk"))
+    L = q.shape[1]
+    if (chunk > 0 and attn_mask is None and L == k.shape[1] and L >= 1024
+            and L % chunk == 0 and L > chunk):
+        s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+        s = float(torch.tensor(s, dtype=torch.float32))
+        return _chunked_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), bool(is_causal), s,
+                                  chunk)
     probs, vh = _attention_probs(q, k, v, attn_mask, is_causal, scale)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vh)
     return out.transpose(1, 2)

@@ -13,6 +13,8 @@ which hit. Spec grammar (`FLAGS_chaos_spec` or `configure(spec)`)::
     serving.decode_step:raise_n:2   raise on the first 2 hits, then heal
     serving.decode_step:timeout     raise TimeoutError on every hit
     serving.decode_step:delay:0.05  sleep 50 ms at every hit
+    step:nan:3                      directive "nan" at the 3rd hit (the
+                                    train step poisons that batch)
 
 Probabilistic rules draw from a per-rule `random.Random` seeded by
 `FLAGS_chaos_seed` and the rule's text, so the same (spec, seed) fires
@@ -20,12 +22,13 @@ the same faults at the same hits. `add_rule(..., match={...})` scopes a
 rule to hits whose context carries those values (one worker, one worker
 generation).
 
-The reference's process-level actions (`nan`, `kill_after`,
-`sigterm_after`) serve its trainer's fault-tolerance sites, which the
-port does not have yet; here they are unknown actions.
+The reference's process-level actions (`kill_after`, `sigterm_after`)
+serve its fault-tolerance supervisor, which the port does not have yet;
+here they are unknown actions.
 
 Standing sites: serving.decode_step (before every decode step of a
-generation worker), scale.add / scale.drain (replica add and retire).
+generation worker), scale.add / scale.drain (replica add and retire),
+step (before every call of jit.TrainStep).
 With no rule armed, `hit()` is one truth test.
 """
 from __future__ import annotations
@@ -44,7 +47,7 @@ class ChaosError(ConnectionError):
     would be)."""
 
 
-_ACTIONS = ("raise", "timeout", "raise_n", "delay")
+_ACTIONS = ("raise", "timeout", "raise_n", "nan", "delay")
 
 
 class _Rule:
@@ -67,8 +70,9 @@ class _Rule:
     def matches(self, ctx: dict) -> bool:
         return all(str(ctx.get(k)) == str(v) for k, v in self.match.items())
 
-    def apply(self, nhit: int) -> None:
-        """Act on the rule's `nhit`-th matched hit: raise or sleep."""
+    def apply(self, nhit: int) -> Optional[str]:
+        """Act on the rule's `nhit`-th matched hit: raise, sleep, or
+        return a directive ("nan")."""
         act, arg = self.action, self.arg
         if act == "raise":
             p = 1.0 if arg is None else float(arg)
@@ -87,9 +91,14 @@ class _Rule:
                 self.fired += 1
                 raise ChaosError(f"chaos: injected fault at {self.site} "
                                  f"(hit {nhit}/{arg})")
+        elif act == "nan":
+            if nhit == int(arg):
+                self.fired += 1
+                return "nan"
         elif act == "delay":
             self.fired += 1
             time.sleep(float(arg or 0.01))
+        return None
 
 
 _LOCK = threading.Lock()
@@ -162,11 +171,12 @@ def counters() -> dict:
                 "total_injected": sum(r.fired for r in _RULES)}
 
 
-def hit(site: str, **ctx) -> None:
+def hit(site: str, **ctx) -> Optional[str]:
     """Record one pass through `site` and apply every matching rule; may
-    raise ChaosError or TimeoutError, or sleep."""
+    raise ChaosError or TimeoutError, sleep, or return a directive
+    ("nan"). Returns None when disarmed or nothing fires."""
     if not _RULES:
-        return
+        return None
     with _LOCK:
         _HITS[site] = _HITS.get(site, 0) + 1
         matched = []
@@ -176,14 +186,18 @@ def hit(site: str, **ctx) -> None:
                 matched.append((r, r.seen))
     # apply every matched rule before raising the first exception, so a
     # raising rule does not starve a count-based one of its hit
+    directive = None
     first_exc: Optional[BaseException] = None
     for r, n in matched:
         try:
-            r.apply(n)
+            d = r.apply(n)
         except Exception as e:  # noqa: BLE001 — ChaosError/TimeoutError
             first_exc = first_exc or e
+            continue
+        directive = directive or d
     if first_exc is not None:
         raise first_exc
+    return directive
 
 
 # a process started with FLAGS_chaos_spec set is armed at import;

@@ -323,15 +323,21 @@ def test_cli_refuses_unported_modes(capsys):
 
 
 def test_checkpoint_loader_admits_arrays_only(tmp_path):
+    """A bfloat16 checkpoint of the reference loads with the same bits
+    (its arrays are ml_dtypes.bfloat16, read without ml_dtypes); a pickle
+    that names anything but numpy's arrays is refused."""
     import ml_dtypes
 
     path = tmp_path / "bf16.pdparams"
-    paddle_tpu.save({"w": paddle_tpu.cast(paddle_tpu.to_tensor(
-        np.zeros(3, np.float32)), "bfloat16")}, str(path))
-    assert np.asarray(pickle.load(open(path, "rb"))["w"]["data"]).dtype \
-        == ml_dtypes.bfloat16
-    with pytest.raises(pickle.UnpicklingError, match="float32"):
-        serve.load_reference_state_dict(str(path))
+    x = np.random.default_rng(0).standard_normal(7).astype(np.float32)
+    paddle_tpu.save({"w": paddle_tpu.cast(paddle_tpu.to_tensor(x),
+                                          "bfloat16")}, str(path))
+    want = np.asarray(pickle.load(open(path, "rb"))["w"]["data"])
+    assert want.dtype == ml_dtypes.bfloat16
+    got = serve.load_reference_state_dict(str(path))["w"]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        got.view(torch.int16).numpy().view(np.uint16), want.view(np.uint16))
     evil = tmp_path / "evil.pdparams"
     evil.write_bytes(pickle.dumps({"w": os.system}))
     with pytest.raises(pickle.UnpicklingError, match="only numpy"):

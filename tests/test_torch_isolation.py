@@ -1,7 +1,8 @@
 """The port stands alone: no module of paddle_tpu_torch, and neither
-chip_smoke.py nor chip_order_checks.py, imports jax or the reference
-package paddle_tpu; and its entry points refuse to run quietly on the CPU
-when no card is present."""
+chip_smoke.py nor chip_order_checks.py, imports jax, ml_dtypes (the card's
+machine has none: bfloat16 checkpoints are read and written without it)
+or the reference package paddle_tpu; and its entry points refuse to run
+quietly on the CPU when no card is present."""
 import ast
 import os
 import subprocess
@@ -19,6 +20,8 @@ SOURCES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "chip_order_checks.py"]
 MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.core.flags", "paddle_tpu_torch.core.rng",
+           "paddle_tpu_torch.distributed",
+           "paddle_tpu_torch.distributed.recompute",
            "paddle_tpu_torch.framework_io",
            "paddle_tpu_torch.inference",
            "paddle_tpu_torch.inference.fabric",
@@ -30,24 +33,29 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.inference.serving.metrics",
            "paddle_tpu_torch.inference.serving.server",
            "paddle_tpu_torch.io.bucketing",
-           "paddle_tpu_torch.jit", "paddle_tpu_torch.models",
+           "paddle_tpu_torch.jit", "paddle_tpu_torch.jit.train_step",
+           "paddle_tpu_torch.models", "paddle_tpu_torch.nn",
            "paddle_tpu_torch.nn.functional",
            "paddle_tpu_torch.nn.functional_more",
+           "paddle_tpu_torch.nn.layers_common",
            "paddle_tpu_torch.nn.norm",
            "paddle_tpu_torch.ops._build",
            "paddle_tpu_torch.observability.exporter",
            "paddle_tpu_torch.observability.trace",
            "paddle_tpu_torch.ops.flash_attention",
            "paddle_tpu_torch.optimizer",
+           "paddle_tpu_torch.optimizer.clip",
+           "paddle_tpu_torch.optimizer.lr",
            "paddle_tpu_torch.quantization",
            "paddle_tpu_torch.quantization.kv",
+           "paddle_tpu_torch.regularizer",
            "paddle_tpu_torch.testing.chaos",
            "paddle_tpu_torch.testing.racecheck"]
 
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "paddle_tpu")
+    return top in ("jax", "jaxlib", "ml_dtypes", "paddle_tpu")
 
 
 @pytest.mark.parametrize("path", SOURCES,
