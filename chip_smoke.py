@@ -49,12 +49,34 @@ losses of 3 steps against the plain run's, 48 forward, 24 dQ and 24
 dK/dV launches a step, peak memory; batch 32's tokens/s), o1 (f32
 parameters under auto_cast O1 with GradScaler and eager steps) and
 chunked (flash off: the chunked query scan's loss against the full
-einsum's, chunks counted, peak memory of both).
+einsum's, chunks counted, peak memory of both). Last, the predict phase:
+every flash kernel against its plain version at the shapes the path
+gives the forward (batch 1 and 8 x 512, 16 heads, D = 64, causal, f32
+and bf16 storage); then the same gpt3-medium weights saved by jit.save
+(input_spec [None, 512]) in f32 and in bf16 (amp.decorate O2), each
+loaded by a fresh Predictor and served by a ServingEngine (max_batch_size
+8, 2 replicas), then by one of 1 replica, to 8 client threads sending 32
+requests of 1-3 rows: exactly 24 forward launches a batch, of the
+instance checked above (kF32 for f32, kBf16 for bf16), and no other
+launch, no call of a plain version, no failed, shed, rejected, expired or
+split request, no revived replica, no batch that was a shape's first
+call, and a batch of more than one request; each of the served
+program's 48 forward calls on a one-row request and an 8-row batch
+against the plain version of the same call (the kernel phase's limits);
+each request's logits against the eager model's on its rows alone (1e-4
+of their RMS in f32, 2e-2 in bf16, argmax equal where the top-2 margin
+exceeds that) and, in f32, against the eager model's with the plain
+attention (read in bf16, beside what two plain attentions part by); the
+execute spans split into the inputs' copy, the forward and the outputs'
+copy; then the CLI (serve PREFIX --engine --http) and the pipe worker
+(serve PREFIX) in subprocesses, their outputs bitwise the engine's for
+the same rows.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
     python3 chip_smoke.py --serving
     python3 chip_smoke.py --trainer
+    python3 chip_smoke.py --predict
 
 Needs one CUDA card (written for an H100, sm_90a) and nvcc. Prints the
 card and its power limit, a `kernels` JSON line (time, achieved TFLOP/s,
@@ -67,8 +89,13 @@ profiled decode step, KV pool bytes, peak memory; the sampling, sampler,
 prefix-cache, speculation and int8 checks with each engine's decode step
 at bucket 8; the HTTP, handoff, migration, resume and CLI checks), a
 `trainer` JSON line (each trainer phase's losses, step ms, peak memory,
-launches, checks and seconds; the masks' share of a train-full step)
-and, as the last line,
+launches, checks and seconds; the masks' share of a train-full step), a
+`predict` JSON line (export, save and load seconds, artifact bytes, each
+bucket's first call, bucket 8's forward and output copy, execute ms by
+bucket and by stage, QPS, latencies, occupancy, launches, with 2
+replicas and with 1, errors, HTTP and pipe;
+the flash_fwd and flash_fwd@float32 rows of the kernels line also carry
+their predict launches) and, as the last line,
 {"ok": true, "device": {...}}. Any failed check exits non-zero without that
 line. With --compare, it only times every flash kernel of this checkout
 and of OTHER_CHECKOUT (another tree of the repo, e.g. the parent commit
@@ -82,10 +109,13 @@ the same method, in turns (other, this, this, other), each in a process of
 its own that builds that tree's kernels, with the SM clock read after each
 row. With --serving, it runs only the serving phase and prints its line
 (without the {"ok": ...} line); with --trainer, only the kernels' build
-and the trainer's phases, and their line (without it either).
+and the trainer's phases, and their line (without it either); with
+--predict, only the kernels' build and the predict phase, and its line
+(without it either).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -255,6 +285,23 @@ RESUME_FROM, CLI_START_S = 5, 240
 # 1e-3 relative (1.3e-5 read on an H100).
 TRAIN_FULL_STEPS, RECOMPUTE_STEPS, O1_STEPS = 4, 3, 3
 RECOMPUTE_LOSS_RTOL, CHUNKED_RTOL = 1e-6, 1e-3
+# the predict phase: gpt3-medium saved by jit.save at [None, PREDICT_LEN]
+# (a static length: the flash gate needs L % 128 == 0, which no export
+# can decide on a symbolic length) in f32 and bf16, each served by a
+# ServingEngine of PREDICT_REPLICAS replicas, batches of up to
+# PREDICT_MAX_BATCH rows held open PREDICT_BATCH_TIMEOUT_MS for
+# batchmates, to PREDICT_CLIENTS client threads sending PREDICT_REQUESTS
+# requests of 1-3 rows, then by one replica to the same clients and
+# requests. A request's logits may part by PREDICT_TOL of their RMS from
+# those of the eager model on its rows alone, and from those of the eager
+# model with the attention's plain version in place of the kernel: f32,
+# the order of f32 sums (GEMMs of another batch size, the kernel's tiles);
+# bf16, a few steps of bf16 rounding carried through 24 layers. The CLI
+# and the pipe worker get PREDICT_CLI_START_S to answer.
+PREDICT_LEN, PREDICT_MAX_BATCH, PREDICT_REPLICAS = 512, 8, 2
+PREDICT_CLIENTS, PREDICT_REQUESTS, PREDICT_BATCH_TIMEOUT_MS = 8, 32, 10.0
+PREDICT_TOL = {"f32": 1e-4, "bf16": 2e-2}
+PREDICT_CLI_START_S = 240
 SEED = 0
 
 REF = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -415,7 +462,8 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
     """Each flash kernel against its plain version on the card (the nn
     forms also against the bf16 kernels, bitwise); with `timed`, also the
     CUDA-event medians, bounds and library times of the kernels named in
-    `time_names` (all by default). Returns their rows (with `timed`)."""
+    `time_names` (all by default). Returns their rows (with `timed`), else
+    each kernel's instance name."""
     import torch
 
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -517,7 +565,7 @@ def kernel_phase(B, L, H, D, dtype_name, causal, timed, time_names=None):
             "out_bytes": sum(x.numel() * x.element_size()
                              for x in got.values())}
     if not timed:
-        return None
+        return {name: r["instance"] for name, r in results.items()}
 
     # work this run's inputs need: causal rows see keys 0..row
     pairs = B * H * (L * (L + 1) // 2 if causal else L * L)
@@ -2396,6 +2444,669 @@ def cli_checks(model, eng, weights, prompt, ref):
     return row
 
 
+# ------------------------------------------------------------- predict --
+def pipe_session(prefix, row_sets):
+    """One session of the pipe worker (`python -m
+    paddle_tpu_torch.inference.serve PREFIX`, on the card) over `row_sets`
+    (one RUN_ each, then BYE_): its handshake and outputs."""
+    import io
+    import struct
+
+    import numpy as np
+
+    msg = b""
+    for ids in row_sets:
+        raw = np.ascontiguousarray(ids).tobytes()
+        msg += b"RUN_" + struct.pack("<Q", len(raw)) + raw
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.inference.serve", prefix],
+        input=msg + b"BYE_", cwd=root, capture_output=True,
+        timeout=PREDICT_CLI_START_S)
+    check(out.returncode == 0, f"[predict] the pipe worker exited "
+                               f"{out.returncode}: {out.stderr[-2000:]}")
+    buf = io.BytesIO(out.stdout)
+
+    def u32():
+        return struct.unpack("<I", buf.read(4))[0]
+
+    def blob():
+        return buf.read(struct.unpack("<Q", buf.read(8))[0])
+
+    check(buf.read(4) == b"PDIS" and u32() == 1, "[predict] bad handshake")
+    specs = []
+    for _ in range(u32()):
+        dtype = blob().decode()
+        nd = u32()
+        specs.append((dtype, struct.unpack(f"<{nd}q", buf.read(8 * nd))))
+    n_out = u32()
+    outs = []
+    for _ in row_sets:
+        tag = buf.read(4)
+        check(tag == b"OUT_", f"[predict] pipe reply {tag!r}: "
+                              f"{blob()[:500] if tag == b'ERR_' else ''}")
+        check(u32() == 1, "[predict] the pipe sent several outputs")
+        dtype = blob().decode()
+        nd = u32()
+        dims = struct.unpack(f"<{nd}q", buf.read(8 * nd))
+        outs.append(np.frombuffer(blob(), dtype).reshape(dims))
+    check(buf.read() == b"", "[predict] bytes after the last reply")
+    return specs, n_out, outs
+
+
+def predict_http_checks(label, prefix, eng, raw_ids, json_ids):
+    """`python -m paddle_tpu_torch.inference.serve PREFIX --engine --http
+    PORT` in a subprocess on the card: /healthz, a raw-binary /predict of
+    `raw_ids` and a JSON-base64 one of `json_ids`, each bitwise the
+    in-process engine's answer for the same rows alone, then /metrics.
+    Returns the check's row."""
+    import base64
+    import socket
+    import struct
+
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logpath = os.path.join(os.path.dirname(prefix), f"serve_{label}.log")
+    t0 = time.perf_counter()
+    with open(logpath, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.inference.serve",
+             prefix, "--engine", "--http", str(port), "--replicas", "1",
+             "--max-batch-size", str(PREDICT_MAX_BATCH)], cwd=root,
+            stdout=logf, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            if proc.poll() is not None:
+                with open(logpath) as f:
+                    raise SmokeFailure(f"[predict-{label}] the server "
+                                       f"exited: {f.read()[-2000:]}")
+            try:
+                if http_get(url + "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(time.perf_counter() - t0 < PREDICT_CLI_START_S,
+                  f"[predict-{label}] no /healthz answer within "
+                  f"{PREDICT_CLI_START_S} s")
+            time.sleep(0.5)
+        start_s = time.perf_counter() - t0
+        raw = np.ascontiguousarray(raw_ids).tobytes()
+        req = urllib.request.Request(
+            url + "/predict", data=struct.pack("<Q", len(raw)) + raw,
+            headers={"Content-Type": "application/octet-stream"})
+        t1 = time.perf_counter()
+        with LOCAL.open(req, timeout=600) as r:
+            reply = r.read()
+        raw_ms = (time.perf_counter() - t1) * 1e3
+        off = 4
+        (n,) = struct.unpack_from("<I", reply, 0)
+        check(n == 1, f"[predict-{label}] {n} outputs over HTTP")
+        (dl,) = struct.unpack_from("<Q", reply, off)
+        dtype = reply[off + 8:off + 8 + dl].decode()
+        off += 8 + dl
+        (nd,) = struct.unpack_from("<I", reply, off)
+        dims = struct.unpack_from(f"<{nd}q", reply, off + 4)
+        off += 4 + 8 * nd
+        (nb,) = struct.unpack_from("<Q", reply, off)
+        got_raw = np.frombuffer(reply, dtype, count=nb // np.dtype(
+            dtype).itemsize, offset=off + 8).reshape(dims)
+        (want_raw,) = eng.predict([raw_ids], timeout=600)
+        check(np.array_equal(got_raw, want_raw),
+              f"[predict-{label}] raw /predict differs from the engine's")
+        t1 = time.perf_counter()
+        body, _ = http_post(url + "/predict", {"inputs": [{
+            "b64": base64.b64encode(json_ids.tobytes()).decode(),
+            "dtype": "int64", "shape": list(json_ids.shape)}]})
+        json_ms = (time.perf_counter() - t1) * 1e3
+        o = body["outputs"][0]
+        got_json = np.frombuffer(base64.b64decode(o["b64"]),
+                                 o["dtype"]).reshape(o["shape"])
+        (want_json,) = eng.predict([json_ids], timeout=600)
+        check(np.array_equal(got_json, want_json),
+              f"[predict-{label}] JSON /predict differs from the engine's")
+        status, h = http_get(url + "/healthz")
+        h = json.loads(h)
+        check(h["status"] == "ok" and h["replicas"] == 1,
+              f"[predict-{label}] /healthz {h}")
+        _, text = http_get(url + "/metrics")
+        check("paddle_serving_requests_total 2" in text.splitlines(),
+              f"[predict-{label}] /metrics does not count 2 requests")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+    return {"start_s": round(start_s, 3), "raw_ms": round(raw_ms, 3),
+            "json_ms": round(json_ms, 3), "raw_rows": int(len(raw_ids)),
+            "json_rows": int(len(json_ids)), "bitwise": True}
+
+
+@contextlib.contextmanager
+def plain_forward_on_card(plain):
+    """The flash forwards' plain versions (`plain`: name -> function) in
+    place of their CUDA kernels while it is open: a reference forward on
+    the card that launches no kernel."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    names = [n for n in fa.CUDA if n.startswith("flash_fwd")]
+    saved = {n: fa.CUDA[n] for n in names}
+    fa.CUDA.update({n: plain[n] for n in names})
+    try:
+        yield
+    finally:
+        fa.CUDA.update(saved)
+
+
+@contextlib.contextmanager
+def forward_checked_against_plain(plain, calls):
+    """While open, each flash forward launched on the card also runs its
+    plain version (`plain`: name -> function, uncounted) on the same
+    inputs (f64 for f32 storage, as kernel_phase holds it) and appends
+    the call's row-normalised error of O, LSE's absolute error and O's
+    limit (kernel_phase's) to `calls`."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    names = [n for n in fa.CUDA if n.startswith("flash_fwd")]
+    saved = {n: fa.CUDA[n] for n in names}
+
+    def checked(name):
+        def call(q, k, v, causal, sm_scale, kv_len=None):
+            o, lse = saved[name](q, k, v, causal, sm_scale, kv_len=kv_len)
+            f32 = q.dtype == torch.float32
+            ref = [t.double() if f32 else t for t in (q, k, v)]
+            o_p, lse_p = plain[name](*ref, causal, sm_scale, kv_len=kv_len)
+            tol = REL_TOL["float32" if f32 else "f32dot-bfloat16"
+                          if name.endswith("f32dot") else "bfloat16"]
+            calls.append({"name": name, "shape": str(tuple(q.shape)),
+                          "row_err": row_err(o, o_p),
+                          "lse_err": abs_err(lse, lse_p), "tol": tol})
+            return o, lse
+        return call
+
+    fa.CUDA.update({n: checked(n) for n in names})
+    try:
+        yield
+    finally:
+        fa.CUDA.update(saved)
+
+
+def execute_stages(spans):
+    """Per batch bucket, the serving.execute spans' count, median and max
+    (ms), and the medians of the Predictor's stages inside them: inputs
+    to the card (h2d), the program until the stream has run it (forward,
+    waiting behind another replica's work included), outputs to the host
+    (d2h), and the rest (batch assembly)."""
+    execs = {e["args"]["span"]: e for e in spans
+             if e["name"] == "serving.execute"}
+    stages = {}
+    for e in spans:
+        sid = e["args"].get("parent")
+        if e["name"].startswith("predictor.") and sid in execs:
+            stages.setdefault(sid, {})[e["name"].split(".")[1]] = \
+                e["dur"] / 1e3
+    by_bucket = {}
+    for sid, e in execs.items():
+        st = stages.get(sid, {})
+        ms = e["dur"] / 1e3
+        row = {"execute": ms, **st,
+               "rest": ms - sum(st.get(k, 0.0)
+                                for k in ("h2d", "forward", "d2h"))}
+        for k, v in row.items():
+            by_bucket.setdefault(e["args"]["bucket"], {}).setdefault(
+                k, []).append(v)
+    out = {}
+    for b, cols in sorted(by_bucket.items()):
+        ex = cols.pop("execute")
+        out[b] = {"n": len(ex), "median": round(statistics.median(ex), 3),
+                  "max": round(max(ex), 3),
+                  **{f"{k}_median": round(statistics.median(v), 3)
+                     for k, v in cols.items()}}
+    return out
+
+
+def predict_burst(label, eng, requests, outdir, cfg, checked):
+    """PREDICT_CLIENTS client threads send `requests` to `eng` (each
+    client every PREDICT_CLIENTS-th, one at a time), traced, the flash
+    counts set to 0 just before. Fails unless every request is answered
+    with no failure, shed, rejection, expiry, split, revived replica or
+    batch that was a shape's first call, some batch coalesced two
+    requests, and each batch launched cfg.num_layers forward kernels of
+    the instance checked against its plain version at the path's shapes
+    (`checked`) and nothing else. Returns (the answers, the burst's
+    row)."""
+    import threading
+
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.inference.serving import metrics as sm
+    from paddle_tpu_torch.observability import trace
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    set_flags({"trace_dir": os.path.join(outdir, "trace")})
+    try:
+        trace.reset()
+        fa.reset_launch_counts()
+        results = [None] * len(requests)
+        lat = [None] * len(requests)
+        errors = []
+
+        def client(c):
+            try:
+                for i in range(c, len(requests), PREDICT_CLIENTS):
+                    t = time.perf_counter()
+                    (results[i],) = eng.predict([requests[i]], timeout=600)
+                    lat[i] = time.perf_counter() - t
+            except Exception as ex:  # noqa: BLE001 — reported below
+                errors.append(repr(ex))
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(PREDICT_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        burst_s = time.perf_counter() - t0
+        launches = flash_counts()
+        instances = dict(fa.INSTANCE_LAUNCHES)
+        snap = eng.metrics.snapshot()
+        spans = trace.spans()
+    finally:
+        set_flags({"trace_dir": ""})
+    check(not errors, f"[predict-{label}] client errors: {errors[:3]}")
+    check(all(r is not None for r in results),
+          f"[predict-{label}] a request got no answer")
+    for key in ("failed_total", "shed_total", "rejected_total",
+                "deadline_expired_total", "batch_splits_total"):
+        check(snap[key] == 0, f"[predict-{label}] {key} {snap[key]}")
+    check(snap["responses_total"] == len(requests),
+          f"[predict-{label}] {snap['responses_total']} responses")
+    check(all(r["generation"] == 0 for r in eng.replica_states()),
+          f"[predict-{label}] a replica was revived (requeued work)")
+    firsts = sum(v["compiles"] for v in snap["buckets"].values())
+    check(firsts == 0, f"[predict-{label}] {firsts} batches were a "
+                       f"shape's first call after warm-up")
+    check(snap["max_batch_occupancy"] > 1,
+          f"[predict-{label}] no batch coalesced two requests: "
+          f"{snap['occupancy_hist']}")
+    batches = snap["batches_total"]
+    check(launches == {"flash_fwd": cfg.num_layers * batches},
+          f"[predict-{label}] launches {launches} for {batches} "
+          f"batches (want flash_fwd {cfg.num_layers} a batch and "
+          f"nothing else)")
+    check(set(instances) <= checked
+          and sum(instances.values()) == launches["flash_fwd"],
+          f"[predict-{label}] kernel instances {instances}, checked "
+          f"against the plain version: {sorted(checked)}")
+    pct = sm.percentiles(lat)
+    return results, {
+        "replicas": len(eng.replica_states()),
+        "execute_ms_by_bucket": execute_stages(spans),
+        "requests": len(requests), "rows": snap["rows_total"],
+        "batches": batches, "padded_rows": snap["padded_rows_total"],
+        "occupancy_hist": snap["occupancy_hist"],
+        "burst_s": round(burst_s, 3),
+        "qps": round(len(requests) / burst_s, 3),
+        "client_latency_ms": {k: round(v * 1e3, 3)
+                              for k, v in pct.items()},
+        "engine_latency_ms": snap["latency_ms"],
+        "launches": launches, "instances": instances,
+        "launches_per_batch": launches["flash_fwd"] / batches}
+
+
+def predict_artifact(label, weights, cfg, requests, outdir, checked):
+    """One artifact of the predict phase: gpt3-medium at `cfg`'s widths
+    from `weights`, in f32 or (label "bf16") bf16 O2, saved by jit.save
+    at [None, PREDICT_LEN], loaded by a fresh Predictor and served by a
+    ServingEngine of PREDICT_REPLICAS replicas, then by one of one
+    replica, to PREDICT_CLIENTS client threads sending `requests`
+    (predict_burst; `checked`: the forward's instances that the phase held
+    against its plain version at the path's shapes); then HTTP and the
+    pipe worker. Returns the artifact's row."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.framework_io import params_from_paddle_tpu
+    from paddle_tpu_torch.inference import (Predictor, ServingEngine,
+                                            config_for)
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTForCausalLM(cfg, device="cuda")
+    model.load_state_dict(params_from_paddle_tpu(weights))
+    model.eval()
+    if label == "bf16":
+        amp.decorate(model, level="O2", dtype="bfloat16")
+    prefix = os.path.join(outdir, label)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    jit.save(model, prefix, input_spec=[jit.InputSpec([None, PREDICT_LEN],
+                                                      "int64")])
+    save_s = time.perf_counter() - t0
+    # the trace runs on fake tensors: no kernel (the probe ran before,
+    # on real ones, when "auto" first met the card)
+    check(set(flash_counts()) <= {"flash_probe"},
+          f"[predict-{label}] the export launched {flash_counts()}")
+    sizes = {ext: os.path.getsize(prefix + ext)
+             for ext in (".pdmodel", ".pdiparams", ".meta.json",
+                         ".pdparams")}
+    t0 = time.perf_counter()
+    pred = Predictor(config_for(prefix, "cuda"))
+    load_s = time.perf_counter() - t0
+    n_ops = sum(1 for n in pred._exported.graph.nodes
+                if str(n.target) == "paddle_tpu_torch.flash_fwd.default")
+    check(n_ops == cfg.num_layers, f"[predict-{label}] the program calls "
+                                   f"the flash op {n_ops} times")
+    # each batch bucket's first call on this Predictor, then bucket 8's
+    # forward alone (device time) and its outputs' copy to the host
+    first_ms = {}
+    for b in bucket_sizes(PREDICT_MAX_BATCH):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.execute([np.zeros((b, PREDICT_LEN), np.int64)])
+        first_ms[b] = round((time.perf_counter() - t0) * 1e3, 3)
+    ids8 = torch.zeros(PREDICT_MAX_BATCH, PREDICT_LEN, dtype=torch.int64,
+                       device="cuda")
+    fwd_ms, copy_ms = [], []
+    with torch.inference_mode():
+        for _ in range(3):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = pred._module(ids8)
+            e.record()
+            e.synchronize()
+            fwd_ms.append(s.elapsed_time(e))
+            t0 = time.perf_counter()
+            host = out.float().cpu() if out.dtype == torch.bfloat16 \
+                else out.cpu()
+            copy_ms.append((time.perf_counter() - t0) * 1e3)
+    out_bytes = host.numel() * host.element_size()
+    del out, host
+    profile = profile_forward(pred, ids8, cfg, label)
+
+    # the plain versions must not run on the card: count their calls
+    plain_calls = {}
+    saved_plain = dict(fa.PLAIN)
+
+    def counted(name, fn):
+        def call(*a, **k):
+            plain_calls[name] = plain_calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return call
+
+    for name, fn in saved_plain.items():
+        fa.PLAIN[name] = counted(name, fn)
+    eng = eng1 = None
+    try:
+        t0 = time.perf_counter()
+        eng = ServingEngine(pred, max_batch_size=PREDICT_MAX_BATCH,
+                            replicas=PREDICT_REPLICAS,
+                            batch_timeout_ms=PREDICT_BATCH_TIMEOUT_MS)
+        engine_warm_s = time.perf_counter() - t0
+        results, burst = predict_burst(label, eng, requests, outdir, cfg,
+                                       checked)
+        # the same requests from one replica: what the second one buys
+        eng1 = ServingEngine(pred, max_batch_size=PREDICT_MAX_BATCH,
+                             replicas=1,
+                             batch_timeout_ms=PREDICT_BATCH_TIMEOUT_MS)
+        results1, burst1 = predict_burst(f"{label}-1", eng1, requests,
+                                         outdir, cfg, checked)
+        eng1.shutdown()
+        eng1 = None
+
+        # the served program's every forward launch on its own
+        # activations (a one-row request, then a batch of 8 rows), each
+        # held against the plain version of the same call
+        one = next(r for r in requests if len(r) == 1)
+        two = next(r for r in requests if len(r) == 2)
+        eight = np.concatenate(requests)[:PREDICT_MAX_BATCH]
+        calls = []
+        with forward_checked_against_plain(saved_plain, calls):
+            for ids in (one, eight):
+                pred.execute([ids])
+        check(len(calls) == 2 * cfg.num_layers,
+              f"[predict-{label}] {len(calls)} forward launches checked")
+        for c in calls:
+            check(c["row_err"] <= c["tol"] and c["lse_err"] <= LSE_ATOL,
+                  f"[predict-{label}] a served forward call parts from "
+                  f"its plain version: {c}")
+        program_calls = {
+            "calls": len(calls), "shapes": sorted({c["shape"]
+                                                   for c in calls}),
+            "max_row_err": max(c["row_err"] for c in calls),
+            "tol": calls[0]["tol"],
+            "max_lse_err": max(c["lse_err"] for c in calls),
+            "lse_tol": LSE_ATOL}
+        log(f"[predict-{label}] the served program's forward calls "
+            f"against their plain versions: {json.dumps(program_calls)}")
+
+        # each request's logits (from both engines) against the eager
+        # model's on its rows alone (the same kernel: bitwise in every
+        # run so far), and against two eager forwards that launch no
+        # kernel: the attention's plain version, and its plain version
+        # with P unrounded (f32 dots), which sets what two correct
+        # attentions part by through 24 layers. The plain-attention
+        # limit holds in f32; in bf16 the model's rounding through 24
+        # layers spreads the kernel's own rounding (the calls above)
+        # past it, so there it is read, not held. Argmax equal wherever
+        # the reference's top-2 margin exceeds the tolerance.
+        tol = PREDICT_TOL[label]
+        f32dot_plain = {**saved_plain,
+                        "flash_fwd": saved_plain["flash_fwd_f32dot"]}
+        worst = {"eager": 0.0, "plain_attention": 0.0,
+                 "plain_f32dot_vs_plain": 0.0}
+        argmax_diff = {"eager": 0, "plain_attention": 0}
+        sure = 0
+        for i, ids in enumerate(requests):
+            x = torch.from_numpy(ids).cuda()
+            fa.reset_launch_counts()
+            with torch.inference_mode():
+                with plain_forward_on_card(saved_plain):
+                    want_plain = model(x).float()
+                with plain_forward_on_card(f32dot_plain):
+                    want_f32dot = model(x).float()
+            check(not flash_counts(), f"[predict-{label}] the plain "
+                                      f"reference launched {flash_counts()}")
+            with torch.inference_mode():
+                want = model(x).float()
+            rms = want_plain.pow(2).mean().sqrt()
+            worst["plain_f32dot_vs_plain"] = max(
+                worst["plain_f32dot_vs_plain"],
+                float((want_f32dot - want_plain).abs().max() / rms))
+            for got in (results[i], results1[i]):
+                got = torch.from_numpy(got).cuda()
+                check(got.shape == want.shape and bool(torch.isfinite(
+                    got).all()), f"[predict-{label}] shape "
+                                 f"{tuple(got.shape)} or non-finite logits")
+                for ref_name, ref in (("eager", want),
+                                      ("plain_attention", want_plain)):
+                    rms = ref.pow(2).mean().sqrt()
+                    worst[ref_name] = max(worst[ref_name], float(
+                        (got - ref).abs().max() / rms))
+                    top2 = ref.topk(2, dim=-1).values
+                    clear = (top2[..., 0] - top2[..., 1]) > tol * rms
+                    sure += int(clear.sum())
+                    argmax_diff[ref_name] += int(
+                        ((got.argmax(-1) != ref.argmax(-1)) & clear).sum())
+                del got
+            del want, want_plain, want_f32dot
+        held = ("eager", "plain_attention") if label == "f32" \
+            else ("eager",)
+        for ref_name in held:
+            check(worst[ref_name] <= tol,
+                  f"[predict-{label}] logits part from the {ref_name} "
+                  f"model's by {worst[ref_name]:.3e} of their RMS (limit "
+                  f"{tol})")
+            check(argmax_diff[ref_name] == 0,
+                  f"[predict-{label}] {argmax_diff[ref_name]} argmaxes "
+                  f"differ from the {ref_name} model's where the margin "
+                  f"exceeds {tol}")
+        log(f"[predict-{label}] served logits against the eager model, "
+            f"the plain-attention one and the two plain versions' spread "
+            f"(over the RMS): {worst}; argmaxes differing where the margin "
+            f"exceeds {tol}: {argmax_diff} (held: {held})")
+        plain = dict(plain_calls)
+        check(not plain, f"[predict-{label}] plain versions ran: {plain}")
+
+        # HTTP (the CLI in a subprocess) and the pipe worker, each against
+        # this engine's answers for the same rows alone (row counts that
+        # are their own batch bucket: the pipe worker runs them unpadded)
+        http = predict_http_checks(label, prefix, eng, two, one)
+        t0 = time.perf_counter()
+        specs, n_out, piped = pipe_session(prefix, [one, two, one])
+        pipe_s = time.perf_counter() - t0
+        check(specs == [("int64", (-1, PREDICT_LEN))] and n_out == 1,
+              f"[predict-{label}] pipe handshake {specs}, {n_out}")
+        for ids, got in zip((one, two, one), piped):
+            (want,) = eng.predict([ids], timeout=600)
+            check(np.array_equal(got, want),
+                  f"[predict-{label}] pipe output differs from the engine's")
+        row = {
+            "save_s": round(save_s, 3), "load_s": round(load_s, 3),
+            "artifact_bytes": sizes,
+            "first_call_ms_by_bucket": first_ms,
+            "engine_warmup_s": round(engine_warm_s, 3),
+            "warmup_report": eng.warmup_report,
+            "batch8_forward_ms": [round(x, 3) for x in fwd_ms],
+            "batch8_output_copy_ms": [round(x, 3) for x in copy_ms],
+            "batch8_output_bytes": out_bytes,
+            "batch8_profile": profile,
+            **burst, "one_replica": burst1,
+            "program_calls_vs_plain": program_calls,
+            "max_err_over_rms": worst, "tol": tol,
+            "argmax_checked": sure, "argmax_differing": argmax_diff,
+            "plain_calls": 0,
+            "http": http, "pipe_s": round(pipe_s, 3),
+            "peak_gib": gib(torch.cuda.max_memory_allocated()),
+        }
+    finally:
+        fa.PLAIN.update(saved_plain)
+        for e in (eng, eng1):
+            if e is not None:
+                e.shutdown()
+        del model, pred
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[predict-{label}] {json.dumps(row)}")
+    return row
+
+
+def profile_forward(pred, ids, cfg, label):
+    """One forward of the loaded program on `ids` (no host copy) under
+    torch.profiler: the device time of each kernel, summed by name, the
+    device's busy time and idle share over the call's host time, and the
+    least time of the call (the larger of its weights and outputs once
+    over the memory rate and its products over the dtype's peak)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            out = pred._module(ids)
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t
+    kernels = sorted(((e.device_time_total, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_us = sum(k[0] for k in kernels)
+    B, L = ids.shape
+    D, V, n = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
+    flops = 2 * B * L * (n * 12 * D * D + D * V) \
+        + n * B * 2 * 2 * D * L * (L + 1) // 2
+    weights = sum(t.numel() * t.element_size()
+                  for t in pred._module.parameters())
+    nbytes = weights + out.numel() * out.element_size()
+    bound_ms, by = bound(flops, nbytes,
+                         "float32" if label == "f32" else "bfloat16")
+    row = {"host_ms": round(host_s * 1e3, 3),
+           "device_busy_ms": round(busy_us / 1e3, 3),
+           "idle_share": round(1 - busy_us / (host_s * 1e6), 3),
+           "launches": sum(k[1] for k in kernels),
+           "bound_ms": round(bound_ms, 3), "bound_by": by,
+           "top": [[name[:60], round(us / 1e3, 3), cnt]
+                   for us, cnt, name in kernels[:8]]}
+    log(f"[predict-{label}] one forward at batch {B} x {L}: "
+        f"{row['host_ms']} ms host, device busy {row['device_busy_ms']} ms "
+        f"in {row['launches']} launches, bound {row['bound_ms']} ms ({by})")
+    for us, cnt, name in kernels[:12]:
+        log(f"  {us / 1e3:8.3f} ms {100 * us / max(busy_us, 1):5.1f}% "
+            f"x{cnt:<5d} {name[:90]}")
+    return row
+
+
+def bucket_sizes(max_batch):
+    """The predict engine's batch buckets: powers of two up to max_batch."""
+    out, b = [], 1
+    while b < max_batch:
+        out.append(b)
+        b *= 2
+    return out + [max_batch]
+
+
+def predict_phase(weights, cfg):
+    """The predict path on the card: the flash kernels against their plain
+    versions at the path's shapes (kernel_phase), then gpt3-medium (`cfg`,
+    published widths) from `weights`, saved by jit.save with input_spec
+    [None, PREDICT_LEN] in f32 and in bf16 (amp.decorate O2), each served
+    from a fresh Predictor (predict_artifact). The requests: PREDICT_REQUESTS of 1-3
+    rows of ids from RandomState(SEED). Fails on any failed check; the
+    artifacts are written under build/predict/ and removed. Returns the
+    `predict` line's dict."""
+    import shutil
+
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    outdir = os.path.join(root, "build", "predict")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    rng = np.random.RandomState(SEED)
+    requests = [rng.randint(0, cfg.vocab_size, (int(rng.randint(1, 4)),
+                                                PREDICT_LEN)).astype(np.int64)
+                for _ in range(PREDICT_REQUESTS)]
+    t0 = time.perf_counter()
+    line = {"card": card_line(), "model": "gpt3-medium",
+            "seq": PREDICT_LEN, "max_batch_size": PREDICT_MAX_BATCH,
+            "replicas": PREDICT_REPLICAS, "clients": PREDICT_CLIENTS}
+    # the forward (and the other flash kernels) against their plain
+    # versions at the shapes this path gives them: batch buckets 1 and 8
+    # of PREDICT_LEN tokens, cfg's heads and head_dim, causal, on the
+    # storage of each artifact
+    checked = {}
+    for label, dtype_name in (("f32", "float32"), ("bf16", "bfloat16")):
+        checked[label] = {
+            kernel_phase(B, PREDICT_LEN, cfg.num_heads,
+                         cfg.hidden_size // cfg.num_heads, dtype_name, True,
+                         timed=False)["flash_fwd"]
+            for B in (1, PREDICT_MAX_BATCH)}
+    line["checked_instances"] = {k: sorted(v) for k, v in checked.items()}
+    try:
+        for label in ("f32", "bf16"):
+            line[label] = predict_artifact(label, weights, cfg, requests,
+                                           outdir, checked[label])
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    line["seconds"] = round(time.perf_counter() - t0, 1)
+    return line
+
+
 def profile_step(step, ids, labels, step_s, vocab, top):
     """One more train step under torch.profiler: the device time of each
     kernel, summed by name; that of the LM-head CE's GEMMs (the aten::mm
@@ -2650,10 +3361,21 @@ def main():
     # greedy serving over the gpt3-medium weights, in f32 (no kernel of
     # this path is a flash kernel: its attention is einsum)
     serving = serving_phase(weights, cfg)
+    # the predict path: the same weights saved by jit.save and served by
+    # the dynamic-batching engine, each batch through the flash forward
+    # (bf16: flash_fwd's row; f32: flash_fwd@float32's)
+    predict = predict_phase(weights, cfg)
+    for rs, name, label in ((rows, "flash_fwd", "bf16"),
+                            (f32_rows, "flash_fwd@float32", "f32")):
+        r = next(r for r in rs if r["name"] == name)
+        r["predict_launches"] = predict[label]["launches"]["flash_fwd"]
+        r["predict_launches_per_batch"] = \
+            predict[label]["launches_per_batch"]
     log(json.dumps({"kernels": rows + f32_rows + rows256 + f32_rows256
                     + [probe_row]}))
     log(json.dumps({"serving": serving}))
     log(json.dumps({"trainer": trainer}))
+    log(json.dumps({"predict": predict}))
     log(f"chip_smoke took {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2678,6 +3400,26 @@ def serving_only():
     line = serving_phase(reference_layout_weights(cfg, SEED), cfg)
     print(card)
     print(json.dumps({"serving": line}), flush=True)
+    return 0
+
+
+def predict_only():
+    """The kernels' build and the predict phase alone: prints the card and
+    the `predict` line, not the {"ok": ...} line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from paddle_tpu_torch.models import PRESETS
+
+    card = card_line()
+    log(f"card: {card}")
+    build_kernels()
+    cfg = PRESETS["gpt3-medium"]
+    line = predict_phase(reference_layout_weights(cfg, SEED), cfg)
+    print(card)
+    print(json.dumps({"predict": line}), flush=True)
     return 0
 
 
@@ -2815,6 +3557,8 @@ if __name__ == "__main__":
             sys.exit(serving_only())
         if sys.argv[1:2] == ["--trainer"]:
             sys.exit(trainer_only())
+        if sys.argv[1:2] == ["--predict"]:
+            sys.exit(predict_only())
         sys.exit(main())
     except (SmokeFailure, ImportError) as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

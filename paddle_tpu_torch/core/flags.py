@@ -21,6 +21,8 @@ def define_flag(name: str, default):
             val = env.lower() in ("1", "true", "yes", "on")
         elif isinstance(default, int):
             val = int(env)
+        elif isinstance(default, float):
+            val = float(env)
         else:
             val = env
     _REGISTRY[name] = val
@@ -73,10 +75,19 @@ define_flag("flash_block_k", 128)
 # and pick bf16 > nn > nn2 > f32; see ops.flash_attention.resolve_dot_impl)
 define_flag("flash_dot_impl", "auto")
 
-# generative serving (inference/serving/generate.py): the queue depth
-# beyond which requests are shed with 503 + Retry-After, the decode slots
-# per worker and KV class (decode batch buckets are pow2 up to this), and
-# the server-side cap on tokens per request (also its default)
+# the predict engine (inference/serving/engine.py): the most rows
+# coalesced into one executed batch (batch buckets are pow2 up to it), how
+# long the batcher holds a batch's first request open for batchmates, and
+# the default per-request deadline (0: none; a request still queued past
+# it fails 503)
+define_flag("serving_max_batch_size", 8)
+define_flag("serving_batch_timeout_ms", 2.0)
+define_flag("serving_default_deadline_ms", 0.0)
+# both serving engines: the queue depth beyond which requests are shed
+# with 503 + Retry-After; generative serving (inference/serving/
+# generate.py): the decode slots per worker and KV class (decode batch
+# buckets are pow2 up to this), and the server-side cap on tokens per
+# request (also its default)
 define_flag("serving_max_queue_depth", 64)
 define_flag("generate_slots", 8)
 define_flag("generate_max_new_tokens", 128)

@@ -1,16 +1,18 @@
 """Serving-tier lifecycle primitives (counterpart of
 paddle_tpu/inference/serving/lifecycle.py).
 
-The generation engine runs the reference's replica state machine
-(warming -> active -> draining -> retired, with a generation counter
-that supersedes a hung worker) and completes requests through a
-first-set-wins Future; errors carry HTTP statuses. `device_pool` is the
-port's own: the devices a replica may be placed on.
+Both engines, the predict engine (engine.py) and the generation engine
+(generate.py), run the reference's replica state machine (warming ->
+active -> draining -> retired, with a generation counter that supersedes
+a hung worker) and complete requests through a first-set-wins Future;
+errors carry HTTP statuses. `device_pool` is the port's own: the devices
+a replica may be placed on.
 """
 from __future__ import annotations
 
 import threading
 import time
+from queue import Queue
 from typing import List, Optional
 
 import torch
@@ -73,22 +75,26 @@ class Future:
 
 
 @_shared_state("state", "generation", "thread", "last_beat",
-               "busy_since", "inflight", "batches")
+               "busy_since", "inflight", "batches", "compiling")
 class ReplicaSlot:
-    """One worker replica: a device binding and a worker thread. `state` lifecycle: warming -> active -> draining ->
-    retired. `generation` supersedes a hung worker: the loop exits as
-    soon as it observes a newer generation (revive_replica).
+    """One worker replica: a device binding, a worker thread and (for the
+    predict engine) a dispatch queue of batches. `state` lifecycle:
+    warming -> active -> draining -> retired. `generation` supersedes a
+    hung worker: the loop exits as soon as it observes a newer generation
+    (revive_replica).
 
     The lifecycle fields are shared state (testing/racecheck): worker
     threads and the engine's callers touch them, and the owning
     engine's condition variable is their one guard."""
 
-    __slots__ = ("rid", "device", "thread", "state", "generation",
-                 "last_beat", "busy_since", "inflight", "batches")
+    __slots__ = ("rid", "device", "q", "thread", "state", "generation",
+                 "last_beat", "busy_since", "inflight", "batches",
+                 "compiling")
 
-    def __init__(self, rid: int, device):
+    def __init__(self, rid: int, device, queue_depth: int = 2):
         self.rid = rid
         self.device = device
+        self.q: Queue = Queue(maxsize=queue_depth)
         self.thread: Optional[threading.Thread] = None
         self.state = "warming"
         self.generation = 0
@@ -96,6 +102,9 @@ class ReplicaSlot:
         self.busy_since: Optional[float] = None
         self.inflight: List = []
         self.batches = 0
+        # True while the predict engine runs a batch whose shape the
+        # warm-up did not run on this device (its first call)
+        self.compiling = False
 
     def state_row(self, now: Optional[float] = None) -> dict:
         """One row of replica_states() with monotonic ages (in the
@@ -113,6 +122,7 @@ class ReplicaSlot:
             "busy_s": (now - busy) if busy is not None else 0.0,
             "inflight": len(self.inflight),
             "batches": self.batches,
+            "compiling": self.compiling,
         }
 
 

@@ -1,13 +1,28 @@
-"""Serving metrics helpers (counterpart of
-paddle_tpu/inference/serving/metrics.py, cut to what the generation
-engine uses): the nearest-rank percentile rule and the safe ratio. The
-HTTP front reads its one engine's metrics, so the reference's registry
-of live engines has no caller here; the predict engine's ServingMetrics
-waits for the predict engine's port (ROADMAP queue 4).
+"""Serving metrics (counterpart of paddle_tpu/inference/serving/metrics.py).
+
+The predict engine's metric store, `ServingMetrics`: QPS, latency
+percentiles, queue depth, batch occupancy, per-bucket first-call and hit
+counters, shed, deadline and error counts, exported as Prometheus text
+(`prometheus_text()`, served at /metrics under the reference's
+`paddle_serving_*` families) and as a structured `snapshot()`. The
+bucket counters are keyed by (batch bucket, shape key), one program
+shape each; "compiles" counts a shape's first call on a device that the
+warm-up had not run (eager PyTorch compiles nothing), "hits" the rest.
+
+The reference's `EngineRegistry`, `track_engine` and
+`aggregate_snapshot` merge the live engines' snapshots into its
+profiler's `summary_dict()`; the port has no profiler, so they wait for
+it (ROADMAP). `percentiles` and `rate` are shared with the generation
+engine.
 """
 from __future__ import annotations
 
-from typing import Dict
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Tuple
+
+from ...testing.racecheck import shared_state as _shared_state
 
 
 def percentiles(vals) -> Dict[str, float]:
@@ -29,4 +44,235 @@ def rate(num, den) -> float:
     return round(num / den, 4) if den else 0.0
 
 
-__all__ = ["percentiles", "rate"]
+@_shared_state("requests_total", "responses_total", "rejected_total",
+               "shed_total", "deadline_expired_total", "failed_total",
+               "batches_total", "batch_splits_total", "rows_total",
+               "padded_rows_total", "occupancy_hist", "bucket_stats",
+               "_latencies", "_completions")
+class ServingMetrics:
+    """Thread-safe metric store for one engine.
+
+    Latency percentiles come from a bounded ring of recent samples (not
+    a lossy histogram) — at serving rates the last few thousand samples
+    ARE the distribution that matters. QPS is completions over a sliding
+    window.
+    """
+
+    def __init__(self, latency_ring: int = 4096, qps_window_s: float = 30.0):
+        self._lock = threading.Lock()
+        self._t0 = time.monotonic()
+        self._qps_window = float(qps_window_s)
+        if latency_ring < 1:
+            raise ValueError("latency_ring must be >= 1")
+        # counters
+        self.requests_total = 0          # accepted into the queue
+        self.responses_total = 0         # completed OK
+        self.rejected_total: Dict[str, int] = {}   # reason -> count (4xx)
+        self.shed_total = 0              # circuit breaker 503s
+        self.deadline_expired_total = 0  # queue-expiry 503s
+        self.failed_total = 0            # runtime 5xx
+        self.batches_total = 0           # executed device batches
+        self.batch_splits_total = 0      # split-and-retry events
+        self.rows_total = 0              # real rows executed
+        self.padded_rows_total = 0       # pad rows added by bucketing
+        # histograms / rings — both BOUNDED: a long-running server must
+        # hold memory flat regardless of request count. Percentiles come
+        # from the fixed-size latency ring (the most recent
+        # `latency_ring` samples ARE the distribution that matters at
+        # serving rates); the QPS window actively EVICTS timestamps
+        # older than qps_window_s on every record/read, so its length —
+        # and the qps() scan — is O(completions inside the window), not
+        # O(lifetime requests), with a hard maxlen backstop for rate
+        # spikes
+        self.occupancy_hist: Dict[int, int] = {}   # requests-per-batch
+        self.bucket_stats: Dict[Tuple[int, str], Dict[str, int]] = {}
+        self._latencies = deque(maxlen=int(latency_ring))  # seconds
+        self._completions = deque(maxlen=65536)            # timestamps
+        # gauge callbacks (engine queue depth / active replica count),
+        # set by the engine
+        self.queue_depth_fn = lambda: 0
+        self.replicas_fn = lambda: 0
+
+    # ------------------------------------------------------------ record --
+    def on_accept(self):
+        with self._lock:
+            self.requests_total += 1
+
+    def on_reject(self, reason: str):
+        with self._lock:
+            self.rejected_total[reason] = \
+                self.rejected_total.get(reason, 0) + 1
+
+    def on_shed(self):
+        with self._lock:
+            self.shed_total += 1
+
+    def on_deadline_expired(self):
+        with self._lock:
+            self.deadline_expired_total += 1
+
+    def on_failed(self, n: int = 1):
+        with self._lock:
+            self.failed_total += n
+
+    def on_batch(self, n_requests: int, rows: int, bucket: int,
+                 shape_key: str, compiled: bool):
+        with self._lock:
+            self.batches_total += 1
+            self.rows_total += rows
+            self.padded_rows_total += max(bucket - rows, 0)
+            self.occupancy_hist[n_requests] = \
+                self.occupancy_hist.get(n_requests, 0) + 1
+            st = self.bucket_stats.setdefault((bucket, shape_key),
+                                              {"compiles": 0, "hits": 0})
+            st["compiles" if compiled else "hits"] += 1
+
+    def on_split(self):
+        with self._lock:
+            self.batch_splits_total += 1
+
+    def _evict_completions_locked(self, now: float) -> None:
+        horizon = now - self._qps_window
+        comp = self._completions
+        while comp and comp[0] < horizon:
+            comp.popleft()
+
+    def on_complete(self, latency_s: float, n: int = 1):
+        now = time.monotonic()
+        with self._lock:
+            self.responses_total += n
+            self._latencies.append(float(latency_s))
+            self._evict_completions_locked(now)
+            for _ in range(n):
+                self._completions.append(now)
+
+    # ------------------------------------------------------------- query --
+    def latency_percentiles(self) -> Dict[str, float]:
+        with self._lock:
+            lat = list(self._latencies)
+        return percentiles(lat)
+
+    def qps(self) -> float:
+        now = time.monotonic()
+        with self._lock:
+            self._evict_completions_locked(now)
+            n = len(self._completions)
+        window = min(self._qps_window, max(now - self._t0, 1e-9))
+        return n / window
+
+    def max_occupancy(self) -> int:
+        with self._lock:
+            return max(self.occupancy_hist) if self.occupancy_hist else 0
+
+    def snapshot(self) -> dict:
+        """Structured digest (the reference also merges it into its
+        profiler's summary_dict as the 'serving' section)."""
+        pct = self.latency_percentiles()
+        # gauge callbacks BEFORE taking our lock: replicas_fn walks the
+        # engine pool under the engine cv, and the engine records
+        # metrics while holding that cv — evaluating the callback
+        # inside our lock is a metrics->cv / cv->metrics order cycle
+        queue_depth = int(self.queue_depth_fn())
+        replicas = int(self.replicas_fn())
+        with self._lock:
+            occ_n = sum(k * v for k, v in self.occupancy_hist.items())
+            occ_d = sum(self.occupancy_hist.values())
+            out = {
+                "requests_total": self.requests_total,
+                "responses_total": self.responses_total,
+                "rejected_total": sum(self.rejected_total.values()),
+                "shed_total": self.shed_total,
+                "deadline_expired_total": self.deadline_expired_total,
+                "failed_total": self.failed_total,
+                "batches_total": self.batches_total,
+                "batch_splits_total": self.batch_splits_total,
+                "rows_total": self.rows_total,
+                "padded_rows_total": self.padded_rows_total,
+                "avg_batch_occupancy": round(occ_n / occ_d, 3) if occ_d
+                else 0.0,
+                "max_batch_occupancy": max(self.occupancy_hist)
+                if self.occupancy_hist else 0,
+                "occupancy_hist": dict(sorted(self.occupancy_hist.items())),
+                "buckets": {
+                    f"b{b}:{sk}": dict(st)
+                    for (b, sk), st in sorted(self.bucket_stats.items())},
+                "queue_depth": queue_depth,
+                "replicas": replicas,
+            }
+        out["latency_ms"] = {k: round(v * 1e3, 3) for k, v in pct.items()}
+        out["qps"] = round(self.qps(), 3)
+        return out
+
+    # --------------------------------------------------------- prometheus --
+    def prometheus_text(self) -> str:
+        """Prometheus exposition text format (served at /metrics)."""
+        s = self.snapshot()
+        lines: List[str] = []
+
+        def metric(name, mtype, value, help_=None, labels=None):
+            if help_:
+                lines.append(f"# HELP {name} {help_}")
+                lines.append(f"# TYPE {name} {mtype}")
+            lab = ""
+            if labels:
+                lab = "{" + ",".join(f'{k}="{v}"'
+                                     for k, v in labels.items()) + "}"
+            lines.append(f"{name}{lab} {value}")
+
+        metric("paddle_serving_requests_total", "counter",
+               s["requests_total"], "requests accepted into the queue")
+        metric("paddle_serving_responses_total", "counter",
+               s["responses_total"], "requests completed successfully")
+        metric("paddle_serving_rejected_total", "counter",
+               s["rejected_total"], "requests rejected at decode/shape check")
+        metric("paddle_serving_shed_total", "counter", s["shed_total"],
+               "requests shed by the circuit breaker (503)")
+        metric("paddle_serving_deadline_expired_total", "counter",
+               s["deadline_expired_total"], "requests expired in queue (503)")
+        metric("paddle_serving_failed_total", "counter", s["failed_total"],
+               "requests failed at runtime (500)")
+        metric("paddle_serving_batches_total", "counter", s["batches_total"],
+               "device batches executed")
+        metric("paddle_serving_batch_splits_total", "counter",
+               s["batch_splits_total"], "batch split-and-retry events")
+        metric("paddle_serving_rows_total", "counter", s["rows_total"],
+               "real rows executed")
+        metric("paddle_serving_padded_rows_total", "counter",
+               s["padded_rows_total"], "pad rows added by bucketing")
+        metric("paddle_serving_queue_depth", "gauge", s["queue_depth"],
+               "current request-queue depth")
+        metric("paddle_serving_replicas", "gauge", s["replicas"],
+               "active predictor replicas")
+        metric("paddle_serving_qps", "gauge", s["qps"],
+               "completions per second (sliding window)")
+        lines.append("# HELP paddle_serving_latency_seconds request latency "
+                     "quantiles over the recent-sample ring")
+        lines.append("# TYPE paddle_serving_latency_seconds summary")
+        for q, key in (("0.5", "p50"), ("0.95", "p95"), ("0.99", "p99")):
+            lines.append(
+                f'paddle_serving_latency_seconds{{quantile="{q}"}} '
+                f'{s["latency_ms"][key] / 1e3:.6f}')
+        # labeled counter family, NOT prometheus-native histogram type:
+        # occupancy is a small discrete domain (1..max_batch_size) and a
+        # TYPE histogram without _bucket{le=}/_sum/_count would fail the
+        # exposition-format parser and poison the whole scrape
+        lines.append("# HELP paddle_serving_batch_occupancy_total "
+                     "executed batches by requests-coalesced-per-batch")
+        lines.append("# TYPE paddle_serving_batch_occupancy_total counter")
+        for occ, cnt in s["occupancy_hist"].items():
+            lines.append(
+                f'paddle_serving_batch_occupancy_total'
+                f'{{occupancy="{occ}"}} {cnt}')
+        lines.append("# HELP paddle_serving_bucket_executions executions "
+                     "per (batch-bucket, shape-key) executable")
+        lines.append("# TYPE paddle_serving_bucket_executions counter")
+        for key, st in s["buckets"].items():
+            b, _, sk = key.partition(":")
+            for kind in ("compiles", "hits"):
+                lines.append(
+                    f'paddle_serving_bucket_executions{{bucket="{b[1:]}",'
+                    f'shape="{sk}",kind="{kind}"}} {st[kind]}')
+        return "\n".join(lines) + "\n"
+
+
+__all__ = ["ServingMetrics", "percentiles", "rate"]

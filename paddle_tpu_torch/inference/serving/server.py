@@ -1,9 +1,23 @@
-"""Stdlib-threaded HTTP front over the GenerativeEngine (counterpart of
-paddle_tpu/inference/serving/server.py, its generation half).
+"""Stdlib-threaded HTTP front over the predict engine and the generation
+engine (counterpart of paddle_tpu/inference/serving/server.py).
 
 Endpoints:
 
-  POST /generate  application/json:
+  POST /predict   application/json (a ServingEngine attached):
+                    {"inputs": [<input>...], "deadline_ms": optional}
+                    <input> = nested list, or
+                              {"b64": base64(raw C-order bytes),
+                               "dtype": "float32", "shape": [2, 8]}
+                    -> {"outputs": [{"b64", "dtype", "shape"}...]}
+  POST /predict   application/octet-stream (raw binary):
+                    per input: u64-LE nbytes + raw bytes (dtype and shape
+                    from the saved spec; the batch dim, or any other
+                    single dynamic axis, resolved from the byte count by
+                    the pipe worker's rules, serve.decode_input)
+                    -> u32-LE n_outputs, then per output:
+                       u64 dtype-str len + bytes, u32 ndim,
+                       i64 dims[ndim], u64 nbytes + raw bytes
+  POST /generate  application/json (a GenerativeEngine attached):
                     {"input_ids": [...], "max_new_tokens": opt,
                      "eos_token_id": opt, "deadline_ms": opt,
                      "temperature", "top_k", "top_p", "seed": opt,
@@ -20,15 +34,17 @@ Endpoints:
                                     result}, a migrating drain's
                                     {"handoff", "streamed", "n_tokens"}
                                     or {"error", "status"}
-  GET  /healthz   engine health JSON (503 while draining)
-  GET  /metrics   Prometheus text format
-  POST /predict   404: no predict engine (ROADMAP queue 4)
+  GET  /healthz   engine health JSON: the predict engine's, with the
+                  generation engine's under "generation" when both are
+                  attached (503 while either drains)
+  GET  /metrics   Prometheus text format (predict and generate families)
 
 With `admin=True` (keep the port private):
 
-  GET  /admin/replicas  the replica rows, each {"front": "generate"}
-  POST /admin/scale     {"front": "generate", "action": add|remove|
-                         revive, "rid"?, "device"?, "drain"?, "warm"?}
+  GET  /admin/replicas  the replica rows of every front, each tagged
+                        {"front": "predict"|"generate"}
+  POST /admin/scale     {"front", "action": add|remove|revive, "rid"?,
+                         "device"?, "drain"?, "warm"?}
                         -> the engine's report; an engine ValueError
                         (no such replica, the last active one) is 409
   POST /admin/drain     {"migrate": bool}: a graceful drain on a thread
@@ -41,25 +57,39 @@ With `admin=True` (keep the port private):
                         malformed, 409 kv_dtype or geometry, 503 queue)
 
 A ServingError's status is the HTTP status; a 503 carries Retry-After.
-Handlers only enqueue requests and read a handle's events: the device
-work (prefill, decode, export, import) runs on the engine's workers.
+Handlers only decode, enqueue and encode: the device work (a predict
+batch, prefill, decode, export, import) runs on the engines' workers.
 """
 from __future__ import annotations
 
+import base64
+import io
 import json
+import struct
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+import numpy as np
+
 from .lifecycle import ServingError, validate_sampling
 
-# the reference's predict engine (jit.save'd programs) is not ported
-_PREDICT_ITEM = "ROADMAP queue 4 (the predict engine, after jit.save/load)"
+
+def _decode_json_input(obj, spec):
+    if isinstance(obj, dict):
+        raw = base64.b64decode(obj["b64"])
+        dtype = np.dtype(obj.get("dtype", spec["dtype"]))
+        arr = np.frombuffer(raw, dtype=dtype)
+        if "shape" in obj:
+            arr = arr.reshape([int(d) for d in obj["shape"]])
+        return arr
+    return np.asarray(obj, dtype=np.dtype(spec["dtype"]))
 
 
 class _Handler(BaseHTTPRequestHandler):
     server_version = "paddle-tpu-torch-serving/1"
     protocol_version = "HTTP/1.1"
+    engine = None                 # the ServingEngine, bound below
     generator = None              # the GenerativeEngine, bound below
     admin = False                 # the /admin plane
     owner = None                  # the owning ServingHTTPServer
@@ -116,39 +146,78 @@ class _Handler(BaseHTTPRequestHandler):
     # -------------------------------------------------------------- GETs --
     def do_GET(self):  # noqa: N802 — http.server API
         if self.path.startswith("/healthz"):
-            h = self.generator.health()
-            self._send_json(200 if h["status"] == "ok" else 503, h)
+            if self.engine is not None:
+                h = self.engine.health()
+                if self.generator is not None:
+                    h["generation"] = self.generator.health()
+            else:
+                h = self.generator.health()
+            # a host of both fronts is healthy only when both are: a
+            # draining generator turns the probe while predict answers
+            ok = h["status"] == "ok" and \
+                h.get("generation", {}).get("status", "ok") == "ok"
+            self._send_json(200 if ok else 503, h)
         elif self.path.startswith("/metrics"):
-            self._send(200, self.generator.metrics.prometheus_text()
-                       .encode(), "text/plain; version=0.0.4")
+            text = ""
+            for eng in (self.engine, self.generator):
+                if eng is not None:
+                    text += eng.metrics.prometheus_text()
+            self._send(200, text.encode(), "text/plain; version=0.0.4")
         elif self.path.startswith("/admin/kv") and self.admin:
+            if self.generator is None:
+                self._send_json(400, {"error": "no generative front"})
+                return
             rep = self.generator.load_report()
             self._send_json(200, {"kv": rep["kv"],
                                   "prefix": rep["prefix"]})
         elif self.path.startswith("/admin/replicas") and self.admin:
-            rows = [dict(row, front="generate")
-                    for row in self.generator.replica_states()]
+            rows = []
+            for front, eng in (("predict", self.engine),
+                               ("generate", self.generator)):
+                if eng is not None:
+                    rows += [dict(row, front=front)
+                             for row in eng.replica_states()]
             self._send_json(200, {"replicas": rows})
         else:
             self._send_json(404, {"error": f"no route {self.path}"})
 
     # ------------------------------------------------------------- POSTs --
     def do_POST(self):  # noqa: N802
+        is_predict = self.path.startswith("/predict")
+        is_generate = self.path.startswith("/generate")
         if self.admin and self.path.startswith("/admin/"):
             self._admin_post()
             return
-        if not self.path.startswith("/generate"):
+        if not (is_predict or is_generate):
             # body not read: the connection must close, or a keep-alive
             # client's unread bytes would parse as its next request
             self.close_connection = True
-            self._send_json(404, {"error": (
-                "no predict engine attached (generation-only server)"
-                if self.path.startswith("/predict") else
-                f"no route {self.path}")})
+            self._send_json(404, {"error": f"no route {self.path}"})
             return
         try:
-            self._generate(self._read_body())
+            if is_predict and self.engine is None:
+                self.close_connection = True
+                raise ServingError(
+                    404, "no predict engine attached (generation-only "
+                         "server)")
+            if is_generate and self.generator is None:
+                self.close_connection = True
+                raise ServingError(
+                    404, "no generative engine attached — construct the "
+                         "server with generator=GenerativeEngine(...)")
+            body = self._read_body()
+            if is_generate:
+                self._generate(body)
+                return
+            ctype = (self.headers.get("Content-Type") or
+                     "application/json").split(";")[0].strip()
+            if ctype == "application/octet-stream":
+                self._predict_raw(body)
+            else:
+                self._predict_json(body)
         except Exception as e:  # noqa: BLE001 — every failure answers
+            # ServingError carries its own 4xx/5xx, TimeoutError is a 504,
+            # anything else a 500
             self._send_error_obj(e)
 
     # ------------------------------------------------------------- admin --
@@ -168,6 +237,8 @@ class _Handler(BaseHTTPRequestHandler):
                                       "migrate": migrate})
                 return
             if self.path.startswith("/admin/kv/import"):
+                if self.generator is None:
+                    raise ServingError(400, "no generative front")
                 # the raw payload in, the continued stream out, as
                 # /generate streams it
                 self._stream_reply(self.generator.import_handoff(body))
@@ -191,9 +262,10 @@ class _Handler(BaseHTTPRequestHandler):
             raise ServingError(400, f"bad admin body: {e!r}"[:500]) \
                 from None
         front = payload.get("front", "predict")
-        if front != "generate":
+        eng = {"predict": self.engine,
+               "generate": self.generator}.get(front)
+        if eng is None:
             raise ServingError(400, f"no {front!r} front on this host")
-        eng = self.generator
         # field coercion is request validation (400); only the engine's
         # own ValueError below is a replica-state conflict (409)
         try:
@@ -211,7 +283,9 @@ class _Handler(BaseHTTPRequestHandler):
             device = None
             if payload.get("device") is not None:
                 want = str(payload["device"])
-                matches = [d for d in eng._device_pool if str(d) == want]
+                pool = (eng._device_pool if front == "generate"
+                        else [eng._device])
+                matches = [d for d in pool if str(d) == want]
                 if not matches:
                     raise ServingError(
                         400, f"no device {want!r} on this host")
@@ -296,6 +370,70 @@ class _Handler(BaseHTTPRequestHandler):
             self.close_connection = True
 
 
+    # ----------------------------------------------------------- predict --
+    def _predict_json(self, body: bytes):
+        try:
+            payload = json.loads(body.decode())
+            inputs = [_decode_json_input(o, s)
+                      for o, s in zip(payload["inputs"],
+                                      self.engine._specs)]
+            if len(payload["inputs"]) != len(self.engine._specs):
+                raise ValueError(
+                    f"expected {len(self.engine._specs)} inputs")
+            deadline_ms = payload.get("deadline_ms")
+        except ServingError:
+            raise
+        except Exception as e:  # noqa: BLE001
+            raise ServingError(400, f"bad request body: {e!r}"[:2000]) \
+                from None
+        outs = self._run(inputs, deadline_ms)
+        self._send_json(200, {"outputs": [{
+            "b64": base64.b64encode(
+                np.ascontiguousarray(o).tobytes()).decode(),
+            "dtype": str(o.dtype),
+            "shape": [int(d) for d in o.shape],
+        } for o in outs]})
+
+    def _predict_raw(self, body: bytes):
+        # the pipe worker's byte-count rules (at most one dynamic axis an
+        # input resolves from a size; JSON carries explicit shapes)
+        from ..serve import decode_input
+
+        buf = io.BytesIO(body)
+        inputs = []
+        for i, spec in enumerate(self.engine._specs):
+            hdr = buf.read(8)
+            if len(hdr) < 8:
+                raise ServingError(400, "truncated raw body")
+            (nbytes,) = struct.unpack("<Q", hdr)
+            raw = buf.read(nbytes)
+            if len(raw) < nbytes:
+                raise ServingError(400, "truncated raw body")
+            try:
+                inputs.append(decode_input(raw, spec, i))
+            except ValueError as e:
+                raise ServingError(400, str(e)) from None
+        outs = self._run(inputs, None)
+        reply = io.BytesIO()
+        reply.write(struct.pack("<I", len(outs)))
+        for o in outs:
+            o = np.ascontiguousarray(o)
+            dt = str(o.dtype).encode()
+            reply.write(struct.pack("<Q", len(dt)) + dt)
+            reply.write(struct.pack("<I", o.ndim))
+            reply.write(struct.pack(f"<{o.ndim}q", *o.shape))
+            b = o.tobytes()
+            reply.write(struct.pack("<Q", len(b)) + b)
+        self._send(200, reply.getvalue(), "application/octet-stream")
+
+    def _run(self, inputs, deadline_ms):
+        timeout = 120.0
+        if deadline_ms is not None and float(deadline_ms) > 0:
+            timeout = float(deadline_ms) / 1e3 + 5.0
+        return self.engine.predict(inputs, deadline_ms=deadline_ms,
+                                   timeout=timeout)
+
+
 class _Listener(ThreadingHTTPServer):
     # socketserver's listen backlog is 5: a burst of connections past it
     # loses SYNs, and each client's retransmit waits out the kernel's
@@ -306,24 +444,22 @@ class _Listener(ThreadingHTTPServer):
 
 
 class ServingHTTPServer:
-    """ThreadingHTTPServer over one GenerativeEngine (`generator`):
-    start()/stop() for embedding, serve_forever() for the CLI. `engine`
-    is the reference's predict engine, which is not ported (ROADMAP
-    queue 4): it must be None."""
+    """ThreadingHTTPServer over a predict engine (`engine`, a
+    ServingEngine), a generation engine (`generator`, a
+    GenerativeEngine) or both: start()/stop() for embedding,
+    serve_forever() for the CLI."""
 
     def __init__(self, engine=None, host: str = "127.0.0.1", port: int = 0,
                  max_body_bytes: Optional[int] = None, generator=None,
                  admin: bool = False):
-        if engine is not None:
-            raise NotImplementedError(
-                f"the predict engine is not ported yet: {_PREDICT_ITEM}")
-        if generator is None:
-            raise ValueError("need a generator (a GenerativeEngine)")
-        attrs = {"generator": generator, "admin": bool(admin),
-                 "owner": self}
+        if engine is None and generator is None:
+            raise ValueError("need an engine, a generator, or both")
+        attrs = {"engine": engine, "generator": generator,
+                 "admin": bool(admin), "owner": self}
         if max_body_bytes is not None:
             attrs["max_body_bytes"] = int(max_body_bytes)
         handler = type("BoundHandler", (_Handler,), attrs)
+        self.engine = engine
         self.generator = generator
         self.admin = bool(admin)
         self._drainer: Optional[threading.Thread] = None
@@ -339,27 +475,43 @@ class ServingHTTPServer:
 
     def load_report(self) -> dict:
         """The load digest a fabric heartbeat would publish: queue depth
-        and replicas, the generate front's own report under "fronts",
-        and its "kv" and "prefix" digests hoisted to the top level."""
-        gen = self.generator.load_report()
-        return {"queue_depth": int(gen.get("queue_depth", 0)),
-                "replicas": int(gen.get("replicas", 0)),
-                "fronts": {"generate": gen},
-                "kv": gen["kv"], "prefix": gen["prefix"]}
+        and replicas summed over the fronts, each front's own report
+        under "fronts", and the generate front's "kv" and "prefix"
+        digests hoisted to the top level (a predict-only host has
+        none)."""
+        rep = {"queue_depth": 0, "replicas": 0, "fronts": {}}
+        if self.engine is not None:
+            rep["fronts"]["predict"] = self.engine.load_report()
+        if self.generator is not None:
+            rep["fronts"]["generate"] = self.generator.load_report()
+        for fr in rep["fronts"].values():
+            rep["queue_depth"] += int(fr.get("queue_depth", 0))
+            rep["replicas"] += int(fr.get("replicas", 0))
+        gen = rep["fronts"].get("generate")
+        if gen is not None:
+            for k in ("kv", "prefix"):
+                if k in gen:
+                    rep[k] = gen[k]
+        return rep
 
     def drain_async(self, migrate: bool = False) -> None:
-        """A graceful drain on a thread of its own (POST /admin/drain):
-        /healthz turns 503 at once; the listener stays up so in-flight
-        replies finish. migrate=True ends in-flight streams in handoff
-        lines instead of finishing them."""
+        """A graceful drain of every front on a thread of its own (POST
+        /admin/drain): /healthz turns 503 at once; the listener stays up
+        so in-flight replies finish. migrate=True ends the generate
+        front's in-flight streams in handoff lines instead of finishing
+        them."""
         if self._drainer is not None:
             return
-        t = threading.Thread(
-            target=lambda: self.generator.shutdown(drain=True,
-                                                   migrate=migrate),
-            name="serving-drain", daemon=True)
+        t = threading.Thread(target=lambda: self._shutdown_engines(
+            True, migrate), name="serving-drain", daemon=True)
         self._drainer = t
         t.start()
+
+    def _shutdown_engines(self, drain: bool, migrate: bool) -> None:
+        if self.engine is not None:
+            self.engine.shutdown(drain=drain)
+        if self.generator is not None:
+            self.generator.shutdown(drain=drain, migrate=migrate)
 
     def serve_forever(self):
         try:
@@ -370,10 +522,10 @@ class ServingHTTPServer:
             self.stop()
 
     def stop(self, drain: bool = True, migrate: bool = False):
-        """Graceful stop: the engine drains first (in-flight replies get
-        their results, or with migrate=True their handoff lines), then
-        the listener closes."""
-        self.generator.shutdown(drain=drain, migrate=migrate)
+        """Graceful stop: the engines drain first (in-flight replies get
+        their results, or with migrate=True the generate front's their
+        handoff lines), then the listener closes."""
+        self._shutdown_engines(drain, migrate)
         self.httpd.shutdown()
         self.httpd.server_close()
         if self._thread is not None:

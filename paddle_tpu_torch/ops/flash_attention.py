@@ -54,6 +54,7 @@ import ctypes
 import functools
 import math
 import re
+import threading
 
 import torch
 
@@ -78,8 +79,11 @@ _MASKED = tuple(n for n in _POINTERS if n.startswith(("flash_fwd",
                                                       "flash_dq")))
 
 # Launches of each CUDA kernel since the last reset; a wrapper adds one
-# where it launches its kernel and nowhere else.
+# where it launches its kernel and nowhere else. Threads that share a card
+# (the serving engines' replicas) launch one at a time under _LAUNCH_LOCK,
+# so that each launch reads its own instance name and no count is lost.
 LAUNCHES = {name: 0 for name in (*_POINTERS, "flash_probe")}
+_LAUNCH_LOCK = threading.Lock()
 # Launches of each kernel instance of the flash entry points since the last
 # reset, by instance_name(): e.g. "flash_fwd_mma_kernel<256, kStd, kBf16>"
 INSTANCE_LAUNCHES: dict = {}
@@ -367,17 +371,18 @@ def _launch(name: str, ptrs, q, causal, sm_scale, kv_len=None, split=True):
     if name in _MASKED:
         ints.append(L if kv_len is None else int(kv_len))
     ints.append(int(bool(split)))
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), _LAUNCH_LOCK:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, "paddle_" + name)(
             *[None if t is None else t.data_ptr() for t in ptrs], *ints,
             stream)
-    if err != 0:
-        msg = lib.paddle_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
-    LAUNCHES[name] += 1
-    inst = instance_name(lib.paddle_flash_last_instance().decode())
-    INSTANCE_LAUNCHES[inst] = INSTANCE_LAUNCHES.get(inst, 0) + 1
+        if err != 0:
+            msg = lib.paddle_cuda_error_string(err).decode()
+            raise RuntimeError(f"{name} kernel launch failed: {msg} "
+                               f"({err})")
+        LAUNCHES[name] += 1
+        inst = instance_name(lib.paddle_flash_last_instance().decode())
+        INSTANCE_LAUNCHES[inst] = INSTANCE_LAUNCHES.get(inst, 0) + 1
 
 
 def _options(q, kv_len=None, split=True):
@@ -537,14 +542,15 @@ def flash_probe_cuda(a, a32, b):
                              f"{a.device}")
     out = torch.empty(4, n, n, dtype=torch.float32, device=a.device)
     lib = _lib()
-    with torch.cuda.device(a.device):
+    with torch.cuda.device(a.device), _LAUNCH_LOCK:
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.paddle_flash_probe(a.data_ptr(), a32.data_ptr(),
                                      b.data_ptr(), out.data_ptr(), stream)
-    if err != 0:
-        msg = lib.paddle_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash_probe kernel launch failed: {msg} ({err})")
-    LAUNCHES["flash_probe"] += 1
+        if err != 0:
+            msg = lib.paddle_cuda_error_string(err).decode()
+            raise RuntimeError(f"flash_probe kernel launch failed: {msg} "
+                               f"({err})")
+        LAUNCHES["flash_probe"] += 1
     return out
 
 
@@ -582,15 +588,36 @@ def kernel(name: str, on: torch.Tensor):
 
 
 # ------------------------------------------------------- dot strategies --
-def flash_fwd(q, k, v, causal: bool, sm_scale: float, impl: str = "bf16",
-              kv_len=None):
-    """(O, LSE) under dot strategy `impl` (the reference's `_fwd`); nn and
-    nn2 hand the kernel K^T, transposed here as XLA does at :139. Keys at
-    and past `kv_len` are masked."""
+# The forward as a custom op, so that torch.export records it in a program
+# (inference.save_inference_model). It has a CPU and a CUDA kernel, which
+# take `kernel`'s pick (the plain version on the CPU, the CUDA kernel on a
+# card); no other device has one. `impl` is a concrete strategy, resolved
+# before any trace (the probe cannot run on a trace's fake tensors);
+# `kv_len` is the true key count.
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, sm_scale: float, impl: str,
+                 kv_len: int) -> tuple[torch.Tensor, torch.Tensor]:
     fwd = kernel(STRATEGY_KERNELS[impl][0], q)
     if impl in ("nn", "nn2"):
         k = to_t(k)
     return fwd(q, k, v, causal, sm_scale, kv_len=kv_len)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_op_fake(q, k, v, causal, sm_scale, impl, kv_len):
+    B, L, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, L), dtype=torch.float32)
+
+
+def flash_fwd(q, k, v, causal: bool, sm_scale: float, impl: str = "bf16",
+              kv_len=None):
+    """(O, LSE) under dot strategy `impl` (the reference's `_fwd`), through
+    flash_fwd_op; nn and nn2 hand the kernel K^T, transposed as XLA does
+    at :139. Keys at and past `kv_len` (None: L) are masked."""
+    return flash_fwd_op(q, k, v, bool(causal), float(sm_scale), impl,
+                        q.shape[1] if kv_len is None else int(kv_len))
 
 
 def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float,

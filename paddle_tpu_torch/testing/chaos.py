@@ -27,8 +27,9 @@ serve its fault-tolerance supervisor, which the port does not have yet;
 here they are unknown actions.
 
 Standing sites: serving.decode_step (before every decode step of a
-generation worker), scale.add / scale.drain (replica add and retire),
-step (before every call of jit.TrainStep).
+generation worker), serving.execute (before every device batch of a
+predict worker), scale.add / scale.drain (replica add and retire in both
+engines), step (before every call of jit.TrainStep).
 With no rule armed, `hit()` is one truth test.
 """
 from __future__ import annotations

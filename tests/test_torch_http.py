@@ -182,8 +182,8 @@ def test_ndjson_lines_equal_the_reference_server(models, served):
         srv.httpd.server_close()
     assert set(rep) == set(jrep) and rep["kv"] == jrep["kv"]
     assert set(rep["fronts"]["generate"]) == set(jrep["fronts"]["generate"])
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        ServingHTTPServer(object(), generator=eng)
+    with pytest.raises(ValueError, match="need an engine"):
+        ServingHTTPServer()
 
 
 def test_healthz_metrics_and_status_codes(served):
@@ -307,9 +307,10 @@ def test_admin_drain_migrates_streams_and_healthz_503(make_served,
 
 # ==================================================================== CLI --
 def test_cli_refuses_unported_modes(capsys):
-    for argv, item in ((["model_prefix", "--http", "1"], "queue 4"),
-                       (["--engine", "--http", "1"], "queue 4"),
-                       (["--http", "1"], "queue 4"),
+    for argv, item in ((["model_prefix", "--http", "1", "--fabric",
+                         "h:1"], "queue 6"),
+                       (["--engine", "--http", "1"], "need a model prefix"),
+                       (["--http", "1"], "need a model prefix"),
                        (["--generate", "gpt3-tiny"], "--http"),
                        (["--generate", "gpt3-tiny", "--http", "1",
                          "--fabric", "h:1"], "queue 6"),

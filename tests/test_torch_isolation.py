@@ -21,6 +21,7 @@ SOURCES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
 MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.core.flags", "paddle_tpu_torch.core.rng",
            "paddle_tpu_torch.distributed",
+           "paddle_tpu_torch.distributed.checkpoint",
            "paddle_tpu_torch.distributed.recompute",
            "paddle_tpu_torch.framework_io",
            "paddle_tpu_torch.inference",
@@ -28,6 +29,7 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.inference.fabric.handoff",
            "paddle_tpu_torch.inference.serve",
            "paddle_tpu_torch.inference.serving",
+           "paddle_tpu_torch.inference.serving.engine",
            "paddle_tpu_torch.inference.serving.generate",
            "paddle_tpu_torch.inference.serving.lifecycle",
            "paddle_tpu_torch.inference.serving.metrics",
@@ -49,6 +51,7 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.quantization",
            "paddle_tpu_torch.quantization.kv",
            "paddle_tpu_torch.regularizer",
+           "paddle_tpu_torch.static",
            "paddle_tpu_torch.testing.chaos",
            "paddle_tpu_torch.testing.racecheck"]
 
