@@ -70,13 +70,30 @@ attention (read in bf16, beside what two plain attentions part by); the
 execute spans split into the inputs' copy, the forward and the outputs'
 copy; then the CLI (serve PREFIX --engine --http) and the pipe worker
 (serve PREFIX) in subprocesses, their outputs bitwise the engine's for
-the same rows.
+the same rows. Last, the serving fabric: a native TCPStore (cpp/tcpstore.cc
+built into build/store/) in this process, the front door CLI (python -m
+paddle_tpu_torch.inference.fabric) in a subprocess, host A in this process
+(the serving phase's f32 GenerativeEngine and the bf16 artifact, written
+again, under a ServingEngine, behind an admin ServingHTTPServer and a
+HostAgent) and host B the serve CLI (serve PREFIX --generate gpt3-medium
+--state-dict W --fabric) on the same card; through a FleetClient: the
+serving phase's 16 requests streamed (tokens by the margin rule, both
+hosts serving, TTFT against the same requests sent to A directly), the
+predict phase's 32 requests as raw /predict over both hosts and then to A
+alone (A's answers bitwise its Predictor's, 24 flash_fwd launches a batch
+on A of a checked instance), SIGKILL of B with 8 streams on it (each
+finishes on A with generate's tokens, no duplicate or gap; B suspect,
+then evicted within lease + drain + two polls of the door's view), B
+restarted with --pool prefill and A leased as pool decode (4 streams
+prefilled on B and imported into A), and the door's /healthz and merged
+/metrics with both hosts.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
     python3 chip_smoke.py --serving
     python3 chip_smoke.py --trainer
     python3 chip_smoke.py --predict
+    python3 chip_smoke.py --fabric
 
 Needs one CUDA card (written for an H100, sm_90a) and nvcc. Prints the
 card and its power limit, a `kernels` JSON line (time, achieved TFLOP/s,
@@ -95,7 +112,12 @@ bucket's first call, bucket 8's forward and output copy, execute ms by
 bucket and by stage, QPS, latencies, occupancy, launches, with 2
 replicas and with 1, errors, HTTP and pipe;
 the flash_fwd and flash_fwd@float32 rows of the kernels line also carry
-their predict launches) and, as the last line,
+their predict launches), a `fabric` line (host starts, TTFT through the
+door and direct, /predict QPS over two hosts and one, A's launches, the
+gap from the SIGKILL to a resumed stream's next token, the times to
+suspect and evict, the handoffs' payload bytes, import ms and TTFT; the
+flash_fwd row carries its launches through the door) and, as the last
+line,
 {"ok": true, "device": {...}}. Any failed check exits non-zero without that
 line. With --compare, it only times every flash kernel of this checkout
 and of OTHER_CHECKOUT (another tree of the repo, e.g. the parent commit
@@ -111,7 +133,9 @@ row. With --serving, it runs only the serving phase and prints its line
 (without the {"ok": ...} line); with --trainer, only the kernels' build
 and the trainer's phases, and their line (without it either); with
 --predict, only the kernels' build and the predict phase, and its line
-(without it either).
+(without it either); with --fabric, only the kernels' build, the forward
+held at the predict path's bf16 shapes and the fabric phase, and its
+line (without it either).
 """
 from __future__ import annotations
 
@@ -302,6 +326,14 @@ PREDICT_LEN, PREDICT_MAX_BATCH, PREDICT_REPLICAS = 512, 8, 2
 PREDICT_CLIENTS, PREDICT_REQUESTS, PREDICT_BATCH_TIMEOUT_MS = 8, 32, 10.0
 PREDICT_TOL = {"f32": 1e-4, "bf16": 2e-2}
 PREDICT_CLI_START_S = 240
+# the fabric phase: the door's lease and drain windows (its view polls
+# every lease / 4), host A's heartbeat; FABRIC_KILL_STREAMS streams on
+# host B, each FABRIC_KILL_AFTER tokens out when B is killed;
+# FABRIC_HANDOFFS disaggregated streams; a host gets FABRIC_START_S to
+# register behind the door
+FABRIC_LEASE_S, FABRIC_DRAIN_S, FABRIC_BEAT_S = 2.0, 2.0, 0.5
+FABRIC_KILL_STREAMS, FABRIC_KILL_AFTER, FABRIC_HANDOFFS = 8, 8, 4
+FABRIC_START_S = 240
 SEED = 0
 
 REF = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -1702,11 +1734,8 @@ def serving_phase(weights, cfg):
                            device="cuda")
     warm_s = time.perf_counter() - t_warm
     try:
-        rng = np.random.RandomState(SEED)
-        lens = rng.randint(SERVING_PROMPT[0], SERVING_PROMPT[1] + 1,
-                           size=SERVING_REQUESTS)
-        prompts = [rng.randint(0, cfg.vocab_size, size=int(n))
-                   for n in lens]
+        rng, prompts = serving_prompts(cfg)
+        lens = np.array([len(p) for p in prompts])
         alone_prompt = rng.randint(
             0, cfg.vocab_size,
             size=int(rng.randint(SERVING_PROMPT[0], SERVING_PROMPT[1] + 1)))
@@ -2386,19 +2415,12 @@ def cli_checks(model, eng, weights, prompt, ref):
     within CLI_START_S, then /generate of `prompt` against `ref` (the
     serving engine's tokens; margin rule). The process is stopped and the
     checkpoint removed. Returns the `cli` line."""
-    import pickle
     import shutil
     import socket
 
     root = os.path.dirname(os.path.abspath(__file__))
     ckdir = os.path.join(root, "build", "serving_ckpt")
-    os.makedirs(ckdir, exist_ok=True)
-    ckpt = os.path.join(ckdir, "gpt3-medium.pdparams")
-    with open(ckpt, "wb") as f:
-        pickle.dump({n: {"__tensor__": True, "data": a,
-                         "stop_gradient": False, "is_param": True,
-                         "name": n} for n, a in weights.items()},
-                    f, protocol=4)
+    ckpt = write_state_dict(weights, ckdir)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -2502,7 +2524,6 @@ def predict_http_checks(label, prefix, eng, raw_ids, json_ids):
     Returns the check's row."""
     import base64
     import socket
-    import struct
 
     import numpy as np
 
@@ -2535,26 +2556,14 @@ def predict_http_checks(label, prefix, eng, raw_ids, json_ids):
                   f"{PREDICT_CLI_START_S} s")
             time.sleep(0.5)
         start_s = time.perf_counter() - t0
-        raw = np.ascontiguousarray(raw_ids).tobytes()
         req = urllib.request.Request(
-            url + "/predict", data=struct.pack("<Q", len(raw)) + raw,
+            url + "/predict", data=raw_predict_body(raw_ids),
             headers={"Content-Type": "application/octet-stream"})
         t1 = time.perf_counter()
         with LOCAL.open(req, timeout=600) as r:
             reply = r.read()
         raw_ms = (time.perf_counter() - t1) * 1e3
-        off = 4
-        (n,) = struct.unpack_from("<I", reply, 0)
-        check(n == 1, f"[predict-{label}] {n} outputs over HTTP")
-        (dl,) = struct.unpack_from("<Q", reply, off)
-        dtype = reply[off + 8:off + 8 + dl].decode()
-        off += 8 + dl
-        (nd,) = struct.unpack_from("<I", reply, off)
-        dims = struct.unpack_from(f"<{nd}q", reply, off + 4)
-        off += 4 + 8 * nd
-        (nb,) = struct.unpack_from("<Q", reply, off)
-        got_raw = np.frombuffer(reply, dtype, count=nb // np.dtype(
-            dtype).itemsize, offset=off + 8).reshape(dims)
+        got_raw = raw_predict_reply(reply)
         (want_raw,) = eng.predict([raw_ids], timeout=600)
         check(np.array_equal(got_raw, want_raw),
               f"[predict-{label}] raw /predict differs from the engine's")
@@ -3077,10 +3086,7 @@ def predict_phase(weights, cfg):
     outdir = os.path.join(root, "build", "predict")
     shutil.rmtree(outdir, ignore_errors=True)
     os.makedirs(outdir)
-    rng = np.random.RandomState(SEED)
-    requests = [rng.randint(0, cfg.vocab_size, (int(rng.randint(1, 4)),
-                                                PREDICT_LEN)).astype(np.int64)
-                for _ in range(PREDICT_REQUESTS)]
+    requests = predict_requests(cfg)
     t0 = time.perf_counter()
     line = {"card": card_line(), "model": "gpt3-medium",
             "seq": PREDICT_LEN, "max_batch_size": PREDICT_MAX_BATCH,
@@ -3089,13 +3095,7 @@ def predict_phase(weights, cfg):
     # versions at the shapes this path gives them: batch buckets 1 and 8
     # of PREDICT_LEN tokens, cfg's heads and head_dim, causal, on the
     # storage of each artifact
-    checked = {}
-    for label, dtype_name in (("f32", "float32"), ("bf16", "bfloat16")):
-        checked[label] = {
-            kernel_phase(B, PREDICT_LEN, cfg.num_heads,
-                         cfg.hidden_size // cfg.num_heads, dtype_name, True,
-                         timed=False)["flash_fwd"]
-            for B in (1, PREDICT_MAX_BATCH)}
+    checked = checked_forward_instances(cfg, ("f32", "bf16"))
     line["checked_instances"] = {k: sorted(v) for k, v in checked.items()}
     try:
         for label in ("f32", "bf16"):
@@ -3105,6 +3105,674 @@ def predict_phase(weights, cfg):
         shutil.rmtree(outdir, ignore_errors=True)
     line["seconds"] = round(time.perf_counter() - t0, 1)
     return line
+
+
+# --------------------------------------------------------------- fabric --
+def write_state_dict(weights, ckdir):
+    """`weights` written as the reference's paddle_tpu.save writes a
+    state_dict (the scan model's names), the serve CLI's --state-dict
+    input; returns its path."""
+    import pickle
+
+    os.makedirs(ckdir, exist_ok=True)
+    ckpt = os.path.join(ckdir, "gpt3-medium.pdparams")
+    with open(ckpt, "wb") as f:
+        pickle.dump({n: {"__tensor__": True, "data": a,
+                         "stop_gradient": False, "is_param": True,
+                         "name": n} for n, a in weights.items()},
+                    f, protocol=4)
+    return ckpt
+
+
+def raw_predict_body(ids):
+    """A raw-binary /predict body of one int64 input."""
+    import struct
+
+    import numpy as np
+
+    raw = np.ascontiguousarray(ids).tobytes()
+    return struct.pack("<Q", len(raw)) + raw
+
+
+def raw_predict_reply(reply):
+    """The one output array of a raw-binary /predict reply."""
+    import struct
+
+    import numpy as np
+
+    (n,) = struct.unpack_from("<I", reply, 0)
+    check(n == 1, f"{n} outputs in a raw /predict reply")
+    off = 4
+    (dl,) = struct.unpack_from("<Q", reply, off)
+    dtype = reply[off + 8:off + 8 + dl].decode()
+    off += 8 + dl
+    (nd,) = struct.unpack_from("<I", reply, off)
+    dims = struct.unpack_from(f"<{nd}q", reply, off + 4)
+    off += 4 + 8 * nd
+    (nb,) = struct.unpack_from("<Q", reply, off)
+    return np.frombuffer(reply, dtype, count=nb // np.dtype(
+        dtype).itemsize, offset=off + 8).reshape(dims)
+
+
+def checked_forward_instances(cfg, labels):
+    """The flash forward's instances that kernel_phase holds against the
+    plain version at the predict path's shapes (batch buckets 1 and 8 x
+    PREDICT_LEN, cfg's heads and head_dim, causal), by storage: label ->
+    set of instance names."""
+    out = {}
+    for label in labels:
+        dtype_name = {"f32": "float32", "bf16": "bfloat16"}[label]
+        out[label] = {
+            kernel_phase(B, PREDICT_LEN, cfg.num_heads,
+                         cfg.hidden_size // cfg.num_heads, dtype_name, True,
+                         timed=False)["flash_fwd"]
+            for B in (1, PREDICT_MAX_BATCH)}
+    return out
+
+
+def serving_prompts(cfg):
+    """The serving phase's SERVING_REQUESTS prompts (lengths and ids from
+    RandomState(SEED)): (the generator, to draw on from, and the
+    prompts)."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(SERVING_PROMPT[0], SERVING_PROMPT[1] + 1,
+                       size=SERVING_REQUESTS)
+    return rng, [rng.randint(0, cfg.vocab_size, size=int(n)) for n in lens]
+
+
+def predict_requests(cfg):
+    """The predict phase's PREDICT_REQUESTS requests of 1-3 rows x
+    PREDICT_LEN (RandomState(SEED))."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    return [rng.randint(0, cfg.vocab_size, (int(rng.randint(1, 4)),
+                                            PREDICT_LEN)).astype(np.int64)
+            for _ in range(PREDICT_REQUESTS)]
+
+
+class _Procs:
+    """Subprocesses of the fabric phase, each logging to a file; stop()
+    ends every one still running."""
+
+    def __init__(self, root, outdir):
+        self.root, self.outdir, self.procs = root, outdir, {}
+
+    def start(self, name, argv, stdout_pipe=False):
+        log_f = open(os.path.join(self.outdir, f"{name}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", *argv], cwd=self.root,
+            stdout=subprocess.PIPE if stdout_pipe else log_f,
+            stderr=log_f if stdout_pipe else subprocess.STDOUT, text=True)
+        self.procs[name] = (proc, log_f)
+        return proc
+
+    def tail(self, name):
+        self.procs[name][1].flush()
+        with open(os.path.join(self.outdir, f"{name}.log")) as f:
+            return f.read()[-2000:]
+
+    def stop(self):
+        for proc, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        for proc, log_f in self.procs.values():
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+            log_f.close()
+
+
+def read_line(proc, timeout):
+    """proc's first stdout line, waiting at most `timeout` seconds."""
+    import threading
+
+    out = []
+    t = threading.Thread(target=lambda: out.append(proc.stdout.readline()),
+                         daemon=True)
+    t.start()
+    t.join(timeout)
+    return out[0].strip() if out else ""
+
+
+def fleet_stream(client, obj, marks=None):
+    """One streamed /generate through a FleetClient: (the records, the
+    seconds to the first token, each token's arrival on perf_counter).
+    `marks` (a list) sees each token's arrival as it comes."""
+    t0 = time.perf_counter()
+    recs, stamps = [], []
+    for rec in client.stream_generate(obj):
+        recs.append(rec)
+        if "token" in rec:
+            stamps.append(time.perf_counter())
+            if marks is not None:
+                marks.append(stamps[-1])
+    return recs, (stamps[0] - t0 if stamps else None), stamps
+
+
+def fabric_phase(weights, cfg, checked):
+    """The serving fabric on the card. A native TCPStore in this process;
+    the front door CLI (python -m paddle_tpu_torch.inference.fabric) in a
+    subprocess; host A in this process (gpt3-medium's f32 GenerativeEngine
+    of the serving phase, 8 slots at cap 1024, and the predict phase's
+    bf16 artifact, written again here, under a ServingEngine, behind an
+    admin ServingHTTPServer and a HostAgent); host B the serve CLI
+    (`serve PREFIX --generate gpt3-medium --state-dict W --http 0
+    --fabric STORE`) on the same card. Through a FleetClient over the
+    door: (1) the serving phase's 16 requests streamed, tokens against
+    generate's (margin rule), both hosts serving, TTFT beside the same
+    requests sent to A directly; (2) the predict phase's 32 requests as
+    raw /predict through the door (8 client threads), then straight to
+    A: A's served logits bitwise its Predictor's on the rows alone,
+    flash_fwd launched on A (24 a batch, of an instance in `checked`),
+    QPS over two hosts and over one; (3) SIGKILL of B with
+    FABRIC_KILL_STREAMS streams on it, each FABRIC_KILL_AFTER tokens
+    out: every stream ends on A with generate's tokens, no duplicate and
+    no gap, B suspect and then evicted within lease + drain + two polls
+    of the door's view; (4) B restarted with --pool prefill (generation
+    only) and A leased as pool decode: FABRIC_HANDOFFS streams prefill on
+    B, import into A over /admin/kv/import and are relayed, the door
+    counting that many prefill handoffs; (5) /healthz and the merged
+    /metrics carry both hosts. Any failed check fails the phase. Returns the `fabric` line."""
+    import shutil
+    import signal
+    import socket
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.framework_io import params_from_paddle_tpu
+    from paddle_tpu_torch.inference import (GenerativeEngine, ServingEngine,
+                                            ServingHTTPServer)
+    from paddle_tpu_torch.inference.fabric import (FleetClient, HostAgent,
+                                                   _http, build_ring,
+                                                   ring_hosts)
+    from paddle_tpu_torch.inference.serving import metrics as sm
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.observability import trace
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    outdir = os.path.join(root, "build", "fabric")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    poll_s = FABRIC_LEASE_S / 4          # the door's view polls this often
+    line = {"card": card_line(), "model": "gpt3-medium",
+            "lease_s": FABRIC_LEASE_S, "drain_s": FABRIC_DRAIN_S,
+            "view_poll_s": poll_s, "heartbeat_s": FABRIC_BEAT_S}
+    seconds = {}
+    procs = _Procs(root, outdir)
+    store = srv_a = agent_a = gen_a = pred_a = model = None
+    hostname = socket.gethostname()
+
+    def mark(name, t0):
+        seconds[name] = round(time.perf_counter() - t0, 1)
+
+    def start_b(name, front):
+        """Host B: the serve CLI with `front` (the predict artifact's
+        prefix, or the pool it joins) beside generation."""
+        t0 = time.perf_counter()
+        proc = procs.start(
+            name, ["paddle_tpu_torch.inference.serve", *front, "--generate",
+                   "gpt3-medium", "--state-dict", ckpt, "--http", "0",
+                   "--fabric", store_ep])
+        return proc, f"{hostname}-{proc.pid}", t0
+
+    try:
+        t0 = time.perf_counter()
+        store = TCPStore(is_master=True)
+        check(store._py is None, "[fabric] the store runs on the "
+                                 "in-process fallback, not cpp/tcpstore.cc")
+        store_ep = f"127.0.0.1:{store.port}"
+        door = procs.start("door", [
+            "paddle_tpu_torch.inference.fabric", "--store", store_ep,
+            "--lease_s", str(FABRIC_LEASE_S), "--drain_s",
+            str(FABRIC_DRAIN_S)], stdout_pipe=True)
+        mark("store_and_door", t0)
+        t0 = time.perf_counter()
+        ckpt = write_state_dict(weights, outdir)
+        mark("checkpoint", t0)
+        t0 = time.perf_counter()
+        m16 = GPTForCausalLM(cfg, device="cuda")
+        m16.load_state_dict(params_from_paddle_tpu(weights))
+        m16.eval()
+        amp.decorate(m16, level="O2", dtype="bfloat16")
+        prefix = os.path.join(outdir, "bf16")
+        jit.save(m16, prefix, input_spec=[jit.InputSpec(
+            [None, PREDICT_LEN], "int64")])
+        del m16
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark("bf16_artifact", t0)
+
+        t0 = time.perf_counter()
+        door_line = read_line(door, 120)
+        check(door_line.startswith("DOOR="),
+              f"[fabric] the door printed {door_line!r}: "
+              f"{procs.tail('door')}")
+        door_ep = door_line.split("=", 1)[1]
+        client = FleetClient([door_ep], timeout_s=600.0,
+                             stream_idle_timeout_s=300.0)
+        host_b, b_id, tb = start_b("host_b", [prefix])
+
+        # host A, while B starts
+        model = GPTForCausalLM(cfg, device="cuda")
+        model.load_state_dict(params_from_paddle_tpu(weights))
+        model.eval()
+        gen_a = GenerativeEngine(model, slots=SERVING_SLOTS,
+                                 max_context=1024, device="cuda")
+        pred_a = ServingEngine(prefix, max_batch_size=PREDICT_MAX_BATCH,
+                               replicas=1,
+                               batch_timeout_ms=PREDICT_BATCH_TIMEOUT_MS,
+                               device="cuda")
+        srv_a = ServingHTTPServer(pred_a, generator=gen_a,
+                                  admin=True).start()
+        url_a = f"http://127.0.0.1:{srv_a.port}"
+        agent_a = HostAgent(srv_a, TCPStore("127.0.0.1", store.port),
+                            host_id="A", heartbeat_s=FABRIC_BEAT_S).start()
+        mark("host_a_start", t0)
+
+        _, prompts = serving_prompts(cfg)
+        t0 = time.perf_counter()
+        refs = [model.generate(torch.as_tensor(p, device="cuda")[None],
+                               max_new_tokens=SERVING_NEW)[0, len(p):]
+                .tolist() for p in prompts]
+        mark("generate_refs", t0)
+
+        def alive():
+            status, h = client.healthz()
+            return {r["host"]: r for r in h.get("hosts", ())
+                    if r["state"] == "alive"}
+
+        def wait_for(cond, what, proc=None, name=None, timeout=None):
+            deadline = time.perf_counter() + (timeout or FABRIC_START_S)
+            while not cond():
+                if proc is not None and proc.poll() is not None:
+                    raise SmokeFailure(f"[fabric] {name} exited "
+                                       f"({proc.returncode}): "
+                                       f"{procs.tail(name)}")
+                check(time.perf_counter() < deadline,
+                      f"[fabric] {what} within "
+                      f"{timeout or FABRIC_START_S} s")
+                time.sleep(0.1)
+
+        wait_for(lambda: set(alive()) == {"A", b_id},
+                 "both hosts alive behind the door", host_b, "host_b")
+        line["host_b_start_s"] = round(time.perf_counter() - tb, 3)
+        log(f"[fabric] door {door_ep}, hosts A and {b_id} alive "
+            f"(B up in {line['host_b_start_s']} s)")
+
+        # (1) streamed generation through the door, then straight to A
+        t0 = time.perf_counter()
+        fa.reset_launch_counts()
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            outs = list(pool.map(lambda p: fleet_stream(client, {
+                "input_ids": p.tolist(),
+                "max_new_tokens": SERVING_NEW}), prompts))
+        door_wall = time.perf_counter() - t0
+        agreement = []
+        for p, ref, (recs, _, _) in zip(prompts, refs, outs):
+            check(recs and recs[-1].get("done") is True,
+                  f"[fabric] a stream ended in {str(recs[-1:])[:300]}")
+            toks = [r["token"] for r in recs if "token" in r]
+            check(len(toks) == len(recs) - 1,
+                  "[fabric] a line that is neither a token nor the end")
+            agreement.append(token_agreement("fabric", model, gen_a, p,
+                                             toks, ref))
+        text = client.metrics_text()
+        by_host = {}
+        for ln in text.splitlines():
+            m = re.match(r'paddle_generate_requests_total\{host="([^"]+)"\} '
+                         r'(\S+)', ln)
+            if m:
+                by_host[m.group(1)] = float(m.group(2))
+        check(by_host.get("A", 0) > 0 and by_host.get(b_id, 0) > 0,
+              f"[fabric] streams by host (merged /metrics): {by_host}")
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            direct = list(pool.map(lambda p: http_post(
+                url_a + "/generate", {"input_ids": p.tolist(),
+                                      "max_new_tokens": SERVING_NEW,
+                                      "stream": True}), prompts))
+        for p, ref, (lines, _) in zip(prompts, refs, direct):
+            token_agreement("fabric-direct", model, gen_a, p,
+                            stream_tokens("fabric-direct", lines), ref)
+        check(not flash_counts(), f"[fabric] generation launched "
+                                  f"{flash_counts()}")
+        ttft_door = sm.percentiles([o[1] * 1e3 for o in outs])
+        ttft_a = sm.percentiles([d[1] * 1e3 for d in direct])
+        line["streams"] = {
+            "requests": len(prompts), "new_tokens": SERVING_NEW,
+            "requests_by_host": {("A" if h == "A" else "B"): int(v)
+                                 for h, v in by_host.items()},
+            "ttft_ms_door": {k: round(ttft_door[k], 3)
+                             for k in ("p50", "p99")},
+            "ttft_ms_direct_a": {k: round(ttft_a[k], 3)
+                                 for k in ("p50", "p99")},
+            "door_burst_s": round(door_wall, 3),
+            "parted": [r for r in agreement
+                       if r["first_mismatch"] is not None]}
+        mark("streams", t0)
+        log(f"[fabric] streams: {json.dumps(line['streams'])}")
+
+        # (2) /predict through the door over both hosts, then to A alone
+        t0 = time.perf_counter()
+        requests = predict_requests(cfg)
+        served_a = {}
+        engine_predict = pred_a.predict
+
+        def recording(inputs, **kw):
+            outs = engine_predict(inputs, **kw)
+            served_a[inputs[0].tobytes()] = outs[0]
+            return outs
+
+        pred_a.predict = recording
+
+        def burst(endpoint):
+            got = [None] * len(requests)
+            lat = [None] * len(requests)
+            errors = []
+
+            def one(c):
+                try:
+                    for i in range(c, len(requests), PREDICT_CLIENTS):
+                        t = time.perf_counter()
+                        status, _, reply = _http.request(
+                            endpoint, "POST", "/predict",
+                            raw_predict_body(requests[i]),
+                            ctype="application/octet-stream", timeout=600)
+                        lat[i] = time.perf_counter() - t
+                        check(status == 200, f"[fabric] /predict answered "
+                                             f"{status}: {reply[:300]}")
+                        got[i] = raw_predict_reply(reply)
+                except Exception as ex:  # noqa: BLE001 — reported below
+                    errors.append(repr(ex))
+
+            threads = [threading.Thread(target=one, args=(c,))
+                       for c in range(PREDICT_CLIENTS)]
+            tb = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(900)
+            wall = time.perf_counter() - tb
+            check(not errors, f"[fabric] /predict errors: {errors[:3]}")
+            pct = sm.percentiles(lat)
+            return got, {"burst_s": round(wall, 3),
+                         "qps": round(len(requests) / wall, 3),
+                         "client_latency_ms": {
+                             k: round(v * 1e3, 3) for k, v in pct.items()}}
+
+        before = pred_a.metrics.snapshot()
+        fa.reset_launch_counts()
+        got, two = burst(door_ep)
+        launches = flash_counts()
+        instances = dict(fa.INSTANCE_LAUNCHES)
+        after = pred_a.metrics.snapshot()
+        batches = after["batches_total"] - before["batches_total"]
+        n_a = after["responses_total"] - before["responses_total"]
+        check(0 < n_a < len(requests) and len(served_a) == n_a,
+              f"[fabric] host A served {n_a} of {len(requests)} /predict "
+              f"requests (both hosts must serve)")
+        check(launches.get("flash_fwd", 0) > 0
+              and launches == {"flash_fwd": cfg.num_layers * batches},
+              f"[fabric] host A launched {launches} for {batches} batches")
+        check(set(instances) <= checked,
+              f"[fabric] served instances {instances}, checked: "
+              f"{sorted(checked)}")
+        # A's answers bitwise its Predictor's on the rows alone; B's held
+        # to the predict phase's bf16 limit against them
+        bitwise_b, worst_b = 0, 0.0
+        for ids, out in zip(requests, got):
+            check(out.shape == (len(ids), PREDICT_LEN, cfg.vocab_size)
+                  and bool(np.isfinite(out).all()),
+                  f"[fabric] /predict shape {out.shape} or non-finite")
+            (want,) = pred_a._predictor.run([ids])
+            want = np.asarray(want)
+            mine = served_a.get(ids.tobytes())
+            if mine is not None:
+                check(np.array_equal(out, mine) and np.array_equal(mine, want),
+                      "[fabric] host A's /predict answer is not bitwise "
+                      "its Predictor's on the rows alone")
+            elif np.array_equal(out, want):
+                bitwise_b += 1
+            else:
+                rms = float(np.sqrt(np.mean(want.astype(np.float64) ** 2)))
+                worst_b = max(worst_b, float(np.abs(out - want).max()) / rms)
+        check(worst_b <= PREDICT_TOL["bf16"],
+              f"[fabric] host B's logits part from A's Predictor's by "
+              f"{worst_b:.3e} of the RMS")
+        pred_a.predict = engine_predict
+        del got, served_a
+        fa.reset_launch_counts()
+        _, one = burst(f"127.0.0.1:{srv_a.port}")
+        one["launches"] = flash_counts()
+        line["predict"] = {
+            "requests": len(requests), "clients": PREDICT_CLIENTS,
+            "two_hosts": {**two, "served_by_a": n_a, "batches_a": batches,
+                          "launches": launches, "instances": instances,
+                          "launches_per_batch": launches["flash_fwd"] /
+                          batches},
+            "a_alone": one, "b_bitwise_a": bitwise_b,
+            "b_max_err_over_rms": worst_b,
+            "qps_two_over_one": round(two["qps"] / one["qps"], 3)}
+        mark("predict", t0)
+        log(f"[fabric] /predict: {json.dumps(line['predict'])}")
+
+        # (3) SIGKILL of B with streams on it
+        t0 = time.perf_counter()
+        ring = build_ring(sorted(["A", b_id]), 32)
+        sessions = [s for s in (f"kill-{i}" for i in range(4096))
+                    if ring_hosts(ring, s.encode())[0] == b_id]
+        order = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))
+        kill_ix = order[:FABRIC_KILL_STREAMS]
+        marks = [[] for _ in kill_ix]
+        res = [None] * len(kill_ix)
+
+        def run(j):
+            i = kill_ix[j]
+            res[j] = fleet_stream(client, {
+                "input_ids": prompts[i].tolist(),
+                "max_new_tokens": SERVING_NEW, "session": sessions[j]},
+                marks[j])
+
+        resumed0 = client.fleet()[1]["router"]["streams_resumed_total"]
+        done_a0 = gen_a.metrics.snapshot()["completed_total"]
+        threads = [threading.Thread(target=run, args=(j,))
+                   for j in range(len(kill_ix))]
+        for t in threads:
+            t.start()
+        wait_for(lambda: min(len(m) for m in marks) >= FABRIC_KILL_AFTER,
+                 f"{FABRIC_KILL_AFTER} tokens on every stream of B",
+                 host_b, "host_b", timeout=120)
+        out_at_kill = [len(m) for m in marks]
+        t_kill = time.perf_counter()
+        host_b.send_signal(signal.SIGKILL)
+        host_b.wait(30)
+        check(max(out_at_kill) < SERVING_NEW, f"[fabric] a stream had "
+              f"ended before the kill: {out_at_kill} tokens")
+        # B restarts as the prefill pool while the door walks its ladder
+        host_b2, b2_id, tb2 = start_b("host_b_prefill",
+                                      ["--pool", "prefill"])
+        t_b2 = time.perf_counter()
+        # the view reads a lease on its poll: B's last beat may be seen
+        # one poll after the kill, and the eviction lands on the poll
+        # after lease + drain
+        evict_limit = FABRIC_LEASE_S + FABRIC_DRAIN_S + 2 * poll_s
+        t_suspect = t_evict = None
+        deadline = t_kill + evict_limit + 10.0
+        while time.perf_counter() < deadline and t_evict is None:
+            _, h = client.healthz()
+            rows = {r["host"]: r["state"] for r in h.get("hosts", ())}
+            if t_suspect is None and rows.get(b_id) == "suspect":
+                t_suspect = time.perf_counter() - t_kill
+            if b_id not in rows:
+                t_evict = time.perf_counter() - t_kill
+            time.sleep(0.025)
+        for t in threads:
+            t.join(300)
+        gaps = []
+        for j, i in enumerate(kill_ix):
+            recs, _, stamps = res[j]
+            check(recs and recs[-1].get("done") is True,
+                  f"[fabric] a stream of B ended in {str(recs[-1:])[:300]}")
+            toks = [r["token"] for r in recs if "token" in r]
+            token_agreement("fabric-kill", model, gen_a, prompts[i], toks,
+                            refs[i])
+            after_kill = [s for s in stamps if s > t_kill]
+            check(after_kill, "[fabric] a stream got no token after the "
+                              "kill")
+            gaps.append((after_kill[0] - t_kill) * 1e3)
+        resumed = client.fleet()[1]["router"]["streams_resumed_total"] - \
+            resumed0
+        done_a = gen_a.metrics.snapshot()["completed_total"] - done_a0
+        check(resumed == len(kill_ix) and done_a >= len(kill_ix),
+              f"[fabric] {resumed} streams resumed, {done_a} completed on A")
+        check(t_suspect is not None and t_evict is not None
+              and t_suspect < t_evict <= evict_limit,
+              f"[fabric] B suspect at {t_suspect} s, evicted at {t_evict} "
+              f"s after the kill (limit {evict_limit} s)")
+        line["host_loss"] = {
+            "streams": len(kill_ix), "tokens_at_kill": out_at_kill,
+            "resume_gap_ms": {"min": round(min(gaps), 3),
+                              "median": round(statistics.median(gaps), 3),
+                              "max": round(max(gaps), 3)},
+            "suspect_s": round(t_suspect, 3), "evicted_s": round(t_evict, 3),
+            "evict_limit_s": evict_limit}
+        mark("host_loss", t0)
+        log(f"[fabric] host loss: {json.dumps(line['host_loss'])}")
+
+        # (4) disaggregated prefill: B prefill pool, A decode pool
+        t0 = t_b2
+        agent_a.stop()
+        agent_a = HostAgent(srv_a, TCPStore("127.0.0.1", store.port),
+                            host_id="A-decode", pools=["decode"],
+                            heartbeat_s=FABRIC_BEAT_S).start()
+        wait_for(lambda: set(alive()) == {"A-decode", b2_id},
+                 "the prefill and decode pools alive", host_b2,
+                 "host_b_prefill")
+        line["host_b_prefill_start_s"] = round(time.perf_counter() - tb2, 3)
+        hand_ix = list(range(FABRIC_HANDOFFS))
+        router0 = client.fleet()[1]["router"]
+        pf0 = router0["prefill_handoffs_total"]
+        streams0 = router0["streams_total"]
+        snap0 = gen_a.metrics.snapshot()
+        set_flags({"trace_dir": os.path.join(outdir, "trace")})
+        try:
+            trace.reset()
+            with ThreadPoolExecutor(len(hand_ix)) as pool:
+                outs = list(pool.map(lambda i: fleet_stream(client, {
+                    "input_ids": prompts[i].tolist(),
+                    "max_new_tokens": SERVING_NEW}), hand_ix))
+            spans = [s["dur"] / 1e3 for s in trace.spans()
+                     if s["name"] == "generate.kv_import"]
+        finally:
+            set_flags({"trace_dir": ""})
+        for i, (recs, _, _) in zip(hand_ix, outs):
+            check(recs and recs[-1].get("done") is True,
+                  f"[fabric] a disaggregated stream ended in "
+                  f"{str(recs[-1:])[:300]}")
+            token_agreement("fabric-disagg", model, gen_a, prompts[i],
+                            [r["token"] for r in recs if "token" in r],
+                            refs[i])
+        snap1 = gen_a.metrics.snapshot()
+        # the door counts a stream when its relay returns, just after
+        # the client read the done line
+        wait_for(lambda: client.fleet()[1]["router"]["streams_total"]
+                 >= streams0 + len(hand_ix), "the door's stream count",
+                 timeout=10)
+        n_pf = client.fleet()[1]["router"]["prefill_handoffs_total"] - pf0
+        n_in = snap1["handoffs_in_total"] - snap0["handoffs_in_total"]
+        check(n_pf == len(hand_ix) and n_in == len(hand_ix)
+              and len(spans) == len(hand_ix),
+              f"[fabric] {n_pf} prefill handoffs at the door, {n_in} "
+              f"imports into A, {len(spans)} import spans (want "
+              f"{len(hand_ix)})")
+        nbytes = snap1["handoff_bytes_total"] - snap0["handoff_bytes_total"]
+        line["disaggregated"] = {
+            "streams": len(hand_ix),
+            "prompt_tokens": [len(prompts[i]) for i in hand_ix],
+            "payload_bytes_mean": nbytes / len(hand_ix),
+            "import_ms": [round(x, 3) for x in spans],
+            "ttft_ms": [round(o[1] * 1e3, 3) for o in outs]}
+        mark("disaggregated", t0)
+        log(f"[fabric] disaggregated: {json.dumps(line['disaggregated'])}")
+
+        # (5) the door's aggregate health and merged metrics
+        status, h = client.healthz()
+        rows = {r["host"]: r for r in h["hosts"]}
+        check(status == 200 and h["hosts_alive"] == 2
+              and rows["A-decode"]["pools"] == ["decode"]
+              and rows[b2_id]["pools"] == ["prefill"],
+              f"[fabric] door /healthz {h}")
+        text = client.metrics_text()
+        for host in ("A-decode", b2_id):
+            check(f'host="{host}"' in text and
+                  f'paddle_fabric_member_state{{host="{host}"' in text,
+                  f"[fabric] the merged /metrics lacks host {host}")
+        check(f"paddle_fabric_prefill_handoffs_total "
+              f"{pf0 + len(hand_ix)}" in text.splitlines(),
+              "[fabric] /metrics' prefill handoff count")
+        line["door"] = {"hosts": sorted(rows),
+                        "metrics_lines": len(text.splitlines())}
+    except BaseException:
+        for name in procs.procs:
+            log(f"[fabric] {name}'s log: {procs.tail(name)}")
+        raise
+    finally:
+        if agent_a is not None:
+            agent_a.stop()
+        procs.stop()
+        if srv_a is not None:
+            srv_a.stop(drain=False)
+        else:
+            for eng in (pred_a, gen_a):
+                if eng is not None:
+                    eng.shutdown(drain=False)
+        if store is not None:
+            store.stop()
+        shutil.rmtree(outdir, ignore_errors=True)
+        del model, gen_a, pred_a, srv_a
+        gc.collect()
+        torch.cuda.empty_cache()
+    line["seconds_by_step"] = seconds
+    line["seconds"] = round(time.perf_counter() - t_phase, 1)
+    log(f"[fabric] phase took {line['seconds']} s")
+    return line
+
+
+def fabric_only():
+    """The kernels' build, the forward held at the predict path's shapes
+    in bf16, and the fabric phase alone: prints the card and the `fabric`
+    line, not the {"ok": ...} line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from paddle_tpu_torch.models import PRESETS
+
+    card = card_line()
+    log(f"card: {card}")
+    build_kernels()
+    cfg = PRESETS["gpt3-medium"]
+    checked = checked_forward_instances(cfg, ("bf16",))["bf16"]
+    line = fabric_phase(reference_layout_weights(cfg, SEED), cfg, checked)
+    print(card)
+    print(json.dumps({"fabric": line}), flush=True)
+    return 0
+
 
 
 def profile_step(step, ids, labels, step_s, vocab, top):
@@ -3371,11 +4039,22 @@ def main():
         r["predict_launches"] = predict[label]["launches"]["flash_fwd"]
         r["predict_launches_per_batch"] = \
             predict[label]["launches_per_batch"]
+    # the serving fabric: a door over host A (this process: the f32
+    # generation engine and the bf16 artifact, each /predict batch on A
+    # through flash_fwd) and host B (the serve CLI on the same card)
+    fabric = fabric_phase(weights, cfg,
+                          set(predict["checked_instances"]["bf16"]))
+    r = next(r for r in rows if r["name"] == "flash_fwd")
+    r["fabric_launches"] = \
+        fabric["predict"]["two_hosts"]["launches"]["flash_fwd"]
+    r["fabric_launches_per_batch"] = \
+        fabric["predict"]["two_hosts"]["launches_per_batch"]
     log(json.dumps({"kernels": rows + f32_rows + rows256 + f32_rows256
                     + [probe_row]}))
     log(json.dumps({"serving": serving}))
     log(json.dumps({"trainer": trainer}))
     log(json.dumps({"predict": predict}))
+    log(json.dumps({"fabric": fabric}))
     log(f"chip_smoke took {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3559,6 +4238,8 @@ if __name__ == "__main__":
             sys.exit(trainer_only())
         if sys.argv[1:2] == ["--predict"]:
             sys.exit(predict_only())
+        if sys.argv[1:2] == ["--fabric"]:
+            sys.exit(fabric_only())
         sys.exit(main())
     except (SmokeFailure, ImportError) as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

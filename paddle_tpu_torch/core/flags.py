@@ -104,3 +104,9 @@ define_flag("skip_nan_steps", False)
 # the ring keeps at most this many spans
 define_flag("trace_dir", "")
 define_flag("trace_buffer_spans", 262144)
+# TCPStore client ops (distributed/store.py): bounded retries, with
+# exponential backoff and jitter capped by the op timeout, on transient
+# connect and reset errors; 1 disables retry. add() never retries (a
+# replay could double-count); the replicated and quorum stores' member
+# clients pin 1, their own layer being the retry
+define_flag("store_retry_attempts", 3)

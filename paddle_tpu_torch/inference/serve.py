@@ -6,6 +6,8 @@ paddle_tpu/inference/serve.py):
         [--http PORT] [--max-batch-size N] [--batch-timeout-ms T] ...
     python -m paddle_tpu_torch.inference.serve --generate gpt3-medium \\
         --http 8000 [--state-dict CKPT] [--device cuda|cpu] ...
+    python -m paddle_tpu_torch.inference.serve [PREFIX --engine] \\
+        [--generate PRESET] --http 0 --fabric STORE [--pool prefill]
 
 PREFIX is a model saved by `jit.save(..., input_spec=...)` (or
 `inference.save_inference_model`) on the device it is served on. Alone,
@@ -46,8 +48,13 @@ of {"__tensor__": True, "data": ndarray, ...} per parameter), or the
 port's `framework_io.save` of `params_to_paddle_tpu(...)`, through
 `framework_io.load` (numpy arrays only, bfloat16 ones included).
 
-Refused, naming the ROADMAP item that would port it: the serving fabric
-(--fabric, --pool: queue 6).
+`--fabric STORE` joins the serving fabric (inference/fabric): the server
+mounts the /admin plane and a HostAgent leases the host into the
+registry at STORE (host:port of a TCPStore, or a comma-separated list
+for a QuorumStore), where a front door (`python -m
+paddle_tpu_torch.inference.fabric --store STORE`) routes to it. `--pool`
+overrides the host's pools (comma list; `prefill` or `decode` make it a
+member of a disaggregated-serving pool).
 """
 from __future__ import annotations
 
@@ -57,8 +64,6 @@ import struct
 import sys
 
 import numpy as np
-
-_FABRIC_ITEM = "ROADMAP queue 6 (the serving fabric's tiers)"
 
 MAGIC = b"PDIS"
 VERSION = 1
@@ -268,17 +273,24 @@ def main(argv=None) -> int:
                          "/admin/kv handoff import); keep the port "
                          "private")
     ap.add_argument("--fabric", metavar="STORE", default=None,
-                    help=f"join the serving fabric: refused "
-                         f"({_FABRIC_ITEM})")
+                    help="join the serving fabric: registry "
+                         "endpoint(s) (host:port, comma-separated for "
+                         "a quorum); implies --admin")
     ap.add_argument("--pool", default=None,
-                    help=f"fabric pool role: refused ({_FABRIC_ITEM})")
+                    help="fabric role override, comma list: 'prefill' "
+                         "or 'decode' makes this host a member of a "
+                         "disaggregated-serving pool (default: derived "
+                         "from the mounted fronts)")
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs (default cuda; cpu runs "
                          "it on the host)")
     args = ap.parse_args(argv)
 
-    if args.fabric is not None or args.pool is not None:
-        ap.error(f"the serving fabric is not ported: {_FABRIC_ITEM}")
+    if args.pool is not None and args.fabric is None:
+        ap.error("--pool needs --fabric STORE")
+    if args.fabric is not None and args.http is None:
+        ap.error("--fabric needs --http PORT (the fleet routes over "
+                 "HTTP)")
     if args.generate is None and args.prefix is None:
         ap.error("need a model prefix (or --generate PRESET)")
     if args.generate is not None and args.http is None:
@@ -313,16 +325,34 @@ def main(argv=None) -> int:
             batch_timeout_ms=args.batch_timeout_ms, replicas=args.replicas,
             max_queue_depth=args.max_queue_depth, device=device)
     if args.http is not None:
+        admin = bool(args.admin or args.fabric)
         srv = ServingHTTPServer(engine, host=args.host, port=args.http,
-                                generator=generator, admin=args.admin)
+                                generator=generator, admin=admin)
+        agent = None
+        if args.fabric:
+            from ..distributed.store import make_store
+            from .fabric import HostAgent
+
+            pools = None
+            if args.pool:
+                pools = [p.strip() for p in args.pool.split(",")
+                         if p.strip()]
+            agent = HostAgent(srv, make_store(args.fabric),
+                              pools=pools).start()
         what = []
         if engine is not None:
             what.append(f"predict[{args.prefix}]")
         if generator is not None:
             what.append(f"generate[{args.generate}]")
+        if agent is not None:
+            what.append(f"fabric[{','.join(agent.lease.pools)}]")
         print(f"serving {' + '.join(what)} on {device} at "
               f"http://{srv.host}:{srv.port}", file=sys.stderr, flush=True)
-        srv.serve_forever()
+        try:
+            srv.serve_forever()
+        finally:
+            if agent is not None:
+                agent.stop()
         return 0
     try:
         return run_worker(args.prefix, runner=engine.predict,

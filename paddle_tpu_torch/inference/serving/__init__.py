@@ -21,9 +21,10 @@ from .engine import ServingEngine  # noqa: F401
 from .generate import (GenerateHandle, GenerativeEngine,  # noqa: F401
                        GenerativeMetrics, stack_gpt_params)
 from .lifecycle import Future, ServingError  # noqa: F401
-from .metrics import ServingMetrics  # noqa: F401
+from .metrics import ServingMetrics, aggregate_snapshot  # noqa: F401
 from .server import ServingHTTPServer  # noqa: F401
 
 __all__ = ["ServingEngine", "ServingMetrics", "GenerativeEngine",
            "GenerateHandle", "GenerativeMetrics", "ServingError",
-           "ServingHTTPServer", "Future", "stack_gpt_params"]
+           "ServingHTTPServer", "Future", "stack_gpt_params",
+           "aggregate_snapshot"]

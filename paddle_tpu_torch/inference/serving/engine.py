@@ -120,7 +120,7 @@ class ServingEngine:
                  retry_after_max_s: float = 30.0,
                  overload_queue_factor: float = 2.0, device=None):
         from .. import Predictor, config_for
-        from .metrics import ServingMetrics
+        from .metrics import ServingMetrics, track_engine
 
         if isinstance(model, str):
             model = Predictor(config_for(model, device))
@@ -185,6 +185,7 @@ class ServingEngine:
         # thread never contends for the engine
         self.metrics.queue_depth_fn = lambda: len(self._queue)
         self.metrics.replicas_fn = lambda: len(self._active())
+        track_engine(self)
 
         self.warmup_report = None
         if warmup:

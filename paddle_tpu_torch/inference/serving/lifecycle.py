@@ -107,9 +107,9 @@ class ReplicaSlot:
         self.compiling = False
 
     def state_row(self, now: Optional[float] = None) -> dict:
-        """One row of replica_states() with monotonic ages (in the
-        reference its HealthWatchdog reads busy_s and beat_age_s to
-        strike a hung worker; the port has no watchdog yet)."""
+        """One row of replica_states() with monotonic ages (the
+        autoscale HealthWatchdog reads busy_s and beat_age_s to strike a
+        hung worker)."""
         if now is None:
             now = time.monotonic()
         busy = self.busy_since

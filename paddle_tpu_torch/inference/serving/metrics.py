@@ -9,20 +9,53 @@ bucket counters are keyed by (batch bucket, shape key), one program
 shape each; "compiles" counts a shape's first call on a device that the
 warm-up had not run (eager PyTorch compiles nothing), "hits" the rest.
 
-The reference's `EngineRegistry`, `track_engine` and
-`aggregate_snapshot` merge the live engines' snapshots into its
-profiler's `summary_dict()`; the port has no profiler, so they wait for
-it (ROADMAP). `percentiles` and `rate` are shared with the generation
-engine.
+`EngineRegistry` keeps weak references to the live engines (or fabric
+routers) of one section and merges their snapshots: `track_engine`
+registers a predict engine, `aggregate_snapshot` merges the "serving"
+section. The reference installs each section's merge function into its
+profiler's `summary_dict()`; the port has no profiler yet, so a
+registry only keeps its `provider` for the caller to read. `percentiles`
+and `rate` are shared with the generation engine.
 """
 from __future__ import annotations
 
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ...testing.racecheck import shared_state as _shared_state
+
+
+class EngineRegistry:
+    """Live-engine weakref list of one section ("serving", "fabric"),
+    shared by the tiers so the dead-ref pruning lives in one place.
+    `provider` is the section's merge function."""
+
+    def __init__(self, section: str, provider):
+        self.section = section
+        self.provider = provider
+        self._lock = threading.Lock()
+        self._engines: list = []
+
+    def track(self, engine) -> None:
+        import weakref
+
+        with self._lock:
+            self._engines.append(weakref.ref(engine))
+
+    def snapshots(self) -> List[dict]:
+        """Prune dead refs; return the live engines' metric snapshots."""
+        out = []
+        with self._lock:
+            alive = []
+            for ref in self._engines:
+                eng = ref()
+                if eng is not None:
+                    alive.append(ref)
+                    out.append(eng.metrics.snapshot())
+            self._engines[:] = alive
+        return out
 
 
 def percentiles(vals) -> Dict[str, float]:
@@ -40,8 +73,64 @@ def percentiles(vals) -> Dict[str, float]:
 
 
 def rate(num, den) -> float:
-    """Safe ratio for snapshot fields (0.0 on an empty denominator)."""
+    """Safe ratio for snapshot fields (0.0 on an empty denominator).
+    Snapshot keys ending in ``_rate`` are left out of cross-engine
+    aggregation: a ratio of sums is not a sum of ratios."""
     return round(num / den, 4) if den else 0.0
+
+
+def track_engine(engine):
+    _REGISTRY.track(engine)
+
+
+def aggregate_snapshot() -> Optional[dict]:
+    """Merged snapshot over the live predict engines (None: no engine
+    ever ran)."""
+    snaps = _REGISTRY.snapshots()
+    if not snaps:
+        return None
+    if len(snaps) == 1:
+        return snaps[0]
+    # additive counters and gauges sum, extrema take the max, averages
+    # recompute batch-weighted (a sum would report an occupancy past
+    # max_batch_size on a host of several engines)
+    _MAX = {"max_batch_occupancy"}
+    _SKIP = {"avg_batch_occupancy", "latency_ms", "occupancy_hist",
+             "buckets"}
+    out = dict(snaps[0])
+    for s in snaps[1:]:
+        for k, v in s.items():
+            if k in _SKIP:
+                continue
+            if k in _MAX:
+                out[k] = max(out.get(k, 0), v)
+            elif isinstance(v, (int, float)) and \
+                    isinstance(out.get(k), (int, float)):
+                out[k] = out[k] + v
+    occ_n = sum(sn["avg_batch_occupancy"] * sn["batches_total"]
+                for sn in snaps)
+    occ_d = sum(sn["batches_total"] for sn in snaps)
+    out["avg_batch_occupancy"] = round(occ_n / occ_d, 3) if occ_d else 0.0
+    out["latency_ms"] = {  # conservative: the worst engine's quantiles
+        q: max(sn["latency_ms"][q] for sn in snaps)
+        for q in ("p50", "p95", "p99")}
+    hist: dict = {}
+    for sn in snaps:
+        for occ, cnt in sn["occupancy_hist"].items():
+            hist[occ] = hist.get(occ, 0) + cnt
+    out["occupancy_hist"] = dict(sorted(hist.items()))
+    buckets: dict = {}
+    for sn in snaps:
+        for key, st in sn["buckets"].items():
+            agg = buckets.setdefault(key, {"compiles": 0, "hits": 0})
+            agg["compiles"] += st["compiles"]
+            agg["hits"] += st["hits"]
+    out["buckets"] = dict(sorted(buckets.items()))
+    out["engines"] = len(snaps)
+    return out
+
+
+_REGISTRY = EngineRegistry("serving", aggregate_snapshot)
 
 
 @_shared_state("requests_total", "responses_total", "rejected_total",
@@ -275,4 +364,5 @@ class ServingMetrics:
         return "\n".join(lines) + "\n"
 
 
-__all__ = ["ServingMetrics", "percentiles", "rate"]
+__all__ = ["EngineRegistry", "ServingMetrics", "aggregate_snapshot",
+           "percentiles", "rate", "track_engine"]

@@ -307,20 +307,70 @@ def test_admin_drain_migrates_streams_and_healthz_503(make_served,
 
 # ==================================================================== CLI --
 def test_cli_refuses_unported_modes(capsys):
-    for argv, item in ((["model_prefix", "--http", "1", "--fabric",
-                         "h:1"], "queue 6"),
-                       (["--engine", "--http", "1"], "need a model prefix"),
+    for argv, item in ((["--engine", "--http", "1"], "need a model prefix"),
                        (["--http", "1"], "need a model prefix"),
                        (["--generate", "gpt3-tiny"], "--http"),
                        (["--generate", "gpt3-tiny", "--http", "1",
-                         "--fabric", "h:1"], "queue 6"),
-                       (["--generate", "gpt3-tiny", "--http", "1",
-                         "--pool", "decode"], "queue 6"),
+                         "--pool", "decode"], "--pool needs --fabric"),
+                       (["--generate", "gpt3-tiny", "--fabric", "h:1"],
+                        "--http"),
                        (["--generate", "nope", "--http", "1"], "preset")):
         with pytest.raises(SystemExit) as e:
             serve.main(argv)
         assert e.value.code == 2
         assert item in capsys.readouterr().err
+
+
+class _FakeFront:
+    """An engine stand-in for the CLI's fabric wiring: the server and the
+    host agent read only its load report and shut it down."""
+
+    def __init__(self, *a, **kw):
+        self.shut = False
+
+    def load_report(self):
+        return {"queue_depth": 0, "replicas": 1}
+
+    def shutdown(self, *a, **kw):
+        self.shut = True
+
+
+@pytest.mark.parametrize("argv, pools", [
+    (["model_prefix", "--fabric"], ["predict"]),
+    (["--generate", "gpt3-tiny", "--fabric"], ["generate"]),
+    (["--generate", "gpt3-tiny", "--pool", "decode", "--fabric"],
+     ["decode"]),
+], ids=["predict", "generate", "pool"])
+def test_cli_fabric_flags_start_an_agent(monkeypatch, argv, pools):
+    """--fabric and --pool parse, mount the admin plane and lease the host
+    into the registry (engines stubbed; serve_forever returns once the
+    record is read back)."""
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.inference import serving
+
+    store = TCPStore(is_master=True)
+    seen = {}
+
+    def serve_forever(srv):
+        (host_id,) = json.loads(store.get("fabric/hosts"))
+        seen.update(rec=json.loads(store.get(f"fabric/host/{host_id}")),
+                    admin=srv.admin)
+        srv.httpd.server_close()   # the listener never served
+
+    monkeypatch.setattr(serving, "ServingEngine", _FakeFront)
+    monkeypatch.setattr(serving, "GenerativeEngine", _FakeFront)
+    monkeypatch.setattr(serve, "build_model", lambda *a, **k: None)
+    monkeypatch.setattr(ServingHTTPServer, "serve_forever", serve_forever)
+    try:
+        assert serve.main(argv + [f"127.0.0.1:{store.port}", "--http", "0",
+                                  "--device", "cpu"]) == 0
+        assert seen["admin"] is True
+        assert seen["rec"]["pools"] == pools
+        assert seen["rec"]["generation"] == 0
+        # the agent's stop on the way out deregisters the host
+        assert json.loads(store.get("fabric/hosts")) == []
+    finally:
+        store.stop()
 
 
 def test_checkpoint_loader_admits_arrays_only(tmp_path):

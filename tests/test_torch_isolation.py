@@ -19,14 +19,27 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "chip_order_checks.py"]
 MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
+           "paddle_tpu_torch.autoscale",
+           "paddle_tpu_torch.autoscale.policy",
+           "paddle_tpu_torch.autoscale.replica",
            "paddle_tpu_torch.core.flags", "paddle_tpu_torch.core.rng",
            "paddle_tpu_torch.distributed",
            "paddle_tpu_torch.distributed.checkpoint",
            "paddle_tpu_torch.distributed.recompute",
+           "paddle_tpu_torch.distributed.store",
            "paddle_tpu_torch.framework_io",
            "paddle_tpu_torch.inference",
            "paddle_tpu_torch.inference.fabric",
+           "paddle_tpu_torch.inference.fabric.__main__",
+           "paddle_tpu_torch.inference.fabric._http",
+           "paddle_tpu_torch.inference.fabric.client",
+           "paddle_tpu_torch.inference.fabric.fleet",
+           "paddle_tpu_torch.inference.fabric.frontdoor",
            "paddle_tpu_torch.inference.fabric.handoff",
+           "paddle_tpu_torch.inference.fabric.host",
+           "paddle_tpu_torch.inference.fabric.membership",
+           "paddle_tpu_torch.inference.fabric.metrics",
+           "paddle_tpu_torch.inference.fabric.router",
            "paddle_tpu_torch.inference.serve",
            "paddle_tpu_torch.inference.serving",
            "paddle_tpu_torch.inference.serving.engine",
