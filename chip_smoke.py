@@ -86,7 +86,20 @@ finishes on A with generate's tokens, no duplicate or gap; B suspect,
 then evicted within lease + drain + two polls of the door's view), B
 restarted with --pool prefill and A leased as pool decode (4 streams
 prefilled on B and imported into A), and the door's /healthz and merged
-/metrics with both hosts.
+/metrics with both hosts. Last, the models phase, BASELINE.md's
+single-chip rows: the flash kernels at BERT-base's attention shape (B =
+32, L = 512, 12 heads, D = 64, bf16, non-causal), held and timed; BERT-base
+MLM (vocab 30522, hidden 768, 12 layers, 12 heads, batch 32 x 512, 15% of
+positions masked; amp.decorate O2 to bf16, AdamW with f32 masters,
+auto_cast bf16; eager steps) (a) with dropout 0.1 (no flash launch), (b)
+with dropout 0 (12 launches a step of each of the forward, dQ and dK/dV,
+of the instances held; the losses against the same steps with the flash
+path off; the loss on a held-out batch falls), (c) eval forwards in bf16
+and f32 (12 forward launches, each held against its plain version; the
+logits against the plain attention's), (d) a padded batch under
+attention_mask (no launch); then ResNet-50 (small_input, 10 classes, f32)
+for 5 dygraph Momentum steps on a 128 x 3 x 32 x 32 batch (the loss falls,
+every batch-norm buffer moves) and its eval logits against a CPU copy.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
@@ -94,6 +107,7 @@ prefilled on B and imported into A), and the door's /healthz and merged
     python3 chip_smoke.py --trainer
     python3 chip_smoke.py --predict
     python3 chip_smoke.py --fabric
+    python3 chip_smoke.py --models
 
 Needs one CUDA card (written for an H100, sm_90a) and nvcc. Prints the
 card and its power limit, a `kernels` JSON line (time, achieved TFLOP/s,
@@ -116,8 +130,12 @@ their predict launches), a `fabric` line (host starts, TTFT through the
 door and direct, /predict QPS over two hosts and one, A's launches, the
 gap from the SIGKILL to a resumed stream's next token, the times to
 suspect and evict, the handoffs' payload bytes, import ms and TTFT; the
-flash_fwd row carries its launches through the door) and, as the last
-line,
+flash_fwd row carries its launches through the door), a `models` line
+(BERT's runs: losses, launches, instances, probe loss, tokens/s, peak
+memory, the profiled step's busy time and idle share, the eval forwards'
+errors; ResNet-50's losses, images/s, peak memory, buffers moved, eval
+error; the non-causal kernel rows, `name@noncausal`, join the kernels
+line with run (b)'s launches) and, as the last line,
 {"ok": true, "device": {...}}. Any failed check exits non-zero without that
 line. With --compare, it only times every flash kernel of this checkout
 and of OTHER_CHECKOUT (another tree of the repo, e.g. the parent commit
@@ -135,7 +153,9 @@ and the trainer's phases, and their line (without it either); with
 --predict, only the kernels' build and the predict phase, and its line
 (without it either); with --fabric, only the kernels' build, the forward
 held at the predict path's bf16 shapes and the fabric phase, and its
-line (without it either).
+line (without it either); with --models, only the kernels' build and the
+models phase, and the non-causal kernel rows and the `models` line
+(without it either).
 """
 from __future__ import annotations
 
@@ -334,6 +354,35 @@ PREDICT_CLI_START_S = 240
 FABRIC_LEASE_S, FABRIC_DRAIN_S, FABRIC_BEAT_S = 2.0, 2.0, 0.5
 FABRIC_KILL_STREAMS, FABRIC_KILL_AFTER, FABRIC_HANDOFFS = 8, 8, 4
 FABRIC_START_S = 240
+# the models phase, BASELINE.md's single-chip rows. BERT-base MLM
+# (BertConfig's defaults) at BERT_BATCH x BERT_SEQ, 15% of the positions
+# [MASK]ed (id BERT_MASK_ID) and labelled, bf16 O2 with AdamW's f32
+# masters under auto_cast bf16, BERT_STEPS eager steps a run at BERT_LR:
+# (a) dropout 0.1; (b) dropout 0 under auto (the non-causal flash
+# kernels) and the same steps with FLAGS_use_flash_attention off, whose
+# losses part by at most BERT_FLASH_LOSS_RTOL (the bf16 loss limit of the
+# CPU tests; at initialisation attention moves the loss little, so this
+# checks the routing, and the kernel phase at the path's shapes holds the
+# kernels); (c) an eval forward of BERT_EVAL_ROWS rows, each forward call
+# held against its plain version as the kernel phase holds it, and the
+# logits within BERT_EVAL_TOL of the same forward's with the attention's
+# plain version (the norm of the difference over the reference's; two
+# correct bf16 attentions, P rounded and not, read 1.4e-2 through 12 such
+# layers on the CPU), then the same in f32 (PREDICT_TOL's f32 limit); (d)
+# a padded batch under attention_mask (the einsum). ResNet-50
+# (small_input, 10 classes, f32) on RESNET_BATCH x 3 x 32 x 32 images,
+# RESNET_STEPS dygraph Momentum steps (momentum 0.9) at RESNET_LR on one
+# fixed batch, whose loss must fall (at 0.01 momentum overshot from the
+# random start: 2.647 to 3.234 over 5 steps on an H100; the baseline
+# row's own resnet50 test takes 0.003); its eval logits on
+# RESNET_EVAL_ROWS images against a CPU copy of the same state within
+# RESNET_EVAL_TOL of their RMS (cuDNN's f32 convolution algorithms
+# against the CPU's, 53 convolutions deep)
+BERT_BATCH, BERT_SEQ, BERT_STEPS, BERT_LR = 32, 512, 3, 5e-4
+BERT_MASK_ID, BERT_EVAL_ROWS = 103, 8
+BERT_FLASH_LOSS_RTOL, BERT_EVAL_TOL = 2e-3, 5e-2
+RESNET_BATCH, RESNET_STEPS, RESNET_LR = 128, 5, 0.001
+RESNET_EVAL_ROWS, RESNET_EVAL_TOL = 16, 1e-3
 SEED = 0
 
 REF = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -3775,6 +3824,423 @@ def fabric_only():
 
 
 
+# ------------------------------------------------------- models phase --
+def bert_weights(cfg):
+    """Seeded random weights for BertForMaskedLM(cfg) in the reference's
+    layout (its names, Linear weights [in, out]; framework_io's
+    params_to_paddle_tpu of a model drawn on the card): Linear and
+    embedding weights normal with std 0.02, biases zero, LayerNorms one
+    and zero."""
+    import torch
+
+    from paddle_tpu_torch.framework_io import params_to_paddle_tpu
+    from paddle_tpu_torch.models import BertForMaskedLM
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    model = BertForMaskedLM(cfg, device="cuda")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name:
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, 0.02, generator=g)
+    weights = params_to_paddle_tpu(model.state_dict())
+    del model
+    return weights
+
+
+def bert_model(cfg, weights, dropout, o2=True):
+    """BertForMaskedLM at cfg's widths with `dropout`, from `weights`, on
+    the card in train mode, amp.decorate O2 to bf16 (unless `o2` is
+    False), and its AdamW (multi_precision: f32 masters)."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework_io import params_from_paddle_tpu
+    from paddle_tpu_torch.models import BertForMaskedLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = BertForMaskedLM(type(cfg)(**{**vars(cfg), "dropout": dropout}),
+                            device="cuda")
+    model.load_state_dict(params_from_paddle_tpu(weights))
+    model.train()
+    if o2:
+        model = amp.decorate(model, level="O2", dtype="bfloat16")
+    return model, AdamW(BERT_LR, parameters=model.parameters(),
+                        multi_precision=o2)
+
+
+def bert_eval(model, ids, layers, label):
+    """Run (c): an eval forward of BERT_EVAL_ROWS rows of `ids`, one
+    forward launch a layer, each call held against its plain version as
+    the kernel phase holds it; the logits against the same forward with
+    the attention's plain version, as the norm of their difference over
+    the reference's (BERT_EVAL_TOL in bf16, PREDICT_TOL's f32 limit in
+    f32), beside what two correct plain attentions (P rounded to bf16,
+    and not) part by."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    model.eval()
+    ids = ids[:BERT_EVAL_ROWS]
+    plain = dict(fa.PLAIN)
+    f32dot_plain = {**plain, "flash_fwd": plain["flash_fwd_f32dot"]}
+    calls = []
+    fa.reset_launch_counts()
+    with torch.inference_mode():
+        with forward_checked_against_plain(plain, calls):
+            got = model(ids).float()
+        launches = flash_counts()
+        instances = dict(fa.INSTANCE_LAUNCHES)
+        with plain_forward_on_card(plain):
+            want = model(ids).float()
+        with plain_forward_on_card(f32dot_plain):
+            want_f32dot = model(ids).float()
+    check(not set(flash_counts()) - {"flash_fwd"},
+          f"[bert-c-{label}] the plain forwards launched {flash_counts()}")
+    norm = want.norm()
+    err = float((got - want).norm() / norm)
+    yardstick = float((want_f32dot - want).norm() / norm)
+    tol = BERT_EVAL_TOL if label == "bf16" else PREDICT_TOL["f32"]
+    out = {"launches": launches, "instances": instances,
+           "err_vs_plain": err, "tol": tol,
+           "max_abs_err_over_rms": float((got - want).abs().max()
+                                         / want.pow(2).mean().sqrt()),
+           "plain_f32dot_vs_plain": yardstick,
+           "max_call_row_err": max(c["row_err"] for c in calls),
+           "call_tol": calls[0]["tol"]}
+    log(f"[bert-c-{label}] eval forward: {json.dumps(out)}")
+    check(launches == {"flash_fwd": layers},
+          f"[bert-c-{label}] eval forward launched {launches}")
+    check(len(calls) == layers and all(
+        c["row_err"] <= c["tol"] and c["lse_err"] <= LSE_ATOL
+        for c in calls), f"[bert-c-{label}] a forward call parts from its "
+                         f"plain version: {calls}")
+    check(bool(torch.isfinite(got).all()) and got.shape == (
+        BERT_EVAL_ROWS, BERT_SEQ, model.cfg.vocab_size),
+        f"[bert-c-{label}] logits {tuple(got.shape)}")
+    check(err <= tol, f"[bert-c-{label}] logits part from the plain "
+                      f"attention's by {err:.3e} (limit {tol})")
+    return out
+
+
+def mlm_batches(cfg, n):
+    """n MLM batches from default_rng(SEED): ids in [1000, vocab) drawn by
+    a Zipf law (p proportional to 1 / rank), as text's tokens fall; 15%
+    of the positions (at least the first of each row) replaced by [MASK]
+    and labelled with their ids, -100 elsewhere, as the baseline row's
+    test masks them; on the card. (Uniform ids over 29.5K tokens leave a
+    held-out batch nothing to learn in a few steps: each step raises the
+    tokens it saw and lowers the rest, and the held-out loss rises.)"""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    span = cfg.vocab_size - 1000
+    zipf = 1.0 / np.arange(1, span + 1)
+    zipf /= zipf.sum()
+    out = []
+    for _ in range(n):
+        ids = 1000 + rng.choice(span, size=(BERT_BATCH, BERT_SEQ), p=zipf)
+        pos = rng.random(ids.shape) < 0.15
+        pos[:, 0] = True
+        out.append(tuple(torch.as_tensor(a, device="cuda") for a in (
+            np.where(pos, BERT_MASK_ID, ids), np.where(pos, ids, -100))))
+    return out
+
+
+def bert_steps(model, opt, batches):
+    """The baseline row's eager step on each batch: the MLM loss under
+    auto_cast bf16, backward, opt.step, opt.clear_grad. Returns (losses,
+    host seconds of each step, synchronised)."""
+    import torch
+
+    from paddle_tpu_torch import amp
+
+    losses, times = [], []
+    for ids, labels in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with amp.auto_cast(dtype="bfloat16"):
+            loss = model.loss(ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        times.append(time.perf_counter() - t)
+    return losses, times
+
+
+def bert_probe(model, batch):
+    """The MLM loss on a fixed batch, without autograd (auto_cast bf16)."""
+    import torch
+
+    from paddle_tpu_torch import amp
+
+    with torch.no_grad(), amp.auto_cast(dtype="bfloat16"):
+        return float(model.loss(*batch))
+
+
+def bert_phase(checked):
+    """BERT-base MLM under bf16 O2, runs (a)-(d) (see BERT_* above);
+    `checked`: the instance of each of flash_fwd, flash_dq and flash_dkv
+    that the kernel phase held at this path's shapes."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.models import BertConfig
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = BertConfig()
+    t0 = time.perf_counter()
+    weights = bert_weights(cfg)
+    *batches, probe = mlm_batches(cfg, BERT_STEPS + 1)
+    line = {"config": {**vars(cfg), "batch": BERT_BATCH, "seq": BERT_SEQ,
+                       "lr": BERT_LR, "steps": BERT_STEPS},
+            "parameters": sum(int(w.numel()) for w in weights.values())}
+    per_step = cfg.num_layers
+
+    # (a) dropout 0.1: the attention's dropout takes the einsum
+    model, opt = bert_model(cfg, weights, cfg.dropout)
+    fa.reset_launch_counts()
+    losses, times = bert_steps(model, opt, batches)
+    launches = flash_counts()
+    log(f"[bert-a] dropout {cfg.dropout}: losses {losses}, step s {times}, "
+        f"flash launches {launches}")
+    check(all(math.isfinite(x) for x in losses), f"[bert-a] {losses}")
+    check(not launches, f"[bert-a] dropout launched {launches}")
+    line["a_dropout"] = {"losses": losses, "step_s": times,
+                         "launches": launches}
+    del model, opt
+
+    # (b) dropout 0: the non-causal flash kernels, then the einsum
+    model, opt = bert_model(cfg, weights, 0.0)
+    before = bert_probe(model, probe)
+    fa._IMPL_MEMO.clear()     # so that auto's first attention probes
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses, times = bert_steps(model, opt, batches)
+    launches = flash_counts()
+    by_instance = dict(fa.INSTANCE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    after = bert_probe(model, probe)
+    resolved = fa.resolve_dot_impl(torch.device("cuda", 0))
+    log(f"[bert-b] dropout 0, auto -> {resolved}: losses {losses}, step s "
+        f"{times}, launches {launches}, by instance {by_instance}; probe "
+        f"loss {before} -> {after}")
+    check(resolved == "bf16", f"[bert-b] auto resolved to {resolved}")
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        want = per_step * BERT_STEPS
+        check(launches.get(name, 0) == want,
+              f"[bert-b] {name} launched {launches.get(name, 0)} times in "
+              f"{BERT_STEPS} steps, expected {want}")
+        mine = {i: n for i, n in by_instance.items()
+                if i.split("_")[1] == name.split("_")[1]}
+        check(mine == {checked[name]: want},
+              f"[bert-b] {name}'s launches by instance {mine}, expected "
+              f"{want} of {checked[name]}")
+    others = {n: c for n, c in launches.items()
+              if n not in ("flash_fwd", "flash_dq", "flash_dkv",
+                           "flash_probe")}
+    check(not others and launches.get("flash_probe", 0) <= 1,
+          f"[bert-b] other launches {launches}")
+    check(after < before, f"[bert-b] probe loss did not fall: {before} -> "
+                          f"{after}")
+    step_s = statistics.median(times[1:])
+    prof = profile_step(lambda i, y: bert_steps(model, opt, [(i, y)]),
+                        *batches[0], step_s, cfg.vocab_size, top=8)
+    line["b_flash"] = {
+        "losses": losses, "step_s": times, "launches": launches,
+        "launches_per_step": {n: c / BERT_STEPS for n, c in launches.items()
+                              if n != "flash_probe"},
+        "instances": by_instance, "probe_loss": [before, after],
+        "tokens_per_s": BERT_BATCH * BERT_SEQ / step_s,
+        "peak_gib": gib(peak), "profiled_step": prof}
+
+    # (d) a padded batch under attention_mask: the einsum, no launch
+    lengths = torch.randint(BERT_SEQ // 2, BERT_SEQ + 1, (BERT_BATCH,),
+                            generator=torch.Generator().manual_seed(SEED))
+    keep = (torch.arange(BERT_SEQ)[None] < lengths[:, None]).cuda()
+    ids, labels = batches[0]
+    ids, labels = ids * keep, torch.where(keep, labels, -100)
+    fa.reset_launch_counts()
+    with amp.auto_cast(dtype="bfloat16"):
+        logits = model(ids, attention_mask=keep.long())
+        loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                               labels.reshape(-1))
+    loss.backward()
+    opt.clear_grad()
+    launches = flash_counts()
+    loss = float(loss.detach())
+    del logits
+    log(f"[bert-d] padded batch (lengths {int(lengths.min())}-"
+        f"{int(lengths.max())}) under attention_mask: loss {loss}, "
+        f"launches {launches}")
+    check(math.isfinite(loss) and not launches,
+          f"[bert-d] loss {loss}, launches {launches}")
+    line["d_mask"] = {"loss": loss, "launches": launches,
+                      "lengths": [int(lengths.min()), int(lengths.max())]}
+
+    # (c) eval forwards: the trained bf16 model, then an f32 copy of the
+    # initial weights (the f32-storage kernel)
+    line["c_eval"] = {"bf16": bert_eval(model, probe[0], per_step, "bf16")}
+    del model, opt
+    model, _ = bert_model(cfg, weights, 0.0, o2=False)
+    line["c_eval"]["f32"] = bert_eval(model, probe[0], per_step, "f32")
+    del model
+
+    # (b) again with the flash path off: the einsum on the card
+    model, opt = bert_model(cfg, weights, 0.0)
+    set_flags({"use_flash_attention": False})
+    try:
+        fa.reset_launch_counts()
+        einsum_losses, einsum_times = bert_steps(model, opt, batches)
+        launches = flash_counts()
+    finally:
+        set_flags({"use_flash_attention": True})
+    diff = max(abs(a - b) / abs(b) for a, b in zip(losses, einsum_losses))
+    log(f"[bert-b] flash off (einsum): losses {einsum_losses}, step s "
+        f"{einsum_times}; largest relative difference from the flash run's "
+        f"{diff:.3e} (limit {BERT_FLASH_LOSS_RTOL})")
+    check(not launches, f"[bert-b] flash off launched {launches}")
+    check(diff <= BERT_FLASH_LOSS_RTOL,
+          f"[bert-b] losses {losses} vs einsum {einsum_losses}")
+    line["b_flash"].update(
+        einsum_losses=einsum_losses, einsum_step_s=einsum_times,
+        loss_rel_diff=diff, loss_rtol=BERT_FLASH_LOSS_RTOL,
+        einsum_tokens_per_s=BERT_BATCH * BERT_SEQ
+        / statistics.median(einsum_times[1:]))
+    del model, opt
+    line["seconds"] = round(time.perf_counter() - t0, 1)
+    return line
+
+
+def resnet_phase():
+    """ResNet-50 (small_input, 10 classes, f32) on the card: RESNET_STEPS
+    dygraph Momentum steps on one fixed CIFAR-shaped batch (the loss must
+    fall, every batch-norm buffer must move), then an eval forward
+    against a CPU copy of the same state."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.jit import EvalStep
+    from paddle_tpu_torch.models import resnet50
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    model = resnet50(num_classes=10, small_input=True, device="cuda",
+                     generator=g)
+    model.train()
+    rng = np.random.default_rng(SEED)
+    x = torch.as_tensor(rng.standard_normal((RESNET_BATCH, 3, 32, 32),
+                                            dtype=np.float32), device="cuda")
+    y = torch.as_tensor(rng.integers(0, 10, RESNET_BATCH), device="cuda")
+    initial = {n: b.clone() for n, b in model.named_buffers()}
+    opt = Momentum(RESNET_LR, momentum=0.9, parameters=model.parameters())
+    lossf = CrossEntropyLoss()
+
+    def step(x, y):
+        loss = lossf(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(RESNET_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(step(x, y).detach()))
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times[1:])
+    moved = sum(not torch.equal(b, initial[n])
+                for n, b in model.named_buffers())
+    log(f"[resnet50] losses {losses}, step s {times}, "
+        f"{RESNET_BATCH / step_s:.0f} images/s, peak "
+        f"{peak / 2**30:.2f} GiB; {moved} of {len(initial)} batch-norm "
+        f"buffers moved")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"[resnet50] loss did not fall: {losses}")
+    check(moved == len(initial) and len(initial) == 2 * 53,
+          f"[resnet50] {moved} of {len(initial)} buffers moved")
+    prof = profile_step(step, x, y, step_s, None, top=8)
+
+    # eval on the running statistics, against a CPU copy of the state
+    xe = x[:RESNET_EVAL_ROWS]
+    got = EvalStep(model)(xe).float().cpu()
+    cpu = resnet50(num_classes=10, small_input=True, device="cpu")
+    cpu.load_state_dict({n: t.cpu() for n, t in model.state_dict().items()})
+    want = EvalStep(cpu)(xe.cpu())
+    rms = want.pow(2).mean().sqrt()
+    err = float((got - want).abs().max() / rms)
+    log(f"[resnet50] eval logits vs the CPU copy's: {err:.3e} of their RMS "
+        f"(limit {RESNET_EVAL_TOL})")
+    check(bool(torch.isfinite(got).all()) and err <= RESNET_EVAL_TOL,
+          f"[resnet50] eval logits part from the CPU copy's by {err:.3e}")
+    del model, opt, cpu
+    return {"config": {"model": "resnet50", "small_input": True,
+                       "num_classes": 10, "batch": RESNET_BATCH,
+                       "lr": RESNET_LR, "momentum": 0.9,
+                       "steps": RESNET_STEPS, "dtype": "float32"},
+            "losses": losses, "step_s": times,
+            "images_per_s": RESNET_BATCH / step_s, "peak_gib": gib(peak),
+            "buffers_moved": moved, "buffers": len(initial),
+            "eval_err_vs_cpu": err, "eval_tol": RESNET_EVAL_TOL,
+            "profiled_step": prof,
+            "seconds": round(time.perf_counter() - t0, 1)}
+
+
+def models_phase():
+    """The kernels at BERT-base's attention shape (B = 32, L = 512, 12
+    heads, D = 64, bf16, non-causal: timed, their rows named
+    `name@noncausal`), then the BERT and ResNet-50 runs. Returns (the
+    `models` line, the kernel rows with BERT run (b)'s launches)."""
+    cfg_heads = 12
+    rows = kernel_phase(BERT_BATCH, BERT_SEQ, cfg_heads, 64, "bfloat16",
+                        False, timed=True,
+                        time_names=("flash_fwd", "flash_dq", "flash_dkv"))
+    checked = {r["name"]: r["instance"] for r in rows}
+    line = {"bert": bert_phase(checked), "resnet50": resnet_phase()}
+    launches = line["bert"]["b_flash"]["launches"]
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+        r["launches_per_step"] = launches[r["name"]] / BERT_STEPS
+        r["name"] += "@noncausal"
+    return line, rows
+
+
+def models_only():
+    """The kernels' build and the models phase alone: prints the card,
+    the non-causal kernel rows and the `models` line, not the
+    {"ok": ...} line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    card = card_line()
+    log(f"card: {card}")
+    build_kernels()
+    line, rows = models_phase()
+    print(card)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"models": line}), flush=True)
+    return 0
+
+
 def profile_step(step, ids, labels, step_s, vocab, top):
     """One more train step under torch.profiler: the device time of each
     kernel, summed by name; that of the LM-head CE's GEMMs (the aten::mm
@@ -3796,9 +4262,9 @@ def profile_step(step, ids, labels, step_s, vocab, top):
     busy_us = sum(k[0] for k in kernels)
     if not busy_us:
         log("profiled step: the profiler recorded no device time")
-        return
+        return None
     ce = [e for e in prof.key_averages(group_by_input_shape=True)
-          if e.key == "aten::mm"
+          if vocab is not None and e.key == "aten::mm"
           and any(vocab in shape for shape in e.input_shapes if shape)]
     ce_us = sum(e.device_time_total for e in ce)
     log(f"profiled step: device busy {busy_us / 1e3:.1f} ms; idle share of "
@@ -3809,6 +4275,10 @@ def profile_step(step, ids, labels, step_s, vocab, top):
     for us, n, name in kernels[:top]:
         log(f"  {us / 1e3:8.2f} ms {100 * us / busy_us:5.1f}% x{n:<5d} "
             f"{name[:90]}")
+    return {"busy_ms": round(busy_us / 1e3, 3),
+            "idle_share": round(1 - busy_us / (step_s * 1e6), 4),
+            "top": [{"name": name[:90], "ms": round(us / 1e3, 3),
+                     "count": n} for us, n, name in kernels[:top]]}
 
 
 def mma_instance(mangled):
@@ -4049,12 +4519,17 @@ def main():
         fabric["predict"]["two_hosts"]["launches"]["flash_fwd"]
     r["fabric_launches_per_batch"] = \
         fabric["predict"]["two_hosts"]["launches_per_batch"]
+    # BASELINE.md's single-chip rows: BERT-base MLM under bf16 O2 (the
+    # non-causal flash kernels inside a model) and ResNet-50 on
+    # CIFAR-shaped data
+    models, noncausal_rows = models_phase()
     log(json.dumps({"kernels": rows + f32_rows + rows256 + f32_rows256
-                    + [probe_row]}))
+                    + noncausal_rows + [probe_row]}))
     log(json.dumps({"serving": serving}))
     log(json.dumps({"trainer": trainer}))
     log(json.dumps({"predict": predict}))
     log(json.dumps({"fabric": fabric}))
+    log(json.dumps({"models": models}))
     log(f"chip_smoke took {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4240,6 +4715,8 @@ if __name__ == "__main__":
             sys.exit(predict_only())
         if sys.argv[1:2] == ["--fabric"]:
             sys.exit(fabric_only())
+        if sys.argv[1:2] == ["--models"]:
+            sys.exit(models_only())
         sys.exit(main())
     except (SmokeFailure, ImportError) as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

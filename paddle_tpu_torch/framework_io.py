@@ -14,14 +14,21 @@ can run code. It returns every saved tensor as a CPU torch tensor.
 
 `params_from_paddle_tpu` takes the JAX package's parameters (numpy
 arrays or torch tensors), by the names its `named_parameters()` gives,
-and returns a state_dict for `paddle_tpu_torch.models.GPTForCausalLM`. It
-accepts both the unrolled `GPTForCausalLM` names and the stacked
-`GPTForCausalLMScan` names (`qkv_w [L, D, 3D]`, ...), which it unstacks.
-Paddle stores a Linear weight as [in, out] and torch as [out, in], so
-every Linear weight is transposed; `params_to_paddle_tpu` is the way
-back (unrolled names), and `transpose_optimizer_state` transposes an
-optimizer state_dict's per-parameter entries (`p{i}.moment1`, ...) alike,
-either way, so that a checkpoint of either package loads in the other.
+and returns a state_dict for the port's model of the same names: the
+GPT (`GPTForCausalLM`), BERT (`BertForMaskedLM`) or a ResNet. Of the GPT
+it accepts both the unrolled `GPTForCausalLM` names and the stacked
+`GPTForCausalLMScan` names (`qkv_w [L, D, 3D]`, ...), which it unstacks;
+of a ResNet also the batch-norm buffers `_mean` and `_variance` of its
+`state_dict()`. Paddle stores a Linear weight as [in, out] and torch as
+[out, in], so every Linear weight is transposed (the GPT's qkv, out, fc1
+and fc2 projections and untied head; BERT's q, k, v and out projections,
+linear1, linear2, pooler and transform; ResNet's fc); embeddings, conv
+weights (one layout in both), norms and buffers pass as they are.
+`params_to_paddle_tpu` is the way back (unrolled names), and
+`transpose_optimizer_state` transposes an optimizer state_dict's
+per-parameter entries (`p{i}.moment1`, ...) alike, either way, so that a
+checkpoint of either package loads in the other. A name of none of these
+models raises KeyError.
 """
 from __future__ import annotations
 
@@ -32,7 +39,10 @@ import re
 import numpy as np
 import torch
 
-_LINEARS = ("qkv_proj", "out_proj", "fc1", "fc2")
+# the Linear layers whose weights are transposed: the GPT's, BERT's and
+# ResNet's
+_LINEARS = ("qkv_proj", "out_proj", "fc1", "fc2", "q_proj", "k_proj",
+            "v_proj", "linear1", "linear2", "pooler", "transform", "fc")
 
 # stacked scan-model name -> per-block unrolled name
 _SCAN_BLOCK = {
@@ -50,6 +60,22 @@ _UNROLLED = re.compile(
     r"^(gpt\.(wte|wpe)\.weight|gpt\.ln_f\.(weight|bias)|lm_head\.weight|"
     r"gpt\.blocks\.\d+\.(ln1|ln2|attn\.qkv_proj|attn\.out_proj|mlp\.fc1|"
     r"mlp\.fc2)\.(weight|bias))$")
+_BERT = re.compile(
+    r"^(decoder_bias|(transform|layer_norm)\.(weight|bias)|"
+    r"bert\.embeddings\.(word|position|token_type)_embeddings\.weight|"
+    r"bert\.(embeddings\.layer_norm|pooler)\.(weight|bias)|"
+    r"bert\.encoder\.layers\.\d+\.(self_attn\.(q|k|v|out)_proj|linear1|"
+    r"linear2|norm1|norm2)\.(weight|bias))$")
+_BN = r"\.(weight|bias|_mean|_variance)"
+_RESNET = re.compile(
+    r"^(conv1\.weight|bn1" + _BN + r"|fc\.(weight|bias)|layer[1-4]\.\d+\."
+    r"(conv[1-3]\.weight|bn[1-3]" + _BN + r"|downsample\.0\.weight|"
+    r"downsample\.1" + _BN + r"))$")
+
+
+def _known(name: str) -> bool:
+    """A name of the port's GPT (unrolled), BERT or ResNet."""
+    return any(p.match(name) for p in (_UNROLLED, _BERT, _RESNET))
 
 
 def _is_linear_weight(name: str) -> bool:
@@ -70,7 +96,7 @@ def _unroll(named: dict) -> dict:
                 out[f"gpt.blocks.{i}.{_SCAN_BLOCK[name]}"] = arr[i]
         elif name in _SCAN_TOP:
             out[_SCAN_TOP[name]] = arr
-        elif _UNROLLED.match(name):
+        elif _known(name):
             out[name] = arr
         else:
             raise KeyError(f"params_from_paddle_tpu: unknown parameter "
@@ -91,7 +117,8 @@ def _to_torch(arr) -> torch.Tensor:
 
 def params_from_paddle_tpu(named: dict) -> dict:
     """{reference name: numpy array or tensor} -> state_dict of the port's
-    GPT (CPU tensors of the arrays' dtypes; Linear weights transposed)."""
+    model (CPU tensors of the arrays' dtypes; Linear weights
+    transposed)."""
     sd = {}
     for name, arr in _unroll(named).items():
         if _is_linear_weight(name):
@@ -101,11 +128,11 @@ def params_from_paddle_tpu(named: dict) -> dict:
 
 
 def params_to_paddle_tpu(state_dict: dict) -> dict:
-    """The port GPT's state_dict -> {reference (unrolled) name: CPU
+    """The port model's state_dict -> {reference (unrolled) name: CPU
     tensor in the reference's layout}: Linear weights transposed back."""
     out = {}
     for name, t in state_dict.items():
-        if not _UNROLLED.match(name):
+        if not _known(name):
             raise KeyError(f"params_to_paddle_tpu: unknown parameter "
                            f"{name!r}")
         t = t.detach().cpu()

@@ -20,7 +20,11 @@ reference's semantics:
   dropped whole (`bad_micro_count`), and a window of only such
   micro-batches skips its update (`bad_step_count`);
 - the chaos site `step` (testing/chaos.py): `step:nan:K` multiplies the
-  first floating batch element of the K-th call by NaN.
+  first floating batch element of the K-th call by NaN;
+- the model's buffers (batch norm's running statistics) advance in the
+  forward of every call, every micro-batch's under accumulation, as the
+  reference's step carries them; under skip_bad_steps a step or
+  micro-batch that is dropped puts them back as they were.
 Meshes, ZeRO and LocalSGD are ROADMAP queue 5.
 """
 from __future__ import annotations
@@ -83,6 +87,7 @@ class TrainStep:
         self._host_step = 0
         self._params = {n: p for n, p in model.named_parameters()
                         if p.requires_grad}
+        self._buffers = [b for b in model.buffers() if b is not None]
         optimizer.set_param_names({p: n for n, p in
                                    model.named_parameters()})
 
@@ -96,6 +101,19 @@ class TrainStep:
                 batch[i] = v * torch.tensor(float("nan"), dtype=v.dtype)
                 break
         return batch
+
+    def _keep_buffers(self):
+        """Copies of the buffers, for `_restore_buffers` after a dropped
+        step; None when nothing can be dropped."""
+        if not (self.skip_bad_steps and self._buffers):
+            return None
+        return [b.clone() for b in self._buffers]
+
+    def _restore_buffers(self, kept):
+        if kept is not None:
+            with torch.no_grad():
+                for b, k in zip(self._buffers, kept):
+                    b.copy_(k)
 
     def _grads(self, key, batch):
         """Forward under the step key, backward; returns (loss, {name:
@@ -126,6 +144,7 @@ class TrainStep:
 
         self._host_step += 1
         lr = self.optimizer.get_lr()
+        kept = self._keep_buffers()
         loss, grads = self._grads(key, batch)
         if check_nan or self.skip_bad_steps:
             finite = bool(_all_finite(loss, grads.values()))
@@ -137,6 +156,7 @@ class TrainStep:
             self.last_step_finite = False
             if self.skip_bad_steps:
                 self.bad_step_count += 1
+                self._restore_buffers(kept)
             else:
                 raise FloatingPointError(
                     f"FLAGS_check_nan_inf: nan/inf in loss or gradients at "
@@ -151,6 +171,7 @@ class TrainStep:
         self.optimizer._global_step = self._host_step
 
     def _micro_step(self, key, batch, check_nan):
+        kept = self._keep_buffers()
         loss, grads = self._grads(key, batch)
         if self._grad_acc is None:
             self._grad_acc = {n: torch.zeros_like(p, dtype=torch.float32)
@@ -160,6 +181,7 @@ class TrainStep:
         if self.skip_bad_steps and not bool(_all_finite(loss,
                                                         grads.values())):
             self._window_bad += 1
+            self._restore_buffers(kept)
         else:
             for n, g in grads.items():
                 self._grad_acc[n].add_(g.float())

@@ -1,15 +1,22 @@
 """Functional ops of the ported path (counterpart of
 paddle_tpu/nn/functional.py): attention with the reference's routing
 (flash, the chunked query scan, the einsum, and the einsum with dropout
-on the probabilities), dropout, GELU, linear and layer norm.
+on the probabilities), dropout, the activations GELU, ReLU and tanh,
+linear, embedding, layer norm, and what BERT and ResNet run besides:
+conv2d, max, average and adaptive average pooling, batch norm and
+cross-entropy.
 
 Dropout masks are the reference's bitwise: each call draws one key from
 the default generator (core/rng.py; the train step rebases it on the
 step's key) and keeps an element where a float64 uniform of that key is
 below 1 - p, as `jax.random.bernoulli` under x64. Masks are drawn in
-plain PyTorch, as the reference draws them in XLA. `linear` and
-`layer_norm` cast their inputs under `amp.auto_cast` (O1) as the
-reference's ops of those names do.
+plain PyTorch, as the reference draws them in XLA. `linear`, `conv2d`,
+`layer_norm` and `cross_entropy` cast their inputs under `amp.auto_cast`
+(O1) as the reference's ops of those names do. Convolutions, pooling and
+batch norm are plain PyTorch, as the reference leaves them to XLA; each
+takes the reference's padding and statistics where torch's own differ
+(SAME at any stride, asymmetric and ceil-mode pads, adaptive windows that
+end at the floor, batch norm's momentum and biased running variance).
 """
 from __future__ import annotations
 
@@ -33,6 +40,14 @@ CHUNKED_CALLS = {"chunks": 0}
 def gelu(x, approximate: bool = False):
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
+
+
+def relu(x):
+    return torch.relu(x)
+
+
+def tanh(x):
+    return torch.tanh(x)
 
 
 def linear(x, weight, bias=None):
@@ -158,7 +173,9 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
 def _attention_probs(q, k, v, mask, is_causal, scale):
     """Einsum attention core ([B, L, H, D] in): softmax probabilities and
     head-major V. The causal mask is bottom-right aligned (tril with
-    k = kl - ql) and masked logits are -inf, as in the reference."""
+    k = kl - ql) and masked logits are -inf, as in the reference. An
+    additive mask of a wider dtype (BERT's f32 mask on bf16 scores)
+    promotes the scores, and then V, as JAX promotes them."""
     d = q.shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(d)
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
@@ -173,7 +190,9 @@ def _attention_probs(q, k, v, mask, is_causal, scale):
             logits = logits.masked_fill(~mask, float("-inf"))
         else:
             logits = logits + mask
-    return torch.softmax(logits, dim=-1), vh
+    probs = torch.softmax(logits, dim=-1)
+    dt = torch.promote_types(probs.dtype, vh.dtype)
+    return probs.to(dt), vh.to(dt)
 
 
 def _chunk_out(qc, kh, vh, causal, s, start):
@@ -266,3 +285,237 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     probs, vh = _attention_probs(q, k, v, attn_mask, is_causal, scale)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vh)
     return out.transpose(1, 2)
+
+
+# ------------------------------------------------------------ embedding --
+def embedding(x, weight, padding_idx=None):
+    """weight's rows at the ids x; with `padding_idx`, the output at those
+    ids is zero (the reference multiplies by the mask, so the row's
+    gradient from them is zero too), where torch's embedding returns the
+    row."""
+    out = torch.nn.functional.embedding(x, weight)
+    if padding_idx is not None:
+        out = out * (x != padding_idx)[..., None].to(out.dtype)
+    return out
+
+
+# ---------------------------------------------------------- convolution --
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v),) * n
+
+
+def _conv_padding(padding, nd):
+    """The reference's padding forms: an int, a list of ints (one a
+    dimension), a list of 2*nd ints or of (lo, hi) pairs, or the strings
+    SAME and VALID; as [(lo, hi)] * nd or the upper-cased string."""
+    if isinstance(padding, str):
+        return padding.upper()
+    if isinstance(padding, int):
+        return [(padding, padding)] * nd
+    padding = list(padding)
+    if len(padding) == nd and all(isinstance(p, int) for p in padding):
+        return [(p, p) for p in padding]
+    if len(padding) == 2 * nd:
+        return [(padding[2 * i], padding[2 * i + 1]) for i in range(nd)]
+    return [tuple(p) for p in padding]
+
+
+def _same_pads(spatial, kernel, stride, dilation):
+    """XLA's SAME: an output of ceil(in / stride), the padding it needs
+    around the dilated kernel split with the odd one at the end."""
+    pads = []
+    for s, k, st, d in zip(spatial, kernel, stride, dilation):
+        out = -(-s // st)
+        total = max((out - 1) * st + (k - 1) * d + 1 - s, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _pad_spatial(x, pads, value=0.0):
+    """x [N, C, *spatial] padded by [(lo, hi)] per spatial dim."""
+    flat = [p for lo_hi in reversed(pads) for p in lo_hi]
+    if not any(flat):
+        return x
+    return torch.nn.functional.pad(x, flat, value=value)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    """The reference's `conv2d` (lax.conv_general_dilated): weight
+    [out, in / groups, kh, kw], every padding form of `_conv_padding`
+    (SAME as XLA pads it, at any stride; uneven pairs padded explicitly,
+    which torch's own padding argument cannot take). Under auto_cast its
+    f32 inputs run in the AMP dtype (white-listed)."""
+    x, weight, bias = cast_inputs("conv2d", x, weight, bias)
+    stride, dilation = _pair(stride), _pair(dilation)
+    if data_format == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    pads = _conv_padding(padding, 2)
+    if pads == "VALID":
+        pads = [(0, 0), (0, 0)]
+    elif pads == "SAME":
+        pads = _same_pads(x.shape[2:], weight.shape[2:], stride, dilation)
+    if all(lo == hi for lo, hi in pads):
+        out = torch.nn.functional.conv2d(x, weight, bias, stride,
+                                         tuple(lo for lo, _ in pads),
+                                         dilation, int(groups))
+    else:
+        out = torch.nn.functional.conv2d(_pad_spatial(x, pads), weight, bias,
+                                         stride, 0, dilation, int(groups))
+    return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
+
+
+# -------------------------------------------------------------- pooling --
+def _pool_pads(spatial, ks, st, padding, ceil_mode):
+    """Per-dim (lo, hi) pads (the reference's `_pool_pads`): ceil_mode
+    adds the trailing padding that grows the output to
+    ceil((s + 2p - k) / st) + 1, less one where the last window would
+    start past the input and its left pad."""
+    pads = []
+    for s_in, k, stp, p in zip(spatial, ks, st, padding):
+        hi = p
+        if ceil_mode:
+            out = -(-(s_in + 2 * p - k) // stp) + 1
+            if (out - 1) * stp >= s_in + p:
+                out -= 1
+            need = (out - 1) * stp + k - (s_in + 2 * p)
+            if need > 0:
+                hi = p + need
+        pads.append((p, hi))
+    return pads
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False):
+    """The reference's max pooling (reduce_window over -inf pads): the
+    pads of `_pool_pads` explicitly, then windows that fit."""
+    ks = _pair(kernel_size)
+    st = _pair(stride) if stride is not None else ks
+    pads = _pool_pads(x.shape[2:], ks, st, _pair(padding), bool(ceil_mode))
+    init = (float("-inf") if x.is_floating_point()
+            else torch.iinfo(x.dtype).min)
+    return torch.nn.functional.max_pool2d(_pad_spatial(x, pads, init), ks,
+                                          st)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None):
+    """The reference's average pooling: window sums over zero pads,
+    divided by `divisor_override`, else (exclusive, with any pad) by each
+    window's count of input elements, else by the window's size."""
+    ks = _pair(kernel_size)
+    st = _pair(stride) if stride is not None else ks
+    pads = _pool_pads(x.shape[2:], ks, st, _pair(padding), bool(ceil_mode))
+
+    def sums(t):
+        return torch.nn.functional.avg_pool2d(_pad_spatial(t, pads), ks, st,
+                                              divisor_override=1)
+
+    summed = sums(x)
+    if divisor_override is not None:
+        return summed / divisor_override
+    if exclusive and any(lo or hi for lo, hi in pads):
+        return summed / sums(torch.ones_like(x[:1, :1]))
+    return summed / (ks[0] * ks[1])
+
+
+def adaptive_avg_pool2d(x, output_size):
+    """The reference's adaptive average pooling: output cell i averages
+    rows floor(i h / oh) to floor((i + 1) h / oh) (torch's windows end at
+    the ceiling, so the two differ where oh does not divide h); a reshape
+    and mean where it does."""
+    n, c, h, w = x.shape
+    oh, ow = _pair(output_size)
+    if h % oh == 0 and w % ow == 0:
+        return x.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
+    hs = [(i * h) // oh for i in range(oh + 1)]
+    ws = [(j * w) // ow for j in range(ow + 1)]
+    rows = [torch.stack([x[:, :, hs[i]:hs[i + 1] or h,
+                           ws[j]:ws[j + 1] or w].mean(dim=(2, 3))
+                         for j in range(ow)], dim=-1) for i in range(oh)]
+    return torch.stack(rows, dim=-2)
+
+
+# ---------------------------------------------------------- batch norm --
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None):
+    """The reference's batch norm. In training: the batch's mean and
+    biased variance (over every dim but the channel's) normalise x, and
+    the running buffers become momentum * running + (1 - momentum) *
+    batch, the biased variance included (torch's own batch norm weighs
+    the other way round and keeps the unbiased variance, so it is not
+    let near the buffers); they are written in place, outside autograd.
+    Otherwise (or with `use_global_stats`) the running statistics
+    normalise x."""
+    if use_global_stats:
+        training = False
+    ch = 1 if data_format.startswith("NC") else x.dim() - 1
+    shape = [1] * x.dim()
+    shape[ch] = -1
+    if training:
+        axes = tuple(i for i in range(x.dim()) if i != ch)
+        var, mean = torch.var_mean(x, dim=axes, correction=0)
+        with torch.no_grad():
+            running_mean.copy_(momentum * running_mean
+                               + (1 - momentum) * mean)
+            running_var.copy_(momentum * running_var + (1 - momentum) * var)
+    else:
+        mean, var = running_mean, running_var
+    out = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                  + epsilon)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+# -------------------------------------------------------- cross-entropy --
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0):
+    """The reference's `cross_entropy`: log-softmax over `axis` (or the
+    log of `input` floored at 1e-30 without `use_softmax`); hard labels
+    (squeezed along `axis` when they keep it) with `ignore_index`, class
+    `weight`, `label_smoothing` (a smoothed one-hot target), or
+    `soft_label` targets. reduction "mean" divides by the count of kept
+    labels, or with `weight` by the sum of their weights; "sum"; or "none".
+    Under auto_cast its AMP-dtype inputs run in f32 (black-listed)."""
+    input, label, weight = cast_inputs("cross_entropy", input, label,
+                                       weight)
+    axis = axis % input.dim()
+    logp = (torch.log_softmax(input, dim=axis) if use_softmax
+            else torch.log(input.clamp(min=1e-30)))
+    n_classes = input.shape[axis]
+    if soft_label:
+        tgt = label
+        if label_smoothing > 0:
+            tgt = tgt * (1 - label_smoothing) + label_smoothing / n_classes
+        loss = -(tgt * logp).sum(dim=axis)
+        valid = torch.ones(loss.shape, dtype=torch.bool, device=loss.device)
+    else:
+        lab = label.squeeze(axis) if label.dim() == input.dim() else label
+        lab = lab.long()
+        valid = lab != ignore_index
+        safe = torch.where(valid, lab, 0)
+        if label_smoothing > 0:
+            onehot = torch.nn.functional.one_hot(safe, n_classes).movedim(
+                -1, axis).to(logp.dtype)
+            tgt = onehot * (1 - label_smoothing) + label_smoothing / n_classes
+            loss = -(tgt * logp).sum(dim=axis)
+        else:
+            loss = -logp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
+        if weight is not None:
+            loss = loss * weight[safe]
+        loss = torch.where(valid, loss, scalar_like(loss, 0.0))
+    if reduction == "mean":
+        if weight is not None and not soft_label:
+            wsum = torch.where(valid, weight[safe],
+                               scalar_like(weight, 0.0)).sum()
+            return loss.sum() / wsum.clamp(min=1e-12)
+        return loss.sum() / valid.to(loss.dtype).sum().clamp(min=1.0)
+    if reduction == "sum":
+        return loss.sum()
+    return loss
