@@ -383,6 +383,23 @@ BERT_MASK_ID, BERT_EVAL_ROWS = 103, 8
 BERT_FLASH_LOSS_RTOL, BERT_EVAL_TOL = 2e-3, 5e-2
 RESNET_BATCH, RESNET_STEPS, RESNET_LR = 128, 5, 0.001
 RESNET_EVAL_ROWS, RESNET_EVAL_TOL = 16, 1e-3
+# The fit phase (--fit), both models at full width through the training
+# API: ResNet-50 (small_input, 10 classes, f32) by Model.fit over the
+# DataLoader that fit builds from FakeData(FIT_IMAGES) under random crop
+# and flip, FIT_EPOCHS epochs at batch FIT_BATCH with FIT_WORKERS
+# workers, forked and then threaded (Momentum RESNET_LR: PR 19 found 0.01
+# made the loss rise); BERT-base MLM (bf16 O2, AdamW BERT_LR, batch 32 x
+# 512, dropout 0: the non-causal flash kernels) by Model.fit over an
+# io.Pipeline (the 15% corruption in map, FIT_WORKERS decode threads, a
+# device prefetch FIT_PREFETCH deep) for FIT_BERT_ITERS steps, then
+# FIT_PROFILED_ITERS more under a ProfilerCallback whose scheduler
+# (closed 1, ready 1, record 4) records 4. The profiler's products (mm,
+# addmm, bmm) of a recorded step within FIT_FLOPS_RTOL of the count
+# worked out from the config (their bias adds are 1/(2K) of a product,
+# 0.07% at K = 768).
+FIT_IMAGES, FIT_BATCH, FIT_EPOCHS, FIT_WORKERS = 2560, 128, 2, 4
+FIT_BERT_ROWS, FIT_BERT_ITERS, FIT_PROFILED_ITERS = 576, 12, 6
+FIT_PREFETCH, FIT_RECORDED, FIT_FLOPS_RTOL = 2, 4, 0.01
 SEED = 0
 
 REF = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -4241,6 +4258,525 @@ def models_only():
     return 0
 
 
+# ----------------------------------------------------------- fit phase --
+def fit_clock():
+    """A fit callback: the host seconds of each step, from the previous
+    step's end (the first: from train begin) to its own, and the part of
+    them spent before the step began (the wait for its batch); each
+    step's flash launches."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    class Clock(Callback):
+        def on_train_begin(self, logs=None):
+            self.steps, self.waits, self.launches = [], [], []
+            self._end = time.perf_counter()
+            self._mark = dict(fa.LAUNCHES)
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._begin = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            now = time.perf_counter()
+            self.steps.append(now - self._end)
+            self.waits.append(self._begin - self._end)
+            self._end = now
+            cur = dict(fa.LAUNCHES)
+            self.launches.append({n: c - self._mark.get(n, 0)
+                                  for n, c in cur.items()
+                                  if c != self._mark.get(n, 0)})
+            self._mark = cur
+
+        def rates(self, items):
+            """Items/s, batches/s and the share of the time spent waiting
+            for batches, over the steps after the first (warm-up)."""
+            total = sum(self.steps[1:])
+            return {"items_per_s": items * (len(self.steps) - 1) / total,
+                    "batches_per_s": (len(self.steps) - 1) / total,
+                    "starvation_fraction": sum(self.waits[1:]) / total,
+                    "first_step_s": self.steps[0],
+                    "median_step_s": statistics.median(self.steps[1:])}
+
+    return Clock()
+
+
+def image_transforms(train):
+    from paddle_tpu_torch.vision import transforms as T
+
+    head = [T.RandomCrop(32, padding=4), T.RandomHorizontalFlip()] \
+        if train else []
+    return T.Compose(head + [T.ToTensor(),
+                             T.Normalize([0.5] * 3, [0.5] * 3)])
+
+
+def loaders_agree(data):
+    """One shuffled epoch of a forked and a threaded DataLoader over
+    `data` (deterministic transforms), numpy's stream seeded alike: the
+    same batches in the same order, bitwise; and each loader's own rate
+    with no model behind it."""
+    import numpy as np
+
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.io import DataLoader
+
+    out, batches = {}, {}
+    for kind in ("forked", "threaded"):
+        set_flags({"dataloader_fork_workers": kind == "forked"})
+        np.random.seed(SEED)
+        loader = DataLoader(data, batch_size=FIT_BATCH, shuffle=True,
+                            num_workers=FIT_WORKERS)
+        t = time.perf_counter()
+        batches[kind] = list(loader)
+        out[kind + "_batches_per_s"] = len(batches[kind]) / (
+            time.perf_counter() - t)
+        if kind == "forked":
+            check(loader._fork_safe(), "[fit] the forked loader fell back "
+                                       "to threads")
+    set_flags({"dataloader_fork_workers": False})
+    same = len(batches["forked"]) == len(batches["threaded"]) and all(
+        all(a.dtype == b.dtype and bool((a == b).all())
+            for a, b in zip(f, t))
+        for f, t in zip(batches["forked"], batches["threaded"]))
+    check(same, "[fit] the forked and the threaded loaders delivered "
+                "different batches")
+    out["batches"] = len(batches["forked"])
+    log(f"[fit] forked and threaded loaders agree over "
+        f"{out['batches']} batches: {json.dumps(out)}")
+    return out
+
+
+def resnet_fit_run(kind, train):
+    """ResNet-50 (seeded random init on the card) through Model.fit over
+    `train` with forked or threaded workers. Returns (the Model, its
+    numbers)."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.models import resnet50
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    net = resnet50(num_classes=10, small_input=True, device="cuda",
+                   generator=g)
+    model = Model(net)
+    model.prepare(Momentum(RESNET_LR, momentum=0.9,
+                           parameters=net.parameters()),
+                  CrossEntropyLoss(), Accuracy(topk=(1, 5)))
+    set_flags({"dataloader_fork_workers": kind == "forked"})
+    random.seed(SEED)
+    np.random.seed(SEED)
+    clock = fit_clock()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        hist = model.fit(train, batch_size=FIT_BATCH, epochs=FIT_EPOCHS,
+                         shuffle=True, num_workers=FIT_WORKERS, verbose=0,
+                         callbacks=[clock])
+    finally:
+        set_flags({"dataloader_fork_workers": False})
+    seconds = time.perf_counter() - t0
+    losses = hist["loss"]
+    steps = FIT_EPOCHS * (FIT_IMAGES // FIT_BATCH)
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    out = {"loader": kind, "losses": losses, "steps": len(losses),
+           **clock.rates(FIT_BATCH), "seconds": seconds,
+           "peak_gib": gib(torch.cuda.max_memory_allocated())}
+    log(f"[fit-resnet50-{kind}] {len(losses)} steps in {seconds:.1f} s: "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 5 "
+        f"{first:.4f}, of the last 5 {last:.4f}); "
+        f"{out['items_per_s']:.0f} images/s, starvation "
+        f"{out['starvation_fraction']:.4f}, peak {out['peak_gib']:.2f} GiB")
+    check(len(losses) == steps, f"[fit-resnet50-{kind}] {len(losses)} "
+                                f"steps, expected {steps}")
+    check(all(math.isfinite(v) for v in losses) and last < first,
+          f"[fit-resnet50-{kind}] the loss did not fall: {first} -> {last}")
+    return model, out
+
+
+def resnet_fit_phase():
+    """Run (a): the loaders' agreement, the forked and the threaded fit,
+    then evaluate, predict and a save/load round trip on the forked
+    run's model."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.jit import EvalStep
+    from paddle_tpu_torch.models import resnet50
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.datasets import FakeData
+
+    train = FakeData(FIT_IMAGES, transform=image_transforms(True))
+    plain = FakeData(FIT_IMAGES, transform=image_transforms(False))
+    line = {"loaders": loaders_agree(plain)}
+    model, line["forked"] = resnet_fit_run("forked", train)
+
+    logs = model.evaluate(plain, batch_size=2 * FIT_BATCH,
+                          num_workers=FIT_WORKERS, verbose=0)
+    top1, top5 = logs["acc_top1"]
+    counts = np.bincount(plain.labels, minlength=10)
+    majority = float(counts.max() / counts.sum())
+    pred = model.predict(plain, batch_size=2 * FIT_BATCH,
+                         num_workers=FIT_WORKERS, stack_outputs=True)
+    pred_top1 = float((pred.argmax(1) == plain.labels).mean())
+    log(f"[fit-resnet50] evaluate on the training set: loss "
+        f"{logs['loss']:.4f}, top-1 {top1:.4f}, top-5 {top5:.4f} (chance "
+        f"0.1; the commonest label's share {majority:.4f}); predict "
+        f"{pred.shape}, its top-1 {pred_top1:.4f}")
+    check(top1 > 0.1, f"[fit-resnet50] top-1 {top1} is not above chance")
+    check(pred.shape == (FIT_IMAGES, 10) and bool(np.isfinite(pred).all())
+          and abs(pred_top1 - top1) <= 1.0 / FIT_IMAGES,
+          f"[fit-resnet50] predict {pred.shape} (top-1 {pred_top1} against "
+          f"evaluate's {top1})")
+    line["eval"] = {"loss": logs["loss"], "top1": top1, "top5": top5,
+                    "chance": 0.1, "majority_label_share": majority,
+                    "predict_top1": pred_top1}
+
+    # save/load: a fresh model loads the files; its eval logits are
+    # bitwise the saved model's
+    ckdir = os.path.join("build", "fit_ckpt")
+    path = os.path.join(ckdir, "resnet50")
+    try:
+        model.save(path)
+        nbytes = sum(os.path.getsize(path + ext)
+                     for ext in (".pdparams", ".pdopt"))
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        net2 = resnet50(num_classes=10, small_input=True, device="cuda",
+                        generator=g)
+        other = Model(net2)
+        other.prepare(Momentum(RESNET_LR, momentum=0.9,
+                               parameters=net2.parameters()),
+                      CrossEntropyLoss())
+        other.load(path)
+        x = torch.stack([torch.from_numpy(plain[i][0])
+                         for i in range(RESNET_EVAL_ROWS)]).cuda()
+        same = torch.equal(EvalStep(model.network)(x),
+                           EvalStep(net2)(x))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"[fit-resnet50] save/load: {nbytes} bytes, reloaded eval logits "
+        f"bitwise the saved model's: {same}")
+    check(same, "[fit-resnet50] the reloaded model's eval logits differ")
+    line["save_load"] = {"bytes": nbytes, "bitwise": same}
+    del model, other, net2
+
+    _, line["threaded"] = resnet_fit_run("threaded", train)
+    return line
+
+
+def mlm_dataset(cfg):
+    """FIT_BERT_ROWS rows of BERT_SEQ ids in [1000, vocab) drawn by a Zipf
+    law from default_rng(SEED), as mlm_batches draws them, made in bulk;
+    a sample is (its index, its ids)."""
+    import numpy as np
+
+    from paddle_tpu_torch.io import Dataset
+
+    rng = np.random.default_rng(SEED)
+    span = cfg.vocab_size - 1000
+    zipf = 1.0 / np.arange(1, span + 1)
+    zipf /= zipf.sum()
+    rows = 1000 + rng.choice(span, size=(FIT_BERT_ROWS, BERT_SEQ), p=zipf)
+
+    class Rows(Dataset):
+        def __len__(self):
+            return len(rows)
+
+        def __getitem__(self, i):
+            return i, rows[i]
+
+    return Rows()
+
+
+def mlm_corrupt(sample):
+    """The MLM corruption (Pipeline.map): 15% of the positions, at least
+    the first, from default_rng((SEED, index)), become [MASK] and are
+    labelled with their ids, -100 elsewhere."""
+    import numpy as np
+
+    i, ids = sample
+    pos = np.random.default_rng((SEED, int(i))).random(ids.shape) < 0.15
+    pos[0] = True
+    return (np.where(pos, BERT_MASK_ID, ids).astype(np.int64),
+            np.where(pos, ids, -100).astype(np.int64))
+
+
+def mlm_pipeline(data, seed, prefetch=True):
+    from paddle_tpu_torch.io import pipeline
+
+    pipe = pipeline.from_dataset(data, shuffle=True, seed=seed) \
+        .map(mlm_corrupt).batch(BERT_BATCH).workers(FIT_WORKERS)
+    return pipe.device_prefetch(FIT_PREFETCH, device="cuda") if prefetch \
+        else pipe
+
+
+def bert_fit_model(cfg, weights):
+    """BERT-base from `weights` (bf16 O2, AdamW with f32 masters) as a
+    Model whose loss layer keeps a copy of every label batch and whose
+    network keeps a copy of every input batch it is given."""
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+
+    net, opt = bert_model(cfg, weights, 0.0)
+    seen = {"ids": [], "labels": []}
+
+    class Recording(CrossEntropyLoss):
+        def forward(self, input, label):
+            seen["labels"].append(label.detach().clone())
+            return super().forward(input, label)
+
+    net.register_forward_pre_hook(
+        lambda m, args: seen["ids"].append(args[0].detach().clone()))
+    model = Model(net)
+    model.prepare(opt, Recording(ignore_index=-100),
+                  amp_configs={"level": "O2", "dtype": "bfloat16"})
+    return model, seen
+
+
+def bert_matmul_flops(cfg):
+    """Products of one BERT-base MLM training step, from the config:
+    2 * rows * in * out for each weight product of the forward (every
+    Linear over the tokens; the pooler over the first token of each row;
+    the MLM head's product with the vocab's embedding rows), and twice
+    that in the backward (dX and dW) but for the pooler, whose output
+    the loss does not read."""
+    tokens = BERT_BATCH * BERT_SEQ
+    h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    per_token = cfg.num_layers * (4 * h * h + 2 * h * f) + h * h + h * v
+    pooler = 2 * BERT_BATCH * h * h
+    fwd = 2 * tokens * per_token + pooler
+    return fwd + 2 * (fwd - pooler)
+
+
+def bert_fit_phase():
+    """Runs (b) and (c)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.hapi.callbacks import ProfilerCallback
+    from paddle_tpu_torch.models import BertConfig
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.profiler.stats import aggregator, flops
+
+    cfg = BertConfig()
+    weights = bert_weights(cfg)
+    data = mlm_dataset(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, seen = bert_fit_model(cfg, weights)
+
+    # (b) FIT_BERT_ITERS steps over the pipeline
+    pipe = mlm_pipeline(data, SEED)
+    fa._IMPL_MEMO.clear()      # so that auto probes the card again
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    clock = fit_clock()
+    t0 = time.perf_counter()
+    hist = model.fit(pipe, epochs=1, num_iters=FIT_BERT_ITERS, verbose=0,
+                     callbacks=[clock])
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = hist["loss"]
+    snap = pipe.metrics.snapshot()
+    instances = dict(fa.INSTANCE_LAUNCHES)
+    resolved = fa.resolve_dot_impl(torch.device("cuda", 0))
+    rates = clock.rates(BERT_BATCH * BERT_SEQ)
+    resident = FIT_PREFETCH * 2 * BERT_BATCH * BERT_SEQ * 8
+    log(f"[fit-bert] {len(losses)} steps in {seconds:.1f} s, auto -> "
+        f"{resolved}: losses {losses}; {rates['items_per_s']:.0f} tokens/s, "
+        f"starvation by the clock {rates['starvation_fraction']:.4f}, the "
+        f"pipeline's {snap['starvation_fraction']}; copy "
+        f"{1e3 * snap['device_put_s'] / max(snap['batches'], 1):.3f} ms a "
+        f"batch; {resident} bytes resident in the prefetch; peak "
+        f"{gib(peak):.2f} GiB; launches by step {clock.launches}; by "
+        f"instance {instances}")
+    check(resolved == "bf16", f"[fit-bert] auto resolved to {resolved}")
+    check(len(losses) == FIT_BERT_ITERS and all(
+        math.isfinite(x) for x in losses), f"[fit-bert] losses {losses}")
+    check(statistics.mean(losses[-4:]) < statistics.mean(losses[:4]),
+          f"[fit-bert] the loss did not fall: {losses}")
+    want = {"flash_fwd": cfg.num_layers, "flash_dq": cfg.num_layers,
+            "flash_dkv": cfg.num_layers}
+    for i, got in enumerate(clock.launches):
+        got = {n: c for n, c in got.items() if n != "flash_probe"}
+        check(got == want, f"[fit-bert] step {i} launched {got}, expected "
+                           f"{want}")
+    check(fa.LAUNCHES["flash_probe"] <= 1, "[fit-bert] the probe ran "
+                                           "more than once")
+    total = cfg.num_layers * FIT_BERT_ITERS
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        inst = f"{name}_mma_kernel<64, kStd, kBf16>"
+        mine = {i: n for i, n in instances.items()
+                if i.startswith(name + "_")}
+        check(mine == {inst: total}, f"[fit-bert] {name}'s launches by "
+                                     f"instance {mine}, expected {total} "
+                                     f"of {inst}")
+
+    # every batch the steps took is bitwise the host batch it came from
+    host = list(mlm_pipeline(data, SEED, prefetch=False).iter_epoch(0))
+    host = host[:FIT_BERT_ITERS]
+    same = len(seen["ids"]) == len(seen["labels"]) == len(host) and all(
+        torch.equal(i.cpu(), torch.from_numpy(h[0])) and torch.equal(
+            l.cpu(), torch.from_numpy(h[1]))
+        for i, l, h in zip(seen["ids"], seen["labels"], host))
+    log(f"[fit-bert] the {len(host)} prefetched batches bitwise their host "
+        f"batches: {same}")
+    check(same, "[fit-bert] a prefetched batch differs from its host batch")
+    seen["ids"].clear()
+    seen["labels"].clear()
+    line = {"b": {"losses": losses, "steps": len(losses),
+                  "seconds": seconds, **rates,
+                  "tokens_per_s": rates["items_per_s"],
+                  "pipeline": snap,
+                  "copy_ms_per_batch": 1e3 * snap["device_put_s"]
+                  / max(snap["batches"], 1),
+                  "resident_prefetch_bytes": resident,
+                  "peak_gib": gib(peak),
+                  "launches_per_step": clock.launches[1],
+                  "instances": instances, "prefetch_bitwise": same}}
+
+    # (c) FIT_PROFILED_ITERS more steps under the profiler
+    cb = ProfilerCallback(
+        scheduler=profiler.make_scheduler(closed=1, ready=1,
+                                          record=FIT_RECORDED),
+        timer_only=False, with_flops=True, profile_memory=True,
+        print_summary=False)
+    t0 = time.perf_counter()
+    model.fit(mlm_pipeline(data, SEED + 1), epochs=1,
+              num_iters=FIT_PROFILED_ITERS, verbose=0, callbacks=[cb])
+    prof_s = time.perf_counter() - t0
+    prof = cb.profiler
+    summary = prof.summary_dict(top_ops=8)
+    ops = aggregator.op_stats(prof.events())
+    products = sum(ops[n].flops for n in ("mm", "addmm", "bmm")
+                   if n in ops) / FIT_RECORDED
+    expected = bert_matmul_flops(cfg)
+    att = ops.get("scaled_dot_product_attention")
+    per_call = flops.attention_flops(
+        (BERT_BATCH, BERT_SEQ, cfg.num_heads, 64),
+        (BERT_BATCH, BERT_SEQ, cfg.num_heads, 64))
+    kernels = {k["name"]: k for k in summary.get("device_kernels", [])}
+    log(f"[fit-profiler] {len(prof.kernels)} kernels in the device trace; "
+        f"those of the attention op: "
+        f"{[k for k in prof.kernels if aggregator.kernel_op(k)]}")
+    flash = {name: [k for n, k in kernels.items() if name in n]
+             for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
+                          "flash_dkv_mma_kernel")}
+    trace_path = os.path.join("build", "fit_trace.json")
+    prof.export(trace_path)
+    log(f"[fit-profiler] {FIT_PROFILED_ITERS} steps in {prof_s:.1f} s, "
+        f"{FIT_RECORDED} recorded: step MFU {summary.get('step_mfu')}, "
+        f"products {products:.6e} FLOPs a step against {expected:.6e} from "
+        f"the config ({products / expected - 1:+.5f}); attention events "
+        f"{att.calls if att else 0} of {att.flops // max(att.calls, 1) if att else 0} "
+        f"FLOPs (want {cfg.num_layers * FIT_RECORDED} of {per_call}); "
+        f"memory {summary.get('memory')}; flash kernels {flash}; trace "
+        f"{trace_path} ({os.path.getsize(trace_path)} bytes)")
+    log(f"[fit-profiler] summary_dict: {json.dumps(summary, default=str)}")
+    check(len(summary.get("step_mfu", [])) == FIT_RECORDED and all(
+        0 < m < 1 for m in summary["step_mfu"]),
+        f"[fit-profiler] step MFU {summary.get('step_mfu')}")
+    check(abs(products / expected - 1) <= FIT_FLOPS_RTOL,
+          f"[fit-profiler] products {products} FLOPs a step, {expected} "
+          f"from the config")
+    check(att is not None and att.calls == cfg.num_layers * FIT_RECORDED
+          and att.flops == att.calls * per_call,
+          f"[fit-profiler] attention events {att and att.calls}, FLOPs "
+          f"{att and att.flops}")
+    for name, ks in flash.items():
+        check(len(ks) == 1 and ks[0]["launches"]
+              == cfg.num_layers * FIT_RECORDED,
+              f"[fit-profiler] the device table's {name}: {ks}")
+    check(summary.get("memory", {}).get("peak_bytes", 0) > 0,
+          f"[fit-profiler] memory {summary.get('memory')}")
+    check("input_pipeline" in summary, "[fit-profiler] no input_pipeline "
+                                       "section")
+    line["c"] = {"seconds": prof_s, "recorded_steps": FIT_RECORDED,
+                 "step_mfu": summary["step_mfu"],
+                 "avg_step_time_ms": summary["avg_step_time_ms"],
+                 "flops_per_step": summary["flops_per_step"],
+                 "matmul_flops_per_step": products,
+                 "matmul_flops_expected": expected,
+                 "attention_events": att.calls,
+                 "attention_flops_per_event": att.flops // att.calls,
+                 "flash_kernels": {n: ks[0] for n, ks in flash.items()},
+                 "device_ms": summary.get("device_ms"),
+                 "memory": summary["memory"],
+                 "input_pipeline": summary["input_pipeline"],
+                 "top_ops": summary["top_ops"],
+                 "trace_bytes": os.path.getsize(trace_path)}
+    del model, seen, cb, prof
+    os.remove(trace_path)
+
+    # (b)'s first step again with the flash path off (the einsum)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, _ = bert_fit_model(cfg, weights)
+    set_flags({"use_flash_attention": False})
+    try:
+        fa.reset_launch_counts()
+        einsum = model.fit(mlm_pipeline(data, SEED), epochs=1, num_iters=1,
+                           verbose=0)["loss"][0]
+        launched = flash_counts()
+    finally:
+        set_flags({"use_flash_attention": True})
+    diff = abs(losses[0] - einsum) / abs(einsum)
+    log(f"[fit-bert] step 1 with the flash path off: {einsum} against "
+        f"{losses[0]} ({diff:.3e}, limit {BERT_FLASH_LOSS_RTOL}); "
+        f"launches {launched}")
+    check(not launched and diff <= BERT_FLASH_LOSS_RTOL,
+          f"[fit-bert] einsum step 1 {einsum} vs flash {losses[0]}, "
+          f"launches {launched}")
+    line["b"].update(einsum_step1_loss=einsum, step1_rel_diff=diff,
+                     step1_rtol=BERT_FLASH_LOSS_RTOL)
+    del model
+    return line
+
+
+def fit_phase(direct=None):
+    """The training API on the card: runs (a), (b) and (c) (see FIT_*);
+    `direct`: the models phase's line, whose direct loops at the same
+    shapes stand beside fit's rates."""
+    t0 = time.perf_counter()
+    line = {"resnet50": resnet_fit_phase(), "bert": bert_fit_phase()}
+    if direct is not None:
+        line["direct"] = {
+            "resnet50_images_per_s": direct["resnet50"]["images_per_s"],
+            "bert_tokens_per_s": direct["bert"]["b_flash"]["tokens_per_s"]}
+    line["seconds"] = round(time.perf_counter() - t0, 1)
+    return line
+
+
+def fit_only():
+    """The kernels' build and the fit phase alone: prints the card and the
+    `fit` line, not the {"ok": ...} line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    card = card_line()
+    log(f"card: {card}")
+    build_kernels()
+    line = fit_phase()
+    print(card)
+    print(json.dumps({"fit": line}), flush=True)
+    return 0
+
+
 def profile_step(step, ids, labels, step_s, vocab, top):
     """One more train step under torch.profiler: the device time of each
     kernel, summed by name; that of the LM-head CE's GEMMs (the aten::mm
@@ -4523,6 +5059,12 @@ def main():
     # non-causal flash kernels inside a model) and ResNet-50 on
     # CIFAR-shaped data
     models, noncausal_rows = models_phase()
+    # the training API: ResNet-50 and BERT-base through Model.fit (BERT's
+    # steps through the non-causal kernels)
+    fit = fit_phase(models)
+    for r in noncausal_rows:
+        r["fit_launches_per_step"] = \
+            fit["bert"]["b"]["launches_per_step"][r["name"].split("@")[0]]
     log(json.dumps({"kernels": rows + f32_rows + rows256 + f32_rows256
                     + noncausal_rows + [probe_row]}))
     log(json.dumps({"serving": serving}))
@@ -4530,6 +5072,7 @@ def main():
     log(json.dumps({"predict": predict}))
     log(json.dumps({"fabric": fabric}))
     log(json.dumps({"models": models}))
+    log(json.dumps({"fit": fit}))
     log(f"chip_smoke took {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4717,6 +5260,8 @@ if __name__ == "__main__":
             sys.exit(fabric_only())
         if sys.argv[1:2] == ["--models"]:
             sys.exit(models_only())
+        if sys.argv[1:2] == ["--fit"]:
+            sys.exit(fit_only())
         sys.exit(main())
     except (SmokeFailure, ImportError) as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -11,9 +11,9 @@ The reference's training half (``world.py``: ``WorldAutoscaler``,
 ``RankWatchdog``, ``fleet_world_fn``) needs the fault-tolerance
 supervisor and sharded checkpoints, ROADMAP queue 5; it is not here.
 
-The reference publishes the live controllers' summed counters on its
-observability bus as the "autoscale" section; the port has no bus yet,
-so :func:`summary_snapshot` is read directly.
+The live controllers' summed counters are the metrics bus's
+"autoscale" section (:func:`summary_snapshot`, registered when the first
+controller is made), which ``profiler.summary_dict()`` carries.
 """
 from __future__ import annotations
 
@@ -23,13 +23,26 @@ from typing import Optional
 
 _REG_LOCK = threading.Lock()
 _INSTANCES: list = []  # weakrefs of live controllers
+_REGISTERED = False
 
 
 def _track(obj) -> None:
     """Register a controller for :func:`summary_snapshot` (weakref; a
     collected controller drops out)."""
+    _register_provider()
     with _REG_LOCK:
         _INSTANCES.append(weakref.ref(obj))
+
+
+def _register_provider() -> None:
+    global _REGISTERED
+    with _REG_LOCK:
+        if _REGISTERED:
+            return
+        from ..observability import bus as _bus
+
+        _bus.register_provider("autoscale", summary_snapshot)
+        _REGISTERED = True
 
 
 def summary_snapshot() -> Optional[dict]:

@@ -110,3 +110,14 @@ define_flag("trace_buffer_spans", 262144)
 # replay could double-count); the replicated and quorum stores' member
 # clients pin 1, their own layer being the retry
 define_flag("store_retry_attempts", 3)
+# the metrics bus (observability/bus.py): per-step rows go to
+# <dir>/metrics.jsonl and flush() writes <dir>/metrics.prom; empty keeps
+# the series in memory only. Model.fit adds a TelemetryCallback when set
+define_flag("metrics_dir", "")
+# DataLoader(num_workers > 0): forked worker processes (numpy-only
+# children, tensors made in the parent) instead of threads, for datasets
+# whose samples hold no tensor
+define_flag("dataloader_fork_workers", False)
+# the profiler's MFU denominator in FLOP/s; 0 takes the card's bf16 dense
+# peak from its name (profiler/stats/flops.py), 1e12 on the CPU
+define_flag("device_peak_flops", 0.0)

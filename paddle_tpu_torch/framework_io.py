@@ -28,7 +28,12 @@ weights (one layout in both), norms and buffers pass as they are.
 `transpose_optimizer_state` transposes an optimizer state_dict's
 per-parameter entries (`p{i}.moment1`, ...) alike, either way, so that a
 checkpoint of either package loads in the other. A name of none of these
-models raises KeyError.
+models raises KeyError. For any other model (a `Sequential` of Linear
+layers, say) `module_state_to_paddle_tpu` and
+`module_state_from_paddle_tpu` find the Linear weights by module type
+(`linear_weight_names`), which `transpose_optimizer_state(linear=...)`
+takes too; hapi's Model.save and Model.load write and read the
+reference's `.pdparams` and `.pdopt` through them.
 """
 from __future__ import annotations
 
@@ -140,16 +145,45 @@ def params_to_paddle_tpu(state_dict: dict) -> dict:
     return out
 
 
-def transpose_optimizer_state(opt_sd: dict, names) -> dict:
+def linear_weight_names(module: torch.nn.Module) -> set:
+    """The state_dict names of the weights of `module`'s Linear layers
+    (every torch.nn.Linear, whatever its name)."""
+    return {f"{n}.weight" if n else "weight"
+            for n, m in module.named_modules()
+            if isinstance(m, torch.nn.Linear)}
+
+
+def module_state_to_paddle_tpu(module: torch.nn.Module) -> dict:
+    """`module.state_dict()` in the reference's layout, for any model:
+    CPU tensors, the Linear weights transposed to [in, out]."""
+    linear = linear_weight_names(module)
+    return {n: (t.detach().cpu().t() if n in linear else
+                t.detach().cpu()).contiguous()
+            for n, t in module.state_dict().items()}
+
+
+def module_state_from_paddle_tpu(module: torch.nn.Module, sd: dict) -> dict:
+    """A reference-layout state_dict of `module`'s names as the port's
+    state_dict of `module`: the Linear weights transposed to [out, in]."""
+    linear = linear_weight_names(module)
+    return {n: (_to_torch(v).t() if n in linear else
+                _to_torch(v)).contiguous() for n, v in sd.items()}
+
+
+def transpose_optimizer_state(opt_sd: dict, names, linear=None) -> dict:
     """An optimizer state_dict in the other package's layout, either way:
     the `p{i}.*` entries of every Linear weight transposed. `names[i]` is
     the name of the optimizer's i-th parameter (the model's
-    `named_parameters()` order, which both packages share)."""
+    `named_parameters()` order, which both packages share); `linear`
+    (a set of names, linear_weight_names) says which are Linear weights,
+    else the GPT's, BERT's and ResNet's names do."""
     names = list(names)
+    is_linear = _is_linear_weight if linear is None else \
+        (lambda n: n in linear)
     out = dict(opt_sd)
     for key, v in opt_sd.items():
         m = re.match(r"^p(\d+)\.", key) if isinstance(key, str) else None
-        if m and _is_linear_weight(names[int(m.group(1))]):
+        if m and is_linear(names[int(m.group(1))]):
             v = v if isinstance(v, torch.Tensor) else _to_torch(v)
             out[key] = v.t().contiguous()
     return out

@@ -8,7 +8,8 @@ Two faces, matching the serving/generation tiers:
   retries, sheds, stream breaks), hop-latency percentiles, plus the
   member table re-exported as per-host gauges. Live routers are
   tracked in the ``"fabric"`` section's EngineRegistry
-  (:func:`aggregate_snapshot` merges them).
+  (:func:`aggregate_snapshot` merges them), which the metrics bus
+  carries into ``profiler.summary_dict()``.
 - :func:`merge_expositions` — member hosts' own ``/metrics`` scrapes
   (``paddle_serving_*`` / ``paddle_generate_*`` families) folded into
   ONE exposition by injecting a ``host=`` label into every sample, so

@@ -12,10 +12,11 @@ warm-up had not run (eager PyTorch compiles nothing), "hits" the rest.
 `EngineRegistry` keeps weak references to the live engines (or fabric
 routers) of one section and merges their snapshots: `track_engine`
 registers a predict engine, `aggregate_snapshot` merges the "serving"
-section. The reference installs each section's merge function into its
-profiler's `summary_dict()`; the port has no profiler yet, so a
-registry only keeps its `provider` for the caller to read. `percentiles`
-and `rate` are shared with the generation engine.
+section. The first engine a registry tracks registers the section's
+merge function on the metrics bus (observability/bus.py), so that
+`profiler.summary_dict()` carries the section while an engine lives and
+drops it once none does. `percentiles` and `rate` are shared with the
+generation engine.
 """
 from __future__ import annotations
 
@@ -30,18 +31,26 @@ from ...testing.racecheck import shared_state as _shared_state
 class EngineRegistry:
     """Live-engine weakref list of one section ("serving", "fabric"),
     shared by the tiers so the dead-ref pruning lives in one place.
-    `provider` is the section's merge function."""
+    `provider` is the section's merge function, registered on the
+    metrics bus the first time an engine is tracked (a registry without
+    one publishes no section)."""
 
     def __init__(self, section: str, provider):
         self.section = section
         self.provider = provider
         self._lock = threading.Lock()
+        self._registered = False
         self._engines: list = []
 
     def track(self, engine) -> None:
         import weakref
 
         with self._lock:
+            if not self._registered and callable(self.provider):
+                from ...observability import bus as _bus
+
+                _bus.register_provider(self.section, self.provider)
+                self._registered = True
             self._engines.append(weakref.ref(engine))
 
     def snapshots(self) -> List[dict]:

@@ -187,6 +187,49 @@ def span(name: str, cat: str = "span", args: Optional[dict] = None,
     return Span(name, cat, args, parent)
 
 
+_DONE = object()
+
+
+def step_iter(it, name: str = "train.step", cat: str = "train",
+              skip_first: int = 0):
+    """Wrap a fit loop's iterator so that each iteration runs under one
+    root `name` span, with the fetch of its item as a `train.data_wait`
+    child; the loop body inherits the root's context. With tracing off
+    items pass through with no span at all, and so do the first
+    `skip_first` items (a resume's fast-forwarded prefix)."""
+    it = iter(it)
+    n = 0
+    while True:
+        if not _ENABLED or n < skip_first:
+            item = next(it, _DONE)
+            if item is _DONE:
+                return
+            n += 1
+            yield item
+            continue
+        n += 1
+        root = Span(name, cat, {"iter": n})
+        root.__enter__()
+        got_item = False
+        try:
+            t0 = time.perf_counter_ns()
+            item = next(it, _DONE)
+            if item is _DONE:
+                return
+            emit_span("train.data_wait", t0, time.perf_counter_ns(),
+                      parent=root.ctx, cat=cat)
+            got_item = True
+            yield item
+        finally:
+            # on resume, on the consumer's break (close()) and on the
+            # exhaustion probe; the probe's root is unwound unrecorded,
+            # so no empty train.step closes an epoch
+            if got_item:
+                root.__exit__(None, None, None)
+            else:
+                _TLS.ctx = root._prev
+
+
 def spans(trace_id: Optional[int] = None):
     """Snapshot of the recorded spans (optionally one trace's)."""
     with _LOCK:
@@ -235,4 +278,4 @@ def reset() -> None:
 
 
 __all__ = ["TraceContext", "Span", "span", "emit_span", "enabled",
-           "reconfigure", "spans", "stats", "export", "reset"]
+           "reconfigure", "step_iter", "spans", "stats", "export", "reset"]

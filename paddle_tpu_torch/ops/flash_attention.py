@@ -47,6 +47,11 @@ nothing to dK or dV.
 Layout: q, k, v, o and their gradients are [B, L, H, D] (the public
 layout); their transposes are [B, H, D, L]; LSE and delta are [B, H, L]
 float32 (the reference's [BH, 1, L]).
+
+While a profiler records, each flash_attention call is booked as one
+`scaled_dot_product_attention` op event with the reference's FLOPs
+(profiler/stats), since no dispatch mode sees a ctypes launch; the aten
+ops inside the call, forward and backward, are not booked apart.
 """
 from __future__ import annotations
 
@@ -59,6 +64,7 @@ import threading
 import torch
 
 from ..core.flags import flag
+from ..profiler import stats as _pstats
 
 # the three kernels (forward, dQ, dK/dV) that each dot strategy launches
 STRATEGY_KERNELS = {
@@ -789,8 +795,13 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        dq, dk, dv = padded_bwd(ctx.saved_tensors, do, ctx.causal,
-                                ctx.sm_scale, ctx.impl)
+        if _pstats.active() is None:
+            dq, dk, dv = padded_bwd(ctx.saved_tensors, do, ctx.causal,
+                                    ctx.sm_scale, ctx.impl)
+        else:
+            with _pstats.opaque():
+                dq, dk, dv = padded_bwd(ctx.saved_tensors, do, ctx.causal,
+                                        ctx.sm_scale, ctx.impl)
         return dq, dk, dv, None, None, None
 
 
@@ -814,6 +825,11 @@ def flash_attention(q, k, v, causal: bool = False, sm_scale=None,
         raise ValueError(f"flash_attention: impl must be bf16|nn|nn2|f32, "
                          f"got {impl!r}")
     sm_scale = 1.0 / math.sqrt(D) if sm_scale is None else float(sm_scale)
-    return FlashAttentionFunction.apply(q.contiguous(), k.contiguous(),
-                                        v.contiguous(), bool(causal),
-                                        sm_scale, impl)
+    args = (q.contiguous(), k.contiguous(), v.contiguous(), bool(causal),
+            sm_scale, impl)
+    if _pstats.active() is None:
+        return FlashAttentionFunction.apply(*args)
+    # a recording profiler sees no ctypes launch: book the call as one
+    # attention op with the reference's FLOPs
+    with _pstats.attention_event(q, k, bool(causal)):
+        return FlashAttentionFunction.apply(*args)

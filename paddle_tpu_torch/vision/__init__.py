@@ -1,3 +1,3 @@
 """paddle_tpu_torch.vision (counterpart of paddle_tpu.vision, cut to the
-model re-exports)."""
-from . import models  # noqa: F401
+ResNet models, FakeData and the transforms)."""
+from . import datasets, models, transforms  # noqa: F401

@@ -27,7 +27,11 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.distributed.checkpoint",
            "paddle_tpu_torch.distributed.recompute",
            "paddle_tpu_torch.distributed.store",
+           "paddle_tpu_torch.callbacks",
            "paddle_tpu_torch.framework_io",
+           "paddle_tpu_torch.hapi", "paddle_tpu_torch.hapi.callbacks",
+           "paddle_tpu_torch.hapi.flops", "paddle_tpu_torch.hapi.model",
+           "paddle_tpu_torch.hapi.summary",
            "paddle_tpu_torch.inference",
            "paddle_tpu_torch.inference.fabric",
            "paddle_tpu_torch.inference.fabric.__main__",
@@ -47,7 +51,13 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.inference.serving.lifecycle",
            "paddle_tpu_torch.inference.serving.metrics",
            "paddle_tpu_torch.inference.serving.server",
-           "paddle_tpu_torch.io.bucketing",
+           "paddle_tpu_torch.io", "paddle_tpu_torch.io.bucketing",
+           "paddle_tpu_torch.io.pipeline",
+           "paddle_tpu_torch.io.pipeline.core",
+           "paddle_tpu_torch.io.pipeline.metrics",
+           "paddle_tpu_torch.io.pipeline.prefetch",
+           "paddle_tpu_torch.io.pipeline.sampler",
+           "paddle_tpu_torch.metric",
            "paddle_tpu_torch.jit", "paddle_tpu_torch.jit.train_step",
            "paddle_tpu_torch.models", "paddle_tpu_torch.nn",
            "paddle_tpu_torch.nn.functional",
@@ -55,18 +65,25 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.nn.layers_common",
            "paddle_tpu_torch.nn.norm",
            "paddle_tpu_torch.ops._build",
+           "paddle_tpu_torch.observability.bus",
            "paddle_tpu_torch.observability.exporter",
            "paddle_tpu_torch.observability.trace",
            "paddle_tpu_torch.ops.flash_attention",
            "paddle_tpu_torch.optimizer",
            "paddle_tpu_torch.optimizer.clip",
            "paddle_tpu_torch.optimizer.lr",
+           "paddle_tpu_torch.profiler", "paddle_tpu_torch.profiler.stats",
+           "paddle_tpu_torch.profiler.stats.aggregator",
+           "paddle_tpu_torch.profiler.stats.flops",
+           "paddle_tpu_torch.profiler.stats.memory",
            "paddle_tpu_torch.quantization",
            "paddle_tpu_torch.quantization.kv",
            "paddle_tpu_torch.regularizer",
            "paddle_tpu_torch.static",
            "paddle_tpu_torch.testing.chaos",
-           "paddle_tpu_torch.testing.racecheck"]
+           "paddle_tpu_torch.testing.racecheck",
+           "paddle_tpu_torch.vision", "paddle_tpu_torch.vision.datasets",
+           "paddle_tpu_torch.vision.transforms"]
 
 
 def _forbidden(name: str) -> bool:
