@@ -100,6 +100,24 @@ logits against the plain attention's), (d) a padded batch under
 attention_mask (no launch); then ResNet-50 (small_input, 10 classes, f32)
 for 5 dygraph Momentum steps on a 128 x 3 x 32 x 32 batch (the loss falls,
 every batch-norm buffer moves) and its eval logits against a CPU copy.
+After the fit phase, the ops phase: (a) every op of the op surface
+(creation, random, element-wise math in float32 and, for a selection,
+bfloat16, special functions, integer ops, reductions, logic, shape,
+index, sort and search, linear algebra, nn.functional's activations) on
+the card and on the CPU on the same seeded inputs (about 1M elements for
+element-wise ops and reductions, 1024 x 1024 for the shape, index and
+sort families): every card output on the card with the CPU's dtype,
+bitwise where the family is exact (creation, integer, logic, shape,
+index, sort, random; randn and standard_normal within 4 float32 units
+in the last place), within OPS_LIMITS where it is float (digamma and
+normal(1, 2) within OPS_ROW_LIMITS); (b) gpt3-medium's 24 blocks
+at full width in bf16, batch 8 x 1024, one training step written in the
+port's op calls (matmul, reshape, transpose, split, add, mean, F.layer_norm,
+F.gelu, F.scaled_dot_product_attention, F.embedding, F.cross_entropy) on
+a GPTForCausalLM's state_dict: its loss within 2e-3 and every gradient
+within 2e-2 relative norm of the module's, 24 launches each of flash_fwd,
+flash_dq and flash_dkv a step and no other flash kernel, and both steps'
+ms.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare OTHER_CHECKOUT
@@ -108,6 +126,8 @@ every batch-norm buffer moves) and its eval logits against a CPU copy.
     python3 chip_smoke.py --predict
     python3 chip_smoke.py --fabric
     python3 chip_smoke.py --models
+    python3 chip_smoke.py --fit
+    python3 chip_smoke.py --ops
 
 Needs one CUDA card (written for an H100, sm_90a) and nvcc. Prints the
 card and its power limit, a `kernels` JSON line (time, achieved TFLOP/s,
@@ -155,6 +175,8 @@ and the trainer's phases, and their line (without it either); with
 held at the predict path's bf16 shapes and the fabric phase, and its
 line (without it either); with --models, only the kernels' build and the
 models phase, and the non-causal kernel rows and the `models` line
+(without it either); with --fit, the kernels' build and the fit phase,
+and with --ops, the kernels' build and the ops phase, each with its line
 (without it either).
 """
 from __future__ import annotations
@@ -4777,6 +4799,805 @@ def fit_only():
     return 0
 
 
+# ------------------------------------------------------------- ops phase --
+# (a) the op sweep: every op of the op surface on the card and on the CPU,
+# on the same seeded inputs (about 1M elements for element-wise ops and
+# reductions, 1024 x 1024 for the shape, index and sort families); the
+# card's outputs lie on the card, with the CPU's dtypes, bitwise where the
+# family is exact and within OPS_LIMITS where it is float
+OPS_N = 1024
+OPS_LIMITS = {"creation": 0.0, "integer": 0.0, "logic": 0.0,
+              "manipulation": 0.0, "index": 0.0, "sort": 0.0,
+              "random": 0.0, "elementwise": 1e-5, "special": 1e-4,
+              "reduction": 1e-5, "linalg": 1e-5, "activation": 1e-5,
+              "bf16": 2.0 ** -7,
+              # randn and standard_normal (sqrt(2) * erfinv) go through
+              # two erfinv series, the card's and the CPU's: 4 float32
+              # units in the last place of each element
+              "normal": 4 * 2.0 ** -23}
+# rows with a limit of their own, out of their family's worst:
+# - digamma: the card's series parts from the CPU's by about 5e-7
+#   absolute near its root at 1.4616, 2.4e-4 of the floor below (a
+#   thousandth of the output's scale; on an NVIDIA H100 80GB HBM3 at
+#   700.00 W);
+# - normal(1, 2): its shift cancels near 0, so it is held to 8 float32
+#   units in the last place of the output's scale (its largest entry)
+OPS_ROW_LIMITS = {"digamma": 5e-4, "normal": 8 * 2.0 ** -23}
+# rows held against the output's largest entry, not each entry: products
+# (the linalg family), normal(1, 2), and x - tanh(x), which cancels near 0
+OPS_SCALE_ROWS = ("F.tanhshrink", "normal")
+
+
+def ops_inputs(seed):
+    """The sweep's seeded numpy inputs."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    n = OPS_N
+
+    def u(lo, hi, *shape):
+        return rng.uniform(lo, hi, shape or (n, n)).astype(np.float32)
+
+    ins = {"x": u(-2, 2), "y": u(-2, 2), "pos": u(0.5, 2), "pos2": u(0.5, 2),
+           "unit": u(-0.9, 0.9), "near1": u(0.999, 1.001),
+           "p01": u(0.02, 0.98), "vec": u(-2, 2, n), "vec2": u(-2, 2, n),
+           "small": u(-2, 2, 32, 32), "small2": u(-2, 2, 32, 32),
+           "x3": u(-2, 2, 16, 64, n), "pts": u(-2, 2, n * n // 2, 2),
+           "seq": np.sort(u(-2, 2, n)),
+           "i64": rng.randint(-50, 50, (n, n)).astype(np.int64),
+           "i64b": rng.randint(-50, 50, (n, n)).astype(np.int64),
+           "ipos": rng.randint(1, 9, (n, n)).astype(np.int64),
+           "i32": rng.randint(-50, 50, (n, n)).astype(np.int32),
+           "ties": rng.randint(0, 8, (n, n)).astype(np.float32),
+           "b": rng.rand(n, n) > 0.5, "b2": rng.rand(n, n) > 0.5,
+           "idx": rng.randint(-n, n, n).astype(np.int64),
+           "perm": rng.permutation(n).astype(np.int64),
+           "ids": rng.randint(0, 64, n * n).astype(np.int64),
+           "rates": np.repeat(np.array([0.0, 0.5, 3.0, 9.5, 12.0, 40.0],
+                                       np.float32), 1 << 13)}
+    ins["nans"] = ins["x"].copy()
+    ins["nans"][rng.rand(n, n) < 0.05] = np.nan
+    ins["x3_w"] = u(-2, 2, n, 5)
+    ins["v3"] = u(-2, 2, 1 << 18, 3)
+    ins["w3"] = u(-2, 2, 1 << 18, 3)
+    return ins
+
+
+def ops_table():
+    """(family, name, fn(P, F, *inputs), input names) of every swept op."""
+    t = []
+
+    def add(family, name, fn, *names):
+        t.append((family, name, fn, names))
+
+    # creation (on the current place: the card, then the CPU)
+    for name, fn in (
+            ("zeros", lambda P, F: P.zeros([OPS_N, OPS_N])),
+            ("ones", lambda P, F: P.ones([OPS_N, OPS_N], "int32")),
+            ("full", lambda P, F: P.full([OPS_N, OPS_N], 1.5)),
+            ("full_int", lambda P, F: P.full([OPS_N], 3)),
+            ("full_bool", lambda P, F: P.full([OPS_N], True)),
+            ("empty", lambda P, F: P.empty([OPS_N, 2])),
+            ("arange", lambda P, F: P.arange(OPS_N * OPS_N)),
+            ("arange_float", lambda P, F: P.arange(0.0, 100.0, 1e-4)),
+            ("linspace", lambda P, F: P.linspace(-2.5, 3.1, OPS_N * OPS_N)),
+            ("linspace_int", lambda P, F: P.linspace(0, 1e6, 4097,
+                                                     "int64")),
+            ("eye", lambda P, F: P.eye(OPS_N)),
+            ("tril_indices", lambda P, F: P.tril_indices(OPS_N)),
+            ("triu_indices", lambda P, F: P.triu_indices(OPS_N, OPS_N, 1)),
+            ("fill_constant", lambda P, F: P.fill_constant(
+                [OPS_N, OPS_N], "float32", 3.5)),
+            ("create_tensor", lambda P, F: P.create_tensor("int32"))):
+        add("creation", name, fn)
+    for name, fn, ins in (
+            ("zeros_like", lambda P, F, x: P.zeros_like(x), ("x",)),
+            ("ones_like", lambda P, F, x: P.ones_like(x, "int64"), ("x",)),
+            ("full_like", lambda P, F, x: P.full_like(x, 2.5), ("i64",)),
+            ("empty_like", lambda P, F, x: P.empty_like(x), ("i32",)),
+            ("tril", lambda P, F, x: P.tril(x, -3), ("x",)),
+            ("triu", lambda P, F, x: P.triu(x, 2), ("i64",)),
+            ("diag", lambda P, F, v: P.diag(v, 1, padding_value=9), ("vec",)),
+            ("diag_mat", lambda P, F, x: P.diag(x), ("x",)),
+            ("diagflat", lambda P, F, x: P.diagflat(x), ("vec",)),
+            ("diag_embed", lambda P, F, x: P.diag_embed(x), ("small",)),
+            ("diagonal", lambda P, F, x: P.diagonal(x, 1), ("x",)),
+            ("meshgrid", lambda P, F, a, b: P.meshgrid(a, b),
+             ("vec", "vec2")),
+            ("clone", lambda P, F, x: P.clone(x), ("x",)),
+            ("assign", lambda P, F, x: P.assign(x), ("i64",)),
+            ("complex", lambda P, F, a, b: P.complex(a, b), ("x", "y")),
+            ("as_complex", lambda P, F, x: P.as_complex(P.reshape(
+                x, [OPS_N, -1, 2])), ("x",)),
+            ("as_real", lambda P, F, a, b: P.as_real(P.complex(a, b)),
+             ("x", "y"))):
+        add("creation", name, fn, *ins)
+    # random: seeded alike before each side's draw
+    for name, fn, ins in (
+            ("rand", lambda P, F: P.rand([OPS_N, OPS_N]), ()),
+            ("rand_f64", lambda P, F: P.rand([OPS_N, OPS_N], "float64"), ()),
+            ("rand_bf16", lambda P, F: P.rand([OPS_N, OPS_N], "bfloat16"),
+             ()),
+            ("uniform", lambda P, F: P.uniform([OPS_N, OPS_N], min=-3.0,
+                                               max=5.0), ()),
+            ("uniform_seed", lambda P, F: P.uniform([OPS_N, OPS_N],
+                                                    seed=11), ()),
+            ("randint", lambda P, F: P.randint(0, 1000, [OPS_N, OPS_N]), ()),
+            ("randint_int32", lambda P, F: P.randint(-5, 5, [OPS_N, OPS_N],
+                                                     "int32"), ()),
+            ("randint_wide", lambda P, F: P.randint(0, 1 << 40, [OPS_N]), ()),
+            ("randint_like", lambda P, F, x: P.randint_like(x, 7), ("x",)),
+            ("randperm", lambda P, F: P.randperm(OPS_N * OPS_N), ()),
+            ("bernoulli", lambda P, F, p: P.bernoulli(p), ("p01",)),
+            ("multinomial", lambda P, F, v: P.multinomial(
+                P.abs(v), 64), ("vec",)),
+            ("multinomial_replace", lambda P, F, v: P.multinomial(
+                P.abs(v), 4096, True), ("vec",)),
+            ("poisson", lambda P, F, r: P.poisson(r), ("rates",))):
+        add("random", name, fn, *ins)
+    for name, fn in (
+            ("randn", lambda P, F: P.randn([OPS_N, OPS_N])),
+            ("standard_normal", lambda P, F: P.standard_normal(
+                [OPS_N, OPS_N])),
+            ("normal", lambda P, F: P.normal(1.0, 2.0, [OPS_N, OPS_N]))):
+        add("normal", name, fn)
+    # element-wise math (float32; bf16 below)
+    for name in ("add", "subtract", "multiply", "divide", "maximum",
+                 "minimum", "fmax", "fmin", "atan2", "logaddexp", "hypot",
+                 "copysign", "heaviside", "nextafter", "pow", "xlogy",
+                 "floor_divide", "remainder", "mod", "floor_mod", "mul"):
+        add("elementwise", name, lambda P, F, a, b, n=name: getattr(P, n)(
+            a, b), "pos", "pos2")
+    for name, dom in (
+            ("exp", "x"), ("expm1", "x"), ("log", "pos"), ("log2", "pos"),
+            ("log10", "pos"), ("log1p", "pos"), ("sqrt", "pos"),
+            ("rsqrt", "pos"), ("square", "x"), ("sin", "x"), ("cos", "x"),
+            ("tan", "unit"), ("asin", "unit"), ("acos", "unit"),
+            ("atan", "x"), ("sinh", "x"), ("cosh", "x"), ("tanh", "x"),
+            ("asinh", "x"), ("acosh", "pos"), ("atanh", "unit"),
+            ("reciprocal", "pos"), ("erf", "x"), ("deg2rad", "x"),
+            ("rad2deg", "x"), ("sinc", "x"), ("angle", "x"),
+            ("sigmoid", "x"), ("neg", "x"), ("abs", "x"), ("floor", "x"),
+            ("ceil", "x"), ("round", "x"), ("trunc", "x"), ("frac", "x"),
+            ("sign", "x"), ("sgn", "x"), ("conj", "x"), ("real", "x"),
+            ("imag", "x"), ("signbit", "x"), ("isnan", "nans"),
+            ("isinf", "nans"), ("isfinite", "nans"),
+            ("nan_to_num", "nans"), ("stanh", "x"), ("logit", "p01")):
+        add("elementwise", name, lambda P, F, a, n=name: getattr(P, n)(a),
+            dom)
+    for name, fn, ins in (
+            ("add_scalar", lambda P, F, a: P.add(a, 1.5), ("x",)),
+            ("logspace", lambda P, F: P.logspace(0, 2, OPS_N), ()),
+            ("add_int32_float", lambda P, F, a: P.add(a, 1.5), ("i32",)),
+            ("pow_scalar", lambda P, F, a: P.pow(a, 3), ("x",)),
+            ("divide_int", lambda P, F, a, b: P.divide(a, b),
+             ("i64", "ipos")),
+            ("clip", lambda P, F, a: P.clip(a, -0.5, 0.5), ("x",)),
+            ("scale", lambda P, F, a: P.scale(a, 2.0, 1.0), ("x",)),
+            ("lerp", lambda P, F, a, b: P.lerp(a, b, 0.3), ("x", "y")),
+            ("add_n", lambda P, F, a, b, c: P.add_n([a, b, c]),
+             ("x", "y", "pos")),
+            ("increment", lambda P, F, a: P.increment(P.clone(a), 2.5),
+             ("x",)),
+            ("ldexp", lambda P, F, a, e: P.ldexp(a, P.remainder(e, 8)),
+             ("x", "i64")),
+            ("outer", lambda P, F, a, b: P.outer(a, b), ("vec", "vec2")),
+            ("kron", lambda P, F, a, b: P.kron(a, b), ("small", "small2")),
+            ("frexp", lambda P, F, a: P.frexp(a), ("x",)),
+            ("vander", lambda P, F, a: P.vander(P.clip(a, -1.0, 1.0), 64),
+             ("vec",)),
+            ("polar", lambda P, F, a, b: P.polar(a, b), ("pos", "x")),
+            ("renorm", lambda P, F, a: P.renorm(a, 2.0, 0, 10.0), ("x",)),
+            ("diff", lambda P, F, a: P.diff(a, 2), ("x",)),
+            ("trapezoid", lambda P, F, a: P.trapezoid(a), ("pos",)),
+            ("cumulative_trapezoid", lambda P, F, a: P.cumulative_trapezoid(
+                a), ("pos",)),
+            ("interp", lambda P, F, a, xp, fp: P.interp(a, xp, fp),
+             ("x", "seq", "vec"))):
+        add("elementwise", name, fn, *ins)
+    for name, dom in (("erfinv", "unit"), ("lgamma", "pos"),
+                      ("digamma", "pos"), ("i0", "x"), ("i0e", "x"),
+                      ("i1", "x"), ("i1e", "x")):
+        add("special", name, lambda P, F, a, n=name: getattr(P, n)(a), dom)
+    add("special", "polygamma", lambda P, F, a: P.polygamma(a, 1), "pos")
+    add("special", "igamma", lambda P, F, a, b: P.igamma(a, b), "pos",
+        "pos2")
+    add("special", "igammac", lambda P, F, a, b: P.igammac(a, b), "pos",
+        "pos2")
+    # integer
+    for name in ("add", "subtract", "multiply", "floor_divide", "remainder",
+                 "maximum", "minimum", "gcd", "lcm", "pow"):
+        add("integer", f"{name}_int", lambda P, F, a, b, n=name: getattr(
+            P, n)(a, P.remainder(b, 5) if n == "pow" else b), "i64", "ipos")
+    for name, fn, ins in (
+            ("add_int32", lambda P, F, a, b: P.add(a, b), ("i32", "i32")),
+            ("abs_int", lambda P, F, a: P.abs(a), ("i64",)),
+            ("square_int", lambda P, F, a: P.square(a), ("i32",)),
+            ("cumsum_int", lambda P, F, a: P.cumsum(a, 1), ("i32",)),
+            ("cumprod_int", lambda P, F, a: P.cumprod(P.remainder(
+                a, 3), 1), ("i64",)),
+            ("sum_int", lambda P, F, a: P.sum(a, axis=0), ("i32",)),
+            ("matmul_int", lambda P, F, a, b: P.matmul(a, b),
+             ("i64", "i64b")),
+            ("matmul_int32", lambda P, F, a, b: P.matmul(a, b),
+             ("i32", "i32")),
+            ("matmul_bool", lambda P, F, a, b: P.matmul(a, b), ("b", "b2")),
+            ("multi_dot_int", lambda P, F, a, b: P.linalg.multi_dot(
+                [P.slice(a, [0], [0], [64]), b, P.slice(a, [1], [0], [64])]),
+             ("i64", "i64b"))):
+        add("integer", name, fn, *ins)
+    # reductions (on positive data: no sum cancels)
+    for name in ("sum", "mean", "amax", "amin", "max", "min", "nansum",
+                 "nanmean", "logsumexp"):
+        add("reduction", name, lambda P, F, a, n=name: getattr(P, n)(a),
+            "pos")
+        add("reduction", f"{name}_axis", lambda P, F, a, n=name: getattr(
+            P, n)(a, axis=1), "pos")
+    for name, fn, ins in (
+            ("prod", lambda P, F, a: P.prod(a, axis=1), ("near1",)),
+            ("std", lambda P, F, a: P.std(a), ("x",)),
+            ("var", lambda P, F, a: P.var(a, 0, unbiased=False), ("x",)),
+            ("cumsum", lambda P, F, a: P.cumsum(a, 1), ("pos",)),
+            ("cumprod", lambda P, F, a: P.cumprod(a, dim=1), ("near1",)),
+            ("logcumsumexp", lambda P, F, a: P.logcumsumexp(a, axis=1),
+             ("x",)),
+            ("trace", lambda P, F, a: P.trace(a), ("pos",)),
+            ("median", lambda P, F, a: P.median(a, axis=1), ("x",)),
+            ("median_all", lambda P, F, a: P.median(a), ("x",)),
+            ("nanmedian", lambda P, F, a: P.nanmedian(a, 1), ("nans",)),
+            ("quantile", lambda P, F, a: P.quantile(a, [0.1, 0.5, 0.9],
+                                                    axis=0), ("x",)),
+            ("nanquantile", lambda P, F, a: P.nanquantile(a, 0.3, axis=1),
+             ("nans",)),
+            ("count_nonzero", lambda P, F, a: P.count_nonzero(a, 1),
+             ("i64",)),
+            ("numel", lambda P, F, a: P.numel(a), ("x",)),
+            ("all", lambda P, F, a: P.all(a, axis=1), ("b",)),
+            ("any", lambda P, F, a: P.any(a), ("b",)),
+            ("sum_bool", lambda P, F, a: P.sum(a), ("b",)),
+            ("mean_int32", lambda P, F, a: P.mean(P.abs(a)), ("i32",)),
+            ("argmax", lambda P, F, a: P.argmax(a, 1), ("ties",)),
+            ("argmin", lambda P, F, a: P.argmin(a), ("ties",)),
+            ("cummax", lambda P, F, a: P.cummax(a, 1), ("ties",)),
+            ("cummin", lambda P, F, a: P.cummin(a, 0), ("ties",))):
+        add("reduction", name, fn, *ins)
+    # logic
+    for name in ("equal", "not_equal", "less_than", "less_equal",
+                 "greater_than", "greater_equal", "bitwise_and",
+                 "bitwise_or", "bitwise_xor", "logical_and", "logical_or",
+                 "logical_xor"):
+        add("logic", name, lambda P, F, a, b, n=name: getattr(P, n)(a, b),
+            "i64", "i64b")
+    for name, fn, ins in (
+            ("less_than_float", lambda P, F, a, b: P.less_than(a, b),
+             ("x", "y")),
+            ("logical_not", lambda P, F, a: P.logical_not(a), ("b",)),
+            ("bitwise_not", lambda P, F, a: P.bitwise_not(a), ("i32",)),
+            ("equal_all", lambda P, F, a: P.equal_all(a, P.clone(a)),
+             ("x",)),
+            ("allclose", lambda P, F, a, b: P.allclose(a, b), ("x", "y")),
+            ("isclose", lambda P, F, a, b: P.isclose(a, b, rtol=0.5),
+             ("x", "y")),
+            ("is_empty", lambda P, F, a: P.is_empty(a), ("x",)),
+            ("is_tensor", lambda P, F, a: P.is_tensor(a), ("x",)),
+            ("is_complex", lambda P, F, a: P.is_complex(a), ("x",)),
+            ("is_floating_point", lambda P, F, a: P.is_floating_point(a),
+             ("x",)),
+            ("is_integer", lambda P, F, a: P.is_integer(a), ("i32",))):
+        add("logic", name, fn, *ins)
+    # shape
+    for name, fn, ins in (
+            ("reshape", lambda P, F, a: P.reshape(a, [256, -1]), ("x",)),
+            ("reshape_", lambda P, F, a: P.reshape_(P.clone(a), [-1]),
+             ("x",)),
+            ("flatten", lambda P, F, a: P.flatten(a, 1), ("x3",)),
+            ("squeeze", lambda P, F, a: P.squeeze(P.unsqueeze(a, 1)),
+             ("x",)),
+            ("unsqueeze", lambda P, F, a: P.unsqueeze(a, [0, 2]), ("x",)),
+            ("transpose", lambda P, F, a: P.transpose(a, [2, 0, 1]),
+             ("x3",)),
+            ("t", lambda P, F, a: P.t(a), ("x",)),
+            ("transpose_", lambda P, F, a: P.transpose_(P.clone(a),
+                                                        [1, 0]), ("x",)),
+            ("moveaxis", lambda P, F, a: P.moveaxis(a, 0, -1), ("x3",)),
+            ("swapaxes", lambda P, F, a: P.swapaxes(a, 0, 2), ("x3",)),
+            ("concat", lambda P, F, a, b: P.concat([a, b], axis=1),
+             ("x", "i64")),
+            ("stack", lambda P, F, a, b: P.stack([a, b], 1), ("x", "y")),
+            ("split", lambda P, F, a: P.split(a, [100, -1, 24], axis=1),
+             ("x",)),
+            ("chunk", lambda P, F, a: P.chunk(a, 4), ("x",)),
+            ("unbind", lambda P, F, a: P.unbind(a, 0)[::97], ("small",)),
+            ("unstack", lambda P, F, a: P.unstack(a), ("small",)),
+            ("tile", lambda P, F, a: P.tile(a, [2, 1]), ("x",)),
+            ("expand", lambda P, F, a: P.expand(P.unsqueeze(a, 0),
+                                                [4, -1]), ("vec",)),
+            ("expand_as", lambda P, F, a, b: P.expand_as(a, b),
+             ("vec", "x")),
+            ("broadcast_to", lambda P, F, a: P.broadcast_to(a, [OPS_N,
+                                                                OPS_N]),
+             ("vec",)),
+            ("broadcast_tensors", lambda P, F, a, b: P.broadcast_tensors(
+                [a, P.unsqueeze(b, 1)]), ("vec", "vec2")),
+            ("flip", lambda P, F, a: P.flip(a, [0, 1]), ("x",)),
+            ("rot90", lambda P, F, a: P.rot90(a), ("x",)),
+            ("roll", lambda P, F, a: P.roll(a, [3, -5], [0, 1]), ("x",)),
+            ("reverse", lambda P, F, a: P.reverse(a, 0), ("x",)),
+            ("vsplit", lambda P, F, a: P.vsplit(a, 4), ("x",)),
+            ("crop", lambda P, F, a: P.crop(a, [512, -1], [3, 5]), ("x",)),
+            ("slice", lambda P, F, a: P.slice(a, [0, 1], [1, -300],
+                                              [900, -2]), ("x",)),
+            ("strided_slice", lambda P, F, a: P.strided_slice(
+                a, [0, 1], [0, 1000], [OPS_N, 0], [3, -7]), ("x",)),
+            ("pad", lambda P, F, a: P.pad(a, [1, 2, 3, 4]), ("x",)),
+            ("pad_reflect", lambda P, F, a: P.pad(
+                P.reshape(a, [1, 1, OPS_N, OPS_N]), [2, 1, 1, 2],
+                mode="reflect"), ("x",)),
+            ("pad_circular", lambda P, F, a: P.pad(
+                P.reshape(a, [1, 1, OPS_N, OPS_N]), [2, 1, 1, 2],
+                mode="circular"), ("x",)),
+            ("repeat_interleave", lambda P, F, a: P.repeat_interleave(
+                a, 2, 1), ("small",)),
+            ("one_hot", lambda P, F, a: P.one_hot(a, 64), ("ids",)),
+            ("multiplex", lambda P, F, a, b, i: P.multiplex(
+                [a, b], P.remainder(i, 2)), ("x", "y", "perm")),
+            ("cartesian_prod", lambda P, F, a, b: P.cartesian_prod([a, b]),
+             ("vec", "vec2")),
+            ("combinations", lambda P, F, a: P.combinations(a), ("vec",)),
+            ("array_ops", lambda P, F, a: P.array_read(P.array_write(
+                a, 2), 2), ("x",))):
+        add("manipulation", name, fn, *ins)
+    # index
+    for name, fn, ins in (
+            ("gather", lambda P, F, a, i: P.gather(a, i), ("x", "idx")),
+            ("gather_axis1", lambda P, F, a, i: P.gather(a, i, axis=1),
+             ("i64", "idx")),
+            ("gather_nd", lambda P, F, a, i: P.gather_nd(
+                a, P.stack([P.remainder(i, OPS_N), i], 1)), ("x", "idx")),
+            ("take_along_axis", lambda P, F, a, i: P.take_along_axis(
+                a, P.argsort(i), 1), ("x", "i64")),
+            ("put_along_axis", lambda P, F, a, i: P.put_along_axis(
+                a, P.unsqueeze(P.remainder(i, OPS_N), 1), 2.0, 1,
+                reduce="add"), ("x", "perm")),
+            ("index_select", lambda P, F, a, i: P.index_select(a, i, 1),
+             ("x", "idx")),
+            ("index_sample", lambda P, F, a, i: P.index_sample(
+                a, P.remainder(i, OPS_N)), ("x", "ipos")),
+            ("index_add", lambda P, F, a, i, v: P.index_add(a, i, 0, v),
+             ("i64", "perm", "i64b")),
+            ("scatter", lambda P, F, a, i, v: P.scatter(a, i, v),
+             ("x", "perm", "y")),
+            ("scatter_nd_add", lambda P, F, a, i, v: P.scatter_nd_add(
+                a, P.unsqueeze(i, 1), v), ("i64", "perm", "i64b")),
+            ("scatter_nd", lambda P, F, i, v: P.scatter_nd(
+                P.unsqueeze(i, 1), v, [OPS_N, OPS_N]), ("perm", "y")),
+            ("where", lambda P, F, c, a, b: P.where(c, a, b),
+             ("b", "x", "i64")),
+            ("masked_fill", lambda P, F, a, m: P.masked_fill(a, m, 7.5),
+             ("x", "b")),
+            ("nonzero", lambda P, F, a: P.nonzero(a), ("b",)),
+            ("masked_select", lambda P, F, a, m: P.masked_select(a, m),
+             ("x", "b")),
+            ("take", lambda P, F, a, i: P.take(a, i, mode="wrap"),
+             ("x", "i64")),
+            ("getitem", lambda P, F, a, i: P.getitem(a, i), ("x", "perm")),
+            ("shard_index", lambda P, F, a: P.shard_index(
+                P.abs(a), 64, 4, 1), ("i64",)),
+            ("searchsorted", lambda P, F, s, v: P.searchsorted(s, v),
+             ("seq", "x")),
+            ("bucketize", lambda P, F, v, s: P.bucketize(v, s, right=True),
+             ("x", "seq"))):
+        add("index", name, fn, *ins)
+    # sort and search (ties: integer-valued floats)
+    for name, fn, ins in (
+            ("sort", lambda P, F, a: P.sort(a, 1), ("ties",)),
+            ("sort_desc", lambda P, F, a: P.sort(a, 0, descending=True),
+             ("x",)),
+            ("argsort", lambda P, F, a: P.argsort(a), ("ties",)),
+            ("argsort_desc", lambda P, F, a: P.argsort(a, 0, True),
+             ("ties",)),
+            ("topk", lambda P, F, a: P.topk(a, 5), ("ties",)),
+            ("topk_smallest", lambda P, F, a: P.topk(a, 7, 0, False),
+             ("ties",)),
+            ("kthvalue", lambda P, F, a: P.kthvalue(a, 9), ("ties",)),
+            ("mode", lambda P, F, a: P.mode(a), ("ties",)),
+            ("unique", lambda P, F, a: P.unique(
+                a, return_index=True, return_inverse=True,
+                return_counts=True), ("i64",)),
+            ("unique_consecutive", lambda P, F, a: P.unique_consecutive(
+                P.flatten(P.sort(a, 1)), return_inverse=True,
+                return_counts=True), ("ties",)),
+            ("histogram", lambda P, F, a: P.histogram(a, 100, -2, 2),
+             ("x",)),
+            ("histogramdd", lambda P, F, a: P.histogramdd(a, bins=16),
+             ("pts",)),
+            ("bincount", lambda P, F, a: P.bincount(a), ("ids",))):
+        add("sort", name, fn, *ins)
+    # linear algebra (errors relative to the output's largest entry)
+    for name, fn, ins in (
+            ("matmul", lambda P, F, a, b: P.matmul(a, b), ("x", "y")),
+            ("matmul_t", lambda P, F, a, b: P.matmul(
+                a, b, transpose_x=True, transpose_y=True), ("x", "y")),
+            ("mm", lambda P, F, a, b: P.mm(a, b), ("x", "y")),
+            ("bmm", lambda P, F, a: P.bmm(a, P.transpose(a, [0, 2, 1])),
+             ("x3",)),
+            ("inner", lambda P, F, a, b: P.inner(a, b), ("x", "y")),
+            ("tensordot", lambda P, F, a, b: P.tensordot(a, b, 1),
+             ("x", "y")),
+            ("dot", lambda P, F, a, b: P.dot(a, b), ("x", "y")),
+            ("mv", lambda P, F, a, v: P.mv(a, v), ("x", "vec")),
+            ("addmm", lambda P, F, a, b: P.addmm(a, a, b, 0.5, 2.0),
+             ("x", "y")),
+            ("einsum", lambda P, F, a, b: P.einsum("bij,jk->bik", a, b),
+             ("x3", "x3_w")),
+            ("multi_dot", lambda P, F, a, b, c: P.linalg.multi_dot(
+                [a, b, c]), ("x", "y", "pos")),
+            ("matrix_power", lambda P, F, a: P.linalg.matrix_power(
+                P.divide(a, 32.0), 3), ("x",)),
+            ("norm", lambda P, F, a: P.linalg.norm(a), ("x",)),
+            ("norm_p1_axis", lambda P, F, a: P.norm(a, 1, axis=1), ("x",)),
+            ("norm_inf", lambda P, F, a: P.norm(a, float("inf"), 0),
+             ("x",)),
+            ("norm_matrix", lambda P, F, a: P.norm(a, axis=[1, 2]),
+             ("x3",)),
+            ("dist", lambda P, F, a, b: P.dist(a, b), ("x", "y")),
+            ("cross", lambda P, F, a, b: P.cross(a, b, axis=1),
+             ("v3", "w3")),
+            ("cov", lambda P, F, a: P.cov(P.slice(a, [0], [0], [64])),
+             ("x",)),
+            ("corrcoef", lambda P, F, a: P.corrcoef(P.slice(
+                a, [0], [0], [64])), ("x",)),
+            ("cos_sim", lambda P, F, a, b: P.cos_sim(a, b), ("x", "y"))):
+        add("linalg", name, fn, *ins)
+    # nn.functional
+    for name in ("relu", "relu6", "sigmoid", "tanh", "silu", "swish",
+                 "log_sigmoid", "mish", "softsign", "tanhshrink",
+                 "hardswish", "hardsigmoid", "gelu", "leaky_relu", "elu",
+                 "celu", "selu", "hardtanh", "hardshrink", "softshrink",
+                 "softplus", "thresholded_relu"):
+        add("activation", f"F.{name}", lambda P, F, a, n=name: getattr(
+            F, n)(a), "x")
+    for name, fn, ins in (
+            ("F.gelu_tanh", lambda P, F, a: F.gelu(a, approximate=True),
+             ("x",)),
+            ("F.softmax", lambda P, F, a: F.softmax(a), ("x",)),
+            ("F.log_softmax", lambda P, F, a: F.log_softmax(a, 0), ("x",)),
+            ("F.prelu", lambda P, F, a, w: F.prelu(a, P.abs(P.slice(
+                w, [0], [0], [1]))), ("x", "vec")),
+            ("F.glu", lambda P, F, a: F.glu(a), ("x",)),
+            ("F.maxout", lambda P, F, a: F.maxout(a, 4, 1), ("x3",)),
+            ("F.normalize", lambda P, F, a: F.normalize(a), ("x",)),
+            ("F.label_smooth", lambda P, F, a: F.label_smooth(a), ("p01",)),
+            ("F.one_hot", lambda P, F, a: F.one_hot(a, 64), ("ids",)),
+            ("F.sequence_mask", lambda P, F, a: F.sequence_mask(
+                P.remainder(a, 200), 256), ("idx",)),
+            ("F.pad", lambda P, F, a: F.pad(a, [2, 2]), ("x",))):
+        add("activation", name, fn, *ins)
+    return t
+
+
+# element-wise ops also swept in bfloat16: one bf16 unit in the last place
+OPS_BF16 = ("add", "subtract", "multiply", "divide", "maximum", "exp",
+            "log", "sqrt", "rsqrt", "sin", "tanh", "sigmoid", "erf",
+            "floor", "abs", "square", "reciprocal", "sum_axis", "mean_axis",
+            "amax_axis", "F.gelu", "F.silu", "F.softmax")
+
+
+def _leaves(v):
+    if isinstance(v, (list, tuple)):
+        return [x for e in v for x in _leaves(e)]
+    return [v]
+
+
+def ops_compare(family, name, got, want, on_card):
+    """Worst error of `got` (the card's) against `want` (the CPU's) under
+    the family's rule; fails on a device, dtype, shape or value
+    departure."""
+    import torch
+
+    g_leaves, w_leaves = _leaves(got), _leaves(want)
+    check(len(g_leaves) == len(w_leaves), f"ops {name}: output count")
+    worst = 0.0
+    for g, w in zip(g_leaves, w_leaves):
+        if not isinstance(w, torch.Tensor):
+            check(g == w, f"ops {name}: {g!r} against the CPU's {w!r}")
+            continue
+        check(isinstance(g, torch.Tensor) and g.device.type == on_card,
+              f"ops {name}: an output is on {getattr(g, 'device', None)}, "
+              f"not the card")
+        check(g.dtype == w.dtype, f"ops {name}: dtype {g.dtype} against "
+                                  f"the CPU's {w.dtype}")
+        check(tuple(g.shape) == tuple(w.shape), f"ops {name}: shape "
+              f"{tuple(g.shape)} against the CPU's {tuple(w.shape)}")
+        g = g.detach().cpu()
+        w = w.detach()
+        if g.is_complex():
+            g, w = torch.view_as_real(g), torch.view_as_real(w)
+        exact = family in ("creation", "integer", "logic", "manipulation",
+                           "index", "sort", "random") or not (
+            w.is_floating_point())
+        if exact:
+            same = torch.equal(g, w) or bool(
+                ((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
+            check(same, f"ops {name}: not bitwise the CPU's "
+                        f"({int((g != w).sum())} of {w.numel()} differ)")
+            continue
+        g64, w64 = g.double(), w.double()
+        fin = torch.isfinite(w64)
+        check(torch.equal(torch.isfinite(g64), fin) and torch.equal(
+            torch.nan_to_num(g64[~fin]), torch.nan_to_num(w64[~fin])),
+            f"ops {name}: non-finite entries differ")
+        if not bool(fin.any()):
+            continue
+        g64, w64 = g64[fin], w64[fin]
+        top = float(w64.abs().max())
+        scale = torch.full_like(w64, top) if family == "linalg" \
+            or name in OPS_SCALE_ROWS else \
+            torch.clamp(w64.abs(), min=1e-3 * top)
+        err = float(((g64 - w64).abs() / scale.clamp(min=1e-300)).max())
+        worst = max(worst, err)
+    return worst
+
+
+def ops_sweep():
+    """(a): every op of the table on the card against the CPU."""
+    import torch
+
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.nn.functional as F
+
+    t0 = time.perf_counter()
+    host = ops_inputs(SEED)
+    cpu = {k: torch.from_numpy(v) for k, v in host.items()}
+    card = {k: v.cuda() for k, v in cpu.items()}
+    worst, own, swept = {}, {}, 0
+
+    def run(fn, ins, place, seed):
+        P.set_device(place)
+        P.seed(seed)
+        return fn(P, F, *ins)
+
+    failures = []
+    rows = [(fam, name, fn, names, None) for fam, name, fn, names
+            in ops_table()]
+    rows += [("bf16", f"{name}@bf16", fn, names, torch.bfloat16)
+             for fam, name, fn, names in ops_table()
+             if name in OPS_BF16]
+    try:
+        for i, (family, name, fn, names, dtype) in enumerate(rows):
+            def ins(side):
+                return [side[n].to(dtype) if dtype is not None
+                        and side[n].is_floating_point() else side[n]
+                        for n in names]
+            got = run(fn, ins(card), "gpu:0", SEED + i)
+            want = run(fn, ins(cpu), "cpu", SEED + i)
+            limit = OPS_ROW_LIMITS.get(name, OPS_LIMITS[family])
+            # every row runs; the failures are listed together at the end
+            try:
+                err = ops_compare(family, name, got, want, "cuda")
+                check(err <= limit, f"ops {name}: {err:.3e} over "
+                                    f"{limit:.1e}")
+            except SmokeFailure as e:
+                failures.append(str(e))
+                log(f"FAILED {e}")
+                err = float("nan")
+            if name in OPS_ROW_LIMITS:
+                own[name] = {"err": err, "limit": limit}
+            else:
+                worst[family] = max(worst.get(family, 0.0), err)
+            swept += 1
+            del got, want
+    finally:
+        P.set_device("gpu:0")
+    torch.cuda.synchronize()
+    check(not failures, f"ops sweep: {len(failures)} of {swept} calls "
+                        f"failed: {failures}")
+    line = {"swept": swept, "bf16_rows": len(rows) - len(ops_table()),
+            "families": {f: {"worst": worst[f], "limit": OPS_LIMITS[f]}
+                         for f in sorted(worst)},
+            "rows": own,
+            "seconds": round(time.perf_counter() - t0, 1)}
+    log(f"ops sweep: {swept} op calls ({line['bf16_rows']} of them in "
+        f"bfloat16) in {line['seconds']} s; worst by family "
+        f"{line['families']}; rows with their own limit {own}")
+    return line
+
+
+# (b) a gpt3-medium training step written in op calls, against the module
+OPS_STEP_BATCH, OPS_STEP_LEN = 8, 1024
+OPS_STEP_LOSS_RTOL = 2e-3
+OPS_STEP_GRAD_RTOL = 2e-2
+
+
+def op_program_loss(P, F, params, ids, labels, cfg):
+    """gpt3-medium's forward and loss in the port's public op calls only,
+    on `params` named as GPTForCausalLM's state_dict."""
+    b, l = ids.shape
+    hid, heads = cfg.hidden_size, cfg.num_heads
+    d = hid // heads
+    x = P.add(F.embedding(ids, params["gpt.wte.weight"]),
+              F.embedding(P.arange(l), params["gpt.wpe.weight"]))
+    for i in range(cfg.num_layers):
+        p = f"gpt.blocks.{i}."
+        h = F.layer_norm(x, [hid], params[p + "ln1.weight"],
+                         params[p + "ln1.bias"], cfg.layer_norm_eps)
+        qkv = P.add(P.matmul(h, params[p + "attn.qkv_proj.weight"],
+                             transpose_y=True),
+                    params[p + "attn.qkv_proj.bias"])
+        q, k, v = P.split(P.reshape(qkv, [b, l, 3, heads, d]), 3, axis=2)
+        q, k, v = (P.reshape(t, [b, l, heads, d]) for t in (q, k, v))
+        a = P.reshape(F.scaled_dot_product_attention(q, k, v,
+                                                     is_causal=True),
+                      [b, l, hid])
+        out_w = P.transpose(params[p + "attn.out_proj.weight"], [1, 0])
+        x = P.add(x, P.add(P.matmul(a, out_w),
+                           params[p + "attn.out_proj.bias"]))
+        h = F.layer_norm(x, [hid], params[p + "ln2.weight"],
+                         params[p + "ln2.bias"], cfg.layer_norm_eps)
+        h = F.gelu(P.add(P.matmul(h, params[p + "mlp.fc1.weight"],
+                                  transpose_y=True),
+                         params[p + "mlp.fc1.bias"]), approximate=True)
+        x = P.add(x, P.add(P.matmul(h, params[p + "mlp.fc2.weight"],
+                                    transpose_y=True),
+                           params[p + "mlp.fc2.bias"]))
+    h = F.layer_norm(x, [hid], params["gpt.ln_f.weight"],
+                     params["gpt.ln_f.bias"], cfg.layer_norm_eps)
+    logits = P.matmul(h, params["gpt.wte.weight"], transpose_y=True)
+    return P.mean(F.cross_entropy(P.cast(logits, "float32"), labels,
+                                  reduction="none"))
+
+
+def paired_step_ms(steps, warmup=2, reps=5):
+    """Each of `steps` timed in turns (one step of each per round, so the
+    card's and the host's drift falls on all alike): `reps` readings a
+    step of CUDA events around it, after `warmup` steps of each."""
+    import torch
+
+    for step in steps:
+        for _ in range(warmup):
+            step()
+    times = [[] for _ in steps]
+    for _ in range(reps):
+        for step, got in zip(steps, times):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            step()
+            e.record()
+            e.synchronize()
+            got.append(s.elapsed_time(e))
+    return times
+
+
+def op_program_phase(card):
+    """(b): gpt3-medium (24 blocks, hidden 1024, 16 heads, vocab 50304) in
+    bf16 at batch 8 x 1024: the op-call program's loss and gradients
+    against the module's on the same weights and batch, its flash
+    launches, and both steps' times."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.models import PRESETS, GPTForCausalLM
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = PRESETS["gpt3-medium"]
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(SEED)).to(torch.bfloat16)
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(SEED + 21)
+    ids = P.to_tensor(rng.randint(0, cfg.vocab_size, (
+        OPS_STEP_BATCH, OPS_STEP_LEN)).astype(np.int64))
+    labels = P.to_tensor(rng.randint(0, cfg.vocab_size, (
+        OPS_STEP_BATCH, OPS_STEP_LEN)).astype(np.int64))
+
+    def program_step():
+        for t in params.values():
+            t.grad = None
+        loss = op_program_loss(P, F, params, ids, labels, cfg)
+        loss.backward()
+        return loss.detach()
+
+    def module_step():
+        model.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(P.cast(model(ids), "float32"), labels)
+        loss.backward()
+        return loss.detach()
+
+    m_loss = float(module_step())
+    p_loss = float(program_step())     # also the first warm-up
+    fa.reset_launch_counts()
+    p_loss = float(program_step())
+    torch.cuda.synchronize()
+    counts = dict(fa.LAUNCHES)
+    instances = dict(fa.INSTANCE_LAUNCHES)
+    layers = cfg.num_layers
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        check(counts[name] == layers, f"ops step: {name} launched "
+                                      f"{counts[name]} times, not {layers}")
+    others = {n: c for n, c in counts.items()
+              if c and n not in ("flash_fwd", "flash_dq", "flash_dkv")}
+    check(not others, f"ops step: other flash kernels launched {others}")
+    check(len(instances) == 3 and all(c == layers
+                                      for c in instances.values()),
+          f"ops step: flash instances {instances}")
+    loss_rel = abs(p_loss - m_loss) / abs(m_loss)
+    check(loss_rel <= OPS_STEP_LOSS_RTOL,
+          f"ops step: loss {p_loss} against the module's {m_loss} "
+          f"({loss_rel:.2e} relative)")
+    mod_params = dict(model.named_parameters())
+    grad_rel = {}
+    for name, t in params.items():
+        ref_g = mod_params[name].grad.float()
+        got = t.grad.float()
+        grad_rel[name] = float((got - ref_g).norm() / ref_g.norm().clamp(
+            min=1e-30))
+    worst_name = max(grad_rel, key=grad_rel.get)
+    check(grad_rel[worst_name] <= OPS_STEP_GRAD_RTOL,
+          f"ops step: gradient of {worst_name} {grad_rel[worst_name]:.3e} "
+          f"relative to the module's")
+    program_reads, module_reads = paired_step_ms([program_step,
+                                                  module_step])
+    program_ms = statistics.median(program_reads)
+    module_ms = statistics.median(module_reads)
+    line = {"model": "gpt3-medium", "batch": [OPS_STEP_BATCH, OPS_STEP_LEN],
+            "dtype": "bfloat16", "loss": p_loss, "module_loss": m_loss,
+            "loss_rel": loss_rel, "loss_limit": OPS_STEP_LOSS_RTOL,
+            "worst_grad_rel": grad_rel[worst_name],
+            "worst_grad": worst_name, "grad_limit": OPS_STEP_GRAD_RTOL,
+            "launches": {n: counts[n] for n in ("flash_fwd", "flash_dq",
+                                                "flash_dkv")},
+            "instances": instances, "program_step_ms": program_ms,
+            "module_step_ms": module_ms,
+            "program_step_reads_ms": [round(t, 2) for t in program_reads],
+            "module_step_reads_ms": [round(t, 2) for t in module_reads],
+            "card": card,
+            "seconds": round(time.perf_counter() - t0, 1)}
+    log(f"ops step on {card}: op program {program_ms:.1f} ms, module "
+        f"{module_ms:.1f} ms a step (medians of 5, timed in turns: "
+        f"{program_reads}, {module_reads}); loss {p_loss:.6f} "
+        f"against {m_loss:.6f} ({loss_rel:.2e}); worst gradient "
+        f"{grad_rel[worst_name]:.2e} ({worst_name}); launches {counts}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def ops_phase(card):
+    """The op surface on the card: (a) the sweep, (b) the op program; (b)
+    runs after a failed (a) too, and then the phase fails."""
+    t0 = time.perf_counter()
+    try:
+        sweep = ops_sweep()
+    except SmokeFailure as e:
+        op_program_phase(card)
+        raise e
+    line = {"sweep": sweep, "step": op_program_phase(card)}
+    line["seconds"] = round(time.perf_counter() - t0, 1)
+    return line
+
+
+def ops_only():
+    """The kernels' build and the ops phase alone: prints the card and
+    the `ops` line, not the {"ok": ...} line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    card = card_line()
+    log(f"card: {card}")
+    build_kernels()
+    line = ops_phase(card)
+    print(card)
+    print(json.dumps({"ops": line}), flush=True)
+    return 0
+
+
 def profile_step(step, ids, labels, step_s, vocab, top):
     """One more train step under torch.profiler: the device time of each
     kernel, summed by name; that of the LM-head CE's GEMMs (the aten::mm
@@ -5065,6 +5886,12 @@ def main():
     for r in noncausal_rows:
         r["fit_launches_per_step"] = \
             fit["bert"]["b"]["launches_per_step"][r["name"].split("@")[0]]
+    # the op surface: the sweep of every ported op against the CPU, and a
+    # gpt3-medium step written in op calls through the causal kernels
+    ops = ops_phase(card)
+    for r in rows:
+        if r["name"] in ops["step"]["launches"]:
+            r["ops_launches_per_step"] = ops["step"]["launches"][r["name"]]
     log(json.dumps({"kernels": rows + f32_rows + rows256 + f32_rows256
                     + noncausal_rows + [probe_row]}))
     log(json.dumps({"serving": serving}))
@@ -5073,6 +5900,7 @@ def main():
     log(json.dumps({"fabric": fabric}))
     log(json.dumps({"models": models}))
     log(json.dumps({"fit": fit}))
+    log(json.dumps({"ops": ops}))
     log(f"chip_smoke took {time.time() - t_start:.0f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -5262,6 +6090,8 @@ if __name__ == "__main__":
             sys.exit(models_only())
         if sys.argv[1:2] == ["--fit"]:
             sys.exit(fit_only())
+        if sys.argv[1:2] == ["--ops"]:
+            sys.exit(ops_only())
         sys.exit(main())
     except (SmokeFailure, ImportError) as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -24,6 +24,7 @@ train step does for its forward. `bernoulli` draws dropout masks as
 """
 from __future__ import annotations
 
+import math
 import threading
 
 import torch
@@ -105,15 +106,25 @@ def random_bits(keys, shape, width: int = 32) -> torch.Tensor:
 def uniform(keys, shape, minval: float = 0.0, maxval: float = 1.0,
             dtype=torch.float32) -> torch.Tensor:
     """`jax.random.uniform`: random mantissa bits under the exponent of
-    1.0 (23 from 32 bits in float32, 52 from 64 in float64), minus 1,
-    scaled into [minval, maxval) in `dtype`, then floored at minval."""
+    1.0 (23 from 32 bits in float32, 52 from 64 in float64, 7 from 8 in
+    bfloat16, 10 from 16 in float16: the narrow widths are the low bits
+    of the 32-bit words), minus 1, scaled into [minval, maxval) in
+    `dtype`, then floored at minval."""
     if dtype == torch.float32:
         bits = random_bits(keys, shape)
         fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    else:
+    elif dtype == torch.float64:
         # the 64-bit bits are hi << 32 | lo; their top 52 bits
         hi, lo = random_bits(keys, shape, 64)
         fbits = (hi << 20) | (lo >> 12) | 0x3FF0000000000000
+    elif dtype == torch.bfloat16:
+        bits = random_bits(keys, shape) & 0xFF
+        fbits = ((bits >> 1) | 0x3F80).to(torch.int16)
+    elif dtype == torch.float16:
+        bits = random_bits(keys, shape) & 0xFFFF
+        fbits = ((bits >> 6) | 0x3C00).to(torch.int16)
+    else:
+        raise TypeError(f"uniform: {dtype} is not a float dtype")
     floats = fbits.view(dtype) - 1.0
     lo_v = torch.tensor(minval, dtype=dtype, device=keys.device)
     hi_v = torch.tensor(maxval, dtype=dtype, device=keys.device)
@@ -150,6 +161,125 @@ def gumbel(keys, shape, dtype=torch.float32) -> torch.Tensor:
     in [tiny, 1) of `dtype`."""
     tiny = torch.finfo(dtype).tiny
     return -torch.log(-torch.log(uniform(keys, shape, tiny, 1.0, dtype)))
+
+
+def normal(keys, shape, dtype=torch.float32) -> torch.Tensor:
+    """`jax.random.normal`: sqrt(2) * erfinv(u), u uniform in
+    (-1, 1) of `dtype` (its lower bound the float next above -1)."""
+    lo = -(1.0 - torch.finfo(dtype).eps / 2)
+    u = uniform(keys, shape, lo, 1.0, dtype)
+    sqrt2 = torch.tensor(2.0, dtype=torch.float64).sqrt().to(dtype)
+    return sqrt2.to(u.device) * torch.erfinv(u)
+
+
+def _umod(x, span: int):
+    """x mod span for int64 tensors holding 64-bit unsigned bit patterns
+    (0 < span < 2**62)."""
+    low = torch.remainder(x & 0x7FFFFFFFFFFFFFFF, span)
+    return torch.where(x < 0, torch.remainder(low + (1 << 63) % span, span),
+                       low)
+
+
+def randint(keys, shape, minval: int, maxval: int,
+            dtype=torch.int64) -> torch.Tensor:
+    """`jax.random.randint`: two draws of `nbits` random bits (32 or 64;
+    narrower dtypes are drawn as int32 and cast) reduced modulo the span
+    maxval - minval as JAX reduces them, in wrapping unsigned
+    arithmetic."""
+    shape = tuple(int(d) for d in shape)
+    info = torch.iinfo(dtype)
+    if info.bits < 32:
+        lo = min(max(int(minval), info.min), info.max)
+        hi = min(max(int(maxval), info.min), info.max + 1)
+        return randint(keys, shape, lo, hi, torch.int32).to(dtype)
+    nbits = info.bits
+    lo = max(int(minval), info.min)
+    hi = min(int(maxval), info.max)
+    # as JAX: span 1 when maxval <= minval, one more when maxval is past
+    # the dtype's largest value
+    span_v = 1 if hi <= lo else hi - lo + (int(maxval) > info.max)
+    if span_v >= 1 << 62:
+        raise NotImplementedError(f"randint: a span of {span_v} needs "
+                                  f"unsigned 64-bit remainders")
+    k = split(keys)
+    k1, k2 = k[..., 0, :], k[..., 1, :]
+    if nbits == 32:
+        higher = random_bits(k1, shape)
+        lower = random_bits(k2, shape)
+        # JAX squares 2**16 mod span in uint32, which wraps
+        mult = ((1 << 16) % span_v) ** 2 % (1 << 32) % span_v
+        off = (((higher % span_v) * mult) & _M32) + lower % span_v
+        off = (off & _M32) % span_v
+    else:
+        h1, h2 = random_bits(k1, shape, 64)
+        l1, l2 = random_bits(k2, shape, 64)
+        higher = (h1 << 32) | h2
+        lower = (l1 << 32) | l2
+        mult = ((1 << 32) % span_v) ** 2 % (1 << 64) % span_v
+        off = _umod(_umod(higher, span_v) * mult + _umod(lower, span_v),
+                    span_v)
+    return (lo + off).to(dtype)
+
+
+def permutation(keys, n: int) -> torch.Tensor:
+    """`jax.random.permutation(key, n)`: arange(n) sorted by fresh 32-bit
+    keys, stably, once per round (3 log n / log(2**32 - 1) rounds, at
+    least one for n > 1), each round's keys drawn from a split."""
+    x = torch.arange(n, dtype=torch.int64, device=keys.device)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(_M32))
+    for _ in range(rounds):
+        k = split(keys)
+        keys, sub = k[..., 0, :], k[..., 1, :]
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
+
+
+def poisson(keys, lam: torch.Tensor, dtype=torch.int64) -> torch.Tensor:
+    """`jax.random.poisson` with rates `lam` (as float32): Knuth's
+    product of uniforms where lam < 10, Hormann's transformed rejection
+    elsewhere, both drawn from the same key, and 0 where lam is 0. Each
+    loop runs while any element still needs a draw."""
+    lam = lam.to(torch.float32)
+    shape = tuple(lam.shape)
+    use_knuth = torch.isnan(lam) | (lam < 10)
+    lam_k = torch.where(use_knuth, lam, 0.0)
+    lam_r = torch.where(use_knuth, 1e5, lam)
+    # Knuth
+    k = torch.zeros(shape, dtype=dtype, device=lam.device)
+    log_prod = torch.zeros(shape, dtype=torch.float32, device=lam.device)
+    rng = keys
+    while bool((log_prod > -lam_k).any()):
+        s = split(rng)
+        rng, sub = s[..., 0, :], s[..., 1, :]
+        k = torch.where(log_prod > -lam_k, k + 1, k)
+        log_prod = log_prod + torch.log(uniform(sub, shape))
+    knuth = k - 1
+    # transformed rejection
+    log_lam = torch.log(lam_r)
+    b = 0.931 + 2.53 * torch.sqrt(lam_r)
+    a = -0.059 + 0.02483 * b
+    inv_alpha = 1.1239 + 1.1328 / (b - 3.4)
+    v_r = 0.9277 - 3.6224 / (b - 2)
+    k_out = torch.full(shape, -1.0, dtype=torch.float32, device=lam.device)
+    accepted = torch.zeros(shape, dtype=torch.bool, device=lam.device)
+    rng = keys
+    while not bool(accepted.all()):
+        s = split(rng, 3)
+        rng, s0, s1 = s[..., 0, :], s[..., 1, :], s[..., 2, :]
+        u = uniform(s0, shape) - 0.5
+        v = uniform(s1, shape)
+        us = 0.5 - torch.abs(u)
+        kk = torch.floor((2 * a / us + b) * u + lam_r + 0.43)
+        s_ = torch.log(v * inv_alpha / (a / (us * us) + b))
+        t = -lam_r + kk * log_lam - torch.lgamma(kk + 1)
+        accept1 = (us >= 0.07) & (v <= v_r)
+        reject = (kk < 0) | ((us < 0.013) & (v > us))
+        accept = accept1 | (~reject & (s_ <= t))
+        k_out = torch.where(accept, kk, k_out)
+        accepted |= accept
+    out = torch.where(use_knuth, knuth, k_out.to(dtype))
+    return torch.where(lam == 0, torch.zeros_like(out), out)
 
 
 def categorical(keys, logits) -> torch.Tensor:
@@ -256,5 +386,6 @@ class rng_key_scope:
 
 __all__ = ["threefry2x32", "key", "split", "fold_in",
            "random_bits", "uniform", "bernoulli", "gumbel", "categorical",
+           "normal", "randint", "permutation", "poisson",
            "Generator", "default_generator", "seed", "next_key",
            "rng_key_scope"]

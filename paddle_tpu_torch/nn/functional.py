@@ -1,7 +1,9 @@
 """Functional ops of the ported path (counterpart of
 paddle_tpu/nn/functional.py): attention with the reference's routing
 (flash, the chunked query scan, the einsum, and the einsum with dropout
-on the probabilities), dropout, the activations GELU, ReLU and tanh,
+on the probabilities), dropout, the activations (the reference's
+formulas, jax.nn's where it calls jax.nn), softmax and log_softmax,
+prelu, glu, maxout, one_hot, normalize, sequence_mask, label_smooth,
 linear, embedding, layer norm, and what BERT and ResNet run besides:
 conv2d, max, average and adaptive average pooling, batch norm and
 cross-entropy.
@@ -27,7 +29,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..amp import cast_inputs
 from ..core import rng as _rng
+from ..core.dtype import convert_dtype
 from ..core.flags import flag
+from ..ops.common import to_inexact
+# re-exported as the reference's nn.functional re-exports them
+from ..ops.creation import diag_embed  # noqa: F401
+from ..ops.manipulation import one_hot, pad  # noqa: F401
 from ..ops.flash_attention import (flash_attention,
                                    flash_attention_supported,
                                    resolve_dot_impl)
@@ -35,19 +42,176 @@ from ..ops.flash_attention import (flash_attention,
 # chunks the chunked attention has run (forward passes, not the
 # recomputation in backward): how a caller sees that the path ran
 CHUNKED_CALLS = {"chunks": 0}
+_SQRT_HALF = math.sqrt(0.5)
 
 
-def gelu(x, approximate: bool = False):
-    return torch.nn.functional.gelu(
-        x, approximate="tanh" if approximate else "none")
+# ---------------------------------------------------------- activations --
+# Each is the reference's formula (jax.nn's where it calls jax.nn) in
+# torch ops, so the values and the gradients at the kinks follow it.
+def gelu(x, approximate: bool = False, name=None):
+    """x * Phi(x), Phi as jax.nn.gelu forms it: erfc(-x / sqrt 2) / 2
+    (exact), or the tanh form."""
+    if approximate:
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    return x * (torch.special.erfc(x * -_SQRT_HALF) / 2)
 
 
-def relu(x):
+def relu(x, name=None):
     return torch.relu(x)
 
 
-def tanh(x):
+def relu6(x, name=None):
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def sigmoid(x, name=None):
+    return torch.sigmoid(x)
+
+
+def tanh(x, name=None):
     return torch.tanh(x)
+
+
+def silu(x, name=None):
+    return x * torch.sigmoid(x)
+
+
+swish = silu
+
+
+def log_sigmoid(x, name=None):
+    return -_softplus(-x)
+
+
+def _softplus(x):
+    # jax.nn.softplus: logaddexp(x, 0)
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def mish(x, name=None):
+    return x * torch.tanh(_softplus(x))
+
+
+def softsign(x, name=None):
+    return x / (torch.abs(x) + 1)
+
+
+def tanhshrink(x, name=None):
+    return x - torch.tanh(x)
+
+
+def hardswish(x, name=None):
+    return x * torch.clamp(x + 3, 0.0, 6.0) / 6
+
+
+def hardsigmoid(x, name=None):
+    return torch.clamp(x / 6 + 0.5, 0.0, 1.0)
+
+
+def leaky_relu(x, negative_slope=0.01, name=None):
+    return torch.where(x >= 0, x, float(negative_slope) * x)
+
+
+def elu(x, alpha=1.0, name=None):
+    safe = torch.where(x > 0, torch.zeros_like(x), x)
+    return torch.where(x > 0, x, float(alpha) * torch.expm1(safe))
+
+
+def celu(x, alpha=1.0, name=None):
+    alpha = float(alpha)
+    return torch.clamp(x, min=0.0) + alpha * torch.expm1(
+        torch.clamp(x, max=0.0) / alpha)
+
+
+def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772, name=None):
+    return float(scale) * torch.where(x > 0, x,
+                                      float(alpha) * torch.expm1(x))
+
+
+def hardtanh(x, min=-1.0, max=1.0, name=None):
+    return torch.clamp(x, float(min), float(max))
+
+
+def hardshrink(x, threshold=0.5, name=None):
+    return torch.where(torch.abs(x) > float(threshold), x,
+                       torch.zeros_like(x))
+
+
+def softshrink(x, threshold=0.5, name=None):
+    t = float(threshold)
+    return torch.where(x > t, x - t, torch.where(x < -t, x + t,
+                                                 torch.zeros_like(x)))
+
+
+def softplus(x, beta=1.0, threshold=20.0, name=None):
+    bx = float(beta) * x
+    return torch.where(bx > float(threshold), x,
+                       _softplus(bx) / float(beta))
+
+
+def thresholded_relu(x, threshold=1.0, name=None):
+    return torch.where(x > float(threshold), x, torch.zeros_like(x))
+
+
+def softmax(x, axis=-1, dtype=None, name=None):
+    """softmax along axis (an integer input in its inexact type), cast to
+    `dtype` after."""
+    x = _inexact(x)
+    out = torch.softmax(x, int(axis))
+    return out if dtype is None else out.to(convert_dtype(dtype))
+
+
+def log_softmax(x, axis=-1, dtype=None, name=None):
+    x = _inexact(x)
+    out = torch.log_softmax(x, int(axis))
+    return out if dtype is None else out.to(convert_dtype(dtype))
+
+
+def _inexact(x):
+    return x.to(to_inexact(x.dtype)) if not (
+        x.is_floating_point() or x.is_complex()) else x
+
+
+def prelu(x, weight, data_format="NCHW", name=None):
+    """x where positive, weight * x elsewhere; a weight of more than one
+    element is per channel (axis 1)."""
+    w = weight
+    if w.dim() == 1 and w.shape[0] > 1 and x.dim() > 1:
+        w = w.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return torch.where(x > 0, x, w * x)
+
+
+def glu(x, axis=-1, name=None):
+    a, b = torch.chunk(x, 2, dim=int(axis))
+    return a * torch.sigmoid(b)
+
+
+def maxout(x, groups, axis=1, name=None):
+    axis = int(axis) % x.dim()
+    shape = list(x.shape)
+    shape[axis] = x.shape[axis] // int(groups)
+    shape.insert(axis + 1, int(groups))
+    return torch.amax(x.reshape(shape), axis + 1)
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    """x / max(||x||_p along axis, epsilon)."""
+    p = float(p)
+    n = torch.pow(torch.sum(torch.pow(torch.abs(x), p), int(axis),
+                            keepdim=True), 1.0 / p)
+    return x / torch.clamp(n, min=float(epsilon))
+
+
+def sequence_mask(lengths, maxlen=None, dtype="int64"):
+    """[..., maxlen] with 1 where the position is below the length."""
+    ml = int(lengths.max()) if maxlen is None else int(maxlen)
+    pos = torch.arange(ml, device=lengths.device)
+    return (pos < lengths[..., None]).to(convert_dtype(dtype))
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    n = label.shape[-1]
+    return label * (1 - float(epsilon)) + float(epsilon) / n
 
 
 def linear(x, weight, bias=None):

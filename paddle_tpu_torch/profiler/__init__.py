@@ -243,7 +243,10 @@ class Profiler:
     `scheduler(step)` (make_scheduler) gives each step's state; only
     RECORD steps are recorded (without a scheduler every step is). A
     recorded step's window runs from the step() that opened it to the
-    one that closes it."""
+    one that closes it. The device trace of a window is prepared on the
+    READY step before it; a window with no READY step (no scheduler, or
+    one that opens at step 0) prepares and starts it together, and its
+    first kernels can be missing from it."""
 
     def __init__(self, targets=None, scheduler=None, on_trace_ready=None,
                  timer_only=False, record_shapes=False, profile_memory=False,
@@ -284,17 +287,14 @@ class Profiler:
             self._session = _stats.install(self, self._session)
             _install_module_hooks()
             if not self.timer_only and torch.cuda.is_available():
-                from torch.profiler import ProfilerActivity, profile
-
-                self._torch_prof = profile(activities=[
-                    ProfilerActivity.CPU, ProfilerActivity.CUDA])
-                self._torch_prof.__enter__()
+                self._prepare_device_trace()
+                self._torch_prof.start_trace()
         else:
             _remove_module_hooks()
             _stats.uninstall(self._session)
             if self._torch_prof is not None:
                 torch.cuda.synchronize()
-                self._torch_prof.__exit__(None, None, None)
+                self._torch_prof.stop()
                 for k, v in _stats.kernel_totals(
                         self._torch_prof.key_averages()).items():
                     mine = self.kernels.setdefault(k, {"us": 0.0,
@@ -302,6 +302,28 @@ class Profiler:
                     mine["us"] += v["us"]
                     mine["count"] += v["count"]
                 self._torch_prof = None
+
+    def _prepare_device_trace(self):
+        """Start torch.profiler's collection (CUPTI) without recording,
+        as torch.profiler's own warmup does: a READY step prepares the
+        next window's trace, since kernels launched right after a cold
+        start can be missing from it."""
+        if self._torch_prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            self._torch_prof = profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self._torch_prof.prepare_trace()
+
+    def _next_state(self):
+        """Open or close the recording for the step about to run, and
+        prepare the device trace a step ahead of a window."""
+        state = self._state(self._step)
+        self._record(state in (ProfilerState.RECORD,
+                               ProfilerState.RECORD_AND_RETURN))
+        if (state == ProfilerState.READY and not self.timer_only
+                and torch.cuda.is_available()):
+            self._prepare_device_trace()
 
     def start(self):
         global _events, _RUNNING
@@ -316,8 +338,7 @@ class Profiler:
             torch.cuda.reset_peak_memory_stats()
         self._step_mark_ns = time.perf_counter_ns()
         self._step_flops_mark = 0
-        self._record(self._state(self._step) in (
-            ProfilerState.RECORD, ProfilerState.RECORD_AND_RETURN))
+        self._next_state()
 
     def step(self, num_samples=None):
         """Close the current step's window: a recorded step gets its
@@ -346,8 +367,7 @@ class Profiler:
             if self.profile_memory:
                 self._session.memory.snapshot(self._step + 1)
         self._step += 1
-        self._record(self._state(self._step) in (
-            ProfilerState.RECORD, ProfilerState.RECORD_AND_RETURN))
+        self._next_state()
         if self._session is not None:
             self._step_flops_mark = self._session.step_flops
         self._step_mark_ns = time.perf_counter_ns()
@@ -355,6 +375,12 @@ class Profiler:
     def stop(self):
         global _enabled, _RUNNING
         self._record(False)
+        if self._torch_prof is not None:
+            # prepared for a window that never opened: start and stop it
+            # empty, as torch.profiler does after a warmup with no record
+            self._torch_prof.start_trace()
+            self._torch_prof.stop()
+            self._torch_prof = None
         _enabled = False
         if _RUNNING is self:
             _RUNNING = None

@@ -22,7 +22,9 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.autoscale",
            "paddle_tpu_torch.autoscale.policy",
            "paddle_tpu_torch.autoscale.replica",
-           "paddle_tpu_torch.core.flags", "paddle_tpu_torch.core.rng",
+           "paddle_tpu_torch.core.dtype", "paddle_tpu_torch.core.flags",
+           "paddle_tpu_torch.core.place", "paddle_tpu_torch.core.rng",
+           "paddle_tpu_torch.core.tensor",
            "paddle_tpu_torch.distributed",
            "paddle_tpu_torch.distributed.checkpoint",
            "paddle_tpu_torch.distributed.recompute",
@@ -59,12 +61,17 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.amp",
            "paddle_tpu_torch.io.pipeline.sampler",
            "paddle_tpu_torch.metric",
            "paddle_tpu_torch.jit", "paddle_tpu_torch.jit.train_step",
+           "paddle_tpu_torch.linalg",
            "paddle_tpu_torch.models", "paddle_tpu_torch.nn",
            "paddle_tpu_torch.nn.functional",
            "paddle_tpu_torch.nn.functional_more",
            "paddle_tpu_torch.nn.layers_common",
            "paddle_tpu_torch.nn.norm",
-           "paddle_tpu_torch.ops._build",
+           "paddle_tpu_torch.ops", "paddle_tpu_torch.ops._build",
+           "paddle_tpu_torch.ops.common", "paddle_tpu_torch.ops.creation",
+           "paddle_tpu_torch.ops.extras", "paddle_tpu_torch.ops.linalg",
+           "paddle_tpu_torch.ops.logic", "paddle_tpu_torch.ops.manipulation",
+           "paddle_tpu_torch.ops.math", "paddle_tpu_torch.ops.reduction",
            "paddle_tpu_torch.observability.bus",
            "paddle_tpu_torch.observability.exporter",
            "paddle_tpu_torch.observability.trace",
